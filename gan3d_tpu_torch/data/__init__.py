@@ -1,0 +1,6 @@
+"""npz datasets and the batch loader (numpy only)."""
+
+from gan3d_tpu_torch.data.datasets import NpzDataset, NpzDirDataset, open_dataset
+from gan3d_tpu_torch.data.loader import Loader
+
+__all__ = ["Loader", "NpzDataset", "NpzDirDataset", "open_dataset"]

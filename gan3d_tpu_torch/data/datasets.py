@@ -6,8 +6,7 @@ Semantics match the reference data layer (reference: data_handler.py:7-33):
   fully resident in host RAM; samples clipped to [-1, 1] float32.
 - ``NpzDirDataset``: a directory of per-sample ``{index}.npz`` files, lazily
   loaded. The reference sets ``len = max(int(filename))`` — NOT the file
-  count (an off-by-one quirk, SURVEY §2.3). We default to the corrected
-  count but expose ``compat_len=True`` to reproduce reference behavior.
+  count (an off-by-one quirk, SURVEY §2.3); the port counts max + 1.
 """
 
 from __future__ import annotations
@@ -40,14 +39,13 @@ class NpzDirDataset:
     """Directory-of-files dataset (reference: data_handler.py DATA_DIR),
     decoded with numpy."""
 
-    def __init__(self, path: str, compat_len: bool = False):
+    def __init__(self, path: str):
         self.dir = path
         nums = [int(x[:-4]) for x in os.listdir(path) if x.endswith(".npz")]
         if not nums:
             raise FileNotFoundError(f"no .npz files in {path}")
-        # Reference uses max(index); files are 0-indexed so the true count is
-        # max+1 (assuming a dense range).
-        self.len = max(nums) if compat_len else max(nums) + 1
+        # Files are 0-indexed, so a dense range holds max+1 of them.
+        self.len = max(nums) + 1
 
     def __getitem__(self, index: int) -> np.ndarray:
         x = np.load(os.path.join(self.dir, f"{index}.npz"))["X"]
@@ -60,8 +58,8 @@ class NpzDirDataset:
         return np.stack([self[int(i)] for i in indices])
 
 
-def open_dataset(path: str, compat_len: bool = False):
+def open_dataset(path: str):
     """DATA vs DATA_DIR dispatch: files are archives, directories are dirs."""
     if os.path.isdir(path):
-        return NpzDirDataset(path, compat_len=compat_len)
+        return NpzDirDataset(path)
     return NpzDataset(path)

@@ -16,52 +16,30 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterator
 
 import numpy as np
 
+PREFETCH = 2  # batches assembled ahead of the consumer
+
 
 class Loader:
-    def __init__(
-        self,
-        dataset,
-        batch_size: int,
-        seed: int = 0,
-        shuffle: bool = True,
-        drop_last: bool = True,
-        num_workers: int = 4,
-        prefetch: int = 2,
-    ):
+    def __init__(self, dataset, batch_size: int, seed: int = 0,
+                 num_workers: int = 4):
+        if len(dataset) < batch_size:
+            raise ValueError(f"{len(dataset)} samples make no batch of "
+                             f"{batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
-        self.shuffle = shuffle
-        self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
         self.num_workers = max(1, num_workers)
-        self.prefetch = prefetch
         self._stops: list = []  # stop events of live infinite() producers
 
     def _epoch_indices(self) -> np.ndarray:
+        """A shuffled epoch, cut to whole batches."""
         idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            self.rng.shuffle(idx)
-        n = len(idx)
-        if self.drop_last:
-            n = (n // self.batch_size) * self.batch_size
-        return idx[:n]
-
-    def __iter__(self) -> Iterator[np.ndarray]:
-        """One pass over the data (epoch)."""
-        idx = self._epoch_indices()
-        for i in range(0, len(idx), self.batch_size):
-            chunk = idx[i : i + self.batch_size]
-            if self.drop_last and len(chunk) < self.batch_size:
-                break
-            yield self.dataset.batch(chunk)
-
-    def __len__(self) -> int:
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        self.rng.shuffle(idx)
+        return idx[:(len(idx) // self.batch_size) * self.batch_size]
 
     def infinite(self) -> Iterator[np.ndarray]:
         """Infinite shuffled batches with background prefetch.
@@ -73,7 +51,7 @@ class Loader:
         a timeout + stop-flag check, so no thread or queue is leaked when a
         Trainer is constructed repeatedly in one process.
         """
-        q: "queue.Queue[Optional[np.ndarray]]" = queue.Queue(maxsize=self.prefetch)
+        q: "queue.Queue[np.ndarray]" = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
         self._stops = [s for s in self._stops if not s.is_set()]
         self._stops.append(stop)

@@ -50,6 +50,12 @@ def _reject_unported(cfg: Config) -> None:
         later.append("the profiler (ROADMAP.md queue A, slice 6)")
     if cfg.track_energy:
         later.append("energy tracking (ROADMAP.md queue A, slice 6)")
+    if cfg.async_log:
+        later.append("deferred log printing (async_log; ROADMAP.md queue A)")
+    if not cfg.fused_step:
+        later.append("the split D/G step (fused_step=False)")
+    if cfg.param_dtype != "float32":
+        later.append(f"param_dtype={cfg.param_dtype!r}")
     if later:
         raise NotImplementedError("not ported yet: " + "; ".join(later))
 

@@ -6,9 +6,9 @@ import torch
 
 
 def resolve_device(platform: str = "") -> torch.device:
-    """``""`` or ``"cuda"``: the CUDA card, raising when there is none;
+    """``""``: the CUDA card, raising when there is none;
     ``"cpu"``: the CPU. No other value is accepted and nothing falls back."""
-    if platform in ("", "cuda"):
+    if platform == "":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass --platform=cpu to run on "
@@ -16,7 +16,7 @@ def resolve_device(platform: str = "") -> torch.device:
         return torch.device("cuda")
     if platform == "cpu":
         return torch.device("cpu")
-    raise ValueError(f"platform {platform!r} not in ('', 'cuda', 'cpu')")
+    raise ValueError(f"platform {platform!r} not in ('', 'cpu')")
 
 
 def configure_precision(device: torch.device) -> None:

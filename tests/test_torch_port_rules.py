@@ -73,7 +73,9 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(dcgan=True), dict(stylegan2=True),
                                 dict(remat=True), dict(fid_in_loop=True),
-                                dict(spatial_devices=2)])
+                                dict(spatial_devices=2), dict(async_log=True),
+                                dict(fused_step=False),
+                                dict(param_dtype="bfloat16")])
 def test_unported_options_raise(tmp_path, kw):
     from gan3d_tpu_torch.data import open_dataset
 
@@ -81,6 +83,37 @@ def test_unported_options_raise(tmp_path, kw):
                  platform="cpu", log_dir=str(tmp_path / "run"), **kw)
     with pytest.raises(NotImplementedError):
         Trainer(open_dataset(_dataset(tmp_path)), cfg)
+
+
+@pytest.mark.parametrize("platform", ["cuda", "tpu", "gpu"])
+def test_only_the_two_platform_spellings_parse(platform):
+    from gan3d_tpu_torch.utils.platform import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="not in"):
+        resolve_device(platform)
+
+
+def test_loader_epochs_are_whole_shuffled_batches(tmp_path):
+    """Each epoch of 10 samples in batches of 4 yields 2 full batches of
+    distinct samples; a dataset smaller than one batch raises."""
+    from gan3d_tpu_torch.data import Loader, open_dataset
+
+    ds = open_dataset(_dataset(tmp_path, n=10, r=4))
+    loader = Loader(ds, 4, seed=0, num_workers=1)
+    batches = loader.infinite()
+    try:
+        for _ in range(3):
+            a, b = next(batches), next(batches)
+            assert a.shape == b.shape == (4, 4, 4, 4) and a.dtype == np.float32
+            rows = {r.tobytes() for r in np.concatenate([a, b])}
+            assert len(rows) == 8
+            assert rows <= {ds[i].tobytes() for i in range(10)}
+    finally:
+        batches.close()
+        loader.close()
+    with pytest.raises(ValueError, match="no batch"):
+        Loader(ds, 11)
 
 
 def test_init_is_seeded():

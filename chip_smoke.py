@@ -6,7 +6,9 @@
 Phases, each printing its own line:
 1. device  — requires torch.cuda.is_available(); prints the nvidia-smi
              name and power limit;
-2. build   — compiles csrc/pooled_attention.cu with nvcc for sm_90a;
+2. build   — compiles csrc/pooled_attention.cu and csrc/conv3d_k3.cu with
+             nvcc for sm_90a, one nvcc each, started together, and prints
+             the kernels' ptxas lines (registers, spills);
 3. kernels — runs the pooled-attention forward and backward kernels at the
              two shapes of the 64^3 BigGAN-Deep flagship (G: L=32768,
              M=4096, c=16; D: L=4096, M=512, c=32; N=16) in f32 and bf16,
@@ -16,12 +18,24 @@ Phases, each printing its own line:
              checks every c and ragged L/M tails at small shapes, that a
              repeated backward is bit-identical and that a double
              backward through the kernels raises;
-4. train   — trains the flagship (64^3, filters 64, z 512, batch 16,
-             iterD 2, biggan, hinge) through gan3d_tpu_torch.cli.train for
-             a few steps, resumes it, checks the kernel launch counts the
-             step implies, and holds the trained G and D on the card
-             (kernels) against the same networks on the CPU (plain path);
-5. the kernels JSON line, then the result line.
+4. conv    — finds the flagship's eligible k3 convs with forward hooks on
+             the port's models, and at each distinct shape (N=16, f32 and
+             bf16) holds the wide-N conv kernel (forward, and dx with the
+             flipped weights) and the dW kernel against their plain
+             versions, timing each beside its plain version and the one
+             PyTorch call that computes the same function (F.conv3d;
+             aten.convolution_backward for dW), yardsticks the port never
+             calls; then ragged shapes, a repeated dW bit-identical and an
+             f16 input refused;
+5. train   — trains the flagship (64^3, filters 64, z 512, batch 16,
+             iterD 2, biggan, hinge) through gan3d_tpu_torch.cli.train:
+             the default run (a few steps and a resume; no conv kernel
+             launches), the run with --wide_conv=on --fast_dw=on (a few
+             steps and a resume) and a short --fast_dw=on run. Each checks
+             the kernel launch counts the step implies; after the first
+             two, the trained G and D on the card (kernels) are held
+             against the same networks on the CPU (plain path);
+6. the kernels JSON line, then the result line.
 
 Any failure raises and the script exits non-zero without the result line.
 It needs no arguments and one card; it imports nothing of JAX.
@@ -67,8 +81,29 @@ N_FLAGSHIP = 16
 FLAGSHIP = ["--biggan=True", "--hinge=True", "--resolution=64",
             "--filterG=64", "--filterD=64", "--z_size=512",
             "--batch_size=16", "--iterD=2"]
-# (niters, step it resumes from): a 12-step run, then a 2-step resume.
-TRAIN_RUNS = ((12, 0), (14, 12))
+# Runs of the train phase: (name, extra flags, ((niters, step it resumes
+# from), ...)); the CLI's defaults otherwise. The default path trains 12
+# steps and resumes for 2; the conv kernel paths take fewer steps (their
+# simple f32-FMA kernels make a step slower), at the same widths.
+TRAIN_RUNS = (
+    ("default", [], ((12, 0), (14, 12))),
+    ("wide_conv+fast_dw", ["--wide_conv=on", "--fast_dw=on"],
+     ((6, 0), (8, 6))),
+    ("fast_dw", ["--fast_dw=on"], ((3, 0),)),
+)
+KNOB_RUN = "wide_conv+fast_dw"
+# The flagship's eligible k3 convs, (channels, side), in call order; each
+# deep block has two (conv2, conv3). The conv phase checks this list
+# against forward hooks on the port's models.
+CONV_G = ((128, 4), (128, 8), (128, 8), (128, 16), (64, 16), (64, 32),
+          (32, 32), (32, 64))
+CONV_D = ((32, 64), (32, 32), (64, 32), (64, 16), (128, 16), (128, 8),
+          (256, 8), (256, 4))
+# Off the main path, checked but not timed: (N, Ci, Co, D, H, W) with odd,
+# non-cubic volumes, Ci != Co, the narrowest and widest channels.
+CONV_RAGGED = ((1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3),
+               (1, 16, 40, 1, 1, 33), (3, 40, 16, 7, 6, 70),
+               (1, 256, 8, 4, 4, 4))
 
 
 def phase(name: str, **kw) -> None:
@@ -241,34 +276,223 @@ def extra_checks(ca, attention_plain) -> dict:
             "double_backward": "raises"}
 
 
-def kernels_line(cases: list, launches: dict) -> dict:
+def conv_bound(kind: str, dtype: str, n: int, ci: int, co: int, s: int):
+    """Least time for one k3 conv call on an H100 SXM: (ms, "bytes" |
+    "operations"). 2 * N * S * Ci * 27 * Co operations at the type's peak;
+    bytes: each input read once, each output written once — the conv reads
+    x [N,Ci,S] and w [Co,Ci,27] and writes out [N,Co,S] in one dtype; dW
+    reads x and g [N,Co,S] and writes f32 dW [Co,Ci,27]."""
+    es = 4 if dtype == "float32" else 2
+    flops = 2 * n * s * ci * 27 * co
+    if kind == "dw":
+        nbytes = n * s * (ci + co) * es + co * ci * 27 * 4
+    else:
+        nbytes = (n * s * (ci + co) + co * ci * 27) * es
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def conv_shapes() -> dict:
+    """(Ci, Co, D, H, W) of every conv the port's rule admits, per network
+    in call order, from forward pre-hooks on the flagship's G and D (on the
+    card, N=1, the default route); checked against CONV_G / CONV_D."""
+    import torch
+
+    from gan3d_tpu_torch.config import Config
+    from gan3d_tpu_torch.models import build_models
+    from gan3d_tpu_torch.nn.layers import Conv3d
+    from gan3d_tpu_torch.ops.conv3d import eligible
+
+    cfg = Config(resolution=64, filterG=64, filterD=64, z_size=512,
+                 biggan=True, hinge=True, compute_dtype="float32")
+    G, D = (net.cuda() for net in build_models(cfg))
+    seen = {"G": [], "D": []}
+
+    def hook(name):
+        def record(mod, args):
+            w_shape = (mod.out_channels, mod.in_channels, *mod.kernel_size)
+            if eligible(args[0].shape, w_shape, mod.stride, mod.padding):
+                seen[name].append((mod.in_channels, mod.out_channels,
+                                   *args[0].shape[2:]))
+        return record
+
+    for name, net in (("G", G), ("D", D)):
+        for m in net.modules():
+            if isinstance(m, Conv3d):
+                m.register_forward_pre_hook(hook(name))
+    with torch.no_grad():
+        D(G(torch.zeros((1, cfg.z_size), device="cuda")))
+    for name, want in (("G", CONV_G), ("D", CONV_D)):
+        want = [(c, c, r, r, r) for c, r in want for _ in range(2)]
+        if seen[name] != want:
+            raise AssertionError(f"{name} eligible convs {seen[name]} != "
+                                 f"{want}")
+    return seen
+
+
+def _conv_inputs(gen, n, ci, co, d, h, w, dt):
+    import torch
+
+    x = torch.randn((n, ci, d, h, w), generator=gen, device="cuda").to(dt)
+    wt = (torch.randn((co, ci, 3, 3, 3), generator=gen, device="cuda")
+          / math.sqrt(27 * ci)).to(dt)
+    g = torch.randn((n, co, d, h, w), generator=gen, device="cuda").to(dt)
+    # dx of a k3/s1/p1 conv: the conv of g with the flipped, swapped weights
+    wr = wt.flip(2, 3, 4).transpose(0, 1).contiguous()
+    return x, wt, g, wr
+
+
+def conv_kernel_phase(cc, shapes: dict) -> list:
+    """The wide-N conv (forward; dx) and the dW kernel at each distinct
+    flagship shape, N=16, f32 and bf16: error against the plain version,
+    and times of the kernel, the plain version and the PyTorch call."""
+    import torch
+    import torch.nn.functional as F
+
+    from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    cases = []
+    n = N_FLAGSHIP
+    for ci, co, d, h, w in sorted(set(shapes["G"] + shapes["D"])):
+        s = d * h * w
+        iters = max(3, min(20, int(5e11 / (2 * n * s * ci * 27 * co))))
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            x, wt, g, wr = _conv_inputs(gen, n, ci, co, d, h, w, dt)
+            one = [1, 1, 1]
+            runs = {
+                "wide_fwd": (lambda: cc.wide_conv3d_cuda(x, wt),
+                             lambda: conv3d_k3_plain(x, wt),
+                             lambda: F.conv3d(x, wt, None, 1, 1), ci, co),
+                "wide_dx": (lambda: cc.wide_conv3d_cuda(g, wr),
+                            lambda: conv3d_k3_plain(g, wr),
+                            lambda: F.conv3d(g, wr, None, 1, 1), co, ci),
+                "dw": (lambda: cc.conv3d_dw_cuda(x, g),
+                       lambda: conv3d_dw_plain(x, g),
+                       lambda: torch.ops.aten.convolution_backward(
+                           g, x, wt, None, one, one, one, False, [0, 0, 0],
+                           1, [False, True, False])[1], ci, co),
+            }
+            for kind, (kern, plain, lib, cin, cout) in runs.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(got, want)
+                del got, want
+                tol = TOL[dname]
+                if not rel <= tol:
+                    raise AssertionError(
+                        f"{kind} {(n, cin, cout, d, h, w)} {dname}: "
+                        f"relative error {rel:.3e} > {tol:.0e}")
+                b_ms, b_by = conv_bound("dw" if kind == "dw" else "wide",
+                                        dname, n, cin, cout, s)
+                case = {
+                    "kernel": kind, "dtype": dname, "N": n, "Ci": cin,
+                    "Co": cout, "D": d, "H": h, "W": w,
+                    "max_err": rel, "max_abs_err": abs_err, "tol": tol,
+                    "ms": cuda_ms(kern, iters),
+                    "plain_ms": cuda_ms(plain, max(2, iters // 4), 1),
+                    "library_ms": cuda_ms(lib, iters),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                }
+                phase("conv_case", **case)
+                cases.append(case)
+            del x, wt, g, wr, runs
+            torch.cuda.empty_cache()
+    return cases
+
+
+def conv_extra_checks(cc) -> dict:
+    """The conv kernels against the plain versions at CONV_RAGGED; a
+    repeated dW bit-identical (there and at the flagship's largest shape);
+    an f16 CUDA input refused by both wrappers."""
+    import torch
+
+    from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    worst = {}
+    for shape in CONV_RAGGED + ((N_FLAGSHIP, 32, 32, 64, 64, 64),):
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            x, wt, g, wr = _conv_inputs(gen, *shape, dt)
+            dw = cc.conv3d_dw_cuda(x, g)
+            if not torch.equal(dw, cc.conv3d_dw_cuda(x, g)):
+                raise AssertionError(f"{shape} {dname}: a repeated dW is not "
+                                     "bit-identical")
+            if shape not in CONV_RAGGED:
+                continue
+            got = {"wide_fwd": cc.wide_conv3d_cuda(x, wt),
+                   "wide_dx": cc.wide_conv3d_cuda(g, wr), "dw": dw}
+            want = {"wide_fwd": conv3d_k3_plain(x, wt),
+                    "wide_dx": conv3d_k3_plain(g, wr),
+                    "dw": conv3d_dw_plain(x, g)}
+            for kind in got:
+                rel = rel_err(got[kind], want[kind])[1]
+                key = f"{dname}/{kind}"
+                worst[key] = max(worst.get(key, 0.0), rel)
+                if not rel <= TOL[dname]:
+                    raise AssertionError(f"{kind} {shape} {dname}: relative "
+                                         f"error {rel:.3e}")
+    x, wt, g, _ = _conv_inputs(gen, 1, 8, 8, 4, 4, 4, torch.float16)
+    for what, call in (("wide", lambda: cc.wide_conv3d_cuda(x, wt)),
+                       ("dW", lambda: cc.conv3d_dw_cuda(x, g))):
+        try:
+            call()
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"the {what} kernel took an f16 input")
+    return {"shapes": CONV_RAGGED, "worst_rel_err": worst,
+            "repeated_dw": "bit-identical", "float16": "refused"}
+
+
+def kernels_line(cases: list, conv_cases: list, launches: dict) -> dict:
     """One entry per kernel; the top-level numbers are the main path's
-    case (G placement, bf16, N=16); every case is listed under "cases".
-    ``max_err`` is the largest error relative to max |plain| over the
-    compared outputs, the number held against ``tol``; ``max_abs_err`` is
-    the largest absolute difference."""
-    src = "gan3d_tpu_torch/csrc/pooled_attention.cu"
-    meta = {
-        "fwd": ("pooled_attention_fwd",
-                "gan3d_tpu/ops/pallas_attention.py:28"),
-        "bwd": ("pooled_attention_bwd",
-                "gan3d_tpu/ops/pallas_attention.py:67"),
-    }
+    case (attention: G placement, bf16, N=16; convs: 32ch@64^3, bf16,
+    N=16, the forward for the wide conv); every case is listed under
+    "cases". ``launches`` are the counts of the first
+    --wide_conv=on --fast_dw=on run. ``max_err`` is the largest error
+    relative to max |plain| over the compared outputs, the number held
+    against ``tol``; ``max_abs_err`` is the largest absolute difference."""
+    meta = (
+        ("pooled_attention_fwd", "pooled_attention.cu",
+         "gan3d_tpu/ops/pallas_attention.py:28", "fwd", cases,
+         lambda c: c["kernel"] == "fwd",
+         lambda c: c["placement"] == "G" and c["dtype"] == "bfloat16",
+         "G placement, bfloat16, N=16, L=32768, M=4096, c=16"),
+        ("pooled_attention_bwd", "pooled_attention.cu",
+         "gan3d_tpu/ops/pallas_attention.py:67", "bwd", cases,
+         lambda c: c["kernel"] == "bwd",
+         lambda c: c["placement"] == "G" and c["dtype"] == "bfloat16",
+         "G placement, bfloat16, N=16, L=32768, M=4096, c=16"),
+        ("wide_conv3d", "conv3d_k3.cu", "gan3d_tpu/ops/wide_conv.py:102",
+         "wide", conv_cases, lambda c: c["kernel"] != "dw",
+         lambda c: (c["kernel"] == "wide_fwd" and c["dtype"] == "bfloat16"
+                    and c["Ci"] == 32 and c["D"] == 64),
+         "forward, bfloat16, N=16, Ci=Co=32, 64^3"),
+        ("conv3d_dw", "conv3d_k3.cu", "gan3d_tpu/ops/dw_conv.py:133", "dw",
+         conv_cases, lambda c: c["kernel"] == "dw",
+         lambda c: c["dtype"] == "bfloat16" and c["Ci"] == 32
+         and c["D"] == 64,
+         "bfloat16, N=16, Ci=Co=32, 64^3"),
+    )
     out = []
-    for kind, (name, replaces) in meta.items():
-        mine = [c for c in cases if c["kernel"] == kind]
-        main = next(c for c in mine
-                    if c["placement"] == "G" and c["dtype"] == "bfloat16")
+    for name, src, replaces, key, pool, mine_if, main_if, at in meta:
+        mine = [c for c in pool if mine_if(c)]
+        main = next(c for c in mine if main_if(c))
         out.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[kind],
+            "name": name, "route": "cuda",
+            "source": f"gan3d_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[key],
             "max_err": main["max_err"], "tol": main["tol"],
             "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
-            "at": "G placement, bfloat16, N=16, L=32768, M=4096, c=16",
-            "cases": mine,
+            "library_ms": main["library_ms"], "at": at, "cases": mine,
         })
     return {"kernels": out}
 
@@ -310,7 +534,35 @@ def expected_launches(start: int, niters: int, iter_d: int,
             "bwd": steps * (1 + 2 * iter_d + 1)}
 
 
-def train_phase(ca, tmp: str) -> dict:
+def expected_conv_launches(start: int, niters: int, iter_d: int,
+                           img_every: int, n_g: int, n_d: int, wide: bool,
+                           fast_dw: bool) -> dict:
+    """Conv kernel launches a run of steps [start, niters) implies, with
+    n_g / n_d eligible convs in each G / D forward.
+
+    With wide_conv on, every eligible conv's forward is a wide launch: G
+    forwards iter_d times (no-grad, in the D iterations) and once (G step)
+    per step, and once per sample-grid log; D forwards 2 * iter_d + 1
+    times per step. Each backward through such a conv adds a wide launch
+    for dx (every conv input on the path needs a gradient): the D-step D
+    forwards and the G step's D and G forwards. dW (wide_conv or fast_dw
+    on): the D-step D forwards' convs and the G step's G convs; D's
+    parameters are frozen in the G update, so its D forward asks none.
+    """
+    steps = niters - start
+    img_logs = sum(1 for i in range(start, niters) if i % img_every == 0) + 1
+    dw = steps * (2 * iter_d * n_d + n_g) if (wide or fast_dw) else 0
+    if not wide:
+        return {"wide": 0, "dw": dw}
+    fwd = ((steps * (iter_d + 1) + img_logs) * n_g
+           + steps * (2 * iter_d + 1) * n_d)
+    dx = steps * ((2 * iter_d + 1) * n_d + n_g)
+    return {"wide": fwd + dx, "dw": dw}
+
+
+def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
+    """Every run of TRAIN_RUNS through the CLI, with its launch counts, and
+    the model check after the default and the conv kernel runs."""
     import numpy as np
     import torch
 
@@ -318,58 +570,79 @@ def train_phase(ca, tmp: str) -> dict:
     rng = np.random.default_rng(0)
     np.savez(data, X=np.tanh(rng.standard_normal((48, 64, 64, 64),
                                                  np.float32)))
-    log_dir = os.path.join(tmp, "run")
-    base = FLAGSHIP + [f"--data_path={data}", f"--log_dir={log_dir}"]
+    n_g, n_d = len(shapes["G"]), len(shapes["D"])
     results = {}
-    for niters, start in TRAIN_RUNS:
-        ca.reset_counters()
-        torch.cuda.reset_peak_memory_stats()
-        out = run_cli(base + [f"--niters={niters}"])
-        got = {"fwd": ca.fwd_launches, "bwd": ca.bwd_launches}
-        want = expected_launches(start, niters, 2, 50)
-        if got != want or not got["fwd"] or not got["bwd"]:
-            raise AssertionError(f"launches {got} != expected {want}")
-        if start and f"starting from step {start}" not in out:
-            raise AssertionError(f"resume did not print 'starting from step "
-                                 f"{start}'")
-        if f"[{niters - 1}|{niters}]\tD(x): " not in out:
-            raise AssertionError(f"no log line for step {niters - 1}")
-        ckpt = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
-                          map_location="cpu", weights_only=True)
-        vals = ckpt["lossG"] + [x for pair in ckpt["lossD"] for x in pair]
-        if (len(ckpt["lossG"]) != niters
-                or not all(math.isfinite(x) for x in vals)):
-            raise AssertionError(f"{len(ckpt['lossG'])} G losses for "
-                                 f"{niters} steps, or a non-finite loss")
-        done = re.search(r"\.\.\.Done \((\d+) steps in ([\d.]+)s, ([\d.]+) "
-                         r"steps/s(?:; steady ([\d.]+) steps/s = ([\d.]+) "
-                         r"vol/s)?\)", out)
-        if done is None:
-            raise AssertionError("no '...Done' line")
-        results[f"run_{start}_{niters}"] = {
-            "steps": int(done.group(1)), "seconds": float(done.group(2)),
-            "steps_per_s": float(done.group(3)),
-            "steady_steps_per_s": (float(done.group(4)) if done.group(4)
-                                   else None),
-            "steady_vol_per_s": (float(done.group(5)) if done.group(5)
-                                 else None),
-            "launches": got, "max_memory_allocated":
-                torch.cuda.max_memory_allocated()}
-        phase("train_run", niters=niters, **results[f"run_{start}_{niters}"])
-    last = TRAIN_RUNS[-1][0] - 1
-    for f in ("params.json", "models/checkpoint.pt", f"images/{last}.png"):
-        if not os.path.isfile(os.path.join(log_dir, f)):
-            raise AssertionError(f"missing {f}")
+    for name, flags, runs in TRAIN_RUNS:
+        log_dir = os.path.join(tmp, name)
+        base = FLAGSHIP + flags + [f"--data_path={data}",
+                                   f"--log_dir={log_dir}"]
+        wide, fast_dw = "--wide_conv=on" in flags, "--fast_dw=on" in flags
+        for niters, start in runs:
+            ca.reset_counters()
+            cc.reset_counters()
+            torch.cuda.reset_peak_memory_stats()
+            out = run_cli(base + [f"--niters={niters}"])
+            got = {"fwd": ca.fwd_launches, "bwd": ca.bwd_launches,
+                   "wide": cc.wide_launches, "dw": cc.dw_launches}
+            want = {**expected_launches(start, niters, 2, 50),
+                    **expected_conv_launches(start, niters, 2, 50, n_g, n_d,
+                                             wide, fast_dw)}
+            if got != want or not (got["fwd"] and got["bwd"]):
+                raise AssertionError(f"{name}: launches {got} != expected "
+                                     f"{want}")
+            if (wide or fast_dw) and not got["dw"]:
+                raise AssertionError(f"{name}: the dW kernel never launched")
+            if wide and not got["wide"]:
+                raise AssertionError(f"{name}: the wide kernel never "
+                                     "launched")
+            if start and f"starting from step {start}" not in out:
+                raise AssertionError(f"resume did not print 'starting from "
+                                     f"step {start}'")
+            if f"[{niters - 1}|{niters}]\tD(x): " not in out:
+                raise AssertionError(f"no log line for step {niters - 1}")
+            ckpt = torch.load(os.path.join(log_dir, "models",
+                                           "checkpoint.pt"),
+                              map_location="cpu", weights_only=True)
+            vals = ckpt["lossG"] + [x for pair in ckpt["lossD"] for x in pair]
+            if (len(ckpt["lossG"]) != niters
+                    or not all(math.isfinite(x) for x in vals)):
+                raise AssertionError(f"{len(ckpt['lossG'])} G losses for "
+                                     f"{niters} steps, or a non-finite loss")
+            done = re.search(r"\.\.\.Done \((\d+) steps in ([\d.]+)s, "
+                             r"([\d.]+) steps/s(?:; steady ([\d.]+) steps/s "
+                             r"= ([\d.]+) vol/s)?\)", out)
+            if done is None:
+                raise AssertionError("no '...Done' line")
+            key = f"{name}/run_{start}_{niters}"
+            results[key] = {
+                "steps": int(done.group(1)), "seconds": float(done.group(2)),
+                "steps_per_s": float(done.group(3)),
+                "steady_steps_per_s": (float(done.group(4)) if done.group(4)
+                                       else None),
+                "steady_vol_per_s": (float(done.group(5)) if done.group(5)
+                                     else None),
+                "launches": got, "max_memory_allocated":
+                    torch.cuda.max_memory_allocated()}
+            phase("train_run", run=name, niters=niters, **results[key])
+        last = runs[-1][0] - 1
+        for f in ("params.json", "models/checkpoint.pt", f"images/{last}.png"):
+            if not os.path.isfile(os.path.join(log_dir, f)):
+                raise AssertionError(f"{name}: missing {f}")
+        if name != "fast_dw":
+            phase("model_check", run=name, **model_check(log_dir, cc))
     return results
 
 
-def model_check(log_dir: str) -> dict:
-    """The trained G and D, in f32 and eval mode: on the card (kernels)
-    against the same weights on the CPU (plain attention)."""
+def model_check(log_dir: str, cc) -> dict:
+    """The trained G and D, in f32 and eval mode: on the card (kernels, the
+    run's conv routes) against the same weights on the CPU (plain
+    attention, F.conv3d)."""
     import torch
 
     from gan3d_tpu_torch.config import Config
     from gan3d_tpu_torch.models import build_models
+    from gan3d_tpu_torch.ops.conv3d import (set_fast_dw_mode,
+                                            set_wide_conv_mode)
 
     cfg = Config.load(log_dir).replace(compute_dtype="float32")
     payload = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
@@ -380,22 +653,34 @@ def model_check(log_dir: str) -> dict:
     G.eval()
     D.eval()
     z = torch.randn((2, cfg.z_size), generator=torch.Generator().manual_seed(1))
-    with torch.no_grad():
-        x_cpu = G(z)
-        d_cpu = D(x_cpu)
-        Gc, Dc = copy.deepcopy(G).cuda(), copy.deepcopy(D).cuda()
-        x_gpu = Gc(z.cuda())
-        d_gpu = Dc(x_cpu.cuda())
+    try:
+        set_wide_conv_mode("off")
+        set_fast_dw_mode("off")
+        with torch.no_grad():
+            x_cpu = G(z)
+            d_cpu = D(x_cpu)
+        set_wide_conv_mode(cfg.wide_conv)
+        set_fast_dw_mode(cfg.fast_dw)
+        cc.reset_counters()
+        with torch.no_grad():
+            Gc, Dc = copy.deepcopy(G).cuda(), copy.deepcopy(D).cuda()
+            x_gpu = Gc(z.cuda())
+            d_gpu = Dc(x_cpu.cuda())
+        torch.cuda.synchronize()
+    finally:
+        set_wide_conv_mode("auto")
+        set_fast_dw_mode("auto")
     if x_gpu.shape != (2, 1, 64, 64, 64) or not torch.isfinite(x_gpu).all():
         raise AssertionError(f"bad sample {tuple(x_gpu.shape)}")
-    # cuDNN and the CPU sum in different orders; 1e-3 of the tanh range.
+    # the card and the CPU sum in different orders; 1e-3 of the tanh range
     ex = (x_gpu.cpu() - x_cpu).abs().max().item()
     ed = ((d_gpu.cpu() - d_cpu).abs().max()
           / d_cpu.abs().max().clamp_min(1e-30)).item()
     if not (ex <= 1e-3 and ed <= 1e-3):
         raise AssertionError(f"card vs CPU: G max err {ex:.3e}, D rel err "
                              f"{ed:.3e} (tol 1e-3)")
-    return {"g_max_abs_err": ex, "d_rel_err": ed, "tol": 1e-3}
+    return {"g_max_abs_err": ex, "d_rel_err": ed, "tol": 1e-3,
+            "wide_launches": cc.wide_launches}
 
 
 def main() -> int:
@@ -422,24 +707,34 @@ def main() -> int:
           cuda=torch.version.cuda)
 
     from gan3d_tpu_torch.ops import cuda_attention as ca
+    from gan3d_tpu_torch.ops import cuda_build
+    from gan3d_tpu_torch.ops import cuda_conv as cc
     from gan3d_tpu_torch.ops.attention import attention_plain
 
     t0 = time.time()
-    lib = ca.build()
-    with open(os.path.join(os.path.dirname(lib), "ptxas.log")) as f:
-        ptxas = [ln.strip() for ln in f
-                 if any(w in ln for w in ("entry function", "registers",
-                                          "spill"))]
-    phase("build", seconds=time.time() - t0, library=os.path.relpath(lib, REPO),
+    libs = cuda_build.build("pooled_attention", "conv3d_k3")
+    ptxas = []
+    for lib in libs:
+        with open(os.path.join(os.path.dirname(lib), "ptxas.log")) as f:
+            ptxas += [ln.strip() for ln in f
+                      if any(w in ln for w in ("entry function", "registers",
+                                               "spill"))]
+    phase("build", seconds=time.time() - t0,
+          libraries=[os.path.relpath(lib, REPO) for lib in libs],
           ptxas=ptxas)
 
     cases = kernel_phase(ca, attention_plain)
     phase("kernel_extra", **extra_checks(ca, attention_plain))
+    shapes = conv_shapes()
+    phase("conv_shapes", G=shapes["G"], D=shapes["D"])
+    conv_cases = conv_kernel_phase(cc, shapes)
+    phase("conv_extra", **conv_extra_checks(cc))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        train = train_phase(ca, tmp)
-        phase("model_check", **model_check(os.path.join(tmp, "run")))
-    launches = train["run_%d_%d" % TRAIN_RUNS[0][::-1]]["launches"]
-    print(json.dumps(kernels_line(cases, launches)), flush=True)
+        train = train_phase(ca, cc, tmp, shapes)
+    first = next(runs[0] for name, _, runs in TRAIN_RUNS if name == KNOB_RUN)
+    launches = train["%s/run_%d_%d" % (KNOB_RUN, first[1], first[0])][
+        "launches"]
+    print(json.dumps(kernels_line(cases, conv_cases, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

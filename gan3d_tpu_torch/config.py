@@ -1,9 +1,11 @@
 """Typed configuration for gan3d_tpu_torch.
 
 The port's own copy of the JAX package's ``Config``: every field and flag
-is kept, so the same command lines parse in both packages. Fields that
-name a TPU lowering (``fast_*``, ``wide_conv``, ``fast_dw``, ``conv_dx``,
-``xla_vmem_limit_kib`` ...) are accepted and the port runs the plain op.
+is kept, so the same command lines parse in both packages. ``wide_conv``
+and ``fast_dw`` select the hand-written k3 conv kernels, as in the JAX
+package; the other fields that name a TPU lowering (``fast_*``,
+``conv_dx``, ``xla_vmem_limit_kib`` ...) are accepted and the port runs
+the plain op.
 An option whose code path the port does not have makes the trainer raise
 (``train/trainer.py``); ``async_log`` is off by default here for that
 reason.
@@ -94,14 +96,18 @@ class Config:
     track_energy: bool = False   # energy tracking is not ported: True raises
     channel_ratio: int = 4       # BigGAN-deep bottleneck shrink factor
                                  # (reference utils.py:48 fixes 4)
+    # The k3/s1/p1 convs with Ci, Co >= 8 (ops/conv3d.py), each
+    # "off" | "auto" | "on" ("auto" = off, as in the JAX package):
+    wide_conv: str = "auto"     # on: forward and dx by the wide-N conv
+                                # kernel, dW by the dW kernel
+    fast_dw: str = "auto"       # on (and wide_conv not): dW by the dW
+                                # kernel, forward and dx by cuDNN
     # TPU lowering knobs of the JAX package. Accepted so the same command
     # lines parse; whatever their value the port runs the plain op.
     fast_conv: str = "auto"
     fast_upconv: str = "auto"
     fast_downconv: str = "auto"
     downconv_vjp: str = "auto"
-    wide_conv: str = "auto"
-    fast_dw: str = "auto"
     fast_stem: str = "auto"
     fast_head: str = "auto"
     fast_fir: str = "auto"

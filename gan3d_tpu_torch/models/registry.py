@@ -12,8 +12,8 @@ import torch
 
 from gan3d_tpu_torch.config import Config
 
-_LATER = {"dcgan": "slice 2", "hybrid": "slice 2", "stylegan2": "slice 3",
-          "stylegan": "slice 4"}
+_LATER = {"dcgan": "slice 4", "hybrid": "slice 4", "stylegan2": "slice 5",
+          "stylegan": "slice 6"}
 
 
 def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:

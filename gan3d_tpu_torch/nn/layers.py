@@ -17,6 +17,9 @@ the JAX package copies from it (layers.py:1-22):
 Each forward reads ``self.weight`` exactly once, so the power method steps
 once per forward. Parameters stay f32; the weight is cast to the input's
 dtype at the conv (the compute-dtype policy, gan3d_tpu/config.py:82).
+Convs go through ``ops/conv3d.conv3d``, which picks the route the
+``wide_conv`` / ``fast_dw`` modes select; the gradient reaches the
+original weight through the route's weight input.
 
 ``plain=True`` skips spectral norm: the reference's inverted ``sngan=True``
 flag (utils.py:9-11).
@@ -28,6 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.nn.utils.parametrizations import spectral_norm
+
+from gan3d_tpu_torch.ops.conv3d import conv3d
 
 
 class Conv3d(nn.Conv3d):
@@ -44,8 +49,7 @@ class Conv3d(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv3d(x, w, b, self.stride, self.padding, self.dilation,
-                        self.groups)
+        return conv3d(x, w, b, self.stride, self.padding)
 
 
 class Linear(nn.Linear):

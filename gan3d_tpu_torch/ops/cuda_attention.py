@@ -2,9 +2,8 @@
 
 The kernels live in ``gan3d_tpu_torch/csrc/pooled_attention.cu`` (forward
 and the FlashAttention-2 split backward; its header says what they replace
-and what bounds them). They are compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface at first use, cached under
-``gan3d_tpu_torch/_build/<hash of the source>/``, and called through
+and what bounds them). ``ops/cuda_build.py`` compiles them into a shared
+library with a plain C interface at first use; they are called through
 ``ctypes`` on PyTorch's current stream.
 
 Nothing here touches CUDA or ``nvcc`` at import time. Every wrapper takes
@@ -18,25 +17,16 @@ a run can show that its attention went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from gan3d_tpu_torch.ops import cuda_build
+
 SUPPORTED_C = (8, 16, 32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "pooled_attention.cu")
-BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 fwd_launches = 0
 bwd_launches = 0
@@ -51,63 +41,11 @@ def reset_counters() -> None:
     bwd_launches = 0
 
 
-def find_nvcc() -> str:
-    """nvcc from $CUDA_HOME, then PATH, then /usr/local/cuda; raises if none."""
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    which = shutil.which("nvcc")
-    if which:
-        cands.append(which)
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError(
-        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
-        "the pooled-attention kernels cannot be built")
-
-
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    return os.path.join(BUILD_ROOT, digest, "libpooled_attention.so")
-
-
-def build() -> str:
-    """Compile the kernels if the cached library is missing; returns its path.
-
-    The compiler's register and spill report (``-Xptxas -v``) is kept next
-    to the library as ``ptxas.log``.
-    """
-    path = library_path()
-    if os.path.isfile(path):
-        return path
-    out_dir = os.path.dirname(path)
-    os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = cuda_build.load("pooled_attention")
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.pa_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.pa_fwd.restype = i

@@ -1,0 +1,248 @@
+"""The k3 conv kernels: tiling, binding and autograd wrappers.
+
+The kernels live in ``gan3d_tpu_torch/csrc/conv3d_k3.cu`` (its header says
+which TPU kernels they replace and what bounds them); ``ops/cuda_build.py``
+compiles them at first use and they are called through ``ctypes`` on
+PyTorch's current stream:
+
+- ``wide_conv3d_cuda(x, w)``: the wide-N k3/s1/p1 conv (K4), used for the
+  forward and, with spatially flipped, in/out-swapped weights, for dx;
+- ``conv3d_dw_cuda(x, g)``: its weight gradient (K3), split-K partials
+  summed in a fixed order by a second kernel, so a repeated dW is
+  bit-identical.
+
+The tiling of each launch (``wide_plan``, ``dw_plan``) is chosen here, so
+the CPU tests reach it. Two ``autograd.Function``s carry the routes of
+``ops/conv3d.conv3d``, counterparts of the JAX custom VJPs:
+- ``WideConv3d`` (wide_conv.py:190-210): forward K4, dx K4, dW K3 cast to
+  w's dtype;
+- ``Conv3dK3Dw`` (dw_conv.py:227-253): forward ``F.conv3d`` and dx the
+  plain input-gradient conv (the JAX package leaves both to XLA), dW K3.
+On a CPU tensor both run the plain versions of ``ops/conv3d.py`` in the
+kernels' place; on a CUDA tensor they run the kernels, which raise on a
+dtype or shape they do not take. Nothing falls back.
+
+``wide_launches`` / ``dw_launches`` count the wrappers' launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from gan3d_tpu_torch.ops import cuda_build
+from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+WIDE_POS_THREADS = 64      # K4: threads (4 output rows each) per co group
+WIDE_MAX_CO_GROUPS = 4     # K4: co groups (8 channels each) per block
+DW_BOX = 128               # K3: output positions per staged box
+DW_CI, DW_CO = 16, 32      # K3: channels per block (csrc kDwCi / kDwCo)
+DW_BLOCKS_PER_SM = 2       # K3: resident 432-thread blocks per SM
+
+wide_launches = 0
+dw_launches = 0
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def reset_counters() -> None:
+    global wide_launches, dw_launches
+    wide_launches = 0
+    dw_launches = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wide_plan(n: int, co: int, d: int, h: int, w: int
+              ) -> Tuple[int, int, int, int]:
+    """K4 tiling (td, th, tw, cg): a block computes a td x th x tw box of
+    output positions of one sample (th a multiple of 4: a thread owns 4
+    rows of one column) for cg groups of 8 output channels. Groups are
+    halved while the grid has fewer blocks than the card has SMs."""
+    tw = min(w, 32)
+    rows = max(1, WIDE_POS_THREADS // tw)
+    hg = min(_cdiv(h, 4), rows)
+    td = min(d, max(1, rows // hg))
+    cg = min(_cdiv(co, 8), WIDE_MAX_CO_GROUPS)
+    boxes = n * _cdiv(d, td) * _cdiv(h, 4 * hg) * _cdiv(w, tw)
+    while cg > 1 and boxes * _cdiv(co, 8 * cg) < SMS:
+        cg //= 2
+    return td, 4 * hg, tw, cg
+
+
+def dw_plan(n: int, ci: int, co: int, d: int, h: int, w: int
+            ) -> Tuple[int, int, int, int]:
+    """K3 tiling (td, th, tw, P): boxes of up to DW_BOX positions, and P
+    split-K chunks of the N x boxes list, enough that the grid of
+    P x ci tiles x co tiles fills the card twice over."""
+    tw = min(w, 32)
+    th = min(h, max(1, DW_BOX // tw))
+    td = min(d, max(1, DW_BOX // (tw * th)))
+    boxes = n * _cdiv(d, td) * _cdiv(h, th) * _cdiv(w, tw)
+    tiles = _cdiv(ci, DW_CI) * _cdiv(co, DW_CO)
+    p = max(1, min(boxes, _cdiv(DW_BLOCKS_PER_SM * SMS, tiles)))
+    return td, th, tw, p
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = cuda_build.load("conv3d_k3")
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.k3_wide.argtypes = [p, p, p] + [i] * 11 + [p]
+            lib.k3_wide.restype = i
+            lib.k3_dw.argtypes = [p, p, p, p] + [i] * 11 + [p]
+            lib.k3_dw.restype = i
+            _lib = lib
+    return _lib
+
+
+def _check(x: torch.Tensor, other: torch.Tensor, name: str) -> None:
+    """Raise ValueError unless the kernels take x and ``other`` (the weight
+    or the output gradient) as given."""
+    for what, t in (("input", x), (name, other)):
+        if not t.is_cuda:
+            raise ValueError(f"k3 conv kernel: {what} is on {t.device}, not "
+                             "a CUDA device")
+        if t.dtype not in _DTYPE_CODE:
+            raise ValueError(f"k3 conv kernel: {what} dtype {t.dtype} not in "
+                             "(float32, bfloat16)")
+        if t.dim() != 5 or not t.is_contiguous() or t.numel() == 0:
+            raise ValueError(f"k3 conv kernel: {what} must be a contiguous, "
+                             f"non-empty 5-d tensor; got {tuple(t.shape)}")
+    if x.dtype != other.dtype or x.device != other.device:
+        raise ValueError(f"k3 conv kernel: input and {name} differ in dtype "
+                         f"or device: {x.dtype}/{other.dtype}, {x.device}/"
+                         f"{other.device}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_if(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"k3 conv {what} kernel launch failed: "
+                           f"cudaError {err}")
+
+
+def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K4: k3/s1/p1 conv of x [N,Ci,D,H,W] with w [Co,Ci,3,3,3] (same
+    dtype), f32 accumulation; [N,Co,D,H,W] in x's dtype."""
+    global wide_launches
+    x, w = x.contiguous(), w.contiguous()
+    _check(x, w, "weight")
+    n, ci, d, h, wd = x.shape
+    co = w.shape[0]
+    if tuple(w.shape) != (co, ci, 3, 3, 3) or min(ci, co) < 8:
+        raise ValueError(f"wide conv kernel: weight {tuple(w.shape)} is not "
+                         f"[Co, {ci}, 3, 3, 3] with Ci, Co >= 8 (the "
+                         "dispatcher's rule)")
+    td, th, tw, cg = wide_plan(n, co, d, h, wd)
+    out = torch.empty((n, co, d, h, wd), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _load().k3_wide(_ptr(x), _ptr(w), _ptr(out), n, ci, co, d, h,
+                              wd, td, th, tw, cg, _DTYPE_CODE[x.dtype],
+                              _stream(x))
+    _raise_if(err, "wide")
+    wide_launches += 1
+    return out
+
+
+def conv3d_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K3: dW of a k3/s1/p1 conv from its input x [N,Ci,D,H,W] and output
+    gradient g [N,Co,D,H,W] (same dtype): f32 [Co, Ci, 3, 3, 3]."""
+    global dw_launches
+    x, g = x.contiguous(), g.contiguous()
+    _check(x, g, "gradient")
+    n, ci, d, h, wd = x.shape
+    co = g.shape[1]
+    if tuple(g.shape) != (n, co, d, h, wd) or min(ci, co) < 8:
+        raise ValueError(f"dW kernel: gradient {tuple(g.shape)} does not "
+                         f"match input {tuple(x.shape)}, or Ci or Co < 8 "
+                         "(the dispatcher's rule)")
+    td, th, tw, p = dw_plan(n, ci, co, d, h, wd)
+    part = torch.empty((p, co, ci * 27), dtype=torch.float32, device=x.device)
+    dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _load().k3_dw(_ptr(x), _ptr(g), _ptr(part), _ptr(dw), n, ci,
+                            co, d, h, wd, td, th, tw, p,
+                            _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_if(err, "dW")
+    dw_launches += 1
+    return dw
+
+
+def _wide(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda:
+        return wide_conv3d_cuda(x, w)
+    if x.device.type == "cpu":
+        return conv3d_k3_plain(x, w)
+    raise ValueError(f"k3 conv: no implementation for device {x.device}")
+
+
+def _dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda:
+        return conv3d_dw_cuda(x, g)
+    if x.device.type == "cpu":
+        return conv3d_dw_plain(x, g)
+    raise ValueError(f"k3 conv dW: no implementation for device {x.device}")
+
+
+class WideConv3d(torch.autograd.Function):
+    """k3/s1/p1 conv: the wide-N conv forward and dx, the dW kernel for
+    dW. First-order only, like the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _wide(x, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx of a k3/s1/p1 conv is the same conv with spatially
+            # reversed, in/out-swapped weights (wide_conv.py:202-205)
+            dx = _wide(g, w.flip(2, 3, 4).transpose(0, 1).to(g.dtype))
+        if ctx.needs_input_grad[1]:
+            dw = _dw(x, g.to(x.dtype)).to(w.dtype)
+        return dx, dw
+
+
+class Conv3dK3Dw(torch.autograd.Function):
+    """k3/s1/p1 conv whose backward computes dW with the dW kernel; the
+    forward and dx are the plain convs. First-order only."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return F.conv3d(x, w, None, 1, 1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv3d_input(x.shape, w, g, 1, 1)
+        if ctx.needs_input_grad[1]:
+            dw = _dw(x, g.to(x.dtype)).to(w.dtype)
+        return dx, dw

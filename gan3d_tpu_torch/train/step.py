@@ -11,6 +11,9 @@ for each of the iterD D iterations:
   4. Adam on D.
 then one G update: G forward, D forward (D's parameters are not updated
 but its SN vectors step), gradients of G's parameters only, Adam on G.
+D's parameters are frozen (requires_grad off) for the G update, so its
+backward computes no weight gradient for D: the custom autograd Functions
+of the conv kernels would otherwise run their dW kernel for nothing.
 
 Noise comes from ``noises`` when given (iterD + 1 tensors [B, z], so a test
 can inject the JAX package's draws), else from ``generator``.
@@ -18,13 +21,26 @@ can inject the JAX package's draws), else from ``generator``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
 from gan3d_tpu_torch.config import Config
 from gan3d_tpu_torch.train import losses
 from gan3d_tpu_torch.train.state import Adam
+
+
+@contextlib.contextmanager
+def _frozen(net: torch.nn.Module) -> Iterator[None]:
+    params = [p for p in net.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
 
 
 def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
@@ -66,7 +82,8 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
         err_real, err_fake = err_real.detach(), err_fake.detach()
 
     fake = G(noise(cfg.iterD))
-    err_g = losses.g_adversarial(D(fake).float())
-    g_opt.step(torch.autograd.grad(err_g, g_opt.params))
+    with _frozen(D):
+        err_g = losses.g_adversarial(D(fake).float())
+        g_opt.step(torch.autograd.grad(err_g, g_opt.params))
     return ({"d_real": err_real, "d_fake": err_fake,
              "g_loss": err_g.detach()}, fake.detach())

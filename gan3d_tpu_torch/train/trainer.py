@@ -31,6 +31,7 @@ import torch
 from gan3d_tpu_torch.config import Config
 from gan3d_tpu_torch.data.loader import Loader
 from gan3d_tpu_torch.models.registry import build_models
+from gan3d_tpu_torch.ops.conv3d import set_fast_dw_mode, set_wide_conv_mode
 from gan3d_tpu_torch.train.checkpoint import CheckpointManager
 from gan3d_tpu_torch.train.state import Adam
 from gan3d_tpu_torch.train.step import train_step
@@ -43,13 +44,13 @@ def _reject_unported(cfg: Config) -> None:
     later = []
     if cfg.num_devices > 1 or cfg.spatial_devices > 1 \
             or cfg.model_devices > 1 or cfg.distributed:
-        later.append("multi-device runs (ROADMAP.md queue A, slice 6)")
+        later.append("multi-device runs (ROADMAP.md queue A, slice 8)")
     if cfg.fid_in_loop:
-        later.append("in-loop FID (ROADMAP.md queue A, slice 5)")
+        later.append("in-loop FID (ROADMAP.md queue A, slice 7)")
     if cfg.profile_dir:
-        later.append("the profiler (ROADMAP.md queue A, slice 6)")
+        later.append("the profiler (ROADMAP.md queue A, slice 8)")
     if cfg.track_energy:
-        later.append("energy tracking (ROADMAP.md queue A, slice 6)")
+        later.append("energy tracking (ROADMAP.md queue A, slice 8)")
     if cfg.async_log:
         later.append("deferred log printing (async_log; ROADMAP.md queue A)")
     if not cfg.fused_step:
@@ -73,6 +74,10 @@ class Trainer:
         if cfg.load_params:
             cfg = Config.load(cfg.log_dir).replace(log_dir=cfg.log_dir)
         _reject_unported(cfg)
+        # the conv routes, before the models exist (as
+        # gan3d_tpu/train/trainer.py:103-104); a mode outside MODES raises
+        set_wide_conv_mode(cfg.wide_conv)
+        set_fast_dw_mode(cfg.fast_dw)
         self.device = resolve_device(cfg.platform)
         configure_precision(self.device)
         os.makedirs(self.models_dir, exist_ok=True)

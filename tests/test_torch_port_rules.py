@@ -7,7 +7,9 @@
 - Options whose code paths are not ported raise instead of being ignored.
 - A 2-step CPU run of ``python -m gan3d_tpu_torch.cli.train`` at 16^3,
   filters 8 writes params.json, a checkpoint and a PNG, and a re-run with
-  more steps resumes ("starting from step 2").
+  more steps resumes ("starting from step 2"); with ``--wide_conv=on
+  --fast_dw=on`` at filters 32 it trains and resumes through the k3 conv
+  routes, and a conv mode outside off|auto|on raises.
 """
 
 import json
@@ -51,6 +53,7 @@ def test_no_jax_or_reference_package_imported():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "gan3d_tpu_torch.train.trainer" in res["modules"]
     assert "gan3d_tpu_torch.ops.cuda_attention" in res["modules"]
+    assert "gan3d_tpu_torch.ops.cuda_conv" in res["modules"]
     assert res["bad"] == []
 
 
@@ -83,6 +86,21 @@ def test_unported_options_raise(tmp_path, kw):
                  platform="cpu", log_dir=str(tmp_path / "run"), **kw)
     with pytest.raises(NotImplementedError):
         Trainer(open_dataset(_dataset(tmp_path)), cfg)
+
+
+@pytest.mark.parametrize("kw", [dict(wide_conv="yes"), dict(fast_dw="fast")])
+def test_conv_modes_outside_off_auto_on_raise(tmp_path, kw):
+    from gan3d_tpu_torch.data import open_dataset
+    from gan3d_tpu_torch.ops import conv3d
+
+    cfg = Config(resolution=16, filterG=8, filterD=8, z_size=8, batch_size=2,
+                 platform="cpu", log_dir=str(tmp_path / "run"), **kw)
+    try:
+        with pytest.raises(ValueError, match="not in"):
+            Trainer(open_dataset(_dataset(tmp_path)), cfg)
+    finally:
+        conv3d.set_wide_conv_mode("auto")
+        conv3d.set_fast_dw_mode("auto")
 
 
 @pytest.mark.parametrize("platform", ["cuda", "tpu", "gpu"])
@@ -150,3 +168,48 @@ def test_cli_train_and_resume_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "starting from step 2" in out
     assert "[2|3]" in out and "...Done (1 steps in " in out
+
+
+def test_cli_train_and_resume_with_conv_kernels_on_cpu(tmp_path, capsys,
+                                                       monkeypatch):
+    """--wide_conv=on --fast_dw=on: every eligible conv's forward, dx and
+    dW go through the wide-N conv and dW routes (their plain versions on
+    the CPU), and the run resumes."""
+    from gan3d_tpu_torch.cli.train import main
+    from gan3d_tpu_torch.ops import conv3d, cuda_conv
+
+    calls = {"wide": 0, "dw": 0}
+
+    def counted(name, fn):
+        def run(*a):
+            calls[name] += 1
+            return fn(*a)
+        return run
+
+    monkeypatch.setattr(cuda_conv, "_wide", counted("wide", cuda_conv._wide))
+    monkeypatch.setattr(cuda_conv, "_dw", counted("dw", cuda_conv._dw))
+    data = _dataset(tmp_path)
+    log_dir = str(tmp_path / "run")
+    argv = [f"--data_path={data}", f"--log_dir={log_dir}", "--platform=cpu",
+            "--biggan=True", "--hinge=True", "--resolution=16",
+            "--filterG=32", "--filterD=32", "--z_size=8", "--batch_size=2",
+            "--data_loader_workers=1", "--wide_conv=on", "--fast_dw=on"]
+    try:
+        main(argv + ["--niters=2"])
+        assert calls["wide"] > 0 and calls["dw"] > 0
+        assert conv3d.wide_conv_enabled() and conv3d.fast_dw_enabled()
+        out = capsys.readouterr().out
+        assert "...Done (2 steps in " in out
+        main(argv + ["--niters=3"])
+        out = capsys.readouterr().out
+        assert "starting from step 2" in out and "[2|3]" in out
+    finally:
+        conv3d.set_wide_conv_mode("auto")
+        conv3d.set_fast_dw_mode("auto")
+    ckpt = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
+                      weights_only=True)
+    with open(os.path.join(log_dir, "params.json")) as f:
+        params = json.load(f)
+    assert params["wide_conv"] == params["fast_dw"] == "on"
+    assert ckpt["step"] == 3 and len(ckpt["lossG"]) == 3
+    assert all(np.isfinite(ckpt["lossG"]))

@@ -87,21 +87,23 @@ def jax_noise(cfg, base_key, step=0):
     return [np.array(n) for n in out]
 
 
-def test_fused_step_matches_jax():
-    jcfg, cfg = JConfig(**CFG), Config(**CFG)
-    R = cfg.resolution
+def jax_step(cfg_kw, seed=0):
+    """One JAX fused step from random weights: returns (gv, dv, reals,
+    noises, new state, metrics) as numpy, for ``port_step_matches``."""
+    jcfg = JConfig(**cfg_kw)
+    R = jcfg.resolution
     G_j, D_j = jbuild(jcfg)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     gv = random_variables(jax.eval_shape(
-        G_j.init, {"params": jax.random.key(0)}, jnp.zeros((2, 16))), rng)
+        G_j.init, {"params": jax.random.key(0)},
+        jnp.zeros((2, jcfg.z_size))), rng)
     dv = random_variables(jax.eval_shape(
         D_j.init, {"params": jax.random.key(0)},
         jnp.zeros((2, R, R, R, 1))), rng)
-    reals = np.tanh(rng.normal(size=(2, 2, 1, R, R, R))).astype(np.float32)
-
-    # --- JAX ---
-    g_tx = make_optimizer(cfg.lrG, 0.0, 0.9)
-    d_tx = make_optimizer(cfg.lrD, 0.0, 0.9)
+    reals = np.tanh(rng.normal(size=(jcfg.iterD, jcfg.batch_size, 1, R, R,
+                                     R))).astype(np.float32)
+    g_tx = make_optimizer(jcfg.lrG, 0.0, 0.9)
+    d_tx = make_optimizer(jcfg.lrD, 0.0, 0.9)
     split = lambda v: (v["params"], {k: x for k, x in v.items()  # noqa: E731
                                      if k != "params"})
     gp, gs = split(gv)
@@ -113,22 +115,28 @@ def test_fused_step_matches_jax():
     step = jax.jit(build_train_step(jcfg, G_j, D_j, g_tx, d_tx))
     new, metrics, _ = step(state, jnp.asarray(np.moveaxis(reals, 2, -1)),
                            base_key)
-    new = to_np(new)
+    return (gv, dv, reals, jax_noise(jcfg, base_key), to_np(new),
+            {k: float(v) for k, v in metrics.items()})
 
-    # --- port ---
+
+def port_step_matches(cfg, ref):
+    """Run the port's step on ``jax_step``'s weights, reals and noise and
+    hold it against the JAX step (tolerances: module docstring)."""
+    gv, dv, reals, noise, new, metrics = ref
+    R = cfg.resolution
     G, D = build_models(cfg)
     G.load_state_dict(convert.from_jax_variables(gv, cfg, "g"), strict=True)
     D.load_state_dict(convert.from_jax_variables(dv, cfg, "d"), strict=True)
     g_opt = Adam(G.parameters(), cfg.lrG, 0.0, 0.9)
     d_opt = Adam(D.parameters(), cfg.lrD, 0.0, 0.9)
-    noises = [torch.from_numpy(n) for n in jax_noise(cfg, base_key)]
+    noises = [torch.from_numpy(n) for n in noise]
     got, fake = train_step(cfg, G.train(), D.train(), g_opt, d_opt,
                            torch.from_numpy(reals), noises=noises)
-    assert fake.shape == (2, 1, R, R, R)
+    assert fake.shape == (cfg.batch_size, 1, R, R, R)
 
     # losses
     for k in ("d_real", "d_fake", "g_loss"):
-        np.testing.assert_allclose(float(got[k]), float(metrics[k]),
+        np.testing.assert_allclose(float(got[k]), metrics[k],
                                    rtol=1e-4, atol=1e-6, err_msg=k)
 
     for which, net, opt, params, st, jopt in (
@@ -165,6 +173,10 @@ def test_fused_step_matches_jax():
                                            err_msg=f"{which} {key}")
                 n_state += 1
         assert n_state > 0
+
+
+def test_fused_step_matches_jax():
+    port_step_matches(Config(**CFG), jax_step(CFG))
 
 
 @pytest.mark.parametrize("b1,mu_free", [(0.0, True), (0.0, False),

@@ -6,9 +6,10 @@
 Phases, each printing its own line:
 1. device  — requires torch.cuda.is_available(); prints the nvidia-smi
              name and power limit;
-2. build   — compiles csrc/pooled_attention.cu and csrc/conv3d_k3.cu with
-             nvcc for sm_90a, one nvcc each, started together, and prints
-             the kernels' ptxas lines (registers, spills);
+2. build   — compiles csrc/pooled_attention.cu, conv3d_k3.cu,
+             conv3d_toeplitz.cu and probe_ladder.cu with nvcc for sm_90a,
+             one nvcc each, started together, and prints the kernels' ptxas
+             lines (registers, spills);
 3. kernels — runs the pooled-attention forward and backward kernels at the
              two shapes of the 64^3 BigGAN-Deep flagship (G: L=32768,
              M=4096, c=16; D: L=4096, M=512, c=32; N=16) in f32 and bf16,
@@ -35,7 +36,27 @@ Phases, each printing its own line:
              the kernel launch counts the step implies; after the first
              two, the trained G and D on the card (kernels) are held
              against the same networks on the CPU (plain path);
-6. the kernels JSON line, then the result line.
+6. toeplitz_conv — the W-Toeplitz direct conv op (K5, ops/toeplitz_conv.py,
+             the port of scripts/bench_lane_conv.py's "pl" variant): at the
+             bench's shapes (16/32/32/64/128 channels at 64/64/32/32/16^3,
+             batch 16, t = pick_tile; none at 128@16^3, whose kernel is
+             skipped as the bench skips it), f32 and bf16, drives the op's
+             forward and forward+backward with the launch counter read
+             around that run; holds the forward, dx and dW against autograd
+             through the plain version; times the forward and
+             forward+backward, the plain forward and F.conv3d on the same
+             tensors viewed as NCDHW channels_last_3d (a yardstick the port
+             never calls); then the tests' shapes and a ragged Cin != Cout
+             one, a bad tile and an f16 input refused, and 1 launch per
+             forward, 2 per forward+backward;
+7. probe_ladder — the 14 rungs of the Mosaic probe ladders
+             (probes/mosaic_ladder.py) on the card, each held against its
+             plain version, with each kernel's launches from that run; then
+             each rung's time per call (CUDA events) and its kernel's
+             device time (a torch.profiler trace) beside its plain
+             version, its bound and one PyTorch call computing the same
+             thing;
+8. the kernels JSON line, then the result line.
 
 Any failure raises and the script exits non-zero without the result line.
 It needs no arguments and one card; it imports nothing of JAX.
@@ -104,6 +125,36 @@ CONV_D = ((32, 64), (32, 32), (64, 32), (64, 16), (128, 16), (128, 8),
 CONV_RAGGED = ((1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3),
                (1, 16, 40, 1, 1, 33), (3, 40, 16, 7, 6, 70),
                (1, 256, 8, 4, 4, 4))
+# K5's timed shapes, (channels, side): scripts/bench_lane_conv.py:59, batch
+# 16, 20 iterations (its defaults).
+TOEPLITZ_BENCH = ((16, 64), (32, 64), (32, 32), (64, 32), (128, 16))
+TOEPLITZ_BATCH, TOEPLITZ_ITERS = 16, 20
+# Checked, not timed: ((N, D, H, W), Cin, Cout, t) of
+# tests/test_pallas_conv.py:25-29 and two ragged Cin != Cout ones, the
+# second with ragged row, column, input- and output-channel tiles.
+TOEPLITZ_EXTRA = (((2, 4, 4, 8), 32, 32, 4), ((1, 3, 5, 8), 16, 16, 8),
+                  ((1, 4, 4, 8), 8, 64, 2), ((3, 5, 7, 12), 24, 40, 4),
+                  ((2, 3, 37, 70), 20, 40, 2))
+# The ladder's rung timed for each kernel's entry in the kernels line.
+LADDER_MAIN = {"box_copy": "dma_double_buffer", "im2col27": "lane_concat27",
+               "gram27": "dw_skeleton", "wide_fwd": "wide_fwd_skeleton"}
+# Each rung's pallas_call (file:line).
+LADDER_SITES = {
+    "copy": "scripts/probe_mosaic.py:48",
+    "cost_estimate": "scripts/probe_mosaic.py:301",
+    "manual_dma": "scripts/probe_mosaic.py:66",
+    "dma_dyn_slot": "scripts/probe_mosaic.py:220",
+    "dma_when_guard": "scripts/probe_mosaic.py:246",
+    "dma_pds_src": "scripts/probe_mosaic.py:267",
+    "dma_pds_src_offset": "scripts/probe_mosaic.py:289",
+    "dma_double_buffer": "scripts/probe_mosaic.py:99",
+    "lane_concat27": "scripts/probe_mosaic.py:121",
+    "wide_dot_accum": "scripts/probe_mosaic.py:153",
+    "dw_skeleton": "scripts/probe_mosaic.py:199",
+    "lane_value_slice": "scripts/probe_mosaic2.py:38",
+    "minor_slice_reshape": "scripts/probe_mosaic2.py:56",
+    "wide_fwd_skeleton": "scripts/probe_mosaic2.py:83",
+}
 
 
 def phase(name: str, **kw) -> None:
@@ -124,6 +175,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, needle: str, iters: int = 20):
+    """Mean device time (ms) per launch of the kernels whose name holds
+    ``needle``, from a torch.profiler trace of ``iters`` calls of ``fn``;
+    None when the trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and needle in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
 
 
 def bound(kind: str, dtype: str, n: int, L: int, m: int, c: int):
@@ -450,12 +521,272 @@ def conv_extra_checks(cc) -> dict:
             "repeated_dw": "bit-identical", "float16": "refused"}
 
 
-def kernels_line(cases: list, conv_cases: list, launches: dict) -> dict:
+def toeplitz_bound(dtype: str, n: int, s: int, ci: int, co: int):
+    """Least time for one K5 forward on an H100 SXM: (ms, "bytes" |
+    "operations"). 2 * N * S * Ci * Co * 27 operations at the type's peak;
+    bytes: x [N,S,Ci] and w [27,Ci,Co] read once, out [N,S,Co] written
+    once, in one dtype."""
+    es = 4 if dtype == "float32" else 2
+    flops = 2 * n * s * ci * co * 27
+    nbytes = (n * s * (ci + co) + 27 * ci * co) * es
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def _toeplitz_grads(tc, x, w, t, g, plain: bool):
+    """(out, dx, dW) of the op (plain: of its plain version, by autograd)
+    with upstream gradient g."""
+    import torch
+
+    xr, wr = (v.detach().requires_grad_(True) for v in (x, w))
+    fn = tc.toeplitz_conv3d_plain if plain else tc.toeplitz_conv3d
+    out = fn(xr, wr, t)
+    return (out.detach(), *torch.autograd.grad(out, (xr, wr), g))
+
+
+def toeplitz_phase(cc) -> list:
+    """K5 at the bench's shapes, f32 and bf16: the op's forward and
+    forward+backward with the launch counter read around them (the path),
+    then each case's errors against the plain version and its times."""
+    import torch
+    import torch.nn.functional as F
+
+    from gan3d_tpu_torch.ops import toeplitz_conv as tc
+
+    n = TOEPLITZ_BATCH
+    inputs = {}
+    for seed, (c, s) in enumerate(TOEPLITZ_BENCH):
+        x, w = tc.make_inputs(c, s, n, torch.float32, seed=seed)
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            inputs[(c, s, dname)] = (x.to(dt), w.to(dt))
+        del x, w
+    cc.reset_counters()
+    runs = 0
+    for (c, s, dname), (x, w) in inputs.items():
+        t = tc.pick_tile(c, s)
+        if t is None:
+            continue
+        y = tc.toeplitz_conv3d(x, w, t)
+        xr, wr = (v.detach().requires_grad_(True) for v in (x, w))
+        dx, dw = torch.autograd.grad(tc.toeplitz_conv3d(xr, wr, t).sum(),
+                                     (xr, wr))
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(v).all()) for v in (y, dx, dw)) or \
+                y.shape != (n, s, s, s, c) or dw.shape != w.shape:
+            raise AssertionError(f"toeplitz {c}ch@{s}^3 {dname}: bad output "
+                                 f"{tuple(y.shape)} or non-finite values")
+        runs += 1
+        del y, dx, dw, xr, wr
+    launches = cc.toeplitz_launches
+    if launches != 3 * runs or not launches:
+        raise AssertionError(f"toeplitz launches {launches} != 3 x {runs}")
+    phase("toeplitz_path", runs=runs, launches=launches)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    cases = []
+    for (c, s, dname), (x, w) in inputs.items():
+        t = tc.pick_tile(c, s)
+        vol = s ** 3
+        useful = 2 * n * vol * c * c * 27
+        xc = x.permute(0, 4, 1, 2, 3)          # NCDHW, channels_last_3d
+        wc = w.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        xl, wl = (v.detach().requires_grad_(True) for v in (xc, wc))
+        yl = F.conv3d(xl, wl, None, 1, 1)
+        gl = torch.randn(yl.shape, generator=gen, device="cuda").to(
+            x.dtype).contiguous(memory_format=torch.channels_last_3d)
+        case = {"kernel": "toeplitz_fwd", "dtype": dname, "N": n, "C": c,
+                "S": s, "T": t, "tol": TOL[dname],
+                "library_ms": cuda_ms(lambda: F.conv3d(xc, wc, None, 1, 1),
+                                      TOEPLITZ_ITERS),
+                "library_fwdbwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                    F.conv3d(xl, wl, None, 1, 1), (xl, wl), gl),
+                    TOEPLITZ_ITERS)}
+        case["library_fwd_tflops"] = useful / case["library_ms"] / 1e9
+        case["library_fwdbwd_tflops"] = (3 * useful / case["library_fwdbwd_ms"]
+                                         / 1e9)
+        del xl, wl, yl
+        if t is not None:
+            g = gl.permute(0, 2, 3, 4, 1).contiguous()
+            got = _toeplitz_grads(tc, x, w, t, g, plain=False)
+            want = _toeplitz_grads(tc, x, w, t, g, plain=True)
+            torch.cuda.synchronize()
+            errs = {k: rel_err(a, b) for k, a, b in zip(("fwd", "dx", "dw"),
+                                                        got, want)}
+            del got, want
+            for k, (_, rel) in errs.items():
+                if not rel <= TOL[dname]:
+                    raise AssertionError(
+                        f"toeplitz {c}ch@{s}^3 {dname} {k}: relative error "
+                        f"{rel:.3e} > {TOL[dname]:.0e}")
+            xr, wr = (v.detach().requires_grad_(True) for v in (x, w))
+            b_ms, b_by = toeplitz_bound(dname, n, vol, c, c)
+            case.update({
+                "max_err": max(e[1] for e in errs.values()),
+                "max_abs_err": max(e[0] for e in errs.values()),
+                "rel_err": {k: e[1] for k, e in errs.items()},
+                "ms": cuda_ms(lambda: tc.toeplitz_conv3d(x, w, t),
+                              TOEPLITZ_ITERS),
+                "fwdbwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                    tc.toeplitz_conv3d(xr, wr, t), (xr, wr), g),
+                    TOEPLITZ_ITERS),
+                "plain_ms": cuda_ms(
+                    lambda: tc.toeplitz_conv3d_plain(x, w, t), 3, 1),
+                "bound_ms": b_ms, "bound_by": b_by})
+            case["fwd_tflops"] = useful / case["ms"] / 1e9
+            case["fwdbwd_tflops"] = 3 * useful / case["fwdbwd_ms"] / 1e9
+            del xr, wr, g
+        phase("toeplitz_case", **case)
+        cases.append(case)
+        del gl
+        torch.cuda.empty_cache()
+    for case in cases:
+        if case["T"] is not None:
+            case["launches"] = launches
+    return cases
+
+
+def toeplitz_extra_checks(cc) -> dict:
+    """K5 at TOEPLITZ_EXTRA against the plain version (forward, dx, dW); a
+    bad tile and an f16 input refused; 1 launch per forward and 2 per
+    forward+backward."""
+    import torch
+
+    from gan3d_tpu_torch.ops import toeplitz_conv as tc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    worst = {}
+    for shape, ci, co, t in TOEPLITZ_EXTRA:
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            x = torch.randn((*shape, ci), generator=gen, device="cuda").to(dt)
+            w = (torch.randn((3, 3, 3, ci, co), generator=gen, device="cuda")
+                 / math.sqrt(27 * ci)).to(dt)
+            g = torch.randn((*shape, co), generator=gen, device="cuda").to(dt)
+            before = cc.toeplitz_launches
+            tc.toeplitz_conv3d(x, w, t)
+            fwd = cc.toeplitz_launches - before
+            got = _toeplitz_grads(tc, x, w, t, g, plain=False)
+            both = cc.toeplitz_launches - before - fwd
+            if (fwd, both) != (1, 2):
+                raise AssertionError(f"toeplitz launches: {fwd} per forward, "
+                                     f"{both} per forward+backward")
+            want = _toeplitz_grads(tc, x, w, t, g, plain=True)
+            for name, a, b in zip(("fwd", "dx", "dw"), got, want):
+                rel = rel_err(a, b)[1]
+                key = f"{dname}/{name}"
+                worst[key] = max(worst.get(key, 0.0), rel)
+                if not rel <= TOL[dname]:
+                    raise AssertionError(f"toeplitz {shape} {ci}->{co} "
+                                         f"{dname} {name}: relative error "
+                                         f"{rel:.3e}")
+    x = torch.zeros((1, 2, 2, 8, 8), device="cuda")
+    w = torch.zeros((3, 3, 3, 8, 8), device="cuda")
+    for what, call in (("tile 3 for W=8", lambda: tc.toeplitz_conv3d(x, w, 3)),
+                       ("float16", lambda: tc.toeplitz_conv3d(
+                           x.half(), w.half(), 4))):
+        try:
+            call()
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"toeplitz conv took {what}")
+    return {"shapes": TOEPLITZ_EXTRA, "worst_rel_err": worst,
+            "launches": "1 per forward, 2 per forward+backward",
+            "refused": ["tile 3 for W=8", "float16"]}
+
+
+def ladder_phase(ml) -> list:
+    """The probe ladder on the card (the path: every rung, held against its
+    plain version, launches counted around it), then every rung's times:
+    ``ms`` by CUDA events over back-to-back calls (the wrapper's host work
+    included: the kernels take microseconds), ``device_ms`` the kernel's
+    own time in a profiler trace."""
+    import torch
+
+    inp = ml.inputs("cuda")
+    ml.reset_counters()
+    results = ml.run_all(inp)
+    launches = dict(ml.launches)
+    failed = [name for name, ok in results.items() if not ok]
+    if failed or not all(launches.values()):
+        raise AssertionError(f"ladder rungs failed: {failed}; launches "
+                             f"{launches}")
+    phase("ladder_path", rungs=len(results), launches=launches)
+
+    x27 = torch.stack([ml.views27(inp.x[s]) for s in range(ml.N)])
+    gram_a = torch.cat([x27[s, :, :ml.C].T for s in range(ml.N)], 1)
+    gram_b = x27.reshape(-1, 27 * ml.C)
+    fwd_x27 = ml.x27_fwd(inp.xt)
+    flat = {"x": inp.x.reshape(-1), "xt": inp.xt.reshape(-1)}
+    boxes = {"copy": ("x", ml.WHOLE), "cost_estimate": ("x", ml.WHOLE),
+             "manual_dma": ("x", ml.WHOLE), "dma_dyn_slot": ("x", ml.WHOLE),
+             "dma_when_guard": ("x", ml.WHOLE), "dma_pds_src": ("x", ml.PDS),
+             "dma_pds_src_offset": ("x", ml.PDS_OFF),
+             "dma_double_buffer": ("x", ml.PDS),
+             "lane_value_slice": ("xt", ml.LANE),
+             "minor_slice_reshape": ("xt", ml.RESH)}
+
+    def library(name):
+        if name in boxes:
+            src, b = boxes[name]
+            return lambda: torch.as_strided(
+                flat[src], (b.n, b.a, b.b, b.length), (b.sn, b.sa, b.sb, 1),
+                b.off).contiguous()
+        if name == "lane_concat27":
+            return lambda: inp.x[-1].unfold(0, 6, 1).unfold(1, 6, 1).unfold(
+                2, 6, 1).permute(4, 5, 6, 0, 1, 2, 3).reshape(216, 864)
+        if name in ("wide_dot_accum", "dw_skeleton"):
+            return lambda: torch.matmul(gram_a, gram_b)
+        return lambda: torch.matmul(inp.w2, fwd_x27)
+
+    cases = []
+    for name, rung, kernel in ml.RUNGS:
+        got, want = rung(inp), rung(inp, plain=True)
+        abs_err, rel = ml.rel_err(got, want)
+        out_bytes = got.numel() * got.element_size()
+        if kernel == "box_copy":
+            nbytes, flops = 2 * out_bytes, 0
+        elif kernel == "im2col27":
+            nbytes, flops = ml.SAMPLE * 2 + out_bytes, 0
+        elif kernel == "gram27":
+            nbytes = inp.x.numel() * 2 + out_bytes
+            flops = 2 * ml.C * 27 * ml.C * ml.V ** 3 * ml.N
+        else:
+            nbytes = (inp.w2.numel() + inp.xt.numel()) * 2 + out_bytes
+            flops = 2 * 8 * 27 * ml.CI * ml.DD * ml.H * ml.W * ml.N
+        t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS["bfloat16"]
+        case = {"rung": name, "kernel": kernel,
+                "replaces": LADDER_SITES[name],
+                "shape": list(got.shape), "dtype": str(got.dtype)[6:],
+                "max_err": rel, "max_abs_err": abs_err, "tol": ml.TOL[kernel],
+                "ms": cuda_ms(lambda rung=rung: rung(inp), 200, 5),
+                "device_ms": device_ms(lambda rung=rung: rung(inp),
+                                       f"{kernel}_kernel"),
+                "plain_ms": cuda_ms(lambda rung=rung: rung(inp, plain=True),
+                                    50, 2),
+                "library_ms": cuda_ms(library(name), 200, 5),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "launches": launches[kernel]}
+        phase("ladder_case", **case)
+        cases.append(case)
+    return cases
+
+
+def kernels_line(cases: list, conv_cases: list, launches: dict,
+                 toeplitz_cases: list, ladder_cases: list) -> dict:
     """One entry per kernel; the top-level numbers are the main path's
     case (attention: G placement, bf16, N=16; convs: 32ch@64^3, bf16,
-    N=16, the forward for the wide conv); every case is listed under
-    "cases". ``launches`` are the counts of the first
-    --wide_conv=on --fast_dw=on run. ``max_err`` is the largest error
+    N=16, the forward for the wide conv and K5; the ladder: the rung named
+    in LADDER_MAIN); every case is listed under "cases". ``launches`` are
+    the counts of each kernel's path: the first --wide_conv=on
+    --fast_dw=on run for K1-K4, the toeplitz_conv and probe_ladder phases'
+    runs for K5 and the ladder's kernels. ``max_err`` is the largest error
     relative to max |plain| over the compared outputs, the number held
     against ``tol``; ``max_abs_err`` is the largest absolute difference."""
     meta = (
@@ -494,6 +825,33 @@ def kernels_line(cases: list, conv_cases: list, launches: dict) -> dict:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "at": at, "cases": mine,
         })
+    k5 = next(c for c in toeplitz_cases
+              if c["dtype"] == "bfloat16" and (c["C"], c["S"]) == (32, 64))
+    out.append({
+        "name": "toeplitz_conv3d", "route": "cuda",
+        "source": "gan3d_tpu_torch/csrc/conv3d_toeplitz.cu",
+        "replaces": "gan3d_tpu/ops/pallas_conv.py:77",
+        "launches": k5["launches"], "max_err": k5["max_err"],
+        "tol": k5["tol"], "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
+        "at": "forward, bfloat16, N=16, Ci=Co=32, 64^3, T=4",
+        "cases": toeplitz_cases})
+    for kernel, rung in LADDER_MAIN.items():
+        mine = [c for c in ladder_cases if c["kernel"] == kernel]
+        main = next(c for c in mine if c["rung"] == rung)
+        out.append({
+            "name": f"ladder_{kernel}", "route": "cuda",
+            "source": "gan3d_tpu_torch/csrc/probe_ladder.cu",
+            "replaces": main["replaces"],
+            "replaces_all": [c["replaces"] for c in mine],
+            "launches": main["launches"], "max_err": main["max_err"],
+            "tol": main["tol"], "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "device_ms": main["device_ms"], "at": f"rung {rung}",
+            "cases": mine})
     return {"kernels": out}
 
 
@@ -710,9 +1068,11 @@ def main() -> int:
     from gan3d_tpu_torch.ops import cuda_build
     from gan3d_tpu_torch.ops import cuda_conv as cc
     from gan3d_tpu_torch.ops.attention import attention_plain
+    from gan3d_tpu_torch.probes import mosaic_ladder as ml
 
     t0 = time.time()
-    libs = cuda_build.build("pooled_attention", "conv3d_k3")
+    libs = cuda_build.build("pooled_attention", "conv3d_k3",
+                            "conv3d_toeplitz", "probe_ladder")
     ptxas = []
     for lib in libs:
         with open(os.path.join(os.path.dirname(lib), "ptxas.log")) as f:
@@ -731,10 +1091,16 @@ def main() -> int:
     phase("conv_extra", **conv_extra_checks(cc))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train = train_phase(ca, cc, tmp, shapes)
+    # the op-level paths after the train runs, which then see the card as
+    # the earlier phases leave it
+    toeplitz_cases = toeplitz_phase(cc)
+    phase("toeplitz_extra", **toeplitz_extra_checks(cc))
+    ladder_cases = ladder_phase(ml)
     first = next(runs[0] for name, _, runs in TRAIN_RUNS if name == KNOB_RUN)
     launches = train["%s/run_%d_%d" % (KNOB_RUN, first[1], first[0])][
         "launches"]
-    print(json.dumps(kernels_line(cases, conv_cases, launches)), flush=True)
+    print(json.dumps(kernels_line(cases, conv_cases, launches,
+                                  toeplitz_cases, ladder_cases)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

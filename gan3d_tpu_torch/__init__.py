@@ -3,6 +3,8 @@
 A package of its own beside ``gan3d_tpu`` (the JAX reference, which it
 never imports). Modules mirror the JAX package's layout. Layout is NCDHW;
 the entry points run on the CUDA card unless the config asks for the CPU
-(``platform="cpu"``). The pooled-attention kernels are hand-written CUDA
-(``csrc/pooled_attention.cu``), built with nvcc at first use.
+(``platform="cpu"``). Every Pallas kernel of the JAX package has a
+hand-written CUDA counterpart under ``csrc/`` (the pooled attention, the
+k3 convs, the W-Toeplitz conv, the probe ladder), built with nvcc at
+first use.
 """

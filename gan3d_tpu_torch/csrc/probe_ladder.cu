@@ -1,0 +1,474 @@
+// The Mosaic probe ladders as a Hopper probe ladder (sm_90a): the kernels
+// behind gan3d_tpu_torch/probes/mosaic_ladder.py. Each rung of
+// scripts/probe_mosaic.py and scripts/probe_mosaic2.py was a tiny Pallas
+// kernel adding one TPU construct (manual DMA, a computed slot, a guarded
+// start, partial and offset source slices, double buffering, the 27-view
+// concat, the wide dot); here each computes exactly what its Pallas kernel
+// computes, with the Hopper construct that plays the TPU construct's part.
+// Every operand is bf16 (raw 16-bit values for the copies).
+//
+// Kernels, and the pallas_call sites they replace:
+// - box_copy_kernel: a copy of a box of rows (contiguous in the source) of
+//   a tensor into a contiguous output. Direct mode: 16-byte loads where
+//   the rows allow it, else 2-byte ones (copy :48, cost_estimate :301;
+//   lane_value_slice probe_mosaic2.py:38, minor_slice_reshape :56). Bulk
+//   mode: one thread (the pl.when guard) arms an mbarrier with the box's
+//   bytes and issues one cp.async.bulk global->shared copy per row into a
+//   1- or 2-slot ring; the block waits on the barrier's phase, then
+//   writes the slot out (manual_dma :66, dma_dyn_slot :220, dma_when_guard
+//   :246, dma_pds_src :267, dma_pds_src_offset :289, dma_double_buffer
+//   :99, the last with one block walking both samples and the next
+//   sample's copy in flight while the current one is written).
+// - im2col27_kernel: the 27 shifted 6^3 views of one staged 8^3 x 32
+//   sample concatenated along the lanes into [216, 864] (lane_concat27
+//   :121).
+// - gram27_kernel: views[0]^T @ X27 summed over the samples, f32 [32, 864],
+//   on the tensor cores (mma.sync m16n8k16 bf16, f32 accumulation); the sum
+//   over the TPU's sequential grid is a loop inside the block, so the
+//   result does not depend on block order (wide_dot_accum :153 with the
+//   samples staged by plain loads; dw_skeleton :199 through the
+//   double-buffered bulk-copy ring).
+// - wide_fwd_kernel: per sample W2 [8, 432] @ X27 [432, 128] -> bf16
+//   [8, 128], the same tensor-core product (wide_fwd_skeleton
+//   probe_mosaic2.py:83).
+//
+// What bounds them: nothing at these sizes; a few microseconds of launch
+// each (the largest moves 373 KB, the largest product is 12 MFLOP). They
+// exist to hold each construct against a plain PyTorch version.
+// Each entry point returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for arguments it does not take.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// probe_mosaic.py's X: [2, 8, 8, 8, 32]; its 27 views are 6^3 boxes.
+constexpr int kS = 8, kC = 32, kV = 6;
+constexpr int kSample = kS * kS * kS * kC;          // 16384 values
+constexpr int kRows = kV * kV * kV;                  // 216
+constexpr int kCols = 27 * kC;                       // 864
+constexpr int kK = (kRows + 15) / 16 * 16;           // 224: K padded to 16
+// probe_mosaic2.py's XT [2, 16, 2, 10, 10] and W2 [8, 432].
+constexpr int kCi = 16, kDD = 2, kH = 8, kW = 8;
+constexpr int kXT = kCi * kDD * (kH + 2) * (kW + 2); // 3200 values
+constexpr int kM2 = 8, kK2 = 27 * kCi, kN2 = kDD * kH * kW;  // 8, 432, 128
+constexpr int kMaxSmem = 227 * 1024;
+
+struct Box {          // rows of `len` values at off + i*sn + j*sa + k*sb
+  long long off, sn, sa, sb;
+  int n, a, b, len;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// One bulk copy global -> shared, completing `bytes` on the barrier.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Barriers initialised by thread 0, made visible to the async proxy.
+__device__ __forceinline__ void init_barriers(uint64_t* bar, int count) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < count; ++s) mbar_init(bar + s);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Generic-proxy reads of a slot are done before the async proxy refills it.
+__device__ __forceinline__ void release_slot() {
+  __syncthreads();
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Thread 0: arm slot `slot` for sample `s` of the box and issue its rows.
+__device__ void issue_box(const uint16_t* src, const Box& bx, int s,
+                          unsigned char* ring, uint32_t slot_bytes,
+                          uint64_t* bar, int slot) {
+  const uint32_t row_bytes = (uint32_t)bx.len * 2;
+  const int rows = bx.a * bx.b;
+  mbar_expect_tx(bar + slot, row_bytes * rows);
+  unsigned char* dst = ring + (size_t)slot * slot_bytes;
+  for (int r = 0; r < rows; ++r) {
+    const long long at = bx.off + s * bx.sn + (long long)(r / bx.b) * bx.sa +
+                         (long long)(r % bx.b) * bx.sb;
+    bulk_copy(dst + (size_t)r * row_bytes, src + at, row_bytes, bar + slot);
+  }
+}
+
+// Copy `bytes` (a multiple of 16) from shared to global memory.
+__device__ __forceinline__ void store16(const unsigned char* from, void* to,
+                                        uint32_t bytes) {
+  const uint4* f = reinterpret_cast<const uint4*>(from);
+  uint4* o = reinterpret_cast<uint4*>(to);
+  for (uint32_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) o[i] = f[i];
+}
+
+// ---------------------------------------------------------------------------
+// box copy: grid bx.n / walk blocks, block b handles samples
+// [b*walk, (b+1)*walk). Output [n][a][b][len], contiguous.
+template <bool kBulk>
+__global__ void box_copy_kernel(const uint16_t* __restrict__ src,
+                                uint16_t* __restrict__ out, Box bx, int walk,
+                                int slots, int vec) {
+  const int rows = bx.a * bx.b;
+  const long long box = (long long)rows * bx.len;
+  const int s0 = blockIdx.x * walk;
+  if (!kBulk) {
+    for (int j = 0; j < walk; ++j) {
+      const int s = s0 + j;
+      uint16_t* o = out + s * box;
+      if (vec) {  // rows and offsets in whole 16-byte units
+        const int per_row = bx.len / 8;
+        for (long long i = threadIdx.x; i < box / 8; i += blockDim.x) {
+          const int r = (int)(i / per_row), e = (int)(i % per_row) * 8;
+          const long long at = bx.off + s * bx.sn +
+                               (long long)(r / bx.b) * bx.sa +
+                               (long long)(r % bx.b) * bx.sb + e;
+          reinterpret_cast<uint4*>(o)[i] =
+              *reinterpret_cast<const uint4*>(src + at);
+        }
+      } else {
+        for (long long i = threadIdx.x; i < box; i += blockDim.x) {
+          const int r = (int)(i / bx.len), e = (int)(i % bx.len);
+          o[i] = src[bx.off + s * bx.sn + (long long)(r / bx.b) * bx.sa +
+                     (long long)(r % bx.b) * bx.sb + e];
+        }
+      }
+    }
+    return;
+  }
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* ring = smem + 128;
+  const uint32_t box_bytes = (uint32_t)box * 2;
+  const uint32_t slot_bytes = (box_bytes + 127) & ~127u;
+  init_barriers(bar, slots);
+  if (threadIdx.x == 0)
+    issue_box(src, bx, s0, ring, slot_bytes, bar, s0 % slots);
+  for (int j = 0; j < walk; ++j) {
+    const int s = s0 + j, slot = s % slots;
+    // double buffering: the next sample's copy goes into the other slot
+    // before this one is waited for
+    if (slots == 2 && j + 1 < walk && threadIdx.x == 0)
+      issue_box(src, bx, s + 1, ring, slot_bytes, bar, (s + 1) % slots);
+    mbar_wait(bar + slot, (uint32_t)(j / slots) & 1);
+    store16(ring + (size_t)slot * slot_bytes, out + s * box, box_bytes);
+    release_slot();
+    if (slots == 1 && j + 1 < walk && threadIdx.x == 0)
+      issue_box(src, bx, s + 1, ring, slot_bytes, bar, 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// im2col27: grid 27 (one tap each), out[r, tap*32 + c] =
+// x[sample, kd + r/36, kh + (r/6)%6, kw + r%6, c]. The sample is staged in
+// shared memory with 16-byte loads; each thread writes 8 channels at once.
+__global__ void im2col27_kernel(const uint16_t* __restrict__ x,
+                                uint16_t* __restrict__ out, int sample) {
+  __shared__ uint4 xs[kSample / 8];
+  const uint4* xn = reinterpret_cast<const uint4*>(x + (long long)sample *
+                                                           kSample);
+  for (int i = threadIdx.x; i < kSample / 8; i += blockDim.x) xs[i] = xn[i];
+  __syncthreads();
+  const int tap = blockIdx.x;
+  const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+  for (int i = threadIdx.x; i < kRows * (kC / 8); i += blockDim.x) {
+    const int r = i / (kC / 8), c8 = i % (kC / 8);
+    const int pos = ((kd + r / 36) * kS + kh + (r / 6) % 6) * kS + kw + r % 6;
+    reinterpret_cast<uint4*>(out + (long long)r * kCols + tap * kC)[c8] =
+        xs[pos * (kC / 8) + c8];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core helpers: D = A B + D on a 16x8x16 tile, bf16 in, f32 out.
+// Fragments (PTX ISA, mma.m16n8k16): with g = lane/4, q = lane%4,
+//   A regs 0..3: (row g, cols 2q..2q+1), (g+8, 2q..), (g, 2q+8..), (g+8, 2q+8..)
+//   B regs 0..1: (rows 2q..2q+1, col g), (rows 2q+8..2q+9, col g)
+//   D 0..3:      (g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1)
+// a register holds the lower column (row, for B) in its low 16 bits.
+__device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Position (d, h, w) of row r of the 6^3 view at shift (kd, kh, kw), as a
+// flat index into an 8^3 sample; rows past the last give -1 (zero).
+__device__ __forceinline__ int view_pos(int r, int kd, int kh, int kw) {
+  if (r >= kRows) return -1;
+  return ((kd + r / 36) * kS + kh + (r / 6) % 6) * kS + kw + r % 6;
+}
+
+// ---------------------------------------------------------------------------
+// gram27: grid 27 (output columns tap*32 .. +32), 4 warps; warp w computes
+// columns tap*32 + w*8 .. +8 for all 32 rows (two m16 tiles), summing over
+// the samples in order. out[m, tap*32 + c] =
+//   sum_s sum_r x[s, view_pos(r, 0,0,0), m] x[s, view_pos(r, tap), c].
+// Staging: plain 16-byte loads into one slot, or (kBulk) one bulk copy per
+// sample into a 2-slot ring with the next sample's copy in flight.
+template <bool kBulk>
+__global__ void __launch_bounds__(128)
+gram27_kernel(const uint16_t* __restrict__ x, float* __restrict__ out,
+              int nsamples) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* ring = smem + 128;
+  constexpr uint32_t kBytes = kSample * 2;
+  const int tap = blockIdx.x;
+  const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int col = warp * 8 + g;              // B column: channel of the tap
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+
+  if (kBulk) {
+    init_barriers(bar, 2);
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar, kBytes);
+      bulk_copy(ring, x, kBytes, bar);
+    }
+  }
+  for (int s = 0; s < nsamples; ++s) {
+    const int slot = kBulk ? s % 2 : 0;
+    const uint16_t* xs =
+        reinterpret_cast<const uint16_t*>(ring + (size_t)slot * kBytes);
+    if (kBulk) {
+      if (s + 1 < nsamples && threadIdx.x == 0) {
+        uint64_t* nb = bar + (s + 1) % 2;
+        mbar_expect_tx(nb, kBytes);
+        bulk_copy(ring + (size_t)((s + 1) % 2) * kBytes,
+                  x + (long long)(s + 1) * kSample, kBytes, nb);
+      }
+      mbar_wait(bar + slot, (uint32_t)(s / 2) & 1);
+    } else {
+      const uint4* src =
+          reinterpret_cast<const uint4*>(x + (long long)s * kSample);
+      uint4* dst = reinterpret_cast<uint4*>(ring);
+      for (int i = threadIdx.x; i < kSample / 8; i += blockDim.x)
+        dst[i] = src[i];
+      __syncthreads();
+    }
+    for (int k0 = 0; k0 < kK; k0 += 16) {
+      // B: rows k0 + 2q (+1, +8, +9) of the tap's view, column `col`
+      uint16_t bv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = view_pos(k0 + 2 * q + (e & 1) + (e >> 1) * 8, kd, kh, kw);
+        bv[e] = p < 0 ? 0 : xs[p * kC + col];
+      }
+      const uint32_t b[2] = {pack(bv[0], bv[1]), pack(bv[2], bv[3])};
+      // A = views[0]^T: A[m, k] = x[view_pos(k, 0, 0, 0), m]
+      int pk[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pk[e] = view_pos(k0 + 2 * q + (e & 1) + (e >> 1) * 8, 0, 0, 0);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint16_t av[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          // e: bit 0 column pair, bit 1 row +8, bit 2 column +8
+          const int m = mt * 16 + g + ((e >> 1) & 1) * 8;
+          const int p = pk[(e & 1) + ((e >> 2) & 1) * 2];
+          av[e] = p < 0 ? 0 : xs[p * kC + m];
+        }
+        const uint32_t a[4] = {pack(av[0], av[1]), pack(av[2], av[3]),
+                               pack(av[4], av[5]), pack(av[6], av[7])};
+        mma_bf16(acc[mt], a, b);
+      }
+    }
+    release_slot();
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = mt * 16 + g + (e >> 1) * 8;
+      const int c = tap * kC + warp * 8 + 2 * q + (e & 1);
+      out[m * kCols + c] = acc[mt][e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide_fwd: grid nsamples, 4 warps; warp w computes columns w*32 .. +32
+// (4 n8 tiles) of out[s] = W2 [8, 432] @ X27 [432, 128], X27[tap*16 + ci,
+// (dd*8 + h)*8 + w] = xt[s, ci, dd, kh + h, kw + w]; K steps of 16 are the
+// 27 taps. A's rows 8..15 are zero; out is bf16 [nsamples, 8, 128].
+__global__ void __launch_bounds__(128)
+wide_fwd_kernel(const uint16_t* __restrict__ w2,
+                const uint16_t* __restrict__ xt, uint16_t* __restrict__ out) {
+  __shared__ uint16_t ws[kM2 * kK2];
+  __shared__ uint16_t xs[kXT];
+  const int s = blockIdx.x;
+  for (int i = threadIdx.x; i < kM2 * kK2; i += blockDim.x) ws[i] = w2[i];
+  for (int i = threadIdx.x; i < kXT; i += blockDim.x)
+    xs[i] = xt[(long long)s * kXT + i];
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4;
+  float acc[4][4] = {};
+  for (int tap = 0; tap < 27; ++tap) {
+    const int kh = (tap / 3) % 3, kw = tap % 3;
+    const int k0 = tap * kCi;
+    // A: row g of W2 (rows 8..15 are zero)
+    const uint32_t a[4] = {
+        pack(ws[g * kK2 + k0 + 2 * q], ws[g * kK2 + k0 + 2 * q + 1]), 0u,
+        pack(ws[g * kK2 + k0 + 2 * q + 8], ws[g * kK2 + k0 + 2 * q + 9]), 0u};
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = warp * 32 + nt * 8 + g;
+      const int dd = n / (kH * kW), h = (n / kW) % kH, w = n % kW;
+      uint16_t bv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = 2 * q + (e & 1) + (e >> 1) * 8;
+        bv[e] = xs[((ci * kDD + dd) * (kH + 2) + kh + h) * (kW + 2) + kw + w];
+      }
+      const uint32_t b[2] = {pack(bv[0], bv[1]), pack(bv[2], bv[3])};
+      mma_bf16(acc[nt], a, b);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {  // rows g (< 8); rows g + 8 are padding
+      const int n = warp * 32 + nt * 8 + 2 * q + e;
+      out[((long long)s * kM2 + g) * kN2 + n] =
+          __bfloat16_as_ushort(__float2bfloat16_rn(acc[nt][e]));
+    }
+  }
+}
+
+bool smem_ok(const void* kernel, size_t bytes) {
+  if (bytes > (size_t)kMaxSmem) return false;
+  if (bytes <= 48 * 1024) return true;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes) == cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// out [n, a, b, len] = the box of src (bf16 values); mode 0: direct loads
+// (vec 1: 16-byte ones), mode 1: bulk copies into a ring of `slots` (1 or
+// 2) slots, each block walking `walk` samples.
+int ladder_box(const void* src, void* out, long long off, long long sn,
+               long long sa, long long sb, int n, int a, int b, int len,
+               int walk, int slots, int mode, int vec, void* stream) {
+  if (n < 1 || a < 1 || b < 1 || len < 1 || walk < 1 || n % walk ||
+      slots < 1 || slots > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Box bx{off, sn, sa, sb, n, a, b, len};
+  const uint16_t* s = static_cast<const uint16_t*>(src);
+  uint16_t* o = static_cast<uint16_t*>(out);
+  if (mode == 0) {
+    if (vec && (len % 8 || off % 8 || sn % 8 || sa % 8 || sb % 8))
+      return (int)cudaErrorInvalidValue;
+    box_copy_kernel<false><<<n / walk, 256, 0, st>>>(s, o, bx, walk, slots,
+                                                      vec);
+    return (int)cudaGetLastError();
+  }
+  if (mode != 1 || (len * 2) % 16 || (off * 2) % 16 || (sn * 2) % 16 ||
+      (sa * 2) % 16 || (sb * 2) % 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t slot_bytes = ((size_t)a * b * len * 2 + 127) & ~(size_t)127;
+  const size_t smem = 128 + slots * slot_bytes;
+  if (!smem_ok((const void*)box_copy_kernel<true>, smem))
+    return (int)cudaErrorInvalidValue;
+  box_copy_kernel<true><<<n / walk, 256, smem, st>>>(s, o, bx, walk, slots, 0);
+  return (int)cudaGetLastError();
+}
+
+// out [216, 864] = the 27 views of x[sample] ([2, 8, 8, 8, 32] bf16).
+int ladder_im2col(const void* x, void* out, int sample, void* stream) {
+  if (sample < 0) return (int)cudaErrorInvalidValue;
+  im2col27_kernel<<<27, 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), sample);
+  return (int)cudaGetLastError();
+}
+
+// out [32, 864] f32 = sum over the nsamples samples of x ([n, 8, 8, 8, 32]
+// bf16) of views[0]^T @ X27; mode 0: plain staging, 1: bulk-copy ring.
+int ladder_gram(const void* x, void* out, int nsamples, int mode,
+                void* stream) {
+  if (nsamples < 1 || (mode != 0 && mode != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = 128 + (mode ? 2 : 1) * (size_t)kSample * 2;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint16_t* xs = static_cast<const uint16_t*>(x);
+  float* o = static_cast<float*>(out);
+  if (mode == 0) {
+    if (!smem_ok((const void*)gram27_kernel<false>, smem))
+      return (int)cudaErrorInvalidValue;
+    gram27_kernel<false><<<27, 128, smem, st>>>(xs, o, nsamples);
+  } else {
+    if (!smem_ok((const void*)gram27_kernel<true>, smem))
+      return (int)cudaErrorInvalidValue;
+    gram27_kernel<true><<<27, 128, smem, st>>>(xs, o, nsamples);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out [nsamples, 8, 128] bf16 = W2 [8, 432] @ X27 of each xt sample
+// ([n, 16, 2, 10, 10] bf16).
+int ladder_wide_fwd(const void* w2, const void* xt, void* out, int nsamples,
+                    void* stream) {
+  if (nsamples < 1) return (int)cudaErrorInvalidValue;
+  wide_fwd_kernel<<<nsamples, 128, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint16_t*>(w2), static_cast<const uint16_t*>(xt),
+      static_cast<uint16_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,1 +1,2 @@
-"""Ops: pooling helpers, the pooled-attention op and its CUDA kernels."""
+"""Ops: pooling helpers, the pooled-attention op, the k3 convs and the
+W-Toeplitz conv, with their CUDA kernels."""

@@ -1,19 +1,23 @@
 """The k3 conv kernels: tiling, binding and autograd wrappers.
 
-The kernels live in ``gan3d_tpu_torch/csrc/conv3d_k3.cu`` (its header says
-which TPU kernels they replace and what bounds them); ``ops/cuda_build.py``
-compiles them at first use and they are called through ``ctypes`` on
-PyTorch's current stream:
+The kernels live in ``gan3d_tpu_torch/csrc/conv3d_k3.cu`` and
+``csrc/conv3d_toeplitz.cu`` (their headers say which TPU kernels they
+replace and what bounds them); ``ops/cuda_build.py`` compiles them at
+first use and they are called through ``ctypes`` on PyTorch's current
+stream:
 
 - ``wide_conv3d_cuda(x, w)``: the wide-N k3/s1/p1 conv (K4), used for the
   forward and, with spatially flipped, in/out-swapped weights, for dx;
 - ``conv3d_dw_cuda(x, g)``: its weight gradient (K3), split-K partials
   summed in a fixed order by a second kernel, so a repeated dW is
-  bit-identical.
+  bit-identical;
+- ``toeplitz_conv3d_cuda(x, w)``: the direct k3/s1/p1 conv in the JAX
+  op's channels-last layout (K5), the conv of ``ops/toeplitz_conv.py``.
 
-The tiling of each launch (``wide_plan``, ``dw_plan``) is chosen here, so
-the CPU tests reach it. Two ``autograd.Function``s carry the routes of
-``ops/conv3d.conv3d``, counterparts of the JAX custom VJPs:
+The tiling of each launch (``wide_plan``, ``dw_plan``, ``toeplitz_plan``)
+is chosen here, so the CPU tests reach it. Two ``autograd.Function``s
+carry the routes of ``ops/conv3d.conv3d``, counterparts of the JAX custom
+VJPs (K5's is ``ops/toeplitz_conv.py:ToeplitzConv3d``):
 - ``WideConv3d`` (wide_conv.py:190-210): forward K4, dx K4, dW K3 cast to
   w's dtype;
 - ``Conv3dK3Dw`` (dw_conv.py:227-253): forward ``F.conv3d`` and dx the
@@ -22,14 +26,15 @@ On a CPU tensor both run the plain versions of ``ops/conv3d.py`` in the
 kernels' place; on a CUDA tensor they run the kernels, which raise on a
 dtype or shape they do not take. Nothing falls back.
 
-``wide_launches`` / ``dw_launches`` count the wrappers' launches.
+``wide_launches`` / ``dw_launches`` / ``toeplitz_launches`` count the
+wrappers' launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,18 +50,23 @@ WIDE_MAX_CO_GROUPS = 4     # K4: co groups (8 channels each) per block
 DW_BOX = 128               # K3: output positions per staged box
 DW_CI, DW_CO = 16, 32      # K3: channels per block (csrc kDwCi / kDwCo)
 DW_BLOCKS_PER_SM = 2       # K3: resident 432-thread blocks per SM
+TOEPLITZ_THREADS = 256     # K5: most threads per block (csrc kMaxThreads)
+TOEPLITZ_CI = 8            # K5: input channels per stage (csrc kCi)
+TOEPLITZ_SMEM = 96 << 10   # K5: shared-memory budget of one block
 
 wide_launches = 0
 dw_launches = 0
+toeplitz_launches = 0
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
 def reset_counters() -> None:
-    global wide_launches, dw_launches
+    global wide_launches, dw_launches, toeplitz_launches
     wide_launches = 0
     dw_launches = 0
+    toeplitz_launches = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -94,18 +104,48 @@ def dw_plan(n: int, ci: int, co: int, d: int, h: int, w: int
     return td, th, tw, p
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def toeplitz_smem(bh: int, wg: int, cg: int) -> int:
+    """Shared-memory bytes of a K5 block: the staged 3-row slab (rows of
+    4*wg + 2 columns rounded up to 4) and the chunk's weights, f32."""
+    row = (4 * wg + 2 + 3) & ~3
+    return 4 * TOEPLITZ_CI * (3 * (bh + 2) * row + 27 * 8 * cg)
+
+
+def toeplitz_plan(n: int, d: int, h: int, w: int, co: int
+                  ) -> Tuple[int, int, int]:
+    """K5 tiling (bh, wg, cg): a block computes bh rows x 4*wg columns of
+    one (n, d) for cg groups of 8 output channels, a thread 4 columns x 8
+    channels; at most TOEPLITZ_THREADS threads and TOEPLITZ_SMEM bytes.
+    Groups are halved while the grid has fewer blocks than the card has
+    SMs."""
+    cg = min(_cdiv(co, 8), 4)
+    wg = min(_cdiv(w, 4), 16)
+    bh = min(h, max(1, TOEPLITZ_THREADS // (cg * wg)))
+    while bh > 1 and toeplitz_smem(bh, wg, cg) > TOEPLITZ_SMEM:
+        bh = _cdiv(bh, 2)
+    tiles = n * d * _cdiv(h, bh) * _cdiv(w, 4 * wg)
+    while cg > 1 and tiles * _cdiv(co, 8 * cg) < SMS:
+        cg //= 2
+    return bh, wg, cg
+
+
+# library -> entry point -> (pointer arguments, int arguments); each entry
+# point also takes the stream and returns a cudaError_t.
+_SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 11), "k3_dw": (4, 11)},
+               "conv3d_toeplitz": {"k3_toeplitz": (3, 10)}}
+
+
+def _load(name: str) -> ctypes.CDLL:
     with _lib_lock:
-        if _lib is None:
-            lib = cuda_build.load("conv3d_k3")
+        if name not in _libs:
+            lib = cuda_build.load(name)
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.k3_wide.argtypes = [p, p, p] + [i] * 11 + [p]
-            lib.k3_wide.restype = i
-            lib.k3_dw.argtypes = [p, p, p, p] + [i] * 11 + [p]
-            lib.k3_dw.restype = i
-            _lib = lib
-    return _lib
+            for entry, (ptrs, ints) in _SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = [p] * ptrs + [i] * ints + [p]
+                fn.restype = i
+            _libs[name] = lib
+    return _libs[name]
 
 
 def _check(x: torch.Tensor, other: torch.Tensor, name: str) -> None:
@@ -156,9 +196,9 @@ def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     td, th, tw, cg = wide_plan(n, co, d, h, wd)
     out = torch.empty((n, co, d, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = _load().k3_wide(_ptr(x), _ptr(w), _ptr(out), n, ci, co, d, h,
-                              wd, td, th, tw, cg, _DTYPE_CODE[x.dtype],
-                              _stream(x))
+        err = _load("conv3d_k3").k3_wide(
+            _ptr(x), _ptr(w), _ptr(out), n, ci, co, d, h, wd, td, th, tw, cg,
+            _DTYPE_CODE[x.dtype], _stream(x))
     _raise_if(err, "wide")
     wide_launches += 1
     return out
@@ -180,12 +220,34 @@ def conv3d_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     part = torch.empty((p, co, ci * 27), dtype=torch.float32, device=x.device)
     dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _load().k3_dw(_ptr(x), _ptr(g), _ptr(part), _ptr(dw), n, ci,
-                            co, d, h, wd, td, th, tw, p,
-                            _DTYPE_CODE[x.dtype], _stream(x))
+        err = _load("conv3d_k3").k3_dw(
+            _ptr(x), _ptr(g), _ptr(part), _ptr(dw), n, ci, co, d, h, wd, td,
+            th, tw, p, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_if(err, "dW")
     dw_launches += 1
     return dw
+
+
+def toeplitz_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K5: k3/s1/p1 conv of x [N,D,H,W,Ci] with w [3,3,3,Ci,Co] (same
+    dtype), f32 accumulation; [N,D,H,W,Co] in x's dtype."""
+    global toeplitz_launches
+    x, w = x.contiguous(), w.contiguous()
+    _check(x, w, "weight")
+    n, d, h, wd, ci = x.shape
+    co = w.shape[4]
+    if tuple(w.shape) != (3, 3, 3, ci, co):
+        raise ValueError(f"toeplitz conv kernel: weight {tuple(w.shape)} is "
+                         f"not [3, 3, 3, {ci}, Co]")
+    bh, wg, cg = toeplitz_plan(n, d, h, wd, co)
+    out = torch.empty((n, d, h, wd, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _load("conv3d_toeplitz").k3_toeplitz(
+            _ptr(x), _ptr(w), _ptr(out), n, d, h, wd, ci, co, bh, wg, cg,
+            _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_if(err, "toeplitz")
+    toeplitz_launches += 1
+    return out
 
 
 def _wide(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

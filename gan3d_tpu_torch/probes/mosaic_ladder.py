@@ -1,0 +1,416 @@
+"""The Mosaic probe ladders as a Hopper probe ladder.
+
+Counterpart of scripts/probe_mosaic.py (its rungs' ``pl.pallas_call`` at
+t_copy :48, t_dma :66, t_dma2 :99, t_concat :121, t_dot :153, t_full :199,
+t_dslot :220, t_when :246, t_pds :267, t_pds_off :289, t_cost :301;
+``run`` :23-35) and scripts/probe_mosaic2.py (t_lane :38, t_resh :56,
+t_fwd :83). Each JAX rung was a tiny Pallas kernel adding one TPU
+construct; each rung here computes exactly what its Pallas kernel
+computes, on the same inputs (``X`` of
+probe_mosaic.py:38-39, ``XT`` / ``W2`` of probe_mosaic2.py:23-27, from the
+same numpy seeds), through one of four hand-written kernels in
+``gan3d_tpu_torch/csrc/probe_ladder.cu`` that plays the TPU construct's
+part (the file's header says which):
+
+- box_copy: copy, cost_estimate (``CostEstimate`` has no CUDA counterpart:
+  the copy kernel), lane_value_slice and minor_slice_reshape by direct
+  loads; manual_dma, dma_dyn_slot, dma_when_guard, dma_pds_src,
+  dma_pds_src_offset and dma_double_buffer by bulk async copies completed
+  on an mbarrier, into a 1- or 2-slot ring;
+- im2col27: lane_concat27;
+- gram27: wide_dot_accum and dw_skeleton (staged through the
+  double-buffered bulk-copy ring), bf16 tensor-core products, f32 sums;
+- wide_fwd: wide_fwd_skeleton.
+
+The output ``BlockSpec`` of t_concat, t_dot, t_full and t_resh maps every
+grid step to block (0, 0). On the TPU's sequential grid concat and resh
+therefore return the last sample's values and dot and full the sum over
+both samples; the rungs here compute exactly that.
+
+Each rung ``t_*(inp, plain=False)`` dispatches as the port does: CPU
+tensors go to the kernel's plain PyTorch version, CUDA tensors to the
+kernel, which raises on what it does not take; ``plain=True`` asks for the
+plain version explicitly (the card's comparisons). ``launches`` counts
+each kernel's launches. ``run(name, fn)`` reports ``name OK (val)`` or
+``FAIL ...`` and goes on; ``main()`` (``python -m
+gan3d_tpu_torch.probes.mosaic_ladder``) runs every rung on the card, holds
+it against its plain version, and exits 1 if any rung fails. It raises
+when there is no CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import sys
+import threading
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gan3d_tpu_torch.ops import cuda_build
+from gan3d_tpu_torch.utils.platform import resolve_device
+
+# probe_mosaic.py's X [2, 8, 8, 8, 32] and its 27 shifted 6^3 views
+N, S, C, V = 2, 8, 32, 6
+# probe_mosaic2.py: channels-first padded samples XT [2, CI, DD, H+2, W+2]
+CI, DD, H, W = 16, 2, 8, 8
+TAPS = [(t // 9, (t // 3) % 3, t % 3) for t in range(27)]
+KERNELS = ("box_copy", "im2col27", "gram27", "wide_fwd")
+# Tolerance per kernel, as max |kernel - plain| / max |plain|: copies are
+# bit-equal; the products sum bf16 products in f32 in another order (f32
+# outputs), or round the f32 sum to bf16 (2^-8 relative).
+TOL = {"box_copy": 0.0, "im2col27": 0.0, "gram27": 1e-5, "wide_fwd": 2e-2}
+
+launches = {k: 0 for k in KERNELS}
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def reset_counters() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+class Inputs(NamedTuple):
+    x: torch.Tensor    # [2, 8, 8, 8, 32] bf16
+    xt: torch.Tensor   # [2, 16, 2, 10, 10] bf16
+    w2: torch.Tensor   # [8, 432] bf16
+
+
+def inputs(device) -> Inputs:
+    """The probes' inputs from their numpy seeds (f64 rounded to bf16)."""
+    arrays = (np.random.default_rng(0).normal(size=(N, S, S, S, C)),
+              np.random.default_rng(0).normal(size=(2, CI, DD, H + 2, W + 2)),
+              np.random.default_rng(1).normal(size=(8, 27 * CI)))
+    return Inputs(*(torch.from_numpy(a).to(device, torch.bfloat16)
+                    for a in arrays))
+
+
+class Box(NamedTuple):
+    """Rows of ``length`` contiguous values at element offset
+    off + i*sn + j*sa + k*sb, i < n, j < a, k < b; copied to [n, a, b,
+    length]."""
+    off: int
+    n: int
+    a: int
+    b: int
+    length: int
+    sn: int
+    sa: int
+    sb: int
+
+
+SAMPLE = S * S * S * C
+XT_SAMPLE = CI * DD * (H + 2) * (W + 2)
+WHOLE = Box(0, N, 1, 1, SAMPLE, SAMPLE, 0, 0)                # x[i]
+PDS = Box(0, N, 6, 6, S * C, SAMPLE, S * S * C, S * C)      # x[i, :6, :6]
+# x[i, 1:7, 1:7, 2:8]: rows of 6*32 values starting 128 bytes in
+PDS_OFF = Box(S * S * C + S * C + 2 * C, N, 6, 6, 6 * C, SAMPLE, S * S * C,
+              S * C)
+# xt[i, :, :, :, 1:9]: (ci, dd) merge into one axis of stride 100
+LANE = Box(1, 2, CI * DD, H + 2, W, XT_SAMPLE, (H + 2) * (W + 2), W + 2)
+# xt[last, :, :, 1:9, 2:10]
+RESH = Box(XT_SAMPLE + (W + 2) + 2, 1, CI * DD, H, W, XT_SAMPLE,
+           (H + 2) * (W + 2), W + 2)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def box_plain(src: torch.Tensor, box: Box) -> torch.Tensor:
+    """The box as a gather by the kernel's index arithmetic."""
+    dev = src.device
+    i, j, k, e = (torch.arange(m, device=dev) for m in
+                  (box.n, box.a, box.b, box.length))
+    idx = (box.off + i[:, None, None, None] * box.sn
+           + j[None, :, None, None] * box.sa
+           + k[None, None, :, None] * box.sb + e[None, None, None, :])
+    return src.reshape(-1)[idx]
+
+
+def views27(sample: torch.Tensor) -> torch.Tensor:
+    """X27 [216, 864] of one [8, 8, 8, 32] sample: the 27 shifted 6^3
+    views, each [216, 32], concatenated along the lanes (probe_mosaic.py
+    :111-117)."""
+    return torch.cat([sample[kd:kd + V, kh:kh + V, kw:kw + V].reshape(-1, C)
+                      for kd, kh, kw in TAPS], dim=1)
+
+
+def im2col27_plain(x: torch.Tensor) -> torch.Tensor:
+    return views27(x[-1])
+
+
+def gram27_plain(x: torch.Tensor) -> torch.Tensor:
+    """sum over samples of views[0]^T @ X27, f32 [32, 864]."""
+    out = torch.zeros((C, 27 * C), dtype=torch.float32, device=x.device)
+    for s in range(x.shape[0]):
+        v = views27(x[s]).float()
+        out += v[:, :C].T @ v
+    return out
+
+
+def x27_fwd(xt: torch.Tensor) -> torch.Tensor:
+    """[n, 432, 128]: row tap*16 + ci, column (dd*8 + h)*8 + w, the views
+    xt[:, ci, dd, kh + h, kw + w] (probe_mosaic2.py:69-75; every kd reads
+    the same xt)."""
+    n = xt.shape[0]
+    return torch.cat([xt[:, :, :, kh:kh + H, kw:kw + W].reshape(n, CI, -1)
+                      for _, kh, kw in TAPS], dim=1)
+
+
+def wide_fwd_plain(w2: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    return (w2.float() @ x27_fwd(xt).float()).to(xt.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernels
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = cuda_build.load("probe_ladder")
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.ladder_box.argtypes = [p, p] + [ll] * 4 + [i] * 8 + [p]
+            lib.ladder_im2col.argtypes = [p, p, i, p]
+            lib.ladder_gram.argtypes = [p, p, i, i, p]
+            lib.ladder_wide_fwd.argtypes = [p, p, p, i, p]
+            for fn in (lib.ladder_box, lib.ladder_im2col, lib.ladder_gram,
+                       lib.ladder_wide_fwd):
+                fn.restype = i
+            _lib = lib
+    return _lib
+
+
+def _check(kernel: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.bfloat16 \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kernel} kernel: want contiguous, 16-byte "
+                             f"aligned bf16 CUDA tensors; got {t.dtype} on "
+                             f"{t.device}")
+
+
+def _call(kernel: str, fn, *args) -> None:
+    with torch.cuda.device(args[0].device):
+        err = fn(*(ctypes.c_void_p(a.data_ptr())
+                   if isinstance(a, torch.Tensor) else a for a in args),
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+    launches[kernel] += 1
+
+
+def box_copy_cuda(src: torch.Tensor, box: Box, walk: int = 1,
+                  slots: int = 1, bulk: bool = False) -> torch.Tensor:
+    """[n, a, b, length] copy of the box: direct loads, or bulk copies into
+    a ring of ``slots`` slots with each block walking ``walk`` samples."""
+    _check("box_copy", src)
+    last = (box.off + (box.n - 1) * box.sn + (box.a - 1) * box.sa
+            + (box.b - 1) * box.sb + box.length)
+    if min(box.off, box.sn, box.sa, box.sb) < 0 or last > src.numel():
+        raise ValueError(f"box_copy kernel: {box} leaves the source "
+                         f"({src.numel()} values)")
+    vec = int(all(v % 8 == 0 for v in (box.off, box.length, box.sn, box.sa,
+                                       box.sb)))
+    out = torch.empty((box.n, box.a, box.b, box.length), dtype=src.dtype,
+                      device=src.device)
+    _call("box_copy", _load().ladder_box, src, out, box.off, box.sn, box.sa,
+          box.sb, box.n, box.a, box.b, box.length, walk, slots, int(bulk),
+          vec)
+    return out
+
+
+def im2col27_cuda(x: torch.Tensor) -> torch.Tensor:
+    """X27 [216, 864] of the last sample of x [n, 8, 8, 8, 32]."""
+    _check("im2col27", x)
+    if tuple(x.shape[1:]) != (S, S, S, C):
+        raise ValueError(f"im2col27 kernel: x {tuple(x.shape)} is not "
+                         f"[n, {S}, {S}, {S}, {C}]")
+    out = torch.empty((V ** 3, 27 * C), dtype=x.dtype, device=x.device)
+    _call("im2col27", _load().ladder_im2col, x, out, x.shape[0] - 1)
+    return out
+
+
+def gram27_cuda(x: torch.Tensor, bulk: bool = False) -> torch.Tensor:
+    """sum over the samples of x [n, 8, 8, 8, 32] of views[0]^T @ X27,
+    f32 [32, 864]."""
+    _check("gram27", x)
+    if tuple(x.shape[1:]) != (S, S, S, C):
+        raise ValueError(f"gram27 kernel: x {tuple(x.shape)} is not "
+                         f"[n, {S}, {S}, {S}, {C}]")
+    out = torch.empty((C, 27 * C), dtype=torch.float32, device=x.device)
+    _call("gram27", _load().ladder_gram, x, out, x.shape[0], int(bulk))
+    return out
+
+
+def wide_fwd_cuda(w2: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """W2 [8, 432] @ X27 of each sample of xt [n, 16, 2, 10, 10] ->
+    bf16 [n, 8, 128]."""
+    _check("wide_fwd", w2, xt)
+    if tuple(w2.shape) != (8, 27 * CI) \
+            or tuple(xt.shape[1:]) != (CI, DD, H + 2, W + 2):
+        raise ValueError(f"wide_fwd kernel: w2 {tuple(w2.shape)}, xt "
+                         f"{tuple(xt.shape)}")
+    out = torch.empty((xt.shape[0], 8, DD * H * W), dtype=xt.dtype,
+                      device=xt.device)
+    _call("wide_fwd", _load().ladder_wide_fwd, w2, xt, out, xt.shape[0])
+    return out
+
+
+def _dispatch(cuda_fn: Callable, plain_fn: Callable, plain: bool,
+              t: torch.Tensor) -> Callable:
+    if plain or t.device.type == "cpu":
+        return plain_fn
+    if t.is_cuda:
+        return cuda_fn
+    raise ValueError(f"probe ladder: no implementation for device "
+                     f"{t.device}")
+
+
+def _box(src, box, plain, **kw):
+    return _dispatch(lambda: box_copy_cuda(src, box, **kw),
+                     lambda: box_plain(src, box), plain, src)()
+
+
+# ---------------------------------------------------------------------------
+# the rungs
+
+
+def t_copy(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _box(inp.x, WHOLE, plain).reshape(inp.x.shape)
+
+
+def t_cost(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return t_copy(inp, plain)
+
+
+def t_dma(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _box(inp.x, WHOLE, plain, bulk=True).reshape(inp.x.shape)
+
+
+def t_dslot(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    """Each sample into slot i % 2 of a 2-slot ring."""
+    return _box(inp.x, WHOLE, plain, slots=2, bulk=True).reshape(inp.x.shape)
+
+
+def t_when(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    """The start guarded (one thread issues it), the wait unguarded."""
+    return _box(inp.x, WHOLE, plain, bulk=True).reshape(inp.x.shape)
+
+
+def t_pds(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _box(inp.x, PDS, plain, bulk=True).reshape(N, 6, 6, S, C)
+
+
+def t_pds_off(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _box(inp.x, PDS_OFF, plain, bulk=True).reshape(N, 6, 6, 6, C)
+
+
+def t_dma2(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    """One block walks both samples, the next one's copy in flight."""
+    return _box(inp.x, PDS, plain, walk=N, slots=2,
+                bulk=True).reshape(N, 6, 6, S, C)
+
+
+def t_concat(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _dispatch(lambda: im2col27_cuda(inp.x),
+                     lambda: im2col27_plain(inp.x), plain, inp.x)()
+
+
+def t_dot(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _dispatch(lambda: gram27_cuda(inp.x),
+                     lambda: gram27_plain(inp.x), plain, inp.x)()
+
+
+def t_full(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _dispatch(lambda: gram27_cuda(inp.x, bulk=True),
+                     lambda: gram27_plain(inp.x), plain, inp.x)()
+
+
+def t_lane(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _box(inp.xt, LANE, plain).reshape(2, CI, DD, H + 2, W)
+
+
+def t_resh(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _box(inp.xt, RESH, plain).reshape(CI, DD * H * W)
+
+
+def t_fwd(inp: Inputs, plain: bool = False) -> torch.Tensor:
+    return _dispatch(lambda: wide_fwd_cuda(inp.w2, inp.xt),
+                     lambda: wide_fwd_plain(inp.w2, inp.xt), plain, inp.xt)()
+
+
+# (name as the scripts print it, rung, its kernel)
+RUNGS: Tuple[Tuple[str, Callable, str], ...] = (
+    ("copy", t_copy, "box_copy"),
+    ("cost_estimate", t_cost, "box_copy"),
+    ("manual_dma", t_dma, "box_copy"),
+    ("dma_dyn_slot", t_dslot, "box_copy"),
+    ("dma_when_guard", t_when, "box_copy"),
+    ("dma_pds_src", t_pds, "box_copy"),
+    ("dma_pds_src_offset", t_pds_off, "box_copy"),
+    ("dma_double_buffer", t_dma2, "box_copy"),
+    ("lane_concat27", t_concat, "im2col27"),
+    ("wide_dot_accum", t_dot, "gram27"),
+    ("dw_skeleton", t_full, "gram27"),
+    ("lane_value_slice", t_lane, "box_copy"),
+    ("minor_slice_reshape", t_resh, "box_copy"),
+    ("wide_fwd_skeleton", t_fwd, "wide_fwd"),
+)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, float]:
+    """(max |got - want|, that over max |want|)."""
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff, diff / max(want.float().abs().max().item(), 1e-30)
+
+
+def checked(rung: Callable, kernel: str, inp: Inputs) -> torch.Tensor:
+    """The rung's output, held against its plain version (TOL)."""
+    got = rung(inp)
+    want = rung(inp, plain=True)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)} {got.dtype} != plain "
+                             f"{tuple(want.shape)} {want.dtype}")
+    rel = rel_err(got, want)[1]
+    if not rel <= TOL[kernel]:
+        raise AssertionError(f"relative error {rel:.3e} > {TOL[kernel]:.0e}")
+    return got
+
+
+def run(name: str, fn: Callable[[], torch.Tensor]) -> bool:
+    """Run one rung; print ``name OK (first value)`` or ``name FAIL ...``
+    and go on (probe_mosaic.py:23-35)."""
+    try:
+        out = fn()
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        val = float(out.reshape(-1)[0].float())
+        print(f"{name:28s} OK   ({val:.3f})", flush=True)
+        return True
+    except Exception as e:  # noqa: BLE001 — report and continue
+        msg = str(e).replace("\n", " | ")[:300]
+        print(f"{name:28s} FAIL {type(e).__name__}: {msg}", flush=True)
+        return False
+
+
+def run_all(inp: Inputs) -> Dict[str, bool]:
+    """Every rung, each checked against its plain version."""
+    return {name: run(name, lambda rung=rung, k=kernel: checked(rung, k, inp))
+            for name, rung, kernel in RUNGS}
+
+
+def main() -> int:
+    device = resolve_device("")
+    print(f"# device={torch.cuda.get_device_name(device)}", flush=True)
+    results = run_all(inputs(device))
+    return 0 if all(results.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

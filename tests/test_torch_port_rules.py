@@ -54,6 +54,8 @@ def test_no_jax_or_reference_package_imported():
     assert "gan3d_tpu_torch.train.trainer" in res["modules"]
     assert "gan3d_tpu_torch.ops.cuda_attention" in res["modules"]
     assert "gan3d_tpu_torch.ops.cuda_conv" in res["modules"]
+    assert "gan3d_tpu_torch.ops.toeplitz_conv" in res["modules"]
+    assert "gan3d_tpu_torch.probes.mosaic_ladder" in res["modules"]
     assert res["bad"] == []
 
 

@@ -1,0 +1,97 @@
+"""The port's probe ladder against the JAX probe ladders on the CPU.
+
+Each of the 14 rungs of scripts/probe_mosaic.py and scripts/probe_mosaic2.py
+runs in Pallas interpret mode; the port's rung (its kernel's plain version
+on a CPU tensor) must compute the same array from the same inputs: copies
+and slices bit-equal, including the last sample's values for lane_concat27
+and minor_slice_reshape (their output block is revisited by every grid
+step); the products summed over both samples (wide_dot_accum, dw_skeleton:
+f32, rtol 1e-5) or rounded to bf16 (wide_fwd_skeleton: 2e-2 of max |ref|).
+The ladder's entry raises without a card, and the kernel wrappers refuse
+CPU tensors.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from jax.experimental.pallas import tpu as pltpu
+
+import scripts.probe_mosaic as pm
+import scripts.probe_mosaic2 as pm2
+from gan3d_tpu_torch.probes import mosaic_ladder as ml
+
+torch.set_num_threads(1)
+
+JAX_RUNGS = {
+    "copy": pm.t_copy, "cost_estimate": pm.t_cost, "manual_dma": pm.t_dma,
+    "dma_dyn_slot": pm.t_dslot, "dma_when_guard": pm.t_when,
+    "dma_pds_src": pm.t_pds, "dma_pds_src_offset": pm.t_pds_off,
+    "dma_double_buffer": pm.t_dma2, "lane_concat27": pm.t_concat,
+    "wide_dot_accum": pm.t_dot, "dw_skeleton": pm.t_full,
+    "lane_value_slice": pm2.t_lane, "minor_slice_reshape": pm2.t_resh,
+    "wide_fwd_skeleton": pm2.t_fwd,
+}
+
+
+def bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.uint16)
+
+
+def test_inputs_are_the_probes_inputs():
+    inp = ml.inputs("cpu")
+    for got, want in ((inp.x, pm.X), (inp.xt, pm2.XT), (inp.w2, pm2.W2)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(bits(got.view(torch.int16).numpy()),
+                                      bits(np.asarray(want)))
+
+
+def test_ladder_has_every_rung():
+    assert [name for name, _, _ in ml.RUNGS] == list(JAX_RUNGS)
+    assert {k for _, _, k in ml.RUNGS} == set(ml.KERNELS)
+
+
+@pytest.mark.parametrize("name,rung,kernel", ml.RUNGS,
+                         ids=[name for name, _, _ in ml.RUNGS])
+def test_rung_matches_jax_probe(name, rung, kernel):
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax.jit(JAX_RUNGS[name])())
+    ml.reset_counters()
+    got = rung(ml.inputs("cpu"))
+    assert all(v == 0 for v in ml.launches.values())
+    assert tuple(got.shape) == want.shape
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    if kernel == "gram27":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+    elif kernel == "wide_fwd":
+        ref = want.astype(np.float32)
+        err = np.abs(got.float().numpy() - ref).max() / np.abs(ref).max()
+        assert err <= ml.TOL[kernel]
+    else:
+        np.testing.assert_array_equal(bits(got.view(torch.int16).numpy()),
+                                      bits(want))
+
+
+def test_run_reports_and_goes_on(capsys):
+    assert ml.run("good", lambda: torch.ones(2)) is True
+    assert ml.run("bad", lambda: 1 / 0) is False
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].split() == ["good", "OK", "(1.000)"]
+    assert out[1].split()[:3] == ["bad", "FAIL", "ZeroDivisionError:"]
+
+
+def test_main_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ml.main()
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    inp = ml.inputs("cpu")
+    for call in (lambda: ml.box_copy_cuda(inp.x, ml.WHOLE),
+                 lambda: ml.im2col27_cuda(inp.x),
+                 lambda: ml.gram27_cuda(inp.x, bulk=True),
+                 lambda: ml.wide_fwd_cuda(inp.w2, inp.xt)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()

@@ -21,9 +21,14 @@ and the same noise: the test derives the JAX step's noise from its keys
   the other sign (rtol 1e-4 / atol 1e-7);
 - every BN running stat and SN vector of G and D (atol 1e-5 / rtol 1e-4).
 
+The JAX step traces, compiles and runs in a worker thread while the port's
+step runs, so the test takes about the longer of the two, not their sum.
+
 Config: resolution 32, filters 8, batch 2, sagan (one deep block per
 stage, attention at 32^3 in G and 16^3 in D), f32.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import optax
@@ -87,9 +92,14 @@ def jax_noise(cfg, base_key, step=0):
     return [np.array(n) for n in out]
 
 
+_JAX_WORKER = ThreadPoolExecutor(max_workers=1)
+
+
 def jax_step(cfg_kw, seed=0):
     """One JAX fused step from random weights: returns (gv, dv, reals,
-    noises, new state, metrics) as numpy, for ``port_step_matches``."""
+    noises, pending) as numpy, for ``port_step_matches``; ``pending`` is
+    the future of the step's (new state, metrics), run in a worker
+    thread."""
     jcfg = JConfig(**cfg_kw)
     R = jcfg.resolution
     G_j, D_j = jbuild(jcfg)
@@ -113,16 +123,20 @@ def jax_step(cfg_kw, seed=0):
                        d_opt=d_tx.init(dp))
     base_key = jax.random.key(5)
     step = jax.jit(build_train_step(jcfg, G_j, D_j, g_tx, d_tx))
-    new, metrics, _ = step(state, jnp.asarray(np.moveaxis(reals, 2, -1)),
-                           base_key)
-    return (gv, dv, reals, jax_noise(jcfg, base_key), to_np(new),
-            {k: float(v) for k, v in metrics.items()})
+    reals_j = jnp.asarray(np.moveaxis(reals, 2, -1))
+
+    def run():
+        new, metrics, _ = step(state, reals_j, base_key)
+        return to_np(new), {k: float(v) for k, v in metrics.items()}
+
+    pending = _JAX_WORKER.submit(run)
+    return gv, dv, reals, jax_noise(jcfg, base_key), pending
 
 
 def port_step_matches(cfg, ref):
     """Run the port's step on ``jax_step``'s weights, reals and noise and
     hold it against the JAX step (tolerances: module docstring)."""
-    gv, dv, reals, noise, new, metrics = ref
+    gv, dv, reals, noise, pending = ref
     R = cfg.resolution
     G, D = build_models(cfg)
     G.load_state_dict(convert.from_jax_variables(gv, cfg, "g"), strict=True)
@@ -133,6 +147,7 @@ def port_step_matches(cfg, ref):
     got, fake = train_step(cfg, G.train(), D.train(), g_opt, d_opt,
                            torch.from_numpy(reals), noises=noises)
     assert fake.shape == (cfg.batch_size, 1, R, R, R)
+    new, metrics = pending.result()
 
     # losses
     for k in ("d_real", "d_fake", "g_loss"):

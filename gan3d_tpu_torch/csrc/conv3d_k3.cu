@@ -18,10 +18,16 @@
 // so the arithmetic bounds them, not memory (0.235 ms of bf16 tensor-core
 // work at 32ch@64^3, N=16, against 0.16 ms of bytes).
 //
-// What this design does about it. This is the first, simple version: f32
-// FMAs on the CUDA cores, no tensor cores, so its ceiling is the 67 TF f32
-// line, not the 989 TF bf16 one (wgmma tiles are later work). Within that:
-// - wide: a block owns a box of output positions of one sample (td x th x
+// What the designs do about it. The wide conv has two routes, picked by
+// dtype in ops/cuda_conv.py:
+// - wide_tc (bf16): an implicit GEMM on the tensor cores (mma.sync
+//   m16n8k16, bf16 operands, f32 sums: the TPU kernel's rounding,
+//   wide_conv.py:140-141,186); see its comment below.
+// - wide (f32): f32 FMAs on the CUDA cores (tensor cores would run f32 as
+//   TF32, outside the f32 tolerance), ceiling the 67 TF f32 line.
+// dW is the f32-FMA kernel for both dtypes (its tensor-core version is
+// later work).
+// - wide (f32): a block owns a box of output positions of one sample (td x th x
 //   tw) and up to 32 output channels; it stages the box's input plus its
 //   1-voxel halo, 4 input channels at a time, and those channels' weights
 //   in shared memory as f32. The halo is masked (zero) at the volume's
@@ -41,8 +47,9 @@
 //   No atomics, so a repeated dW is bit-identical. Per position a thread
 //   reads 8 gradients and 4 inputs as three float4s and does 32 FMAs.
 //
-// Inputs are f32 or bf16 (dtype 0 / 1), the same for both operands; every
-// accumulation is f32; the wide output takes the input's dtype, dW is f32.
+// Inputs: wide f32 (dtype 0), wide_tc bf16, dW f32 or bf16 (dtype 0 / 1),
+// the same for both operands; every accumulation is f32; the wide output
+// takes the input's dtype, dW is f32.
 // Any N, Ci, Co, D, H, W >= 1; ragged channel and spatial tiles are masked.
 // The tiling is chosen by the caller (gan3d_tpu_torch/ops/cuda_conv.py).
 // Each entry point returns cudaGetLastError() after its launches, or
@@ -51,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -198,6 +207,184 @@ wide_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int j = 0; j < kRH; ++j) {
       const int h = h0 + hg * kRH + j;
       if (h < g.H) on[(long long)h * g.W] = from_f32<T>(acc[o][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide_tc: the bf16 route of the wide conv, an implicit GEMM on the tensor
+// cores. Per sample out[co, s] = sum_{tap, ci} W[co, ci, tap] x[ci, s+tap-1]
+// is a GEMM with M = Co, N = positions, K = 27 * Ci.
+//
+// grid (boxes, Co tiles of BM, P split-K parts), 4 warps. A block owns a
+// td x th x tw box of one sample (at most BN positions, numbered w
+// fastest) and BM = 32 * WM output channels; warp (wm, wn) computes 32
+// channels x 64 positions (2 x 8 m16n8 tiles, 64 f32 sums a thread).
+// Per stage of 16 input channels (the part's share of the Ci/16 chunks):
+// - xs [halo rows][16] bf16: the box's input plus its masked 1-voxel halo,
+//   channels innermost. Loaded from NCDHW coalesced along w (8 channels a
+//   thread, 8 two-byte loads) and stored as one 16-byte row chunk. A B
+//   fragment (8 positions x 16 channels) is then one ldmatrix of 8 halo
+//   rows, each lane passing its own position's row, so a tap's shift is
+//   only a row offset: no im2col, nothing padded or transposed in memory.
+// - ws [27][BM][16] bf16: the chunk's weights, copied with cp.async from
+//   the repacked wp [Ci/16][27][Cop][16] (ops/cuda_conv.py:repack_weight;
+//   zero where ci >= Ci or co >= Co), one ldmatrix.x4 per A fragment.
+// Rows are 32 bytes, swizzled (tc::swz<2>) so every ldmatrix is free of
+// bank conflicts. With P > 1 each part writes f32 partials [P, N, Co, S]
+// summed in a fixed order by tc::sum_partials (no atomics); else the block
+// writes bf16 directly. Positions past the box or the volume are computed
+// on clamped rows and not stored.
+constexpr int kTcThreads = 128;
+constexpr int kTcCi = 16;      // input channels per stage: one k-step a tap
+constexpr int kTcCoPad = 64;   // wp's Co is padded to a multiple of this
+
+// 16-byte unit of (row, chunk) in a tile of 32-byte rows
+__device__ __forceinline__ int swz2(int row, int chunk) {
+  return tc::swz<2>(row, chunk);
+}
+
+template <int WM>
+__global__ void __launch_bounds__(kTcThreads, 3)
+wide_tc_kernel(const __nv_bfloat16* __restrict__ x,
+               const __nv_bfloat16* __restrict__ wp, float* __restrict__ part,
+               __nv_bfloat16* __restrict__ out, Geom g, int P) {
+  constexpr int BM = 32 * WM;
+  extern __shared__ uint4 smem_tc[];
+  const int HB = g.th + 2, WB = g.tw + 2;
+  const int plane = HB * WB;
+  const int R = (g.td + 2) * plane;
+  uint4* xs = smem_tc;               // [R] rows of 2 chunks
+  uint4* ws = smem_tc + 2 * R;       // [27 * BM] rows of 2 chunks
+
+  int b = blockIdx.x;
+  const int bw = b % g.nbw; b /= g.nbw;
+  const int bh = b % g.nbh; b /= g.nbh;
+  const int bd = b % g.nbd;
+  const int n = b / g.nbd;
+  const int d0 = bd * g.td, h0 = bh * g.th, w0 = bw * g.tw;
+  const int co0 = blockIdx.y * BM;
+  const int p = blockIdx.z;
+  const int nchunk = cdiv(g.Ci, kTcCi);
+  const int c_begin = nchunk * p / P, c_end = nchunk * (p + 1) / P;
+  const int Cop = cdiv(g.Co, kTcCoPad) * kTcCoPad;
+  const int box = g.td * g.th * g.tw;
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int wm = warp % WM, wn = warp / WM;
+  const bool active = wn * 64 < box;   // warp has positions in the box
+
+  // halo row of the position each lane addresses in B tile pair j
+  int hb[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int pos = wn * 64 + (2 * j + lane / 16) * 8 + lane % 8;
+    const int wl = pos % g.tw, hl = (pos / g.tw) % g.th;
+    const int dl = pos / (g.tw * g.th);
+    hb[j] = pos < box ? (dl * HB + hl) * WB + wl : 0;
+  }
+
+  const long long HW = (long long)g.H * g.W;
+  const long long DHW = HW * g.D;
+  const __nv_bfloat16* xn = x + (long long)n * g.Ci * DHW;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int c = c_begin; c < c_end; ++c) {
+    const int ci0 = c * kTcCi;
+    __syncthreads();
+    // weights: 27 x BM rows of 32 bytes, contiguous per tap in wp
+    for (int i = t; i < 27 * BM * 2; i += kTcThreads) {
+      const int half = i & 1, row = i >> 1;  // row = tap * BM + co
+      const int tap = row / BM, co = row % BM;
+      tc::cp_async16(ws + swz2(row, half),
+                 wp + ((((long long)c * 27 + tap) * Cop + co0 + co) * kTcCi +
+                       half * 8));
+    }
+    // input box + halo, channels innermost, zero outside the volume
+    for (int i = t; i < 2 * R; i += kTcThreads) {
+      const int hp = i % R, grp = i / R;
+      const int ww = hp % WB, hh = (hp / WB) % HB, dd = hp / plane;
+      const int gd = d0 + dd - 1, gh = h0 + hh - 1, gw = w0 + ww - 1;
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (gd >= 0 && gd < g.D && gh >= 0 && gh < g.H && gw >= 0 &&
+          gw < g.W) {
+        const uint16_t* src = reinterpret_cast<const uint16_t*>(xn) +
+                              gd * HW + (long long)gh * g.W + gw;
+        const int cb = ci0 + grp * 8;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint16_t lo = cb + 2 * e < g.Ci ? src[(cb + 2 * e) * DHW] : 0;
+          const uint16_t hi =
+              cb + 2 * e + 1 < g.Ci ? src[(cb + 2 * e + 1) * DHW] : 0;
+          v[e] = tc::pack_raw(lo, hi);
+        }
+      }
+      xs[swz2(hp, grp)] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    tc::cp_async_wait_all();
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll 1
+    for (int kd = 0; kd < 3; ++kd) {
+#pragma unroll
+      for (int k9 = 0; k9 < 9; ++k9) {
+        const int kh = k9 / 3, kw = k9 % 3;
+        const int tap = kd * 9 + k9;
+        const int toff = (kd * HB + kh) * WB + kw;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int row =
+              tap * BM + wm * 32 + mt * 16 + (lane % 8) + ((lane >> 3) & 1) * 8;
+          tc::ldsm_x4(a[mt], ws + swz2(row, lane >> 4));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bf[4];
+          tc::ldsm_x4(bf, xs + swz2(hb[j] + toff, (lane >> 3) & 1));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            tc::mma(acc[mt][2 * j], a[mt], bf);
+            tc::mma(acc[mt][2 * j + 1], a[mt], bf + 2);
+          }
+        }
+      }
+    }
+  }
+  if (!active) return;
+
+  const long long plane_out = (long long)g.N * g.Co * DHW;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      const int pos = wn * 64 + nt * 8 + (lane & 3) * 2 + e1;
+      const int wl = pos % g.tw, hl = (pos / g.tw) % g.th;
+      const int dl = pos / (g.tw * g.th);
+      const int d = d0 + dl, h = h0 + hl, w = w0 + wl;
+      if (pos >= box || d >= g.D || h >= g.H || w >= g.W) continue;
+      const long long sp = d * HW + (long long)h * g.W + w;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int co = co0 + wm * 32 + mt * 16 + (lane >> 2) + e2 * 8;
+          if (co >= g.Co) continue;
+          const long long idx = ((long long)n * g.Co + co) * DHW + sp;
+          const float v = acc[mt][nt][e2 * 2 + e1];
+          if (P == 1)
+            out[idx] = __float2bfloat16_rn(v);
+          else
+            part[p * plane_out + idx] = v;
+        }
+      }
     }
   }
 }
@@ -375,6 +562,35 @@ int launch_wide(const void* x, const void* w, void* out, const Geom& g,
   return (int)cudaGetLastError();
 }
 
+int launch_wide_tc(const void* x, const void* wp, void* part, void* out,
+                   const Geom& g, int wm, int P, cudaStream_t st) {
+  const long long boxes = (long long)g.N * g.nbd * g.nbh * g.nbw;
+  const int bm = 32 * wm;
+  const int co_tiles = cdiv(g.Co, bm);
+  if ((wm != 1 && wm != 2) || g.td * g.th * g.tw > 64 * (4 / wm) || P < 1 ||
+      P > cdiv(g.Ci, kTcCi) || P > 65535 || co_tiles > 65535 ||
+      boxes > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int rows = (g.td + 2) * (g.th + 2) * (g.tw + 2);
+  const size_t smem = 32 * ((size_t)rows + 27 * bm);
+  const dim3 grid((unsigned)boxes, co_tiles, P);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(wp);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  float* pf = static_cast<float*>(part);
+  if (wm == 1) {
+    if (!set_smem(wide_tc_kernel<1>, smem)) return (int)cudaErrorInvalidValue;
+    wide_tc_kernel<1><<<grid, kTcThreads, smem, st>>>(xb, wb, pf, ob, g, P);
+  } else {
+    if (!set_smem(wide_tc_kernel<2>, smem)) return (int)cudaErrorInvalidValue;
+    wide_tc_kernel<2><<<grid, kTcThreads, smem, st>>>(xb, wb, pf, ob, g, P);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || P == 1) return (int)err;
+  return (int)tc::sum_partials(pf, ob, P,
+                               (long long)g.N * g.Co * g.D * g.H * g.W, st);
+}
+
 template <typename T>
 int launch_dw(const void* x, const void* gr, void* part, void* dw,
               const Geom& g, int P, cudaStream_t st) {
@@ -403,18 +619,30 @@ int launch_dw(const void* x, const void* gr, void* part, void* dw,
 
 extern "C" {
 
-// out [N, Co, D, H, W] from x [N, Ci, D, H, W] and w [Co, Ci, 3, 3, 3];
-// tiling (td, th, tw, cg) as chosen by ops/cuda_conv.py:wide_plan.
+// The f32 route: out [N, Co, D, H, W] from x [N, Ci, D, H, W] and w
+// [Co, Ci, 3, 3, 3], f32 (dtype 0); tiling (td, th, tw, cg) as chosen by
+// ops/cuda_conv.py:wide_plan.
 int k3_wide(const void* x, const void* w, void* out, int N, int Ci, int Co,
             int D, int H, int W, int td, int th, int tw, int cg, int dtype,
             void* stream) {
   Geom g;
   if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_wide<float>(x, w, out, g, cg, st);
-  if (dtype == 1) return launch_wide<__nv_bfloat16>(x, w, out, g, cg, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch_wide<float>(x, w, out, g, cg, (cudaStream_t)stream);
+}
+
+// The bf16 route: out [N, Co, D, H, W] bf16 from x [N, Ci, D, H, W] bf16
+// and wp [Ci/16][27][Cop][16] bf16 (the repacked weight); part
+// [P, N, Co, D*H*W] f32 is scratch when P > 1. Tiling (td, th, tw, wm, P)
+// as chosen by ops/cuda_conv.py:wide_tc_plan.
+int k3_wide_tc(const void* x, const void* wp, void* part, void* out, int N,
+               int Ci, int Co, int D, int H, int W, int td, int th, int tw,
+               int wm, int P, void* stream) {
+  Geom g;
+  if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
+    return (int)cudaErrorInvalidValue;
+  return launch_wide_tc(x, wp, part, out, g, wm, P, (cudaStream_t)stream);
 }
 
 // dw [Co, Ci, 3, 3, 3] (f32) from x [N, Ci, D, H, W] and g [N, Co, D, H, W];

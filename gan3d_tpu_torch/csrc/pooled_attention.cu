@@ -14,15 +14,19 @@
 // then the products; memory is far below both. The TPU kernel was
 // softmax-bound for the same reason.
 //
-// What this design does about it. This is the first, simple version: one
-// thread owns one query row (forward, dq) or one key row (dk/dv) and keeps
-// its C-wide operand and accumulators in registers in f32; the other side
-// streams through shared memory in tiles that every thread of the block
-// reads by broadcast. Exponentials are exp2 of log2-scaled scores (one
-// MUFU op each). Products run on the f32 FMA pipes, not the tensor cores,
-// so the kernel sits well above the exp bound; tensor-core tiles (mma.sync
-// or wgmma) are the next step.
-//
+// What the designs do about it. The forward (K1) is the first, simple
+// version: one thread owns one query row and keeps its C-wide operand and
+// accumulators in registers in f32; K/V stream through shared memory in
+// tiles every thread reads by broadcast; products on the f32 FMA pipes.
+// Exponentials are exp2 of log2-scaled scores (one MUFU op each). The
+// backward (K2) has two routes, picked by dtype in ops/cuda_attention.py:
+// - bf16: the *_tc kernels, the products on the tensor cores (mma.sync
+//   m16n8k16, 16 rows a warp), so the exponentials are again the ceiling;
+//   the dk/dv pass splits L into P parts where M alone gives too few
+//   blocks (the D placement), summing f32 partials in a fixed order.
+// - f32: one thread per query (dq) or key (dk/dv) row on the f32 FMA
+//   pipes (tensor cores would run f32 as TF32, outside the f32 tolerance).
+
 // Differences from the TPU kernel:
 // - The TPU kept all M keys of a sample resident in VMEM and did one
 //   softmax pass. K and V at M=4096 do not fit beside a useful query tile
@@ -32,13 +36,13 @@
 // - The TPU backward accumulated dk/dv across query blocks into one
 //   revisited output block, which relies on its sequential grid. Here the
 //   backward is the FlashAttention-2 split, with no atomics and a fixed
-//   summation order: a dq kernel (one thread per query; its prologue also
-//   writes delta_i = sum_c dO_i * O_i, the JAX kernel's `dsum`), then a
-//   dk/dv kernel (one thread per key) that loops over every query of its
-//   sample. Both get p from the saved lse instead of a second softmax pass.
+//   summation order: a dq kernel (its prologue also writes delta_i =
+//   sum_c dO_i * O_i, the JAX kernel's `dsum`), then a dk/dv kernel that
+//   loops over the queries of its sample. Both get p from the saved lse
+//   instead of a second softmax pass.
 //
-// Inputs are f32 or bf16 (dtype 0 / 1); every accumulation is f32; outputs
-// take the inputs' dtype. C is one of 8, 16, 32, 64. Ragged L and M tails
+// Inputs: forward f32 or bf16 (dtype 0 / 1), backward f32 (pa_bwd) or bf16
+// (pa_bwd_tc); every accumulation is f32; outputs take the inputs' dtype. C is one of 8, 16, 32, 64. Ragged L and M tails
 // are masked. Each entry point returns cudaGetLastError() after its
 // launches, or cudaErrorInvalidValue for a C or dtype it does not take.
 
@@ -46,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -276,6 +282,316 @@ __global__ void __launch_bounds__(kDkvThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 route of the backward: the same FA2 split on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 sums). P and dS enter the
+// products as bf16 and every sum is f32: the TPU kernel's own rounding
+// (pallas_attention.py:93-105, t and e cast to the caller's dtype).
+// c = 8 runs as c = 16 with zero columns. Shared tiles hold kTcTile rows of
+// CK = max(C, 16) bf16, swizzled (tc::swz) so ldmatrix is conflict-free.
+constexpr int kTcThreads = 128;  // 4 warps x 16 rows (queries or keys)
+constexpr int kTcRows = 64;      // rows per block
+constexpr int kTcTile = 64;      // keys (dq) or queries (dk/dv) per tile
+
+template <int C>
+struct TcShape {
+  static constexpr int CK = C < 16 ? 16 : C;
+  static constexpr int NC = CK / 8;   // 16-byte chunks a row
+  static constexpr int KS = CK / 16;  // k-steps over c
+  static constexpr int NT = C / 8;    // n8 tiles over c
+};
+
+// Rows [row0, row0 + nrows) of a [rows, C] bf16 matrix into a swizzled
+// [kTcTile][NC] tile; rows past nrows and columns past C are zero.
+template <int C>
+__device__ __forceinline__ void load_tile_tc(uint4* dst,
+                                             const __nv_bfloat16* src,
+                                             int row0, int nrows) {
+  constexpr int NC = TcShape<C>::NC;
+  for (int i = threadIdx.x; i < kTcTile * NC; i += blockDim.x) {
+    const int r = i / NC, ch = i % NC;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nrows && ch * 8 < C)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * C +
+                                          ch * 8);
+    dst[tc::swz<NC>(r, ch)] = v;
+  }
+}
+
+// The A fragments (rows r0 = 16-row base + g and r0 + 8, all k-steps over
+// c) of a [rows, C] bf16 matrix, read from global memory; invalid rows and
+// columns past C are zero.
+template <int C>
+__device__ __forceinline__ void load_a_frags(
+    uint32_t (*a)[4], const __nv_bfloat16* base, int r0, bool ok0, bool ok1,
+    int qd) {
+#pragma unroll
+  for (int kk = 0; kk < TcShape<C>::KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + (e & 1) * 8;
+      const int col = kk * 16 + 2 * qd + (e >> 1) * 8;
+      const bool ok = (e & 1) ? ok1 : ok0;
+      a[kk][e] = ok && col < C ? *reinterpret_cast<const uint32_t*>(
+                                     base + (size_t)row * C + col)
+                               : 0u;
+    }
+}
+
+// s[8][4] += A (16 rows) x tile^T over c: the 64 rows of a staged tile as
+// the n index (8 n8 tiles), its columns as k.
+template <int C>
+__device__ __forceinline__ void rows_times_tile(float (*s)[4],
+                                                const uint32_t (*a)[4],
+                                                const uint4* tile, int lane) {
+  constexpr int NC = TcShape<C>::NC;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int kk = 0; kk < TcShape<C>::KS; ++kk) {
+      uint32_t b[4];
+      tc::ldsm_x4(b, tile + tc::swz<NC>(j * 16 + (lane >> 4) * 8 + (lane & 7),
+                                        2 * kk + ((lane >> 3) & 1)));
+      tc::mma(s[2 * j], a[kk], b);
+      tc::mma(s[2 * j + 1], a[kk], b + 2);
+    }
+}
+
+// acc[NT][4] += X (16 rows x 64, as the C fragments x[8][4]) @ tile (64
+// rows as k, its C columns as n), with X rounded to bf16.
+template <int C>
+__device__ __forceinline__ void frags_times_tile(float (*acc)[4],
+                                                 const float (*x)[4],
+                                                 const uint4* tile, int lane) {
+  constexpr int NC = TcShape<C>::NC, NT = TcShape<C>::NT;
+#pragma unroll
+  for (int k2 = 0; k2 < 4; ++k2) {
+    const uint32_t a[4] = {tc::pack(x[2 * k2][0], x[2 * k2][1]),
+                           tc::pack(x[2 * k2][2], x[2 * k2][3]),
+                           tc::pack(x[2 * k2 + 1][0], x[2 * k2 + 1][1]),
+                           tc::pack(x[2 * k2 + 1][2], x[2 * k2 + 1][3])};
+#pragma unroll
+    for (int cp = 0; cp < NC / 2; ++cp) {
+      uint32_t b[4];
+      tc::ldsm_x4_trans(
+          b, tile + tc::swz<NC>(k2 * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                                2 * cp + (lane >> 4)));
+      tc::mma(acc[2 * cp], a, b);
+      if (2 * cp + 1 < NT) tc::mma(acc[2 * cp + 1], a, b + 2);
+    }
+  }
+}
+
+// dq: grid (ceil(L / 64), N), 4 warps of 16 query rows. The prologue
+// writes delta_i = sum_c dO_i O_i (4 lanes a row, fixed order). Per 64-key
+// tile: S = Q K^T and dP = dO V^T on mma; P = 2^(S log2e - lse log2e) in
+// f32 registers; dS = P (dP - delta); dQ += dS K, dS packed to bf16 from
+// the C fragments straight into A fragments, K's B fragments by
+// ldmatrix.trans.
+template <int C>
+__global__ void __launch_bounds__(kTcThreads)
+    bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ o,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     __nv_bfloat16* __restrict__ dq,
+                     float* __restrict__ delta, int L, int M) {
+  using S = TcShape<C>;
+  __shared__ uint4 ks[kTcTile * S::NC];
+  __shared__ uint4 vs[kTcTile * S::NC];
+  const int n = blockIdx.y;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int r0 = blockIdx.x * kTcRows + warp * 16 + g, r1 = r0 + 8;
+  const bool ok0 = r0 < L, ok1 = r1 < L;
+  const size_t nl = (size_t)n * L;
+  const __nv_bfloat16* kn = k + (size_t)n * M * C;
+  const __nv_bfloat16* vn = v + (size_t)n * M * C;
+
+  uint32_t qa[S::KS][4], da[S::KS][4];
+  load_a_frags<C>(qa, q + nl * C, r0, ok0, ok1, qd);
+  load_a_frags<C>(da, dout + nl * C, r0, ok0, ok1, qd);
+
+  float dl[2], l2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? r1 : r0;
+    const bool ok = h ? ok1 : ok0;
+    float part = 0.f;
+    if (ok)
+      for (int c = qd * (C / 4); c < (qd + 1) * (C / 4); ++c)
+        part = fmaf(to_f32(dout[(nl + r) * C + c]), to_f32(o[(nl + r) * C + c]),
+                    part);
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    dl[h] = part;
+    l2[h] = ok ? lse[nl + r] * kLog2e : INFINITY;
+    if (ok && qd == 0) delta[nl + r] = part;
+  }
+
+  float acc[S::NT][4];
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  for (int j0 = 0; j0 < M; j0 += kTcTile) {
+    const int nt = min(kTcTile, M - j0);
+    __syncthreads();
+    load_tile_tc<C>(ks, kn, j0, nt);
+    load_tile_tc<C>(vs, vn, j0, nt);
+    __syncthreads();
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+    rows_times_tile<C>(s, qa, ks, lane);
+    rows_times_tile<C>(dp, da, vs, lane);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pv = tc::exp2_approx(fmaf(s[t][e], kLog2e, -l2[e >> 1]));
+        if (t * 8 + 2 * qd + (e & 1) >= nt) pv = 0.f;  // keys past M
+        s[t][e] = pv * (dp[t][e] - dl[e >> 1]);         // dS
+      }
+    frags_times_tile<C>(acc, s, ks, lane);
+  }
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t) {
+    const int col = t * 8 + 2 * qd;
+    if (ok0)
+      *reinterpret_cast<uint32_t*>(dq + (nl + r0) * C + col) =
+          tc::pack(acc[t][0], acc[t][1]);
+    if (ok1)
+      *reinterpret_cast<uint32_t*>(dq + (nl + r1) * C + col) =
+          tc::pack(acc[t][2], acc[t][3]);
+  }
+}
+
+// dk/dv: grid (ceil(M / 64), N, P), 4 warps of 16 key rows; part p walks
+// query tiles [T p / P, T (p + 1) / P) of the T = ceil(L / 64). Per tile:
+// S^T = K Q^T and dP^T = V dO^T on mma; P^T from the stored lse; dV +=
+// P^T dO and dK += dS^T Q with dS^T = P^T (dP^T - delta), both packed to
+// bf16 from the C fragments. P = 1 writes bf16 dk/dv; P > 1 writes f32
+// partials [P, N, M, C], summed in order by tc::sum_partials.
+template <int C>
+__global__ void __launch_bounds__(kTcThreads)
+    bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, float* __restrict__ dkp,
+                       float* __restrict__ dvp, int L, int M, int P) {
+  using S = TcShape<C>;
+  __shared__ uint4 qs[kTcTile * S::NC];
+  __shared__ uint4 dos[kTcTile * S::NC];
+  __shared__ float l2s[kTcTile];
+  __shared__ float dls[kTcTile];
+  const int n = blockIdx.y, p = blockIdx.z;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int r0 = blockIdx.x * kTcRows + warp * 16 + g, r1 = r0 + 8;
+  const bool ok0 = r0 < M, ok1 = r1 < M;
+  const size_t nl = (size_t)n * L, nm = (size_t)n * M;
+
+  uint32_t ka[S::KS][4], va[S::KS][4];
+  load_a_frags<C>(ka, k + nm * C, r0, ok0, ok1, qd);
+  load_a_frags<C>(va, v + nm * C, r0, ok0, ok1, qd);
+
+  float dka[S::NT][4], dva[S::NT][4];
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[t][e] = dva[t][e] = 0.f;
+
+  const int tiles = (L + kTcTile - 1) / kTcTile;
+  const int t_end = (int)((long long)tiles * (p + 1) / P);
+  for (int ti = (int)((long long)tiles * p / P); ti < t_end; ++ti) {
+    const int i0 = ti * kTcTile;
+    const int nt = min(kTcTile, L - i0);
+    __syncthreads();
+    load_tile_tc<C>(qs, q + nl * C, i0, nt);
+    load_tile_tc<C>(dos, dout + nl * C, i0, nt);
+    for (int r = threadIdx.x; r < kTcTile; r += blockDim.x) {
+      l2s[r] = r < nt ? lse[nl + i0 + r] * kLog2e : INFINITY;  // p = 0
+      dls[r] = r < nt ? delta[nl + i0 + r] : 0.f;
+    }
+    __syncthreads();
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+    rows_times_tile<C>(s, ka, qs, lane);
+    rows_times_tile<C>(dp, va, dos, lane);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = t * 8 + 2 * qd + (e & 1);
+        const float pv = tc::exp2_approx(fmaf(s[t][e], kLog2e, -l2s[col]));
+        s[t][e] = pv;                              // P^T
+        dp[t][e] = pv * (dp[t][e] - dls[col]);     // dS^T
+      }
+    frags_times_tile<C>(dva, s, dos, lane);
+    frags_times_tile<C>(dka, dp, qs, lane);
+  }
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t) {
+    const int col = t * 8 + 2 * qd;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!(h ? ok1 : ok0)) continue;
+      const size_t at = (nm + (h ? r1 : r0)) * C + col;
+      if (P == 1) {
+        *reinterpret_cast<uint32_t*>(dk + at) =
+            tc::pack(dka[t][2 * h], dka[t][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at) =
+            tc::pack(dva[t][2 * h], dva[t][2 * h + 1]);
+      } else {
+        const size_t pat = (size_t)p * gridDim.y * M * C + at;
+        *reinterpret_cast<float2*>(dkp + pat) =
+            make_float2(dka[t][2 * h], dka[t][2 * h + 1]);
+        *reinterpret_cast<float2*>(dvp + pat) =
+            make_float2(dva[t][2 * h], dva[t][2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int C>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const void* lse,
+                          void* dq, void* dk, void* dv, void* delta, void* dkp,
+                          void* dvp, int N, int L, int M, int P,
+                          cudaStream_t st) {
+  using B = __nv_bfloat16;
+  dim3 gq((L + kTcRows - 1) / kTcRows, N);
+  bwd_dq_tc_kernel<C><<<gq, kTcThreads, 0, st>>>(
+      (const B*)q, (const B*)k, (const B*)v, (const B*)o, (const B*)dout,
+      (const float*)lse, (B*)dq, (float*)delta, L, M);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 gk((M + kTcRows - 1) / kTcRows, N, P);
+  bwd_dkdv_tc_kernel<C><<<gk, kTcThreads, 0, st>>>(
+      (const B*)q, (const B*)k, (const B*)v, (const B*)dout,
+      (const float*)lse, (const float*)delta, (B*)dk, (B*)dv, (float*)dkp,
+      (float*)dvp, L, M, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || P == 1) return err;
+  const long long count = (long long)N * M * C;
+  err = tc::sum_partials((const float*)dkp, (B*)dk, P, count, st);
+  if (err != cudaSuccess) return err;
+  return tc::sum_partials((const float*)dvp, (B*)dv, P, count, st);
+}
+
 template <typename T, int C>
 void launch_fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, int N, int L, int M, cudaStream_t st) {
@@ -327,16 +643,42 @@ int pa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
-// dq, dk, dv from the forward's inputs, o, lse and dO. delta [N, L] (f32)
-// is scratch written by the dq kernel and read by the dk/dv kernel.
+// The f32 route of the backward (dtype 0): dq, dk, dv from the forward's
+// inputs, o, lse and dO. delta [N, L] (f32) is scratch written by the dq
+// kernel and read by the dk/dv kernel.
 int pa_bwd(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
            void* delta, int N, int L, int M, int C, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!PA_DISPATCH(dtype, C, (launch_bwd<T, CC>(q, k, v, o, dout, lse, dq, dk,
-                                                dv, delta, N, L, M, st))))
-    return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 8: launch_bwd<float, 8>(q, k, v, o, dout, lse, dq, dk, dv, delta, N, L, M, st); break;
+    case 16: launch_bwd<float, 16>(q, k, v, o, dout, lse, dq, dk, dv, delta, N, L, M, st); break;
+    case 32: launch_bwd<float, 32>(q, k, v, o, dout, lse, dq, dk, dv, delta, N, L, M, st); break;
+    case 64: launch_bwd<float, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, N, L, M, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
+}
+
+// The bf16 route of the backward (all of q, k, v, o, dO bf16; lse f32).
+// delta [N, L] f32 is scratch; with P > 1 the dk/dv kernel splits L into
+// P parts and dkp / dvp [P, N, M, C] f32 are scratch (ignored for P = 1).
+int pa_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, void* dq, void* dk, void* dv,
+              void* delta, void* dkp, void* dvp, int N, int L, int M, int C,
+              int P, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N < 1 || L < 1 || M < 1 || N > 65535 || P < 1 || P > 65535 ||
+      P > (L + kTcTile - 1) / kTcTile)
+    return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 8: return (int)launch_bwd_tc<8>(q, k, v, o, dout, lse, dq, dk, dv, delta, dkp, dvp, N, L, M, P, st);
+    case 16: return (int)launch_bwd_tc<16>(q, k, v, o, dout, lse, dq, dk, dv, delta, dkp, dvp, N, L, M, P, st);
+    case 32: return (int)launch_bwd_tc<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, dkp, dvp, N, L, M, P, st);
+    case 64: return (int)launch_bwd_tc<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, dkp, dvp, N, L, M, P, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

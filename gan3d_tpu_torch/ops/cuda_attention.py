@@ -10,8 +10,14 @@ Nothing here touches CUDA or ``nvcc`` at import time. Every wrapper takes
 only CUDA tensors and raises on anything the kernels do not take; the
 dispatcher in ``ops/attention.py`` sends CPU tensors to the plain version.
 
-``fwd_launches`` / ``bwd_launches`` count the launches of each wrapper, so
-a run can show that its attention went through the kernels.
+The backward has two routes, picked by dtype: bf16 goes to the
+tensor-core kernels (``pa_bwd_tc``; the dk/dv pass split over L into
+``dkdv_split`` parts), f32 to the f32-FMA kernels (``pa_bwd``); any other
+dtype raises. Nothing falls back.
+
+``fwd_launches`` / ``bwd_launches`` (f32 route) / ``bwd_tc_launches``
+(bf16 route) count the wrappers' launches, so a run can show that its
+attention went through the kernels and which ones.
 """
 
 from __future__ import annotations
@@ -26,19 +32,35 @@ from torch.autograd.function import once_differentiable
 from gan3d_tpu_torch.ops import cuda_build
 
 SUPPORTED_C = (8, 16, 32, 64)
+SMS = 132          # streaming multiprocessors of an H100 SXM
+TC_ROWS = 64       # bf16 backward: key rows per dk/dv block (csrc kTcRows)
+TC_TILE = 64       # bf16 backward: queries per staged tile (csrc kTcTile)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 fwd_launches = 0
 bwd_launches = 0
+bwd_tc_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
 def reset_counters() -> None:
-    global fwd_launches, bwd_launches
+    global fwd_launches, bwd_launches, bwd_tc_launches
     fwd_launches = 0
     bwd_launches = 0
+    bwd_tc_launches = 0
+
+
+def dkdv_split(n: int, L: int, m: int) -> int:
+    """Parts P of the bf16 dk/dv pass: 1 where the N x ceil(M/64) key
+    blocks already cover the card twice; else L's 64-query tiles are split
+    into P parts (f32 partials summed in a fixed order) so that the grid
+    covers it about twice."""
+    blocks = n * -(-m // TC_ROWS)
+    if blocks >= 2 * SMS:
+        return 1
+    return max(1, min(-(-L // TC_TILE), -(-2 * SMS // blocks)))
 
 
 def _load() -> ctypes.CDLL:
@@ -52,6 +74,8 @@ def _load() -> ctypes.CDLL:
             lib.pa_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                    i, i, i, i, i, p]
             lib.pa_bwd.restype = i
+            lib.pa_bwd_tc.argtypes = [p] * 12 + [i] * 5 + [p]
+            lib.pa_bwd_tc.restype = i
             _lib = lib
     return _lib
 
@@ -121,8 +145,9 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward kernels: (dq, dk, dv) in the dtypes of (q, k, v)."""
-    global bwd_launches
+    """Backward kernels: (dq, dk, dv) in the dtypes of (q, k, v); bf16 on
+    the tensor cores, f32 on the FMA pipes."""
+    global bwd_launches, bwd_tc_launches
     check_inputs(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
         raise ValueError("pooled-attention backward: o/dO/lse shapes "
@@ -133,7 +158,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("pooled-attention backward: lse must be f32 and "
                          "o, dO, lse on the CUDA device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = o.contiguous()
+    o = o.to(q.dtype).contiguous()
     do = do.to(q.dtype).contiguous()
     lse = lse.contiguous()
     n, L, c = q.shape
@@ -141,11 +166,24 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((n, L), dtype=torch.float32, device=q.device)
     lib = _load()
+    if q.dtype == torch.bfloat16:
+        parts = dkdv_split(n, L, m)
+        dkp, dvp = ((torch.empty((parts, n, m, c), dtype=torch.float32,
+                                 device=q.device) for _ in range(2))
+                    if parts > 1 else (dk, dv))
+        with torch.cuda.device(q.device):
+            err = lib.pa_bwd_tc(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do),
+                                _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv),
+                                _ptr(delta), _ptr(dkp), _ptr(dvp), n, L, m,
+                                c, parts, _stream(q))
+        _raise_if(err, "backward (bf16)")
+        bwd_tc_launches += 1
+        return dq, dk, dv
     with torch.cuda.device(q.device):
         err = lib.pa_bwd(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do),
                          _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(delta),
                          n, L, m, c, _DTYPE_CODE[q.dtype], _stream(q))
-    _raise_if(err, "backward")
+    _raise_if(err, "backward (f32)")
     bwd_launches += 1
     return dq, dk, dv
 

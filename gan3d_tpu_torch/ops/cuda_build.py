@@ -2,7 +2,8 @@
 
 Each source ``gan3d_tpu_torch/csrc/<name>.cu`` has a plain C interface and
 is compiled by ``nvcc`` for ``sm_90a`` into a shared library at first use,
-cached as ``gan3d_tpu_torch/_build/<hash of source and flags>/lib<name>.so``
+cached as ``gan3d_tpu_torch/_build/<hash>/lib<name>.so`` (the hash covers
+the source, every shared header ``csrc/*.cuh`` and the flags)
 beside the compiler's register and spill report (``ptxas.log``, from
 ``-Xptxas -v``). ``build`` starts one ``nvcc`` per missing library, all at
 once, and waits for them; ``load`` opens a built library with ``ctypes``.
@@ -53,11 +54,21 @@ def find_nvcc() -> str:
         "the CUDA kernels cannot be built")
 
 
+def headers() -> List[str]:
+    """Every ``csrc/*.cuh``, sorted: a source may include any of them."""
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(".cuh"))
+
+
 def library_path(name: str) -> str:
-    with open(source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    return os.path.join(BUILD_ROOT, digest, f"lib{name}.so")
+    """The cached library's path: a hash of the source, every shared
+    header and the flags, so an edited header builds anew."""
+    h = hashlib.sha256()
+    for path in (source(name), *headers()):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], f"lib{name}.so")
 
 
 def build(*names: str) -> List[str]:

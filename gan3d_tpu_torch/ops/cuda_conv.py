@@ -7,14 +7,18 @@ first use and they are called through ``ctypes`` on PyTorch's current
 stream:
 
 - ``wide_conv3d_cuda(x, w)``: the wide-N k3/s1/p1 conv (K4), used for the
-  forward and, with spatially flipped, in/out-swapped weights, for dx;
+  forward and, with spatially flipped, in/out-swapped weights, for dx. Two
+  routes by dtype: bf16 goes to the tensor-core implicit GEMM
+  (``wide_tc_kernel``, on the weight as ``repack_weight`` lays it out),
+  f32 to the f32-FMA ``wide_kernel``; any other dtype raises;
 - ``conv3d_dw_cuda(x, g)``: its weight gradient (K3), split-K partials
   summed in a fixed order by a second kernel, so a repeated dW is
   bit-identical;
 - ``toeplitz_conv3d_cuda(x, w)``: the direct k3/s1/p1 conv in the JAX
   op's channels-last layout (K5), the conv of ``ops/toeplitz_conv.py``.
 
-The tiling of each launch (``wide_plan``, ``dw_plan``, ``toeplitz_plan``)
+The tiling of each launch (``wide_plan``, ``wide_tc_plan``, ``dw_plan``,
+``toeplitz_plan``)
 is chosen here, so the CPU tests reach it. Two ``autograd.Function``s
 carry the routes of ``ops/conv3d.conv3d``, counterparts of the JAX custom
 VJPs (K5's is ``ops/toeplitz_conv.py:ToeplitzConv3d``):
@@ -26,8 +30,8 @@ On a CPU tensor both run the plain versions of ``ops/conv3d.py`` in the
 kernels' place; on a CUDA tensor they run the kernels, which raise on a
 dtype or shape they do not take. Nothing falls back.
 
-``wide_launches`` / ``dw_launches`` / ``toeplitz_launches`` count the
-wrappers' launches.
+``wide_launches`` (f32 route) / ``wide_tc_launches`` (bf16 route) /
+``dw_launches`` / ``toeplitz_launches`` count the wrappers' launches.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 WIDE_POS_THREADS = 64      # K4: threads (4 output rows each) per co group
 WIDE_MAX_CO_GROUPS = 4     # K4: co groups (8 channels each) per block
+TC_CI = 16                 # K4 bf16: input channels per stage (csrc kTcCi)
+TC_CO_PAD = 64             # K4 bf16: repacked Co multiple (csrc kTcCoPad)
+TC_SMEM = 227 * 1024       # K4 bf16: shared memory a block may use
 DW_BOX = 128               # K3: output positions per staged box
 DW_CI, DW_CO = 16, 32      # K3: channels per block (csrc kDwCi / kDwCo)
 DW_BLOCKS_PER_SM = 2       # K3: resident 432-thread blocks per SM
@@ -55,6 +62,7 @@ TOEPLITZ_CI = 8            # K5: input channels per stage (csrc kCi)
 TOEPLITZ_SMEM = 96 << 10   # K5: shared-memory budget of one block
 
 wide_launches = 0
+wide_tc_launches = 0
 dw_launches = 0
 toeplitz_launches = 0
 
@@ -63,8 +71,9 @@ _lib_lock = threading.Lock()
 
 
 def reset_counters() -> None:
-    global wide_launches, dw_launches, toeplitz_launches
+    global wide_launches, wide_tc_launches, dw_launches, toeplitz_launches
     wide_launches = 0
+    wide_tc_launches = 0
     dw_launches = 0
     toeplitz_launches = 0
 
@@ -88,6 +97,43 @@ def wide_plan(n: int, co: int, d: int, h: int, w: int
     while cg > 1 and boxes * _cdiv(co, 8 * cg) < SMS:
         cg //= 2
     return td, 4 * hg, tw, cg
+
+
+def wide_tc_plan(n: int, ci: int, co: int, d: int, h: int, w: int
+                 ) -> Tuple[int, int, int, int, int]:
+    """K4 bf16 tiling (td, th, tw, wm, P): a block of 4 warps computes
+    32*wm output channels (wm = 1 for Co <= 32, else 2) x a td x th x tw
+    box of one sample, at most 64*(4 // wm) positions (w fastest, up to 32
+    along w). Where boxes x Co tiles give fewer blocks than the card has
+    SMs, the Ci/16 channel chunks are split into P parts (split-K) so that
+    the grid covers the card about twice."""
+    wm = 1 if co <= 32 else 2
+    bn = 64 * (4 // wm)
+    tw = min(w, 32)
+    th = min(h, max(1, bn // tw))
+    td = min(d, max(1, bn // (tw * th)))
+    blocks = (n * _cdiv(d, td) * _cdiv(h, th) * _cdiv(w, tw)
+              * _cdiv(co, 32 * wm))
+    p = 1 if blocks >= SMS else min(_cdiv(ci, TC_CI), _cdiv(2 * SMS, blocks))
+    return td, th, tw, wm, p
+
+
+def wide_tc_smem(td: int, th: int, tw: int, wm: int) -> int:
+    """Shared-memory bytes of a K4 bf16 block: the halo box and 27 taps x
+    32*wm channels, 16 bf16 (32 bytes) each."""
+    return 32 * ((td + 2) * (th + 2) * (tw + 2) + 27 * 32 * wm)
+
+
+def repack_weight(w: torch.Tensor) -> torch.Tensor:
+    """w [Co, Ci, 3, 3, 3] -> the K4 bf16 kernel's [Ci/16, 27, Cop, 16]
+    (tap = kd*9 + kh*3 + kw; Ci and Co zero-padded to multiples of 16 and
+    64): chunk c, tap t holds the A operand W[co, 16c + i, t] of that
+    k-step, 16 contiguous input channels per output channel."""
+    co, ci = w.shape[:2]
+    cip, cop = _cdiv(ci, TC_CI) * TC_CI, _cdiv(co, TC_CO_PAD) * TC_CO_PAD
+    wp = F.pad(w.reshape(co, ci, 27), (0, 0, 0, cip - ci, 0, cop - co))
+    return (wp.reshape(cop, cip // TC_CI, TC_CI, 27).permute(1, 3, 0, 2)
+            .contiguous())
 
 
 def dw_plan(n: int, ci: int, co: int, d: int, h: int, w: int
@@ -131,7 +177,8 @@ def toeplitz_plan(n: int, d: int, h: int, w: int, co: int
 
 # library -> entry point -> (pointer arguments, int arguments); each entry
 # point also takes the stream and returns a cudaError_t.
-_SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 11), "k3_dw": (4, 11)},
+_SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 11), "k3_wide_tc": (4, 11),
+                              "k3_dw": (4, 11)},
                "conv3d_toeplitz": {"k3_toeplitz": (3, 10)}}
 
 
@@ -183,8 +230,9 @@ def _raise_if(err: int, what: str) -> None:
 
 def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K4: k3/s1/p1 conv of x [N,Ci,D,H,W] with w [Co,Ci,3,3,3] (same
-    dtype), f32 accumulation; [N,Co,D,H,W] in x's dtype."""
-    global wide_launches
+    dtype), f32 accumulation; [N,Co,D,H,W] in x's dtype. bf16 runs on the
+    tensor cores, f32 on the FMA pipes."""
+    global wide_launches, wide_tc_launches
     x, w = x.contiguous(), w.contiguous()
     _check(x, w, "weight")
     n, ci, d, h, wd = x.shape
@@ -193,13 +241,25 @@ def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"wide conv kernel: weight {tuple(w.shape)} is not "
                          f"[Co, {ci}, 3, 3, 3] with Ci, Co >= 8 (the "
                          "dispatcher's rule)")
-    td, th, tw, cg = wide_plan(n, co, d, h, wd)
     out = torch.empty((n, co, d, h, wd), dtype=x.dtype, device=x.device)
+    lib = _load("conv3d_k3")
+    if x.dtype == torch.bfloat16:
+        td, th, tw, wm, p = wide_tc_plan(n, ci, co, d, h, wd)
+        wp = repack_weight(w)
+        part = (torch.empty((p, n, co, d * h * wd), dtype=torch.float32,
+                            device=x.device) if p > 1 else out)
+        with torch.cuda.device(x.device):
+            err = lib.k3_wide_tc(_ptr(x), _ptr(wp), _ptr(part), _ptr(out), n,
+                                 ci, co, d, h, wd, td, th, tw, wm, p,
+                                 _stream(x))
+        _raise_if(err, "wide (bf16)")
+        wide_tc_launches += 1
+        return out
+    td, th, tw, cg = wide_plan(n, co, d, h, wd)
     with torch.cuda.device(x.device):
-        err = _load("conv3d_k3").k3_wide(
-            _ptr(x), _ptr(w), _ptr(out), n, ci, co, d, h, wd, td, th, tw, cg,
-            _DTYPE_CODE[x.dtype], _stream(x))
-    _raise_if(err, "wide")
+        err = lib.k3_wide(_ptr(x), _ptr(w), _ptr(out), n, ci, co, d, h, wd,
+                          td, th, tw, cg, _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_if(err, "wide (f32)")
     wide_launches += 1
     return out
 

@@ -9,10 +9,13 @@ Phases, each printing its own line:
 2. build   — compiles csrc/pooled_attention.cu, conv3d_k3.cu,
              conv3d_toeplitz.cu and probe_ladder.cu with nvcc for sm_90a,
              one nvcc each, started together, and prints the kernels' ptxas
-             lines (registers, spills);
+             lines (registers, spills), each tensor-core kernel's registers
+             and spills, and fails if one spills at a flagship instance;
 3. kernels — runs the pooled-attention forward and backward kernels at the
              two shapes of the 64^3 BigGAN-Deep flagship (G: L=32768,
-             M=4096, c=16; D: L=4096, M=512, c=32; N=16) in f32 and bf16,
+             M=4096, c=16; D: L=4096, M=512, c=32; N=16) in f32 and bf16
+             (the backward's two routes: bf16 on the tensor-core kernels,
+             f32 on the FMA kernels),
              holds each against the plain PyTorch version, and times the
              kernel, the plain version and F.scaled_dot_product_attention
              (a yardstick the port never calls) with CUDA events; then
@@ -21,19 +24,22 @@ Phases, each printing its own line:
              backward through the kernels raises;
 4. conv    — finds the flagship's eligible k3 convs with forward hooks on
              the port's models, and at each distinct shape (N=16, f32 and
-             bf16) holds the wide-N conv kernel (forward, and dx with the
+             bf16: the wide conv's bf16 route on the tensor cores, its f32
+             route on the FMA kernel) holds the wide-N conv kernel (forward,
+             and dx with the
              flipped weights) and the dW kernel against their plain
              versions, timing each beside its plain version and the one
              PyTorch call that computes the same function (F.conv3d;
              aten.convolution_backward for dW), yardsticks the port never
-             calls; then ragged shapes, a repeated dW bit-identical and an
-             f16 input refused;
+             calls; then ragged shapes, a repeated dW and a repeated bf16
+             wide conv bit-identical and an f16 input refused;
 5. train   — trains the flagship (64^3, filters 64, z 512, batch 16,
              iterD 2, biggan, hinge) through gan3d_tpu_torch.cli.train:
              the default run (a few steps and a resume; no conv kernel
              launches), the run with --wide_conv=on --fast_dw=on (a few
-             steps and a resume) and a short --fast_dw=on run. Each checks
-             the kernel launch counts the step implies; after the first
+             steps and a resume) and a short --fast_dw=on run, all bf16.
+             Each checks the kernel launch counts the step implies (on the
+             bf16 routes' counters; the f32 routes' stay 0); after the first
              two, the trained G and D on the card (kernels) are held
              against the same networks on the CPU (plain path);
 6. toeplitz_conv — the W-Toeplitz direct conv op (K5, ops/toeplitz_conv.py,
@@ -93,6 +99,19 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SFU_OPS = 132 * 16 * 1.98e9
 PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32))
+# The bf16 times of K2 and K4 before their tensor-core routes (ms, H100
+# 80GB HBM3, 700 W; PERF.md: K2 at G from PR 3's run, at D from PR 2's;
+# K4 from PR 2's per-shape table), keyed (placement) / (Ci, side).
+BEFORE_MS = {"bwd": {"G": 16.47, "D": 1.84},
+             "wide_fwd": {(32, 64): 10.9, (32, 32): 1.4, (64, 32): 5.62,
+                          (64, 16): 0.677, (128, 16): 2.7, (128, 8): 0.493,
+                          (128, 4): 0.885, (256, 8): 1.17, (256, 4): 1.45},
+             "wide_dx": {(32, 64): 10.9, (32, 32): 1.41, (64, 32): 5.6,
+                         (64, 16): 0.676, (128, 16): 2.72, (128, 8): 0.498,
+                         (128, 4): 0.879, (256, 8): 1.18, (256, 4): 1.44}}
+# Tensor-core kernel instances that must not spill (ptxas): every K4 bf16
+# instance and the K2 bf16 kernels at the flagship's c = 16 and 32.
+NO_SPILL = re.compile(r"wide_tc_kernel|bwd_\w+_tc_kernel<(16|32)>")
 # Off the main path, checked but not timed: every template instance of c,
 # and ragged L and M tails (neither a multiple of any tile).
 EXTRA_SHAPES = ((2, 1000, 125, 8), (3, 300, 38, 16), (1, 4133, 517, 32),
@@ -287,6 +306,8 @@ def kernel_phase(ca, attention_plain) -> list:
                           {x: errs[x] for x in ("dq", "dk", "dv")})
                 case = {
                     "kernel": kind, "placement": place, "dtype": dname,
+                    "route": ("tensor_core" if kind == "bwd"
+                              and dname == "bfloat16" else "fma"),
                     "N": n, "L": L, "M": m, "c": c,
                     "max_err": max(e[1] for e in errs_k.values()),
                     "max_abs_err": max(e[0] for e in errs_k.values()),
@@ -294,6 +315,8 @@ def kernel_phase(ca, attention_plain) -> list:
                     "tol": tol, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
                 }
+                if case["route"] == "tensor_core":
+                    case["before_ms"] = BEFORE_MS["bwd"][place]
                 phase("kernel_case", **case)
                 cases.append(case)
             torch.cuda.empty_cache()
@@ -460,14 +483,18 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
                 b_ms, b_by = conv_bound("dw" if kind == "dw" else "wide",
                                         dname, n, cin, cout, s)
                 case = {
-                    "kernel": kind, "dtype": dname, "N": n, "Ci": cin,
-                    "Co": cout, "D": d, "H": h, "W": w,
+                    "kernel": kind, "dtype": dname,
+                    "route": ("tensor_core" if kind != "dw"
+                              and dname == "bfloat16" else "fma"),
+                    "N": n, "Ci": cin, "Co": cout, "D": d, "H": h, "W": w,
                     "max_err": rel, "max_abs_err": abs_err, "tol": tol,
                     "ms": cuda_ms(kern, iters),
                     "plain_ms": cuda_ms(plain, max(2, iters // 4), 1),
                     "library_ms": cuda_ms(lib, iters),
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
+                if case["route"] == "tensor_core":
+                    case["before_ms"] = BEFORE_MS[kind][(ci, d)]
                 phase("conv_case", **case)
                 cases.append(case)
             del x, wt, g, wr, runs
@@ -477,7 +504,8 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
 
 def conv_extra_checks(cc) -> dict:
     """The conv kernels against the plain versions at CONV_RAGGED; a
-    repeated dW bit-identical (there and at the flagship's largest shape);
+    repeated dW and a repeated bf16 wide conv bit-identical (there and at
+    the flagship's largest shape);
     an f16 CUDA input refused by both wrappers."""
     import torch
 
@@ -494,6 +522,10 @@ def conv_extra_checks(cc) -> dict:
             if not torch.equal(dw, cc.conv3d_dw_cuda(x, g)):
                 raise AssertionError(f"{shape} {dname}: a repeated dW is not "
                                      "bit-identical")
+            if dt == torch.bfloat16 and not torch.equal(
+                    cc.wide_conv3d_cuda(x, wt), cc.wide_conv3d_cuda(x, wt)):
+                raise AssertionError(f"{shape}: a repeated bf16 wide conv is "
+                                     "not bit-identical")
             if shape not in CONV_RAGGED:
                 continue
             got = {"wide_fwd": cc.wide_conv3d_cuda(x, wt),
@@ -518,7 +550,8 @@ def conv_extra_checks(cc) -> dict:
         else:
             raise AssertionError(f"the {what} kernel took an f16 input")
     return {"shapes": CONV_RAGGED, "worst_rel_err": worst,
-            "repeated_dw": "bit-identical", "float16": "refused"}
+            "repeated_dw": "bit-identical",
+            "repeated_wide_bf16": "bit-identical", "float16": "refused"}
 
 
 def toeplitz_bound(dtype: str, n: int, s: int, ci: int, co: int):
@@ -778,6 +811,35 @@ def ladder_phase(ml) -> list:
     return cases
 
 
+def tensor_core_ptxas(lines: list) -> dict:
+    """{"<kernel>_tc_kernel<template args>": {"registers", "spill_stores",
+    "spill_loads"}} for each tensor-core kernel instance, from the ptxas
+    lines (entry function, then its spill line, then its register line)."""
+    out, name = {}, None
+    for ln in lines:
+        entry = re.search(r"entry function '(\S+)'", ln)
+        if entry:
+            m = re.search(r"\D\d+([a-z_]+_tc_kernel)I((?:L[ib]\d+E)+)E",
+                          entry.group(1))
+            name = (f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+                    if m else None)
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        if spill:
+            out[name].update(spill_stores=int(spill.group(1)),
+                             spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", ln)
+        if regs:
+            out[name]["registers"] = int(regs.group(1))
+            name = None
+    return out
+
+
 def kernels_line(cases: list, conv_cases: list, launches: dict,
                  toeplitz_cases: list, ladder_cases: list) -> dict:
     """One entry per kernel; the top-level numbers are the main path's
@@ -785,8 +847,11 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
     N=16, the forward for the wide conv and K5; the ladder: the rung named
     in LADDER_MAIN); every case is listed under "cases". ``launches`` are
     the counts of each kernel's path: the first --wide_conv=on
-    --fast_dw=on run for K1-K4, the toeplitz_conv and probe_ladder phases'
-    runs for K5 and the ladder's kernels. ``max_err`` is the largest error
+    --fast_dw=on run for K1-K4 (bf16: K2 and K4 on their tensor-core
+    routes), the toeplitz_conv and probe_ladder phases' runs for K5 and the
+    ladder's kernels. K2 and K4 add ``before_ms`` (their bf16 time before
+    the tensor-core route, BEFORE_MS) and ``f32_ms`` (the f32 route, the
+    FMA kernels, at the same case). ``max_err`` is the largest error
     relative to max |plain| over the compared outputs, the number held
     against ``tol``; ``max_abs_err`` is the largest absolute difference."""
     meta = (
@@ -796,15 +861,16 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
          lambda c: c["placement"] == "G" and c["dtype"] == "bfloat16",
          "G placement, bfloat16, N=16, L=32768, M=4096, c=16"),
         ("pooled_attention_bwd", "pooled_attention.cu",
-         "gan3d_tpu/ops/pallas_attention.py:67", "bwd", cases,
+         "gan3d_tpu/ops/pallas_attention.py:67", "bwd_tc", cases,
          lambda c: c["kernel"] == "bwd",
          lambda c: c["placement"] == "G" and c["dtype"] == "bfloat16",
-         "G placement, bfloat16, N=16, L=32768, M=4096, c=16"),
+         "G placement, bfloat16 (tensor cores), N=16, L=32768, M=4096, "
+         "c=16"),
         ("wide_conv3d", "conv3d_k3.cu", "gan3d_tpu/ops/wide_conv.py:102",
-         "wide", conv_cases, lambda c: c["kernel"] != "dw",
+         "wide_tc", conv_cases, lambda c: c["kernel"] != "dw",
          lambda c: (c["kernel"] == "wide_fwd" and c["dtype"] == "bfloat16"
                     and c["Ci"] == 32 and c["D"] == 64),
-         "forward, bfloat16, N=16, Ci=Co=32, 64^3"),
+         "forward, bfloat16 (tensor cores), N=16, Ci=Co=32, 64^3"),
         ("conv3d_dw", "conv3d_k3.cu", "gan3d_tpu/ops/dw_conv.py:133", "dw",
          conv_cases, lambda c: c["kernel"] == "dw",
          lambda c: c["dtype"] == "bfloat16" and c["Ci"] == 32
@@ -825,6 +891,12 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "at": at, "cases": mine,
         })
+        if "before_ms" in main:
+            # the same case's f32 route (FMA kernels) beside it
+            f32 = next(c for c in mine if c["dtype"] == "float32" and all(
+                c[k] == main[k] for k in main
+                if k in ("kernel", "placement", "Ci", "D")))
+            out[-1].update(before_ms=main["before_ms"], f32_ms=f32["ms"])
     k5 = next(c for c in toeplitz_cases
               if c["dtype"] == "bfloat16" and (c["C"], c["S"]) == (32, 64))
     out.append({
@@ -877,7 +949,8 @@ def run_cli(argv: list) -> str:
 
 def expected_launches(start: int, niters: int, iter_d: int,
                       img_every: int) -> dict:
-    """Attention launches a run of steps [start, niters) implies.
+    """Attention launches a bf16 run of steps [start, niters) implies (its
+    backward on the tensor-core route).
 
     Per step: G attention forward iter_d times (no-grad G in each D
     iteration) + once (G step); D attention forward 2 * iter_d times (real
@@ -889,14 +962,15 @@ def expected_launches(start: int, niters: int, iter_d: int,
     steps = niters - start
     img_logs = sum(1 for i in range(start, niters) if i % img_every == 0) + 1
     return {"fwd": steps * (iter_d + 1 + 2 * iter_d + 1) + img_logs,
-            "bwd": steps * (1 + 2 * iter_d + 1)}
+            "bwd_tc": steps * (1 + 2 * iter_d + 1)}
 
 
 def expected_conv_launches(start: int, niters: int, iter_d: int,
                            img_every: int, n_g: int, n_d: int, wide: bool,
                            fast_dw: bool) -> dict:
-    """Conv kernel launches a run of steps [start, niters) implies, with
-    n_g / n_d eligible convs in each G / D forward.
+    """Conv kernel launches a bf16 run of steps [start, niters) implies
+    (the wide conv on its tensor-core route), with n_g / n_d eligible convs
+    in each G / D forward.
 
     With wide_conv on, every eligible conv's forward is a wide launch: G
     forwards iter_d times (no-grad, in the D iterations) and once (G step)
@@ -911,11 +985,11 @@ def expected_conv_launches(start: int, niters: int, iter_d: int,
     img_logs = sum(1 for i in range(start, niters) if i % img_every == 0) + 1
     dw = steps * (2 * iter_d * n_d + n_g) if (wide or fast_dw) else 0
     if not wide:
-        return {"wide": 0, "dw": dw}
+        return {"wide_tc": 0, "dw": dw}
     fwd = ((steps * (iter_d + 1) + img_logs) * n_g
            + steps * (2 * iter_d + 1) * n_d)
     dx = steps * ((2 * iter_d + 1) * n_d + n_g)
-    return {"wide": fwd + dx, "dw": dw}
+    return {"wide_tc": fwd + dx, "dw": dw}
 
 
 def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
@@ -941,16 +1015,19 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
             torch.cuda.reset_peak_memory_stats()
             out = run_cli(base + [f"--niters={niters}"])
             got = {"fwd": ca.fwd_launches, "bwd": ca.bwd_launches,
-                   "wide": cc.wide_launches, "dw": cc.dw_launches}
-            want = {**expected_launches(start, niters, 2, 50),
+                   "bwd_tc": ca.bwd_tc_launches, "wide": cc.wide_launches,
+                   "wide_tc": cc.wide_tc_launches, "dw": cc.dw_launches}
+            # bf16 runs: the f32 routes of K2 and K4 launch nothing
+            want = {"bwd": 0, "wide": 0,
+                    **expected_launches(start, niters, 2, 50),
                     **expected_conv_launches(start, niters, 2, 50, n_g, n_d,
                                              wide, fast_dw)}
-            if got != want or not (got["fwd"] and got["bwd"]):
+            if got != want or not (got["fwd"] and got["bwd_tc"]):
                 raise AssertionError(f"{name}: launches {got} != expected "
                                      f"{want}")
             if (wide or fast_dw) and not got["dw"]:
                 raise AssertionError(f"{name}: the dW kernel never launched")
-            if wide and not got["wide"]:
+            if wide and not got["wide_tc"]:
                 raise AssertionError(f"{name}: the wide kernel never "
                                      "launched")
             if start and f"starting from step {start}" not in out:
@@ -1079,9 +1156,15 @@ def main() -> int:
             ptxas += [ln.strip() for ln in f
                       if any(w in ln for w in ("entry function", "registers",
                                                "spill"))]
+    tc_kernels = tensor_core_ptxas(ptxas)
     phase("build", seconds=time.time() - t0,
           libraries=[os.path.relpath(lib, REPO) for lib in libs],
-          ptxas=ptxas)
+          ptxas=ptxas, tensor_core_kernels=tc_kernels)
+    spills = [k for k, v in tc_kernels.items()
+              if NO_SPILL.search(k) and (v["spill_stores"] or v["spill_loads"])]
+    if spills or not tc_kernels:
+        raise AssertionError(f"tensor-core kernels spill: {spills}, or none "
+                             "found in ptxas.log")
 
     cases = kernel_phase(ca, attention_plain)
     phase("kernel_extra", **extra_checks(ca, attention_plain))

@@ -222,19 +222,30 @@ wide_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // channels x 64 positions (2 x 8 m16n8 tiles, 64 f32 sums a thread).
 // Per stage of 16 input channels (the part's share of the Ci/16 chunks):
 // - xs [halo rows][16] bf16: the box's input plus its masked 1-voxel halo,
-//   channels innermost. Loaded from NCDHW coalesced along w (8 channels a
-//   thread, 8 two-byte loads) and stored as one 16-byte row chunk. A B
-//   fragment (8 positions x 16 channels) is then one ldmatrix of 8 halo
-//   rows, each lane passing its own position's row, so a tap's shift is
-//   only a row offset: no im2col, nothing padded or transposed in memory.
-// - ws [27][BM][16] bf16: the chunk's weights, copied with cp.async from
+//   channels innermost. A B fragment (8 positions x 16 channels) is one
+//   ldmatrix of 8 halo rows, each lane passing its own position's row, so
+//   a tap's shift is only a row offset: no im2col, nothing padded or
+//   transposed in device memory.
+// - ws [27][BM][16] bf16: the stage's weights, copied with cp.async from
 //   the repacked wp [Ci/16][27][Cop][16] (ops/cuda_conv.py:repack_weight;
 //   zero where ci >= Ci or co >= Co), one ldmatrix.x4 per A fragment.
 // Rows are 32 bytes, swizzled (tc::swz<2>) so every ldmatrix is free of
-// bank conflicts. With P > 1 each part writes f32 partials [P, N, Co, S]
-// summed in a fixed order by tc::sum_partials (no atomics); else the block
-// writes bf16 directly. Positions past the box or the volume are computed
-// on clamped rows and not stored.
+// bank conflicts. xs is filled one of two ways:
+// - staged (kVec; needs W and tw multiples of 4): the stage's raw NCDHW
+//   rows (w0-4 .. w0+tw+3, 16 channels) arrive by 8-byte cp.async,
+//   zero-filled outside the volume, in a staging buffer; after they land
+//   they are transposed shared-to-shared into xs, and the next stage's
+//   rows are requested before this stage's products run, so their latency
+//   hides behind the tensor cores (at the cost of the buffer's shared
+//   memory: 2 blocks an SM instead of 3).
+// - direct: 16 two-byte loads a halo position, coalesced along w,
+//   transposed through registers.
+// The staging's index work is done once per halo row or position, for all
+// 16 channels, with float-reciprocal divisions (fdiv).
+// With P > 1 each part writes f32 partials [P, N, Co, S] summed in a fixed
+// order by tc::sum_partials (no atomics); else the block writes bf16
+// directly. Positions past the box or the volume are computed on clamped
+// rows and not stored.
 constexpr int kTcThreads = 128;
 constexpr int kTcCi = 16;      // input channels per stage: one k-step a tap
 constexpr int kTcCoPad = 64;   // wp's Co is padded to a multiple of this
@@ -244,18 +255,98 @@ __device__ __forceinline__ int swz2(int row, int chunk) {
   return tc::swz<2>(row, chunk);
 }
 
+// n / d for the small block-local indices here (n + d < 2^22), as a float
+// product with d's reciprocal: 3 instructions where an integer division by
+// a value known only at run time takes ~20 (the index work of the staging
+// loops rivals the products otherwise). Exact: (n + 0.5) / d is at least
+// 0.5 / d from an integer, far above the product's rounding error;
+// __fadd_rn / __fmul_rn keep the compiler from fusing it into an FMA.
+__device__ __forceinline__ int fdiv(int n, float inv) {
+  return __float2int_rz(__fmul_rn(__fadd_rn((float)n, 0.5f), inv));
+}
+
+// Shape of a block's staging: halo rows (dd, hh, ww), raw rows of the
+// staged path ((tw + 8) values from w0 - 4), and reciprocals for fdiv.
+struct TcBox {
+  int HB, WB, plane, R;  // halo: (td+2) x HB x WB = R rows
+  int RW, cs, U;         // raw: values a row; values a channel; 8-byte units
+  float inv_WB, inv_HB, inv_U, inv_tw, inv_th;
+};
+
+__device__ __forceinline__ TcBox tc_box(const Geom& g) {
+  TcBox b;
+  b.HB = g.th + 2;
+  b.WB = g.tw + 2;
+  b.plane = b.HB * b.WB;
+  b.R = (g.td + 2) * b.plane;
+  b.RW = g.tw + 8;
+  b.cs = (g.td + 2) * b.HB * b.RW;
+  b.U = b.RW / 4;
+  b.inv_WB = 1.f / b.WB;
+  b.inv_HB = 1.f / b.HB;
+  b.inv_U = 1.f / b.U;
+  b.inv_tw = 1.f / g.tw;
+  b.inv_th = 1.f / g.th;
+  return b;
+}
+
+// Box position p (w fastest) -> (dl, hl, wl).
+__device__ __forceinline__ void box_pos(int p, const Geom& g, const TcBox& b,
+                                        int* dl, int* hl, int* wl) {
+  const int r = fdiv(p, b.inv_tw);
+  *wl = p - r * g.tw;
+  *dl = fdiv(r, b.inv_th);
+  *hl = r - *dl * g.th;
+}
+
+// The 27 taps of one stage: acc += ws (this warp's 32 channels) x xs (its
+// 64 positions, halo rows hb + the tap's offset).
 template <int WM>
-__global__ void __launch_bounds__(kTcThreads, 3)
+__device__ __forceinline__ void wide_tc_stage(float (*acc)[8][4],
+                                              const uint4* xs,
+                                              const uint4* ws, const int* hb,
+                                              const TcBox& bx, int wm,
+                                              int lane) {
+  constexpr int BM = 32 * WM;
+#pragma unroll 1
+  for (int kd = 0; kd < 3; ++kd) {
+#pragma unroll
+    for (int k9 = 0; k9 < 9; ++k9) {
+      const int kh = k9 / 3, kw = k9 % 3;
+      const int tap = kd * 9 + k9;
+      const int toff = (kd * bx.HB + kh) * bx.WB + kw;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int row =
+            tap * BM + wm * 32 + mt * 16 + (lane % 8) + ((lane >> 3) & 1) * 8;
+        tc::ldsm_x4(a[mt], ws + swz2(row, lane >> 4));
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bf[4];
+        tc::ldsm_x4(bf, xs + swz2(hb[j] + toff, (lane >> 3) & 1));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          tc::mma(acc[mt][2 * j], a[mt], bf);
+          tc::mma(acc[mt][2 * j + 1], a[mt], bf + 2);
+        }
+      }
+    }
+  }
+}
+
+template <int WM, bool kVec>
+__global__ void __launch_bounds__(kTcThreads, kVec ? 2 : 3)
 wide_tc_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ wp, float* __restrict__ part,
                __nv_bfloat16* __restrict__ out, Geom g, int P) {
   constexpr int BM = 32 * WM;
   extern __shared__ uint4 smem_tc[];
-  const int HB = g.th + 2, WB = g.tw + 2;
-  const int plane = HB * WB;
-  const int R = (g.td + 2) * plane;
+  const TcBox bx = tc_box(g);
   uint4* xs = smem_tc;               // [R] rows of 2 chunks
-  uint4* ws = smem_tc + 2 * R;       // [27 * BM] rows of 2 chunks
+  uint4* ws = smem_tc + 2 * bx.R;    // [27 * BM] rows of 2 chunks
+  uint16_t* raw = reinterpret_cast<uint16_t*>(ws + 2 * 27 * BM);  // kVec
 
   int b = blockIdx.x;
   const int bw = b % g.nbw; b /= g.nbw;
@@ -279,14 +370,75 @@ wide_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int pos = wn * 64 + (2 * j + lane / 16) * 8 + lane % 8;
-    const int wl = pos % g.tw, hl = (pos / g.tw) % g.th;
-    const int dl = pos / (g.tw * g.th);
-    hb[j] = pos < box ? (dl * HB + hl) * WB + wl : 0;
+    int dl, hl, wl;
+    box_pos(pos, g, bx, &dl, &hl, &wl);
+    hb[j] = pos < box ? (dl * bx.HB + hl) * bx.WB + wl : 0;
   }
 
   const long long HW = (long long)g.H * g.W;
   const long long DHW = HW * g.D;
-  const __nv_bfloat16* xn = x + (long long)n * g.Ci * DHW;
+  const uint16_t* xn =
+      reinterpret_cast<const uint16_t*>(x) + (long long)n * g.Ci * DHW;
+
+  // weights of stage c: 27 x BM rows of 32 bytes, contiguous per tap in wp
+  auto load_weights = [&](int c) {
+    for (int i = t; i < 27 * BM * 2; i += kTcThreads) {
+      const int half = i & 1, row = i >> 1;  // row = tap * BM + co
+      const int tap = row / BM, co = row % BM;
+      tc::cp_async16(ws + swz2(row, half),
+                     wp + ((((long long)c * 27 + tap) * Cop + co0 + co) *
+                               kTcCi + half * 8));
+    }
+  };
+  // kVec: raw rows [ci 16][td+2][HB][RW] of stage c, zero outside; an
+  // item is one 8-byte unit of one (dd, hh) row, for all 16 channels
+  auto load_raw = [&](int c) {
+    const int items = (g.td + 2) * bx.HB * bx.U;
+    for (int i = t; i < items; i += kTcThreads) {
+      const int r = fdiv(i, bx.inv_U), u = i - r * bx.U;
+      const int dd = fdiv(r, bx.inv_HB), hh = r - dd * bx.HB;
+      const int gd = d0 + dd - 1, gh = h0 + hh - 1, gw = w0 - 4 + 4 * u;
+      const bool in = gd >= 0 && gd < g.D && gh >= 0 && gh < g.H &&
+                      gw >= 0 && gw < g.W;
+      const uint16_t* src =
+          xn + c * kTcCi * DHW + (in ? gd * HW + (long long)gh * g.W + gw : 0);
+      uint16_t* dst = raw + r * bx.RW + 4 * u;
+#pragma unroll
+      for (int cl = 0; cl < kTcCi; ++cl) {
+        const bool ok = in && c * kTcCi + cl < g.Ci;
+        tc::cp_async8(dst + cl * bx.cs, ok ? src + cl * DHW : xn, ok ? 8 : 0);
+      }
+    }
+  };
+  // xs row hp (both 8-channel chunks) from the raw rows (kVec) or straight
+  // from x; an item is one halo position
+  auto fill_xs = [&](int c) {
+    for (int hp = t; hp < bx.R; hp += kTcThreads) {
+      const int r = fdiv(hp, bx.inv_WB), ww = hp - r * bx.WB;  // r: (dd, hh)
+      uint32_t v[8];
+      if (kVec) {
+        const uint16_t* src = raw + r * bx.RW + ww + 3;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = tc::pack_raw(src[2 * e * bx.cs], src[(2 * e + 1) * bx.cs]);
+      } else {
+        const int dd = fdiv(r, bx.inv_HB), hh = r - dd * bx.HB;
+        const int gd = d0 + dd - 1, gh = h0 + hh - 1, gw = w0 + ww - 1;
+        const bool in = gd >= 0 && gd < g.D && gh >= 0 && gh < g.H &&
+                        gw >= 0 && gw < g.W;
+        const uint16_t* src = xn + c * kTcCi * DHW +
+                              (in ? gd * HW + (long long)gh * g.W + gw : 0);
+        uint16_t h[kTcCi];
+#pragma unroll
+        for (int cl = 0; cl < kTcCi; ++cl)
+          h[cl] = in && c * kTcCi + cl < g.Ci ? src[cl * DHW] : 0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = tc::pack_raw(h[2 * e], h[2 * e + 1]);
+      }
+      xs[swz2(hp, 0)] = make_uint4(v[0], v[1], v[2], v[3]);
+      xs[swz2(hp, 1)] = make_uint4(v[4], v[5], v[6], v[7]);
+    }
+  };
 
   float acc[2][8][4];
 #pragma unroll
@@ -296,66 +448,35 @@ wide_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  for (int c = c_begin; c < c_end; ++c) {
-    const int ci0 = c * kTcCi;
-    __syncthreads();
-    // weights: 27 x BM rows of 32 bytes, contiguous per tap in wp
-    for (int i = t; i < 27 * BM * 2; i += kTcThreads) {
-      const int half = i & 1, row = i >> 1;  // row = tap * BM + co
-      const int tap = row / BM, co = row % BM;
-      tc::cp_async16(ws + swz2(row, half),
-                 wp + ((((long long)c * 27 + tap) * Cop + co0 + co) * kTcCi +
-                       half * 8));
-    }
-    // input box + halo, channels innermost, zero outside the volume
-    for (int i = t; i < 2 * R; i += kTcThreads) {
-      const int hp = i % R, grp = i / R;
-      const int ww = hp % WB, hh = (hp / WB) % HB, dd = hp / plane;
-      const int gd = d0 + dd - 1, gh = h0 + hh - 1, gw = w0 + ww - 1;
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      if (gd >= 0 && gd < g.D && gh >= 0 && gh < g.H && gw >= 0 &&
-          gw < g.W) {
-        const uint16_t* src = reinterpret_cast<const uint16_t*>(xn) +
-                              gd * HW + (long long)gh * g.W + gw;
-        const int cb = ci0 + grp * 8;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint16_t lo = cb + 2 * e < g.Ci ? src[(cb + 2 * e) * DHW] : 0;
-          const uint16_t hi =
-              cb + 2 * e + 1 < g.Ci ? src[(cb + 2 * e + 1) * DHW] : 0;
-          v[e] = tc::pack_raw(lo, hi);
-        }
+  if (kVec) {
+    load_raw(c_begin);
+    load_weights(c_begin);
+    tc::cp_async_commit();
+    for (int c = c_begin; c < c_end; ++c) {
+      tc::cp_async_wait<0>();
+      __syncthreads();     // raw(c), ws(c) landed; xs free
+      fill_xs(c);
+      __syncthreads();     // xs ready; raw free
+      if (c + 1 < c_end) {
+        load_raw(c + 1);   // in flight during this stage's products
+        tc::cp_async_commit();
       }
-      xs[swz2(hp, grp)] = make_uint4(v[0], v[1], v[2], v[3]);
-    }
-    tc::cp_async_wait_all();
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll 1
-    for (int kd = 0; kd < 3; ++kd) {
-#pragma unroll
-      for (int k9 = 0; k9 < 9; ++k9) {
-        const int kh = k9 / 3, kw = k9 % 3;
-        const int tap = kd * 9 + k9;
-        const int toff = (kd * HB + kh) * WB + kw;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int row =
-              tap * BM + wm * 32 + mt * 16 + (lane % 8) + ((lane >> 3) & 1) * 8;
-          tc::ldsm_x4(a[mt], ws + swz2(row, lane >> 4));
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bf[4];
-          tc::ldsm_x4(bf, xs + swz2(hb[j] + toff, (lane >> 3) & 1));
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            tc::mma(acc[mt][2 * j], a[mt], bf);
-            tc::mma(acc[mt][2 * j + 1], a[mt], bf + 2);
-          }
-        }
+      if (active) wide_tc_stage<WM>(acc, xs, ws, hb, bx, wm, lane);
+      if (c + 1 < c_end) {
+        __syncthreads();   // ws and xs free
+        load_weights(c + 1);
+        tc::cp_async_commit();
       }
+    }
+  } else {
+    for (int c = c_begin; c < c_end; ++c) {
+      __syncthreads();
+      load_weights(c);
+      tc::cp_async_commit();
+      fill_xs(c);
+      tc::cp_async_wait<0>();
+      __syncthreads();
+      if (active) wide_tc_stage<WM>(acc, xs, ws, hb, bx, wm, lane);
     }
   }
   if (!active) return;
@@ -366,8 +487,8 @@ wide_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int e1 = 0; e1 < 2; ++e1) {
       const int pos = wn * 64 + nt * 8 + (lane & 3) * 2 + e1;
-      const int wl = pos % g.tw, hl = (pos / g.tw) % g.th;
-      const int dl = pos / (g.tw * g.th);
+      int dl, hl, wl;
+      box_pos(pos, g, bx, &dl, &hl, &wl);
       const int d = d0 + dl, h = h0 + hl, w = w0 + wl;
       if (pos >= box || d >= g.D || h >= g.H || w >= g.W) continue;
       const long long sp = d * HW + (long long)h * g.W + w;
@@ -563,7 +684,8 @@ int launch_wide(const void* x, const void* w, void* out, const Geom& g,
 }
 
 int launch_wide_tc(const void* x, const void* wp, void* part, void* out,
-                   const Geom& g, int wm, int P, cudaStream_t st) {
+                   const Geom& g, int wm, int P, int staged,
+                   cudaStream_t st) {
   const long long boxes = (long long)g.N * g.nbd * g.nbh * g.nbw;
   const int bm = 32 * wm;
   const int co_tiles = cdiv(g.Co, bm);
@@ -572,19 +694,28 @@ int launch_wide_tc(const void* x, const void* wp, void* part, void* out,
       boxes > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int rows = (g.td + 2) * (g.th + 2) * (g.tw + 2);
-  const size_t smem = 32 * ((size_t)rows + 27 * bm);
+  const bool vec = staged != 0;
+  if (vec && (g.W % 4 != 0 || g.tw % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = 32 * ((size_t)rows + 27 * bm) +
+                      (vec ? (size_t)2 * kTcCi * (g.td + 2) * (g.th + 2) *
+                                 (g.tw + 8)
+                           : 0);
   const dim3 grid((unsigned)boxes, co_tiles, P);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const __nv_bfloat16*>(wp);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   float* pf = static_cast<float*>(part);
-  if (wm == 1) {
-    if (!set_smem(wide_tc_kernel<1>, smem)) return (int)cudaErrorInvalidValue;
-    wide_tc_kernel<1><<<grid, kTcThreads, smem, st>>>(xb, wb, pf, ob, g, P);
-  } else {
-    if (!set_smem(wide_tc_kernel<2>, smem)) return (int)cudaErrorInvalidValue;
-    wide_tc_kernel<2><<<grid, kTcThreads, smem, st>>>(xb, wb, pf, ob, g, P);
-  }
+  auto launch = [&](auto kernel) {
+    if (!set_smem(kernel, smem)) return false;
+    kernel<<<grid, kTcThreads, smem, st>>>(xb, wb, pf, ob, g, P);
+    return true;
+  };
+  const bool ok = wm == 1 ? (vec ? launch(wide_tc_kernel<1, true>)
+                                 : launch(wide_tc_kernel<1, false>))
+                          : (vec ? launch(wide_tc_kernel<2, true>)
+                                 : launch(wide_tc_kernel<2, false>));
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || P == 1) return (int)err;
   return (int)tc::sum_partials(pf, ob, P,
@@ -635,14 +766,16 @@ int k3_wide(const void* x, const void* w, void* out, int N, int Ci, int Co,
 // The bf16 route: out [N, Co, D, H, W] bf16 from x [N, Ci, D, H, W] bf16
 // and wp [Ci/16][27][Cop][16] bf16 (the repacked weight); part
 // [P, N, Co, D*H*W] f32 is scratch when P > 1. Tiling (td, th, tw, wm, P)
-// as chosen by ops/cuda_conv.py:wide_tc_plan.
+// and the staging (staged 1: cp.async rows; 0: direct loads) as chosen by
+// ops/cuda_conv.py:wide_tc_plan.
 int k3_wide_tc(const void* x, const void* wp, void* part, void* out, int N,
                int Ci, int Co, int D, int H, int W, int td, int th, int tw,
-               int wm, int P, void* stream) {
+               int wm, int P, int staged, void* stream) {
   Geom g;
   if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
     return (int)cudaErrorInvalidValue;
-  return launch_wide_tc(x, wp, part, out, g, wm, P, (cudaStream_t)stream);
+  return launch_wide_tc(x, wp, part, out, g, wm, P, staged,
+                        (cudaStream_t)stream);
 }
 
 // dw [Co, Ci, 3, 3, 3] (f32) from x [N, Ci, D, H, W] and g [N, Co, D, H, W];

@@ -1,7 +1,7 @@
 // Tensor-core building blocks shared by the bf16 kernels of
 // conv3d_k3.cu (wide_tc_kernel) and pooled_attention.cu (the *_tc
 // kernels), for sm_90a: ldmatrix loads of 8x8 b16 tiles from shared memory,
-// the m16n8k16 bf16 product with f32 sums, cp.async, a swizzle that keeps
+// the m16n8k16 bf16 product with f32 sums, zero-filling cp.async, a swizzle that keeps
 // ldmatrix free of bank conflicts, and the fixed-order sum of split-K
 // partials.
 //
@@ -87,15 +87,40 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+// Asynchronous copies global -> shared of 16, 8 or 4 bytes; `bytes` of
+// them are read and the rest zero-filled (0: a zero fill, src unread).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                    smem_addr(dst)),
-               "l"(src)
+               "l"(src), "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // out[j] = bf16(sum_{p = 0 .. P-1} part[p * M + j]), in that order.

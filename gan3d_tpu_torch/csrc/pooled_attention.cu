@@ -301,8 +301,9 @@ struct TcShape {
   static constexpr int NT = C / 8;    // n8 tiles over c
 };
 
-// Rows [row0, row0 + nrows) of a [rows, C] bf16 matrix into a swizzled
-// [kTcTile][NC] tile; rows past nrows and columns past C are zero.
+// Request rows [row0, row0 + nrows) of a [rows, C] bf16 matrix into a
+// swizzled [kTcTile][NC] tile by cp.async; rows past nrows and columns past
+// C are zero-filled.
 template <int C>
 __device__ __forceinline__ void load_tile_tc(uint4* dst,
                                              const __nv_bfloat16* src,
@@ -310,11 +311,10 @@ __device__ __forceinline__ void load_tile_tc(uint4* dst,
   constexpr int NC = TcShape<C>::NC;
   for (int i = threadIdx.x; i < kTcTile * NC; i += blockDim.x) {
     const int r = i / NC, ch = i % NC;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows && ch * 8 < C)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * C +
-                                          ch * 8);
-    dst[tc::swz<NC>(r, ch)] = v;
+    const bool ok = r < nrows && ch * 8 < C;
+    tc::cp_async16(dst + tc::swz<NC>(r, ch),
+                   ok ? src + (size_t)(row0 + r) * C + ch * 8 : src,
+                   ok ? 16 : 0);
   }
 }
 
@@ -399,8 +399,8 @@ __global__ void __launch_bounds__(kTcThreads)
                      __nv_bfloat16* __restrict__ dq,
                      float* __restrict__ delta, int L, int M) {
   using S = TcShape<C>;
-  __shared__ uint4 ks[kTcTile * S::NC];
-  __shared__ uint4 vs[kTcTile * S::NC];
+  __shared__ uint4 ks[2][kTcTile * S::NC];
+  __shared__ uint4 vs[2][kTcTile * S::NC];
   const int n = blockIdx.y;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane >> 2, qd = lane & 3;
@@ -437,19 +437,29 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
-  for (int j0 = 0; j0 < M; j0 += kTcTile) {
+  // two stages: tile j + 1 is in flight while tile j's products run
+  auto request = [&](int j0, int st) {
+    load_tile_tc<C>(ks[st], kn, j0, min(kTcTile, M - j0));
+    load_tile_tc<C>(vs[st], vn, j0, min(kTcTile, M - j0));
+    tc::cp_async_commit();
+  };
+  request(0, 0);
+  for (int j0 = 0, st = 0; j0 < M; j0 += kTcTile, st ^= 1) {
     const int nt = min(kTcTile, M - j0);
-    __syncthreads();
-    load_tile_tc<C>(ks, kn, j0, nt);
-    load_tile_tc<C>(vs, vn, j0, nt);
+    if (j0 + kTcTile < M) {
+      request(j0 + kTcTile, st ^ 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
     __syncthreads();
     float s[8][4], dp[8][4];
 #pragma unroll
     for (int t = 0; t < 8; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-    rows_times_tile<C>(s, qa, ks, lane);
-    rows_times_tile<C>(dp, da, vs, lane);
+    rows_times_tile<C>(s, qa, ks[st], lane);
+    rows_times_tile<C>(dp, da, vs[st], lane);
 #pragma unroll
     for (int t = 0; t < 8; ++t)
 #pragma unroll
@@ -458,7 +468,8 @@ __global__ void __launch_bounds__(kTcThreads)
         if (t * 8 + 2 * qd + (e & 1) >= nt) pv = 0.f;  // keys past M
         s[t][e] = pv * (dp[t][e] - dl[e >> 1]);         // dS
       }
-    frags_times_tile<C>(acc, s, ks, lane);
+    frags_times_tile<C>(acc, s, ks[st], lane);
+    __syncthreads();  // stage st is refilled two tiles on
   }
 #pragma unroll
   for (int t = 0; t < S::NT; ++t) {
@@ -490,10 +501,10 @@ __global__ void __launch_bounds__(kTcThreads)
                        __nv_bfloat16* __restrict__ dv, float* __restrict__ dkp,
                        float* __restrict__ dvp, int L, int M, int P) {
   using S = TcShape<C>;
-  __shared__ uint4 qs[kTcTile * S::NC];
-  __shared__ uint4 dos[kTcTile * S::NC];
-  __shared__ float l2s[kTcTile];
-  __shared__ float dls[kTcTile];
+  __shared__ uint4 qs[2][kTcTile * S::NC];
+  __shared__ uint4 dos[2][kTcTile * S::NC];
+  __shared__ float lses[2][kTcTile];
+  __shared__ float dls[2][kTcTile];
   const int n = blockIdx.y, p = blockIdx.z;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane >> 2, qd = lane & 3;
@@ -511,17 +522,30 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[t][e] = dva[t][e] = 0.f;
 
-  const int tiles = (L + kTcTile - 1) / kTcTile;
-  const int t_end = (int)((long long)tiles * (p + 1) / P);
-  for (int ti = (int)((long long)tiles * p / P); ti < t_end; ++ti) {
-    const int i0 = ti * kTcTile;
+  // two stages: tile i + 1 is in flight while tile i's products run.
+  // Query rows past L arrive as zeros (q, dO, lse, delta): their S^T and
+  // dP^T are 0, so their dS^T is 0 and their dO adds nothing to dV.
+  auto request = [&](int i0, int st) {
     const int nt = min(kTcTile, L - i0);
-    __syncthreads();
-    load_tile_tc<C>(qs, q + nl * C, i0, nt);
-    load_tile_tc<C>(dos, dout + nl * C, i0, nt);
+    load_tile_tc<C>(qs[st], q + nl * C, i0, nt);
+    load_tile_tc<C>(dos[st], dout + nl * C, i0, nt);
     for (int r = threadIdx.x; r < kTcTile; r += blockDim.x) {
-      l2s[r] = r < nt ? lse[nl + i0 + r] * kLog2e : INFINITY;  // p = 0
-      dls[r] = r < nt ? delta[nl + i0 + r] : 0.f;
+      const bool ok = r < nt;
+      tc::cp_async4(&lses[st][r], lse + nl + (ok ? i0 + r : 0), ok ? 4 : 0);
+      tc::cp_async4(&dls[st][r], delta + nl + (ok ? i0 + r : 0), ok ? 4 : 0);
+    }
+    tc::cp_async_commit();
+  };
+  const int tiles = (L + kTcTile - 1) / kTcTile;
+  const int t_begin = (int)((long long)tiles * p / P);
+  const int t_end = (int)((long long)tiles * (p + 1) / P);
+  request(t_begin * kTcTile, 0);
+  for (int ti = t_begin, st = 0; ti < t_end; ++ti, st ^= 1) {
+    if (ti + 1 < t_end) {
+      request((ti + 1) * kTcTile, st ^ 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
     }
     __syncthreads();
     float s[8][4], dp[8][4];
@@ -529,19 +553,21 @@ __global__ void __launch_bounds__(kTcThreads)
     for (int t = 0; t < 8; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-    rows_times_tile<C>(s, ka, qs, lane);
-    rows_times_tile<C>(dp, va, dos, lane);
+    rows_times_tile<C>(s, ka, qs[st], lane);
+    rows_times_tile<C>(dp, va, dos[st], lane);
 #pragma unroll
     for (int t = 0; t < 8; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = t * 8 + 2 * qd + (e & 1);
-        const float pv = tc::exp2_approx(fmaf(s[t][e], kLog2e, -l2s[col]));
-        s[t][e] = pv;                              // P^T
-        dp[t][e] = pv * (dp[t][e] - dls[col]);     // dS^T
+        const float pv =
+            tc::exp2_approx((s[t][e] - lses[st][col]) * kLog2e);
+        s[t][e] = pv;                                // P^T
+        dp[t][e] = pv * (dp[t][e] - dls[st][col]);   // dS^T
       }
-    frags_times_tile<C>(dva, s, dos, lane);
-    frags_times_tile<C>(dka, dp, qs, lane);
+    frags_times_tile<C>(dva, s, dos[st], lane);
+    frags_times_tile<C>(dka, dp, qs[st], lane);
+    __syncthreads();  // stage st is refilled two tiles on
   }
 #pragma unroll
   for (int t = 0; t < S::NT; ++t) {

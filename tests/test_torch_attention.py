@@ -5,7 +5,9 @@ is held against the JAX einsum reference and against the Pallas kernel run
 in interpret mode, forward and gradients; the dispatcher must send CPU
 tensors to the plain version without touching the CUDA kernels. The CUDA
 kernels themselves run only on the card (chip_smoke.py holds them against
-the plain version there). All in f32; inputs drawn with numpy from a seed.
+the plain version there); here a blocked emulation of the bf16 backward's
+arithmetic (its rounding points, tiles and split-L partials) is held
+against the Pallas backward. Inputs drawn with numpy from a seed.
 """
 
 import numpy as np
@@ -113,3 +115,95 @@ def test_kernel_wrapper_rejects(case):
     with pytest.raises(ValueError):
         cuda_attention.pooled_attention_cuda(q, k, v)
     assert cuda_attention.fwd_launches == 0
+
+
+def emulate_bwd_tc(q, k, v, o, lse, do, parts, tile=64):
+    """The arithmetic of the bf16 tensor-core backward
+    (csrc/pooled_attention.cu, bwd_dq_tc_kernel / bwd_dkdv_tc_kernel) in
+    plain PyTorch: q, k, v, o, dO are bf16; every product multiplies bf16
+    operands into f32 sums; P and dS are rounded to bf16 before the dQ, dK
+    and dV products; delta = sum(dO * o) from the bf16 o; dQ runs over
+    64-key tiles; dK/dV over 64-query tiles split into ``parts`` contiguous
+    parts (``dkdv_split``), whose f32 partials are summed in order; every
+    output is rounded to bf16 once."""
+    f = [t.float() for t in (q, k, v, do)]
+    qf, kf, vf, df = f
+    n, L, c = q.shape
+    m = k.shape[1]
+    delta = (df * o.float()).sum(-1, keepdim=True)            # [N, L, 1]
+    lse = lse[..., None]
+
+    def bf(t):
+        return t.bfloat16().float()
+
+    dq = torch.zeros((n, L, c))
+    for j in range(0, m, tile):
+        kj, vj = kf[:, j:j + tile], vf[:, j:j + tile]
+        p = torch.exp(qf @ kj.transpose(1, 2) - lse)
+        ds = p * (df @ vj.transpose(1, 2) - delta)
+        dq += bf(ds) @ kj
+    tiles = -(-L // tile)
+    dk_parts, dv_parts = [], []
+    for part in range(parts):
+        dk, dv = torch.zeros((n, m, c)), torch.zeros((n, m, c))
+        for t in range(tiles * part // parts, tiles * (part + 1) // parts):
+            i = slice(t * tile, (t + 1) * tile)
+            pt = torch.exp(kf @ qf[:, i].transpose(1, 2)
+                           - lse[:, i].transpose(1, 2))       # P^T [N, M, T]
+            dst = pt * (vf @ df[:, i].transpose(1, 2)
+                        - delta[:, i].transpose(1, 2))
+            dv += bf(pt) @ df[:, i]
+            dk += bf(dst) @ qf[:, i]
+        dk_parts.append(dk)
+        dv_parts.append(dv)
+    dk, dv = dk_parts[0], dv_parts[0]
+    for a, b in zip(dk_parts[1:], dv_parts[1:]):
+        dk, dv = dk + a, dv + b
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("c", [16, 32])
+def test_bf16_backward_emulation_matches_pallas_interpret(c):
+    """The bf16 backward's arithmetic (emulate_bwd_tc, with split-L
+    partials: dkdv_split gives 8 parts here) against jax.vjp through the
+    Pallas backward (interpret mode) at N=2, L=512, M=64, on the same
+    bf16-valued inputs: within 2e-2 of the largest |gradient|, the card's
+    bf16 tolerance, both against the f32 Pallas run (the exact gradient:
+    what the rounding points cost) and against the bf16 one (the TPU
+    kernel's own rounding points, which these mirror)."""
+    arrs = [a.astype(np.float32) for a in _qkv(5, c=c)]
+    arrs.append(np.random.default_rng(6).normal(size=arrs[0].shape).astype(
+        np.float32))
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in arrs)
+    s = q.float() @ k.float().transpose(1, 2)
+    lse = torch.logsumexp(s, -1)
+    o = (torch.softmax(s, -1) @ v.float()).bfloat16()
+    parts = cuda_attention.dkdv_split(2, 512, 64)
+    assert parts == 8
+    got = emulate_bwd_tc(q, k, v, o, lse, do, parts)
+    for dt in (jnp.float32, jnp.bfloat16):
+        jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), dt)
+                           for t in (q, k, v, do))
+        with pltpu.force_tpu_interpret_mode():
+            _, vjp = jax.vjp(pallas_pooled_attention, jq, jk, jv)
+            want = vjp(jdo)
+        for g, w, name in zip(got, want, "qkv"):
+            w = np.asarray(w.astype(jnp.float32))
+            err = np.abs(g.float().numpy() - w).max() / np.abs(w).max()
+            assert err <= 2e-2, (str(dt), name, err)
+
+
+@pytest.mark.parametrize("n,L,m,want", [(16, 32768, 4096, 1),
+                                        (16, 4096, 512, 3),
+                                        (2, 1000, 125, 16), (1, 4133, 517, 30),
+                                        (2, 512, 64, 8)])
+def test_dkdv_split_covers_the_card(n, L, m, want):
+    """The bf16 dk/dv pass's parts: none at the G placement (1024 key
+    blocks), 3 at the D placement (128 blocks -> 384); at most one part
+    per 64-query tile, and a grid of at least 2 x 132 blocks where L
+    allows it."""
+    parts = cuda_attention.dkdv_split(n, L, m)
+    assert parts == want
+    tiles = -(-L // 64)
+    assert 1 <= parts <= tiles
+    assert n * -(-m // 64) * parts >= 2 * cuda_attention.SMS or parts == tiles

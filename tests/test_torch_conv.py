@@ -10,7 +10,8 @@
 - the autograd Functions ``WideConv3d`` / ``Conv3dK3Dw`` on the CPU: the
   forward and (dx, dW) through tanh against ``jax.grad`` of
   ``wide_conv3d`` / ``conv3d_k3_dw`` in interpret mode (1e-4 / 1e-5);
-- the dispatcher's modes and eligibility, and the kernels' tiling plans;
+- the dispatcher's modes and eligibility, the kernels' tiling plans (the
+  f32 and bf16 routes of K4, and K3) and the bf16 route's weight repack;
 - the port's eligibility admits every flagship conv the JAX rule admits
   (it also admits the three the JAX VMEM budgets turn down).
 
@@ -222,6 +223,31 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_conv.conv3d_dw_cuda(x, x)
 
 
+@pytest.mark.parametrize("co,ci", [(8, 8), (40, 24), (32, 32), (64, 128)])
+def test_weight_repack_is_exact(co, ci):
+    """repack_weight lays w [Co, Ci, 3, 3, 3] out as [Ci/16, 27, Cop, 16]
+    with wp[i // 16, tap, o, i % 16] = w[o, i, tap] and zeros in the padding,
+    bit for bit; for the dx weight (flipped in space, in/out swapped) that
+    entry is w[i, o, 26 - tap]."""
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy(rng.normal(size=(co, ci, 3, 3, 3)).astype(
+        np.float32)).bfloat16()
+    for name, wt in (("fwd", w), ("dx", w.flip(2, 3, 4).transpose(0, 1))):
+        o_n, i_n = wt.shape[:2]
+        wp = cuda_conv.repack_weight(wt)
+        assert wp.dtype == torch.bfloat16 and wp.is_contiguous()
+        assert wp.shape == (-(-i_n // 16), 27, -(-o_n // 64) * 64, 16), name
+        o, i, t = (torch.from_numpy(a) for a in np.meshgrid(
+            np.arange(o_n), np.arange(i_n), np.arange(27), indexing="ij"))
+        got = wp[i // 16, t, o, i % 16]
+        want = (w.reshape(co, ci, 27)[o, i, t] if name == "fwd"
+                else w.reshape(co, ci, 27)[i, o, 26 - t])
+        assert torch.equal(got, want), name
+        rest = wp.clone()
+        rest[i // 16, t, o, i % 16] = 0
+        assert not rest.any(), name
+
+
 def _flagship_k3_convs(monkeypatch):
     """(Ci, Co, D, H, W) of every conv the port's rule admits, in call
     order, from forward pre-hooks over the port's 64^3 flagship G and D on
@@ -285,15 +311,37 @@ def test_port_rule_admits_what_the_jax_rules_admit(ci, co, r, stride,
                                            and p == (1, 1, 1))
 
 
-@pytest.mark.parametrize("n,ci,co,d,h,w", [
-    (16, 32, 32, 64, 64, 64), (16, 128, 128, 4, 4, 4),
-    (16, 256, 256, 8, 8, 8), (16, 128, 128, 8, 8, 8), (1, 8, 256, 3, 5, 7),
-    (2, 24, 8, 5, 9, 3), (1, 16, 40, 1, 1, 33), (1, 8, 8, 200, 1, 1)])
+# Every distinct flagship conv (N=16), the chip check's ragged shapes
+# (chip_smoke.py CONV_RAGGED) and a deep, thin column.
+PLAN_SHAPES = ([(16, c, c, r, r, r) for c, r in sorted(set(FLAGSHIP_G
+                                                          + FLAGSHIP_D))]
+               + [(1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3),
+                  (1, 16, 40, 1, 1, 33), (3, 40, 16, 7, 6, 70),
+                  (1, 256, 8, 4, 4, 4), (1, 8, 8, 200, 1, 1)])
+
+
+@pytest.mark.parametrize("n,ci,co,d,h,w", PLAN_SHAPES)
 def test_tiling_plans_cover_the_volume_and_fit_the_card(n, ci, co, d, h, w):
     """The launch plans the kernels take: boxes inside the thread and
     shared-memory limits of csrc/conv3d_k3.cu, every output covered, and a
     grid of at least one block per SM where the volume allows it."""
     cdiv = cuda_conv._cdiv
+    # K4 bf16: a box of at most 64 * (4 // wm) positions (the block's 4
+    # warps x 64 cover it), 32 * wm output channels, P split-K parts of
+    # the Ci/16 stages, within 227 KB of shared memory (with the cp.async
+    # staging buffer where W and tw allow it)
+    td, th, tw, wm, p, staged = cuda_conv.wide_tc_plan(n, ci, co, d, h, w)
+    assert staged == (w % 4 == 0 and tw % 4 == 0)
+    assert wm in (1, 2) and (wm == 1) == (co <= 32)
+    assert 1 <= td <= d and 1 <= th <= h and 1 <= tw <= min(w, 32)
+    assert td * th * tw <= 64 * (4 // wm)
+    stages = cdiv(ci, cuda_conv.TC_CI)
+    assert 1 <= p <= stages
+    assert cuda_conv.wide_tc_smem(td, th, tw, wm, staged) <= 227 * 1024
+    boxes = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw)
+    assert boxes * td * th * tw >= n * d * h * w
+    blocks = boxes * cdiv(co, 32 * wm) * p
+    assert blocks >= cuda_conv.SMS or p == stages
     td, th, tw, cg = cuda_conv.wide_plan(n, co, d, h, w)
     assert th % 4 == 0 and 1 <= cg <= 4 and td <= d and tw <= w
     assert cg * td * (th // 4) * tw <= 256

@@ -821,8 +821,8 @@ def tensor_core_ptxas(lines: list) -> dict:
         if entry:
             m = re.search(r"\D\d+([a-z_]+_tc_kernel)I((?:L[ib]\d+E)+)E",
                           entry.group(1))
-            name = (f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
-                    if m else None)
+            args = re.findall(r"L[ib](\d+)E", m.group(2)) if m else ()
+            name = f"{m.group(1)}<{','.join(args)}>" if m else None
             if name:
                 out[name] = {}
             continue

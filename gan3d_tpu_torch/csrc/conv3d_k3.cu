@@ -47,7 +47,7 @@
 //   No atomics, so a repeated dW is bit-identical. Per position a thread
 //   reads 8 gradients and 4 inputs as three float4s and does 32 FMAs.
 //
-// Inputs: wide f32 (dtype 0), wide_tc bf16, dW f32 or bf16 (dtype 0 / 1),
+// Inputs: wide f32, wide_tc bf16, dW f32 or bf16 (dtype 0 / 1),
 // the same for both operands; every accumulation is f32; the wide output
 // takes the input's dtype, dW is f32.
 // Any N, Ci, Co, D, H, W >= 1; ragged channel and spatial tiles are masked.
@@ -250,11 +250,6 @@ constexpr int kTcThreads = 128;
 constexpr int kTcCi = 16;      // input channels per stage: one k-step a tap
 constexpr int kTcCoPad = 64;   // wp's Co is padded to a multiple of this
 
-// 16-byte unit of (row, chunk) in a tile of 32-byte rows
-__device__ __forceinline__ int swz2(int row, int chunk) {
-  return tc::swz<2>(row, chunk);
-}
-
 // n / d for the small block-local indices here (n + d < 2^22), as a float
 // product with d's reciprocal: 3 instructions where an integer division by
 // a value known only at run time takes ~20 (the index work of the staging
@@ -320,12 +315,12 @@ __device__ __forceinline__ void wide_tc_stage(float (*acc)[8][4],
       for (int mt = 0; mt < 2; ++mt) {
         const int row =
             tap * BM + wm * 32 + mt * 16 + (lane % 8) + ((lane >> 3) & 1) * 8;
-        tc::ldsm_x4(a[mt], ws + swz2(row, lane >> 4));
+        tc::ldsm_x4(a[mt], ws + tc::swz<2>(row, lane >> 4));
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         uint32_t bf[4];
-        tc::ldsm_x4(bf, xs + swz2(hb[j] + toff, (lane >> 3) & 1));
+        tc::ldsm_x4(bf, xs + tc::swz<2>(hb[j] + toff, (lane >> 3) & 1));
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           tc::mma(acc[mt][2 * j], a[mt], bf);
@@ -385,7 +380,7 @@ wide_tc_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = t; i < 27 * BM * 2; i += kTcThreads) {
       const int half = i & 1, row = i >> 1;  // row = tap * BM + co
       const int tap = row / BM, co = row % BM;
-      tc::cp_async16(ws + swz2(row, half),
+      tc::cp_async16(ws + tc::swz<2>(row, half),
                      wp + ((((long long)c * 27 + tap) * Cop + co0 + co) *
                                kTcCi + half * 8));
     }
@@ -435,8 +430,8 @@ wide_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = tc::pack_raw(h[2 * e], h[2 * e + 1]);
       }
-      xs[swz2(hp, 0)] = make_uint4(v[0], v[1], v[2], v[3]);
-      xs[swz2(hp, 1)] = make_uint4(v[4], v[5], v[6], v[7]);
+      xs[tc::swz<2>(hp, 0)] = make_uint4(v[0], v[1], v[2], v[3]);
+      xs[tc::swz<2>(hp, 1)] = make_uint4(v[4], v[5], v[6], v[7]);
     }
   };
 
@@ -751,15 +746,14 @@ int launch_dw(const void* x, const void* gr, void* part, void* dw,
 extern "C" {
 
 // The f32 route: out [N, Co, D, H, W] from x [N, Ci, D, H, W] and w
-// [Co, Ci, 3, 3, 3], f32 (dtype 0); tiling (td, th, tw, cg) as chosen by
+// [Co, Ci, 3, 3, 3], all f32; tiling (td, th, tw, cg) as chosen by
 // ops/cuda_conv.py:wide_plan.
 int k3_wide(const void* x, const void* w, void* out, int N, int Ci, int Co,
-            int D, int H, int W, int td, int th, int tw, int cg, int dtype,
+            int D, int H, int W, int td, int th, int tw, int cg,
             void* stream) {
   Geom g;
   if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
     return (int)cudaErrorInvalidValue;
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
   return launch_wide<float>(x, w, out, g, cg, (cudaStream_t)stream);
 }
 

@@ -1,9 +1,9 @@
 // Tensor-core building blocks shared by the bf16 kernels of
-// conv3d_k3.cu (wide_tc_kernel) and pooled_attention.cu (the *_tc
-// kernels), for sm_90a: ldmatrix loads of 8x8 b16 tiles from shared memory,
-// the m16n8k16 bf16 product with f32 sums, zero-filling cp.async, a swizzle that keeps
-// ldmatrix free of bank conflicts, and the fixed-order sum of split-K
-// partials.
+// conv3d_k3.cu (wide_tc_kernel), pooled_attention.cu (the *_tc kernels)
+// and probe_ladder.cu (gram27, wide_fwd), for sm_90a: ldmatrix loads of
+// 8x8 b16 tiles from shared memory, the m16n8k16 bf16 product with f32
+// sums, zero-filling cp.async, a swizzle that keeps ldmatrix free of bank
+// conflicts, and the fixed-order sum of split-K partials.
 //
 // Fragments (PTX ISA, mma.m16n8k16 .row.col), with g = lane / 4 and
 // q = lane % 4; a 32-bit register holds two bf16, the lower index in its
@@ -11,7 +11,8 @@
 //   A (16 x 16, row-major) a0: (g, 2q..2q+1)  a1: (g+8, 2q..)
 //                          a2: (g, 2q+8..)    a3: (g+8, 2q+8..)
 //   B (16 x 8, k x n)      b0: (k 2q..2q+1, n g)  b1: (k 2q+8.., n g)
-//   C (16 x 8, f32)        c0: (g, 2q) c1: (g, 2q+1) c2: (g+8, 2q) c3: (g+8, 2q+1)
+//   C (16 x 8, f32)        c0: (g, 2q)  c1: (g, 2q+1)
+//                          c2: (g+8, 2q)  c3: (g+8, 2q+1)
 // ldmatrix (no .trans) hands lane (g, q) elements 2q, 2q+1 of row g of
 // each 8x8 tile, so a tile whose rows are the m (or n) index and whose 8
 // contiguous elements are k gives an A (or B) register directly; with

@@ -42,14 +42,16 @@
 //   instead of a second softmax pass.
 //
 // Inputs: forward f32 or bf16 (dtype 0 / 1), backward f32 (pa_bwd) or bf16
-// (pa_bwd_tc); every accumulation is f32; outputs take the inputs' dtype. C is one of 8, 16, 32, 64. Ragged L and M tails
-// are masked. Each entry point returns cudaGetLastError() after its
+// (pa_bwd_tc); every accumulation is f32; outputs take the inputs' dtype.
+// C is one of 8, 16, 32, 64. Ragged L and M tails are masked. Each entry point returns cudaGetLastError() after its
 // launches, or cudaErrorInvalidValue for a C or dtype it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -656,6 +658,18 @@ void launch_bwd(const void* q, const void* k, const void* v, const void* o,
     }                                                        \
   }()
 
+// f(std::integral_constant<int, C>) for a supported C; false otherwise.
+template <typename F>
+bool dispatch_c(int C, F&& f) {
+  switch (C) {
+    case 8: f(std::integral_constant<int, 8>()); return true;
+    case 16: f(std::integral_constant<int, 16>()); return true;
+    case 32: f(std::integral_constant<int, 32>()); return true;
+    case 64: f(std::integral_constant<int, 64>()); return true;
+    default: return false;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -669,21 +683,18 @@ int pa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
-// The f32 route of the backward (dtype 0): dq, dk, dv from the forward's
+// The f32 route of the backward (all f32): dq, dk, dv from the forward's
 // inputs, o, lse and dO. delta [N, L] (f32) is scratch written by the dq
 // kernel and read by the dk/dv kernel.
 int pa_bwd(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
-           void* delta, int N, int L, int M, int C, int dtype, void* stream) {
+           void* delta, int N, int L, int M, int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  switch (C) {
-    case 8: launch_bwd<float, 8>(q, k, v, o, dout, lse, dq, dk, dv, delta, N, L, M, st); break;
-    case 16: launch_bwd<float, 16>(q, k, v, o, dout, lse, dq, dk, dv, delta, N, L, M, st); break;
-    case 32: launch_bwd<float, 32>(q, k, v, o, dout, lse, dq, dk, dv, delta, N, L, M, st); break;
-    case 64: launch_bwd<float, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, N, L, M, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (!dispatch_c(C, [&](auto c) {
+        launch_bwd<float, decltype(c)::value>(q, k, v, o, dout, lse, dq, dk,
+                                              dv, delta, N, L, M, st);
+      }))
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -698,13 +709,12 @@ int pa_bwd_tc(const void* q, const void* k, const void* v, const void* o,
   if (N < 1 || L < 1 || M < 1 || N > 65535 || P < 1 || P > 65535 ||
       P > (L + kTcTile - 1) / kTcTile)
     return (int)cudaErrorInvalidValue;
-  switch (C) {
-    case 8: return (int)launch_bwd_tc<8>(q, k, v, o, dout, lse, dq, dk, dv, delta, dkp, dvp, N, L, M, P, st);
-    case 16: return (int)launch_bwd_tc<16>(q, k, v, o, dout, lse, dq, dk, dv, delta, dkp, dvp, N, L, M, P, st);
-    case 32: return (int)launch_bwd_tc<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, dkp, dvp, N, L, M, P, st);
-    case 64: return (int)launch_bwd_tc<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, dkp, dvp, N, L, M, P, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  cudaError_t err = cudaErrorInvalidValue;
+  dispatch_c(C, [&](auto c) {
+    err = launch_bwd_tc<decltype(c)::value>(q, k, v, o, dout, lse, dq, dk, dv,
+                                            delta, dkp, dvp, N, L, M, P, st);
+  });
+  return (int)err;
 }
 
 }  // extern "C"

@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 // probe_mosaic.py's X: [2, 8, 8, 8, 32]; its 27 views are 6^3 boxes.
@@ -61,18 +63,15 @@ struct Box {          // rows of `len` values at off + i*sn + j*sa + k*sb
   int n, a, b, len;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                   tc::smem_addr(bar))
                : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
+                   tc::smem_addr(bar)),
                "r"(bytes)
                : "memory");
 }
@@ -84,7 +83,7 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
       " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
       " selp.u32 %0, 1, 0, p;\n}"
       : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
+      : "r"(tc::smem_addr(bar)), "r"(parity)
       : "memory");
   return done != 0;
 }
@@ -99,8 +98,8 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      "[%0], [%1], %2, [%3];" ::"r"(tc::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(tc::smem_addr(bar))
       : "memory");
 }
 
@@ -220,24 +219,8 @@ __global__ void im2col27_kernel(const uint16_t* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core helpers: D = A B + D on a 16x8x16 tile, bf16 in, f32 out.
-// Fragments (PTX ISA, mma.m16n8k16): with g = lane/4, q = lane%4,
-//   A regs 0..3: (row g, cols 2q..2q+1), (g+8, 2q..), (g, 2q+8..), (g+8, 2q+8..)
-//   B regs 0..1: (rows 2q..2q+1, col g), (rows 2q+8..2q+9, col g)
-//   D 0..3:      (g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1)
-// a register holds the lower column (row, for B) in its low 16 bits.
-__device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// Tensor-core products: tc::mma (mma_bf16.cuh, which gives the fragment
+// layouts) on fragments packed by tc::pack_raw.
 
 // Position (d, h, w) of row r of the 6^3 view at shift (kd, kh, kw), as a
 // flat index into an 8^3 sample; rows past the last give -1 (zero).
@@ -303,7 +286,8 @@ gram27_kernel(const uint16_t* __restrict__ x, float* __restrict__ out,
         const int p = view_pos(k0 + 2 * q + (e & 1) + (e >> 1) * 8, kd, kh, kw);
         bv[e] = p < 0 ? 0 : xs[p * kC + col];
       }
-      const uint32_t b[2] = {pack(bv[0], bv[1]), pack(bv[2], bv[3])};
+      const uint32_t b[2] = {tc::pack_raw(bv[0], bv[1]),
+                             tc::pack_raw(bv[2], bv[3])};
       // A = views[0]^T: A[m, k] = x[view_pos(k, 0, 0, 0), m]
       int pk[4];
 #pragma unroll
@@ -319,9 +303,10 @@ gram27_kernel(const uint16_t* __restrict__ x, float* __restrict__ out,
           const int p = pk[(e & 1) + ((e >> 2) & 1) * 2];
           av[e] = p < 0 ? 0 : xs[p * kC + m];
         }
-        const uint32_t a[4] = {pack(av[0], av[1]), pack(av[2], av[3]),
-                               pack(av[4], av[5]), pack(av[6], av[7])};
-        mma_bf16(acc[mt], a, b);
+        const uint32_t a[4] = {
+            tc::pack_raw(av[0], av[1]), tc::pack_raw(av[2], av[3]),
+            tc::pack_raw(av[4], av[5]), tc::pack_raw(av[6], av[7])};
+        tc::mma(acc[mt], a, b);
       }
     }
     release_slot();
@@ -360,8 +345,11 @@ wide_fwd_kernel(const uint16_t* __restrict__ w2,
     const int k0 = tap * kCi;
     // A: row g of W2 (rows 8..15 are zero)
     const uint32_t a[4] = {
-        pack(ws[g * kK2 + k0 + 2 * q], ws[g * kK2 + k0 + 2 * q + 1]), 0u,
-        pack(ws[g * kK2 + k0 + 2 * q + 8], ws[g * kK2 + k0 + 2 * q + 9]), 0u};
+        tc::pack_raw(ws[g * kK2 + k0 + 2 * q], ws[g * kK2 + k0 + 2 * q + 1]),
+        0u,
+        tc::pack_raw(ws[g * kK2 + k0 + 2 * q + 8],
+                     ws[g * kK2 + k0 + 2 * q + 9]),
+        0u};
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int n = warp * 32 + nt * 8 + g;
@@ -372,8 +360,9 @@ wide_fwd_kernel(const uint16_t* __restrict__ w2,
         const int ci = 2 * q + (e & 1) + (e >> 1) * 8;
         bv[e] = xs[((ci * kDD + dd) * (kH + 2) + kh + h) * (kW + 2) + kw + w];
       }
-      const uint32_t b[2] = {pack(bv[0], bv[1]), pack(bv[2], bv[3])};
-      mma_bf16(acc[nt], a, b);
+      const uint32_t b[2] = {tc::pack_raw(bv[0], bv[1]),
+                             tc::pack_raw(bv[2], bv[3])};
+      tc::mma(acc[nt], a, b);
     }
   }
 #pragma unroll

@@ -30,9 +30,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from gan3d_tpu_torch.ops import cuda_build
+from gan3d_tpu_torch.ops.cuda_conv import SMS
 
 SUPPORTED_C = (8, 16, 32, 64)
-SMS = 132          # streaming multiprocessors of an H100 SXM
 TC_ROWS = 64       # bf16 backward: key rows per dk/dv block (csrc kTcRows)
 TC_TILE = 64       # bf16 backward: queries per staged tile (csrc kTcTile)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,7 +60,7 @@ def dkdv_split(n: int, L: int, m: int) -> int:
     blocks = n * -(-m // TC_ROWS)
     if blocks >= 2 * SMS:
         return 1
-    return max(1, min(-(-L // TC_TILE), -(-2 * SMS // blocks)))
+    return min(-(-L // TC_TILE), -(-2 * SMS // blocks))
 
 
 def _load() -> ctypes.CDLL:
@@ -71,8 +71,7 @@ def _load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.pa_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.pa_fwd.restype = i
-            lib.pa_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                   i, i, i, i, i, p]
+            lib.pa_bwd.argtypes = [p] * 10 + [i] * 4 + [p]
             lib.pa_bwd.restype = i
             lib.pa_bwd_tc.argtypes = [p] * 12 + [i] * 5 + [p]
             lib.pa_bwd_tc.restype = i
@@ -158,7 +157,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("pooled-attention backward: lse must be f32 and "
                          "o, dO, lse on the CUDA device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = o.to(q.dtype).contiguous()
+    o = o.contiguous()
     do = do.to(q.dtype).contiguous()
     lse = lse.contiguous()
     n, L, c = q.shape
@@ -182,7 +181,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = lib.pa_bwd(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do),
                          _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(delta),
-                         n, L, m, c, _DTYPE_CODE[q.dtype], _stream(q))
+                         n, L, m, c, _stream(q))
     _raise_if(err, "backward (f32)")
     bwd_launches += 1
     return dq, dk, dv

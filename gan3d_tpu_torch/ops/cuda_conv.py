@@ -182,7 +182,7 @@ def toeplitz_plan(n: int, d: int, h: int, w: int, co: int
 
 # library -> entry point -> (pointer arguments, int arguments); each entry
 # point also takes the stream and returns a cudaError_t.
-_SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 11), "k3_wide_tc": (4, 12),
+_SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 10), "k3_wide_tc": (4, 12),
                               "k3_dw": (4, 11)},
                "conv3d_toeplitz": {"k3_toeplitz": (3, 10)}}
 
@@ -263,7 +263,7 @@ def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     td, th, tw, cg = wide_plan(n, co, d, h, wd)
     with torch.cuda.device(x.device):
         err = lib.k3_wide(_ptr(x), _ptr(w), _ptr(out), n, ci, co, d, h, wd,
-                          td, th, tw, cg, _DTYPE_CODE[x.dtype], _stream(x))
+                          td, th, tw, cg, _stream(x))
     _raise_if(err, "wide (f32)")
     wide_launches += 1
     return out

@@ -248,6 +248,26 @@ def test_weight_repack_is_exact(co, ci):
         assert not rest.any(), name
 
 
+def test_bf16_routes_refuse_cpu_tensors():
+    """The bf16 routes (tensor-core kernels) take CUDA tensors only, like
+    the f32 ones; a refused call counts no launch."""
+    from gan3d_tpu_torch.ops import cuda_attention
+
+    cuda_conv.reset_counters()
+    cuda_attention.reset_counters()
+    x = torch.zeros((1, 8, 2, 2, 2), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        cuda_conv.wide_conv3d_cuda(x, torch.zeros((8, 8, 3, 3, 3),
+                                                  dtype=torch.bfloat16))
+    q = torch.zeros((1, 64, 16), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        cuda_attention.attention_bwd(q, k, k, q, torch.zeros((1, 64)), q)
+    assert cuda_conv.wide_tc_launches == cuda_conv.wide_launches == 0
+    assert (cuda_attention.bwd_tc_launches == cuda_attention.bwd_launches
+            == 0)
+
+
 def _flagship_k3_convs(monkeypatch):
     """(Ci, Co, D, H, W) of every conv the port's rule admits, in call
     order, from forward pre-hooks over the port's 64^3 flagship G and D on

@@ -31,8 +31,10 @@ Phases, each printing its own line:
              versions, timing each beside its plain version and the one
              PyTorch call that computes the same function (F.conv3d;
              aten.convolution_backward for dW), yardsticks the port never
-             calls; then ragged shapes, a repeated dW and a repeated bf16
-             wide conv bit-identical and an f16 input refused;
+             calls (the kernels' time: the median of three windows);
+             then ragged shapes, a repeated dW and a repeated bf16 wide
+             conv bit-identical, the bf16 weight repack bit-equal to its
+             plain version and an f16 input refused;
 5. train   — trains the flagship (64^3, filters 64, z 512, batch 16,
              iterD 2, biggan, hinge) through gan3d_tpu_torch.cli.train:
              the default run (a few steps and a resume; no conv kernel
@@ -196,6 +198,17 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, iters: int) -> tuple:
+    """(median, windows): cuda_ms over three windows of ``iters`` calls,
+    for the K1-K4 kernels and their one-call yardsticks. A small-volume
+    call's time is its wrapper's host work, which a hiccup of the shared
+    host can inflate for a whole window; the median keeps one such window
+    out of the number, and the kernels' three stay in the record."""
+    windows = [cuda_ms(fn, iters, warmup=2 if i == 0 else 0)
+               for i in range(3)]
+    return sorted(windows)[1], windows
+
+
 def device_ms(fn, needle: str, iters: int = 20):
     """Mean device time (ms) per launch of the kernels whose name holds
     ``needle``, from a torch.profiler trace of ``iters`` calls of ``fn``;
@@ -284,22 +297,23 @@ def kernel_phase(ca, attention_plain) -> list:
             sdpa_out = F.scaled_dot_product_attention(*sdpa_in, scale=1.0)
             fwd_iters = 20 if L <= 4096 else 5
             times = {
-                "fwd": (cuda_ms(lambda: ca.attention_fwd(q, k, v), fwd_iters),
+                "fwd": (kernel_ms(lambda: ca.attention_fwd(q, k, v),
+                                  fwd_iters),
                         cuda_ms(lambda: attention_plain(q, k, v), fwd_iters),
-                        cuda_ms(lambda: F.scaled_dot_product_attention(
+                        kernel_ms(lambda: F.scaled_dot_product_attention(
                             q[:, None], k[:, None], v[:, None], scale=1.0),
-                            fwd_iters)),
-                "bwd": (cuda_ms(lambda: ca.attention_bwd(q, k, v, o, lse, do),
-                                fwd_iters),
+                            fwd_iters)[0]),
+                "bwd": (kernel_ms(lambda: ca.attention_bwd(q, k, v, o, lse,
+                                                           do), fwd_iters),
                         cuda_ms(lambda: torch.autograd.grad(
                             o_ref, leaves, do, retain_graph=True), fwd_iters),
-                        cuda_ms(lambda: torch.autograd.grad(
+                        kernel_ms(lambda: torch.autograd.grad(
                             sdpa_out, sdpa_in, do[:, None],
-                            retain_graph=True), fwd_iters)),
+                            retain_graph=True), fwd_iters)[0]),
             }
             del o_ref, grads_ref, sdpa_out
             for kind in ("fwd", "bwd"):
-                ms, plain_ms, lib_ms = times[kind]
+                (ms, windows), plain_ms, lib_ms = times[kind]
                 b_ms, b_by = bound(kind, dname, n, L, m, c)
                 errs_k = ({"o": errs["o"], "lse": errs["lse"]}
                           if kind == "fwd" else
@@ -312,8 +326,9 @@ def kernel_phase(ca, attention_plain) -> list:
                     "max_err": max(e[1] for e in errs_k.values()),
                     "max_abs_err": max(e[0] for e in errs_k.values()),
                     "rel_err": {x: e[1] for x, e in errs_k.items()},
-                    "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "tol": tol, "ms": ms, "ms_windows": windows,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
                 }
                 if case["route"] == "tensor_core":
                     case["before_ms"] = BEFORE_MS["bwd"][place]
@@ -482,15 +497,16 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
                         f"relative error {rel:.3e} > {tol:.0e}")
                 b_ms, b_by = conv_bound("dw" if kind == "dw" else "wide",
                                         dname, n, cin, cout, s)
+                ms, windows = kernel_ms(kern, iters)
                 case = {
                     "kernel": kind, "dtype": dname,
                     "route": ("tensor_core" if kind != "dw"
                               and dname == "bfloat16" else "fma"),
                     "N": n, "Ci": cin, "Co": cout, "D": d, "H": h, "W": w,
                     "max_err": rel, "max_abs_err": abs_err, "tol": tol,
-                    "ms": cuda_ms(kern, iters),
+                    "ms": ms, "ms_windows": windows,
                     "plain_ms": cuda_ms(plain, max(2, iters // 4), 1),
-                    "library_ms": cuda_ms(lib, iters),
+                    "library_ms": kernel_ms(lib, iters)[0],
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
                 if case["route"] == "tensor_core":
@@ -505,7 +521,8 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
 def conv_extra_checks(cc) -> dict:
     """The conv kernels against the plain versions at CONV_RAGGED; a
     repeated dW and a repeated bf16 wide conv bit-identical (there and at
-    the flagship's largest shape);
+    the flagship's largest shape); the bf16 weight repack bit-equal to its
+    plain version;
     an f16 CUDA input refused by both wrappers."""
     import torch
 
@@ -540,6 +557,16 @@ def conv_extra_checks(cc) -> dict:
                 if not rel <= TOL[dname]:
                     raise AssertionError(f"{kind} {shape} {dname}: relative "
                                          f"error {rel:.3e}")
+    # the bf16 route's weight repack on the card, bit for bit against its
+    # plain version, for a forward and a dx weight
+    for co, ci in ((40, 24), (256, 128)):
+        w = torch.randn((co, ci, 3, 3, 3), generator=gen,
+                        device="cuda").bfloat16()
+        for wt in (w, w.flip(2, 3, 4).transpose(0, 1).contiguous()):
+            if not torch.equal(cc.repack_weight_cuda(wt),
+                               cc.repack_weight(wt)):
+                raise AssertionError(f"weight repack {tuple(wt.shape)} "
+                                     "differs from its plain version")
     x, wt, g, _ = _conv_inputs(gen, 1, 8, 8, 4, 4, 4, torch.float16)
     for what, call in (("wide", lambda: cc.wide_conv3d_cuda(x, wt)),
                        ("dW", lambda: cc.conv3d_dw_cuda(x, g))):
@@ -551,7 +578,9 @@ def conv_extra_checks(cc) -> dict:
             raise AssertionError(f"the {what} kernel took an f16 input")
     return {"shapes": CONV_RAGGED, "worst_rel_err": worst,
             "repeated_dw": "bit-identical",
-            "repeated_wide_bf16": "bit-identical", "float16": "refused"}
+            "repeated_wide_bf16": "bit-identical",
+            "weight_repack": "bit-equal to its plain version",
+            "float16": "refused"}
 
 
 def toeplitz_bound(dtype: str, n: int, s: int, ci: int, co: int):

@@ -227,7 +227,7 @@ wide_kernel(const T* __restrict__ x, const T* __restrict__ w,
 //   a tap's shift is only a row offset: no im2col, nothing padded or
 //   transposed in device memory.
 // - ws [27][BM][16] bf16: the stage's weights, copied with cp.async from
-//   the repacked wp [Ci/16][27][Cop][16] (ops/cuda_conv.py:repack_weight;
+//   the repacked wp [Ci/16][27][Cop][16] (repack_kernel, once a call;
 //   zero where ci >= Ci or co >= Co), one ldmatrix.x4 per A fragment.
 // Rows are 32 bytes, swizzled (tc::swz<2>) so every ldmatrix is free of
 // bank conflicts. xs is filled one of two ways:
@@ -505,6 +505,24 @@ wide_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// wp [Ci/16][27][Cop][16] from w [Co, Ci, 27] (bf16), zero where ci >= Ci
+// or co >= Co: the layout wide_tc_kernel's weight stages copy from
+// (ops/cuda_conv.py:repack_weight is its plain version).
+__global__ void repack_kernel(const __nv_bfloat16* __restrict__ w,
+                              __nv_bfloat16* __restrict__ wp, int Co, int Ci,
+                              int Cop, long long total) {
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       j < total; j += (long long)gridDim.x * blockDim.x) {
+    const int i = (int)(j % kTcCi);
+    long long r = j / kTcCi;
+    const int co = (int)(r % Cop);
+    r /= Cop;
+    const int tap = (int)(r % 27), ci = (int)(r / 27) * kTcCi + i;
+    wp[j] = co < Co && ci < Ci ? w[((long long)co * Ci + ci) * 27 + tap]
+                               : __float2bfloat16_rn(0.f);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // dW partials: grid (P, Ci tiles of 16, Co tiles of 32), kDwThreads threads.
 // Block p reduces boxes [nboxes*p/P, nboxes*(p+1)/P) into
@@ -755,6 +773,20 @@ int k3_wide(const void* x, const void* w, void* out, int N, int Ci, int Co,
   if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
     return (int)cudaErrorInvalidValue;
   return launch_wide<float>(x, w, out, g, cg, (cudaStream_t)stream);
+}
+
+// wp [Ci/16][27][Cop][16] bf16 (Cop = Co rounded up to 64) from w
+// [Co, Ci, 3, 3, 3] bf16: the bf16 route's weight layout.
+int k3_repack(const void* w, void* wp, int Co, int Ci, void* stream) {
+  if (Co < 1 || Ci < 1) return (int)cudaErrorInvalidValue;
+  const int Cop = cdiv(Co, kTcCoPad) * kTcCoPad;
+  const long long total = (long long)cdiv(Ci, kTcCi) * 27 * Cop * kTcCi;
+  const long long blocks = (total + 255) / 256;
+  repack_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                  (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wp),
+      Co, Ci, Cop, total);
+  return (int)cudaGetLastError();
 }
 
 // The bf16 route: out [N, Co, D, H, W] bf16 from x [N, Ci, D, H, W] bf16

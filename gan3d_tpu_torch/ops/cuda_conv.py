@@ -9,7 +9,8 @@ stream:
 - ``wide_conv3d_cuda(x, w)``: the wide-N k3/s1/p1 conv (K4), used for the
   forward and, with spatially flipped, in/out-swapped weights, for dx. Two
   routes by dtype: bf16 goes to the tensor-core implicit GEMM
-  (``wide_tc_kernel``, on the weight as ``repack_weight`` lays it out),
+  (``wide_tc_kernel``, on the weight as ``repack_weight_cuda`` lays it
+  out; ``repack_weight`` is its plain version),
   f32 to the f32-FMA ``wide_kernel``; any other dtype raises;
 - ``conv3d_dw_cuda(x, g)``: its weight gradient (K3), split-K partials
   summed in a fixed order by a second kernel, so a repeated dW is
@@ -133,7 +134,8 @@ def repack_weight(w: torch.Tensor) -> torch.Tensor:
     """w [Co, Ci, 3, 3, 3] -> the K4 bf16 kernel's [Ci/16, 27, Cop, 16]
     (tap = kd*9 + kh*3 + kw; Ci and Co zero-padded to multiples of 16 and
     64): chunk c, tap t holds the A operand W[co, 16c + i, t] of that
-    k-step, 16 contiguous input channels per output channel."""
+    k-step, 16 contiguous input channels per output channel. The plain
+    version of ``repack_weight_cuda``."""
     co, ci = w.shape[:2]
     cip, cop = _cdiv(ci, TC_CI) * TC_CI, _cdiv(co, TC_CO_PAD) * TC_CO_PAD
     wp = F.pad(w.reshape(co, ci, 27), (0, 0, 0, cip - ci, 0, cop - co))
@@ -183,6 +185,7 @@ def toeplitz_plan(n: int, d: int, h: int, w: int, co: int
 # library -> entry point -> (pointer arguments, int arguments); each entry
 # point also takes the stream and returns a cudaError_t.
 _SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 10), "k3_wide_tc": (4, 12),
+                              "k3_repack": (2, 2),
                               "k3_dw": (4, 11)},
                "conv3d_toeplitz": {"k3_toeplitz": (3, 10)}}
 
@@ -233,6 +236,19 @@ def _raise_if(err: int, what: str) -> None:
                            f"cudaError {err}")
 
 
+def repack_weight_cuda(w: torch.Tensor) -> torch.Tensor:
+    """``repack_weight`` of a contiguous bf16 CUDA weight by one kernel
+    launch (part of each K4 bf16 call, so not counted apart)."""
+    co, ci = w.shape[:2]
+    wp = torch.empty((_cdiv(ci, TC_CI), 27, _cdiv(co, TC_CO_PAD) * TC_CO_PAD,
+                      TC_CI), dtype=torch.bfloat16, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _load("conv3d_k3").k3_repack(_ptr(w), _ptr(wp), co, ci,
+                                           _stream(w))
+    _raise_if(err, "weight repack")
+    return wp
+
+
 def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K4: k3/s1/p1 conv of x [N,Ci,D,H,W] with w [Co,Ci,3,3,3] (same
     dtype), f32 accumulation; [N,Co,D,H,W] in x's dtype. bf16 runs on the
@@ -250,7 +266,7 @@ def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = _load("conv3d_k3")
     if x.dtype == torch.bfloat16:
         td, th, tw, wm, p, staged = wide_tc_plan(n, ci, co, d, h, wd)
-        wp = repack_weight(w)
+        wp = repack_weight_cuda(w)
         part = (torch.empty((p, n, co, d * h * wd), dtype=torch.float32,
                             device=x.device) if p > 1 else out)
         with torch.cuda.device(x.device):

@@ -18,7 +18,9 @@ Phases, each printing its own line:
              f32 on the FMA kernels),
              holds each against the plain PyTorch version, and times the
              kernel, the plain version and F.scaled_dot_product_attention
-             (a yardstick the port never calls) with CUDA events; then
+             (a yardstick the port never calls) with CUDA events, and the
+             kernel's and the yardstick's device time in a profiler trace;
+             then
              checks every c and ragged L/M tails at small shapes, that a
              repeated backward is bit-identical and that a double
              backward through the kernels raises;
@@ -31,7 +33,8 @@ Phases, each printing its own line:
              versions, timing each beside its plain version and the one
              PyTorch call that computes the same function (F.conv3d;
              aten.convolution_backward for dW), yardsticks the port never
-             calls (the kernels' time: the median of three windows);
+             calls (the kernels' and the yardsticks' time: the median of
+             three windows, and the device time in a profiler trace);
              then ragged shapes, a repeated dW and a repeated bf16 wide
              conv bit-identical, the bf16 weight repack bit-equal to its
              plain version and an f16 input refused;
@@ -101,16 +104,6 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SFU_OPS = 132 * 16 * 1.98e9
 PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32))
-# The bf16 times of K2 and K4 before their tensor-core routes (ms, H100
-# 80GB HBM3, 700 W; PERF.md: K2 at G from PR 3's run, at D from PR 2's;
-# K4 from PR 2's per-shape table), keyed (placement) / (Ci, side).
-BEFORE_MS = {"bwd": {"G": 16.47, "D": 1.84},
-             "wide_fwd": {(32, 64): 10.9, (32, 32): 1.4, (64, 32): 5.62,
-                          (64, 16): 0.677, (128, 16): 2.7, (128, 8): 0.493,
-                          (128, 4): 0.885, (256, 8): 1.17, (256, 4): 1.45},
-             "wide_dx": {(32, 64): 10.9, (32, 32): 1.41, (64, 32): 5.6,
-                         (64, 16): 0.676, (128, 16): 2.72, (128, 8): 0.498,
-                         (128, 4): 0.879, (256, 8): 1.18, (256, 4): 1.44}}
 # Tensor-core kernel instances that must not spill (ptxas): every K4 bf16
 # instance and the K2 bf16 kernels at the flagship's c = 16 and 32.
 NO_SPILL = re.compile(r"wide_tc_kernel|bwd_\w+_tc_kernel<(16|32)>")
@@ -203,16 +196,18 @@ def kernel_ms(fn, iters: int) -> tuple:
     for the K1-K4 kernels and their one-call yardsticks. A small-volume
     call's time is its wrapper's host work, which a hiccup of the shared
     host can inflate for a whole window; the median keeps one such window
-    out of the number, and the kernels' three stay in the record."""
+    out of the number, and all three stay in the record."""
     windows = [cuda_ms(fn, iters, warmup=2 if i == 0 else 0)
                for i in range(3)]
     return sorted(windows)[1], windows
 
 
-def device_ms(fn, needle: str, iters: int = 20):
-    """Mean device time (ms) per launch of the kernels whose name holds
-    ``needle``, from a torch.profiler trace of ``iters`` calls of ``fn``;
-    None when the trace holds no such kernel."""
+def device_ms(fn, needle: str = "", iters: int = 20, per_call: bool = False):
+    """Device time (ms) of the kernels whose name holds ``needle`` (with
+    "", every kernel, copy and memset), from a torch.profiler trace of
+    ``iters`` calls of ``fn``: the mean per launch, or with ``per_call`` the
+    sum per call, free of the host work that CUDA events over back-to-back
+    calls include; None when the trace holds no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -226,7 +221,20 @@ def device_ms(fn, needle: str, iters: int = 20):
     us = [e.device_time_total for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and needle in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
+    return sum(us) / (iters if per_call else len(us)) / 1e3 if us else None
+
+
+def timings(kern, lib, iters: int) -> dict:
+    """A K1-K4 case's times (ms) of the kernel's wrapper and of the one
+    PyTorch call computing the same function (``lib``): each the median of
+    three windows of ``iters`` calls (all three kept) and the device time
+    per call in a profiler trace."""
+    ms, windows = kernel_ms(kern, iters)
+    lib_ms, lib_windows = kernel_ms(lib, iters)
+    return {"ms": ms, "ms_windows": windows,
+            "device_ms": device_ms(kern, iters=iters, per_call=True),
+            "library_ms": lib_ms, "library_ms_windows": lib_windows,
+            "library_device_ms": device_ms(lib, iters=iters, per_call=True)}
 
 
 def bound(kind: str, dtype: str, n: int, L: int, m: int, c: int):
@@ -296,24 +304,23 @@ def kernel_phase(ca, attention_plain) -> list:
                        for t in (q, k, v)]
             sdpa_out = F.scaled_dot_product_attention(*sdpa_in, scale=1.0)
             fwd_iters = 20 if L <= 4096 else 5
-            times = {
-                "fwd": (kernel_ms(lambda: ca.attention_fwd(q, k, v),
-                                  fwd_iters),
-                        cuda_ms(lambda: attention_plain(q, k, v), fwd_iters),
-                        kernel_ms(lambda: F.scaled_dot_product_attention(
-                            q[:, None], k[:, None], v[:, None], scale=1.0),
-                            fwd_iters)[0]),
-                "bwd": (kernel_ms(lambda: ca.attention_bwd(q, k, v, o, lse,
-                                                           do), fwd_iters),
-                        cuda_ms(lambda: torch.autograd.grad(
-                            o_ref, leaves, do, retain_graph=True), fwd_iters),
-                        kernel_ms(lambda: torch.autograd.grad(
+            calls = {
+                "fwd": (lambda: ca.attention_fwd(q, k, v),
+                        lambda: attention_plain(q, k, v),
+                        lambda: F.scaled_dot_product_attention(
+                            q[:, None], k[:, None], v[:, None], scale=1.0)),
+                "bwd": (lambda: ca.attention_bwd(q, k, v, o, lse, do),
+                        lambda: torch.autograd.grad(
+                            o_ref, leaves, do, retain_graph=True),
+                        lambda: torch.autograd.grad(
                             sdpa_out, sdpa_in, do[:, None],
-                            retain_graph=True), fwd_iters)[0]),
+                            retain_graph=True)),
             }
-            del o_ref, grads_ref, sdpa_out
+            times = {kind: {**timings(kern, lib, fwd_iters),
+                            "plain_ms": cuda_ms(plain, fwd_iters)}
+                     for kind, (kern, plain, lib) in calls.items()}
+            del calls, o_ref, grads_ref, sdpa_out
             for kind in ("fwd", "bwd"):
-                (ms, windows), plain_ms, lib_ms = times[kind]
                 b_ms, b_by = bound(kind, dname, n, L, m, c)
                 errs_k = ({"o": errs["o"], "lse": errs["lse"]}
                           if kind == "fwd" else
@@ -326,12 +333,9 @@ def kernel_phase(ca, attention_plain) -> list:
                     "max_err": max(e[1] for e in errs_k.values()),
                     "max_abs_err": max(e[0] for e in errs_k.values()),
                     "rel_err": {x: e[1] for x, e in errs_k.items()},
-                    "tol": tol, "ms": ms, "ms_windows": windows,
-                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "tol": tol, **times[kind],
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
-                if case["route"] == "tensor_core":
-                    case["before_ms"] = BEFORE_MS["bwd"][place]
                 phase("kernel_case", **case)
                 cases.append(case)
             torch.cuda.empty_cache()
@@ -497,20 +501,16 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
                         f"relative error {rel:.3e} > {tol:.0e}")
                 b_ms, b_by = conv_bound("dw" if kind == "dw" else "wide",
                                         dname, n, cin, cout, s)
-                ms, windows = kernel_ms(kern, iters)
                 case = {
                     "kernel": kind, "dtype": dname,
                     "route": ("tensor_core" if kind != "dw"
                               and dname == "bfloat16" else "fma"),
                     "N": n, "Ci": cin, "Co": cout, "D": d, "H": h, "W": w,
                     "max_err": rel, "max_abs_err": abs_err, "tol": tol,
-                    "ms": ms, "ms_windows": windows,
+                    **timings(kern, lib, iters),
                     "plain_ms": cuda_ms(plain, max(2, iters // 4), 1),
-                    "library_ms": kernel_ms(lib, iters)[0],
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
-                if case["route"] == "tensor_core":
-                    case["before_ms"] = BEFORE_MS[kind][(ci, d)]
                 phase("conv_case", **case)
                 cases.append(case)
             del x, wt, g, wr, runs
@@ -878,9 +878,9 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
     the counts of each kernel's path: the first --wide_conv=on
     --fast_dw=on run for K1-K4 (bf16: K2 and K4 on their tensor-core
     routes), the toeplitz_conv and probe_ladder phases' runs for K5 and the
-    ladder's kernels. K2 and K4 add ``before_ms`` (their bf16 time before
-    the tensor-core route, BEFORE_MS) and ``f32_ms`` (the f32 route, the
-    FMA kernels, at the same case). ``max_err`` is the largest error
+    ladder's kernels. K1-K4 add ``device_ms`` and ``library_device_ms``
+    (device time per call, profiler), and K2 and K4 ``f32_ms`` (the f32
+    route, the FMA kernels, at the same case). ``max_err`` is the largest error
     relative to max |plain| over the compared outputs, the number held
     against ``tol``; ``max_abs_err`` is the largest absolute difference."""
     meta = (
@@ -918,14 +918,16 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
             "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "at": at, "cases": mine,
+            "library_ms": main["library_ms"], "device_ms": main["device_ms"],
+            "library_device_ms": main["library_device_ms"], "at": at,
+            "cases": mine,
         })
-        if "before_ms" in main:
+        if main["route"] == "tensor_core":
             # the same case's f32 route (FMA kernels) beside it
             f32 = next(c for c in mine if c["dtype"] == "float32" and all(
                 c[k] == main[k] for k in main
                 if k in ("kernel", "placement", "Ci", "D")))
-            out[-1].update(before_ms=main["before_ms"], f32_ms=f32["ms"])
+            out[-1]["f32_ms"] = f32["ms"]
     k5 = next(c for c in toeplitz_cases
               if c["dtype"] == "bfloat16" and (c["C"], c["S"]) == (32, 64))
     out.append({

@@ -697,8 +697,7 @@ int launch_wide(const void* x, const void* w, void* out, const Geom& g,
 }
 
 int launch_wide_tc(const void* x, const void* wp, void* part, void* out,
-                   const Geom& g, int wm, int P, int staged,
-                   cudaStream_t st) {
+                   const Geom& g, int wm, int P, cudaStream_t st) {
   const long long boxes = (long long)g.N * g.nbd * g.nbh * g.nbw;
   const int bm = 32 * wm;
   const int co_tiles = cdiv(g.Co, bm);
@@ -707,9 +706,8 @@ int launch_wide_tc(const void* x, const void* wp, void* part, void* out,
       boxes > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int rows = (g.td + 2) * (g.th + 2) * (g.tw + 2);
-  const bool vec = staged != 0;
-  if (vec && (g.W % 4 != 0 || g.tw % 4 != 0))
-    return (int)cudaErrorInvalidValue;
+  // staged where every raw row is whole 8-byte units; else direct loads
+  const bool vec = g.W % 4 == 0 && g.tw % 4 == 0;
   const size_t smem = 32 * ((size_t)rows + 27 * bm) +
                       (vec ? (size_t)2 * kTcCi * (g.td + 2) * (g.th + 2) *
                                  (g.tw + 8)
@@ -792,16 +790,14 @@ int k3_repack(const void* w, void* wp, int Co, int Ci, void* stream) {
 // The bf16 route: out [N, Co, D, H, W] bf16 from x [N, Ci, D, H, W] bf16
 // and wp [Ci/16][27][Cop][16] bf16 (the repacked weight); part
 // [P, N, Co, D*H*W] f32 is scratch when P > 1. Tiling (td, th, tw, wm, P)
-// and the staging (staged 1: cp.async rows; 0: direct loads) as chosen by
-// ops/cuda_conv.py:wide_tc_plan.
+// as chosen by ops/cuda_conv.py:wide_tc_plan.
 int k3_wide_tc(const void* x, const void* wp, void* part, void* out, int N,
                int Ci, int Co, int D, int H, int W, int td, int th, int tw,
-               int wm, int P, int staged, void* stream) {
+               int wm, int P, void* stream) {
   Geom g;
   if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
     return (int)cudaErrorInvalidValue;
-  return launch_wide_tc(x, wp, part, out, g, wm, P, staged,
-                        (cudaStream_t)stream);
+  return launch_wide_tc(x, wp, part, out, g, wm, P, (cudaStream_t)stream);
 }
 
 // dw [Co, Ci, 3, 3, 3] (f32) from x [N, Ci, D, H, W] and g [N, Co, D, H, W];

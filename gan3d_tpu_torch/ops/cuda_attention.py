@@ -30,7 +30,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from gan3d_tpu_torch.ops import cuda_build
-from gan3d_tpu_torch.ops.cuda_conv import SMS
+from gan3d_tpu_torch.ops.cuda_build import SMS
 
 SUPPORTED_C = (8, 16, 32, 64)
 TC_ROWS = 64       # bf16 backward: key rows per dk/dv block (csrc kTcRows)

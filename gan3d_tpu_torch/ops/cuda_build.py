@@ -28,6 +28,7 @@ CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SMS = 132  # streaming multiprocessors of an H100 SXM: the plans fill them
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

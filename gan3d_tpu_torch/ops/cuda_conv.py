@@ -47,14 +47,13 @@ from torch.autograd.function import once_differentiable
 
 from gan3d_tpu_torch.ops import cuda_build
 from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
+from gan3d_tpu_torch.ops.cuda_build import SMS
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SMS = 132                  # streaming multiprocessors of an H100 SXM
 WIDE_POS_THREADS = 64      # K4: threads (4 output rows each) per co group
 WIDE_MAX_CO_GROUPS = 4     # K4: co groups (8 channels each) per block
 TC_CI = 16                 # K4 bf16: input channels per stage (csrc kTcCi)
 TC_CO_PAD = 64             # K4 bf16: repacked Co multiple (csrc kTcCoPad)
-TC_SMEM = 227 * 1024       # K4 bf16: shared memory a block may use
 DW_BOX = 128               # K3: output positions per staged box
 DW_CI, DW_CO = 16, 32      # K3: channels per block (csrc kDwCi / kDwCo)
 DW_BLOCKS_PER_SM = 2       # K3: resident 432-thread blocks per SM
@@ -101,15 +100,14 @@ def wide_plan(n: int, co: int, d: int, h: int, w: int
 
 
 def wide_tc_plan(n: int, ci: int, co: int, d: int, h: int, w: int
-                 ) -> Tuple[int, int, int, int, int, int]:
-    """K4 bf16 tiling (td, th, tw, wm, P, staged): a block of 4 warps
-    computes 32*wm output channels (wm = 1 for Co <= 32, else 2) x a td x
-    th x tw box of one sample, at most 64*(4 // wm) positions (w fastest,
-    up to 32 along w). Where boxes x Co tiles give fewer blocks than the
-    card has SMs, the Ci/16 channel stages are split into P parts (split-K)
-    so that the grid covers the card about twice. ``staged`` (1 where W
-    and tw are multiples of 4) stages the input by cp.async with the next
-    stage in flight; 0 loads it directly."""
+                 ) -> Tuple[int, int, int, int, int]:
+    """K4 bf16 tiling (td, th, tw, wm, P): a block of 4 warps computes
+    32*wm output channels (wm = 1 for Co <= 32, else 2) x a td x th x tw
+    box of one sample, at most 64*(4 // wm) positions (w fastest, up to 32
+    along w). Where boxes x Co tiles give fewer blocks than the card has
+    SMs, the Ci/16 channel stages are split into P parts (split-K) so that
+    the grid covers the card about twice. The kernel picks its staging from
+    W and tw."""
     wm = 1 if co <= 32 else 2
     bn = 64 * (4 // wm)
     tw = min(w, 32)
@@ -118,16 +116,7 @@ def wide_tc_plan(n: int, ci: int, co: int, d: int, h: int, w: int
     blocks = (n * _cdiv(d, td) * _cdiv(h, th) * _cdiv(w, tw)
               * _cdiv(co, 32 * wm))
     p = 1 if blocks >= SMS else min(_cdiv(ci, TC_CI), _cdiv(2 * SMS, blocks))
-    staged = int(w % 4 == 0 and tw % 4 == 0)
-    return td, th, tw, wm, p, staged
-
-
-def wide_tc_smem(td: int, th: int, tw: int, wm: int, staged: int) -> int:
-    """Shared-memory bytes of a K4 bf16 block: the halo box and 27 taps x
-    32*wm channels, 16 bf16 (32 bytes) each, and when staged the raw rows
-    of 16 channels, tw + 8 bf16 each."""
-    raw = 2 * TC_CI * (td + 2) * (th + 2) * (tw + 8) if staged else 0
-    return 32 * ((td + 2) * (th + 2) * (tw + 2) + 27 * 32 * wm) + raw
+    return td, th, tw, wm, p
 
 
 def repack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -184,7 +173,7 @@ def toeplitz_plan(n: int, d: int, h: int, w: int, co: int
 
 # library -> entry point -> (pointer arguments, int arguments); each entry
 # point also takes the stream and returns a cudaError_t.
-_SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 10), "k3_wide_tc": (4, 12),
+_SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 10), "k3_wide_tc": (4, 11),
                               "k3_repack": (2, 2),
                               "k3_dw": (4, 11)},
                "conv3d_toeplitz": {"k3_toeplitz": (3, 10)}}
@@ -265,14 +254,14 @@ def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, co, d, h, wd), dtype=x.dtype, device=x.device)
     lib = _load("conv3d_k3")
     if x.dtype == torch.bfloat16:
-        td, th, tw, wm, p, staged = wide_tc_plan(n, ci, co, d, h, wd)
+        td, th, tw, wm, p = wide_tc_plan(n, ci, co, d, h, wd)
         wp = repack_weight_cuda(w)
         part = (torch.empty((p, n, co, d * h * wd), dtype=torch.float32,
                             device=x.device) if p > 1 else out)
         with torch.cuda.device(x.device):
             err = lib.k3_wide_tc(_ptr(x), _ptr(wp), _ptr(part), _ptr(out), n,
                                  ci, co, d, h, wd, td, th, tw, wm, p,
-                                 staged, _stream(x))
+                                 _stream(x))
         _raise_if(err, "wide (bf16)")
         wide_tc_launches += 1
         return out

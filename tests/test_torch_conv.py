@@ -31,6 +31,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gan3d_tpu.ops import dw_conv, wide_conv
 from gan3d_tpu_torch.ops import conv3d as tconv
 from gan3d_tpu_torch.ops import cuda_conv
+from gan3d_tpu_torch.ops.cuda_build import SMS
 
 from test_torch_layers import jax_reference_lowering  # noqa: F401,E402
 
@@ -349,26 +350,28 @@ def test_tiling_plans_cover_the_volume_and_fit_the_card(n, ci, co, d, h, w):
     # K4 bf16: a box of at most 64 * (4 // wm) positions (the block's 4
     # warps x 64 cover it), 32 * wm output channels, P split-K parts of
     # the Ci/16 stages, within 227 KB of shared memory (with the cp.async
-    # staging buffer where W and tw allow it)
-    td, th, tw, wm, p, staged = cuda_conv.wide_tc_plan(n, ci, co, d, h, w)
-    assert staged == (w % 4 == 0 and tw % 4 == 0)
+    # staging buffer where W and tw are multiples of 4: launch_wide_tc)
+    td, th, tw, wm, p = cuda_conv.wide_tc_plan(n, ci, co, d, h, w)
     assert wm in (1, 2) and (wm == 1) == (co <= 32)
     assert 1 <= td <= d and 1 <= th <= h and 1 <= tw <= min(w, 32)
     assert td * th * tw <= 64 * (4 // wm)
     stages = cdiv(ci, cuda_conv.TC_CI)
     assert 1 <= p <= stages
-    assert cuda_conv.wide_tc_smem(td, th, tw, wm, staged) <= 227 * 1024
+    halo = (td + 2) * (th + 2) * (tw + 2)
+    raw = (2 * 16 * (td + 2) * (th + 2) * (tw + 8)
+           if w % 4 == 0 and tw % 4 == 0 else 0)
+    assert 32 * (halo + 27 * 32 * wm) + raw <= 227 * 1024
     boxes = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw)
     assert boxes * td * th * tw >= n * d * h * w
     blocks = boxes * cdiv(co, 32 * wm) * p
-    assert blocks >= cuda_conv.SMS or p == stages
+    assert blocks >= SMS or p == stages
     td, th, tw, cg = cuda_conv.wide_plan(n, co, d, h, w)
     assert th % 4 == 0 and 1 <= cg <= 4 and td <= d and tw <= w
     assert cg * td * (th // 4) * tw <= 256
     halo = (td + 2) * (th + 2) * (tw + 2)
     assert 4 * (4 * halo + 4 * 27 * 8 * cg) <= 227 * 1024
     blocks = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw) * cdiv(co, 8 * cg)
-    assert blocks >= cuda_conv.SMS or cg == 1
+    assert blocks >= SMS or cg == 1
     td, th, tw, p = cuda_conv.dw_plan(n, ci, co, d, h, w)
     assert td * th * tw <= cuda_conv.DW_BOX
     boxes = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw)

@@ -207,17 +207,20 @@ def device_ms(fn, needle: str = "", iters: int = 20, per_call: bool = False):
     "", every kernel, copy and memset), from a torch.profiler trace of
     ``iters`` calls of ``fn``: the mean per launch, or with ``per_call`` the
     sum per call, free of the host work that CUDA events over back-to-back
-    calls include; None when the trace holds no such kernel."""
+    calls include; None when the trace holds no such kernel. The trace
+    records a second round of ``iters`` calls, after a warm-up round under
+    the profiler: a trace's first kernels can go missing otherwise."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     us = [e.device_time_total for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and needle in e.name]

@@ -207,23 +207,30 @@ def device_ms(fn, needle: str = "", iters: int = 20, per_call: bool = False):
     "", every kernel, copy and memset), from a torch.profiler trace of
     ``iters`` calls of ``fn``: the mean per launch, or with ``per_call`` the
     sum per call, free of the host work that CUDA events over back-to-back
-    calls include; None when the trace holds no such kernel. The trace
-    records a second round of ``iters`` calls, after a warm-up round under
-    the profiler: a trace's first kernels can go missing otherwise."""
+    calls include; None when the trace holds no such kernel. A warm-up
+    round of ``iters`` calls opens the trace (its first kernels can go
+    missing); only the kernels that start in the marked second round,
+    after the card has finished the first, are counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
+    mark = "chip_smoke.measured"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        with record_function(mark):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-            prof.step()
-    us = [e.device_time_total for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and needle in e.name]
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    start = next(e.time_range.start for e in events
+                 if e.name == mark and e.device_type != cuda)
+    us = [e.device_time_total for e in events
+          if e.device_type == cuda and e.name != mark and needle in e.name
+          and e.time_range.start >= start]
     return sum(us) / (iters if per_call else len(us)) / 1e3 if us else None
 
 

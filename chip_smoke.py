@@ -210,7 +210,9 @@ def device_ms(fn, needle: str = "", iters: int = 20, per_call: bool = False):
     calls include; None when the trace holds no such kernel. A warm-up
     round of ``iters`` calls opens the trace (its first kernels can go
     missing); only the kernels that start in the marked second round,
-    after the card has finished the first, are counted."""
+    after the card has finished the first, are counted. 5 ms of idle on
+    each side of the mark's start keep a skew between the host's and the
+    card's clocks in the trace from moving a kernel across it."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -220,7 +222,9 @@ def device_ms(fn, needle: str = "", iters: int = 20, per_call: bool = False):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.005)
         with record_function(mark):
+            time.sleep(0.005)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()

@@ -26,10 +26,10 @@ Phases, each printing its own line:
              backward through the kernels raises;
 4. conv    — finds the flagship's eligible k3 convs with forward hooks on
              the port's models, and at each distinct shape (N=16, f32 and
-             bf16: the wide conv's bf16 route on the tensor cores, its f32
-             route on the FMA kernel) holds the wide-N conv kernel (forward,
-             and dx with the
-             flipped weights) and the dW kernel against their plain
+             bf16: the wide conv's and dW's bf16 routes on the tensor
+             cores, their f32 routes on the FMA kernels) holds the wide-N
+             conv kernel (forward, and dx with the flipped weights) and the
+             dW kernel against their plain
              versions, timing each beside its plain version and the one
              PyTorch call that computes the same function (F.conv3d;
              aten.convolution_backward for dW), yardsticks the port never
@@ -51,22 +51,25 @@ Phases, each printing its own line:
              the port of scripts/bench_lane_conv.py's "pl" variant): at the
              bench's shapes (16/32/32/64/128 channels at 64/64/32/32/16^3,
              batch 16, t = pick_tile; none at 128@16^3, whose kernel is
-             skipped as the bench skips it), f32 and bf16, drives the op's
-             forward and forward+backward with the launch counter read
-             around that run; holds the forward, dx and dW against autograd
-             through the plain version; times the forward and
+             skipped as the bench skips it), f32 (the FMA kernel) and bf16
+             (the tensor-core kernel), drives the op's forward and
+             forward+backward with each route's launch counter read around
+             that run; holds the forward, dx and dW against autograd
+             through the plain version; times the forward (the median of
+             three windows, and the device time in a profiler trace) and
              forward+backward, the plain forward and F.conv3d on the same
              tensors viewed as NCDHW channels_last_3d (a yardstick the port
-             never calls); then the tests' shapes and a ragged Cin != Cout
-             one, a bad tile and an f16 input refused, and 1 launch per
-             forward, 2 per forward+backward;
+             never calls, timed the same way); then the tests' shapes and
+             ragged Cin != Cout ones, a bad tile and an f16 input refused,
+             and 1 launch per forward, 2 per forward+backward on the
+             dtype's route;
 7. probe_ladder — the 14 rungs of the Mosaic probe ladders
              (probes/mosaic_ladder.py) on the card, each held against its
              plain version, with each kernel's launches from that run; then
              each rung's time per call (CUDA events) and its kernel's
              device time (a torch.profiler trace) beside its plain
              version, its bound and one PyTorch call computing the same
-             thing;
+             thing (its time per call and its device time);
 8. the kernels JSON line, then the result line.
 
 Any failure raises and the script exits non-zero without the result line.
@@ -77,6 +80,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import math
@@ -104,9 +108,11 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SFU_OPS = 132 * 16 * 1.98e9
 PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32))
-# Tensor-core kernel instances that must not spill (ptxas): every K4 bf16
-# instance and the K2 bf16 kernels at the flagship's c = 16 and 32.
-NO_SPILL = re.compile(r"wide_tc_kernel|bwd_\w+_tc_kernel<(16|32)>")
+# Tensor-core kernel instances that must not spill (ptxas): every K3, K4
+# and K5 bf16 instance and the K2 bf16 kernels at the flagship's c = 16
+# and 32.
+NO_SPILL = re.compile(r"wide_tc_kernel|dw_tc_kernel|toeplitz_tc_kernel|"
+                      r"bwd_\w+_tc_kernel<(16|32)>")
 # Off the main path, checked but not timed: every template instance of c,
 # and ragged L and M tails (neither a multiple of any tile).
 EXTRA_SHAPES = ((2, 1000, 125, 8), (3, 300, 38, 16), (1, 4133, 517, 32),
@@ -118,8 +124,8 @@ FLAGSHIP = ["--biggan=True", "--hinge=True", "--resolution=64",
             "--batch_size=16", "--iterD=2"]
 # Runs of the train phase: (name, extra flags, ((niters, step it resumes
 # from), ...)); the CLI's defaults otherwise. The default path trains 12
-# steps and resumes for 2; the conv kernel paths take fewer steps (their
-# simple f32-FMA kernels make a step slower), at the same widths.
+# steps and resumes for 2; the conv kernel paths take fewer steps (each
+# of their steps is slower), at the same widths.
 TRAIN_RUNS = (
     ("default", [], ((12, 0), (14, 12))),
     ("wide_conv+fast_dw", ["--wide_conv=on", "--fast_dw=on"],
@@ -210,7 +216,7 @@ def device_ms(fn, needle: str = "", iters: int = 20, per_call: bool = False):
     calls include; None when the trace holds no such kernel. A warm-up
     round of ``iters`` calls opens the trace (its first kernels can go
     missing); only the kernels that start in the marked second round,
-    after the card has finished the first, are counted. 5 ms of idle on
+    after the card has finished the first, are counted. 50 ms of idle on
     each side of the mark's start keep a skew between the host's and the
     card's clocks in the trace from moving a kernel across it."""
     import torch
@@ -222,9 +228,9 @@ def device_ms(fn, needle: str = "", iters: int = 20, per_call: bool = False):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-        time.sleep(0.005)
+        time.sleep(0.05)
         with record_function(mark):
-            time.sleep(0.005)
+            time.sleep(0.05)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -517,8 +523,8 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
                                         dname, n, cin, cout, s)
                 case = {
                     "kernel": kind, "dtype": dname,
-                    "route": ("tensor_core" if kind != "dw"
-                              and dname == "bfloat16" else "fma"),
+                    "route": ("tensor_core" if dname == "bfloat16"
+                              else "fma"),
                     "N": n, "Ci": cin, "Co": cout, "D": d, "H": h, "W": w,
                     "max_err": rel, "max_abs_err": abs_err, "tol": tol,
                     **timings(kern, lib, iters),
@@ -639,7 +645,7 @@ def toeplitz_phase(cc) -> list:
             inputs[(c, s, dname)] = (x.to(dt), w.to(dt))
         del x, w
     cc.reset_counters()
-    runs = 0
+    runs = {"float32": 0, "bfloat16": 0}
     for (c, s, dname), (x, w) in inputs.items():
         t = tc.pick_tile(c, s)
         if t is None:
@@ -653,10 +659,12 @@ def toeplitz_phase(cc) -> list:
                 y.shape != (n, s, s, s, c) or dw.shape != w.shape:
             raise AssertionError(f"toeplitz {c}ch@{s}^3 {dname}: bad output "
                                  f"{tuple(y.shape)} or non-finite values")
-        runs += 1
+        runs[dname] += 1
         del y, dx, dw, xr, wr
-    launches = cc.toeplitz_launches
-    if launches != 3 * runs or not launches:
+    # each route's counter: the f32 FMA kernel, the bf16 tensor-core kernel
+    launches = {"float32": cc.toeplitz_launches,
+                "bfloat16": cc.toeplitz_tc_launches}
+    if any(launches[k] != 3 * runs[k] or not launches[k] for k in runs):
         raise AssertionError(f"toeplitz launches {launches} != 3 x {runs}")
     phase("toeplitz_path", runs=runs, launches=launches)
 
@@ -674,10 +682,14 @@ def toeplitz_phase(cc) -> list:
         yl = F.conv3d(xl, wl, None, 1, 1)
         gl = torch.randn(yl.shape, generator=gen, device="cuda").to(
             x.dtype).contiguous(memory_format=torch.channels_last_3d)
-        case = {"kernel": "toeplitz_fwd", "dtype": dname, "N": n, "C": c,
-                "S": s, "T": t, "tol": TOL[dname],
-                "library_ms": cuda_ms(lambda: F.conv3d(xc, wc, None, 1, 1),
-                                      TOEPLITZ_ITERS),
+        lib = functools.partial(F.conv3d, xc, wc, None, 1, 1)
+        lib_ms, lib_windows = kernel_ms(lib, TOEPLITZ_ITERS)
+        case = {"kernel": "toeplitz_fwd", "dtype": dname,
+                "route": ("tensor_core" if dname == "bfloat16" else "fma"),
+                "N": n, "C": c, "S": s, "T": t, "tol": TOL[dname],
+                "library_ms": lib_ms, "library_ms_windows": lib_windows,
+                "library_device_ms": device_ms(lib, iters=TOEPLITZ_ITERS,
+                                               per_call=True),
                 "library_fwdbwd_ms": cuda_ms(lambda: torch.autograd.grad(
                     F.conv3d(xl, wl, None, 1, 1), (xl, wl), gl),
                     TOEPLITZ_ITERS)}
@@ -700,12 +712,15 @@ def toeplitz_phase(cc) -> list:
                         f"{rel:.3e} > {TOL[dname]:.0e}")
             xr, wr = (v.detach().requires_grad_(True) for v in (x, w))
             b_ms, b_by = toeplitz_bound(dname, n, vol, c, c)
+            kern = functools.partial(tc.toeplitz_conv3d, x, w, t)
+            ms, windows = kernel_ms(kern, TOEPLITZ_ITERS)
             case.update({
                 "max_err": max(e[1] for e in errs.values()),
                 "max_abs_err": max(e[0] for e in errs.values()),
                 "rel_err": {k: e[1] for k, e in errs.items()},
-                "ms": cuda_ms(lambda: tc.toeplitz_conv3d(x, w, t),
-                              TOEPLITZ_ITERS),
+                "ms": ms, "ms_windows": windows,
+                "device_ms": device_ms(kern, iters=TOEPLITZ_ITERS,
+                                       per_call=True),
                 "fwdbwd_ms": cuda_ms(lambda: torch.autograd.grad(
                     tc.toeplitz_conv3d(xr, wr, t), (xr, wr), g),
                     TOEPLITZ_ITERS),
@@ -721,14 +736,15 @@ def toeplitz_phase(cc) -> list:
         torch.cuda.empty_cache()
     for case in cases:
         if case["T"] is not None:
-            case["launches"] = launches
+            case["launches"] = launches[case["dtype"]]
     return cases
 
 
 def toeplitz_extra_checks(cc) -> dict:
     """K5 at TOEPLITZ_EXTRA against the plain version (forward, dx, dW); a
     bad tile and an f16 input refused; 1 launch per forward and 2 per
-    forward+backward."""
+    forward+backward, on the dtype's route (bf16: the tensor-core kernel;
+    f32: the FMA kernel)."""
     import torch
 
     from gan3d_tpu_torch.ops import toeplitz_conv as tc
@@ -743,14 +759,19 @@ def toeplitz_extra_checks(cc) -> dict:
             w = (torch.randn((3, 3, 3, ci, co), generator=gen, device="cuda")
                  / math.sqrt(27 * ci)).to(dt)
             g = torch.randn((*shape, co), generator=gen, device="cuda").to(dt)
-            before = cc.toeplitz_launches
+            # the launches on this dtype's route; the other route's stay
+            mine, other = ("toeplitz_tc_launches", "toeplitz_launches")
+            if dt == torch.float32:
+                mine, other = other, mine
+            before = (getattr(cc, mine), getattr(cc, other))
             tc.toeplitz_conv3d(x, w, t)
-            fwd = cc.toeplitz_launches - before
+            fwd = getattr(cc, mine) - before[0]
             got = _toeplitz_grads(tc, x, w, t, g, plain=False)
-            both = cc.toeplitz_launches - before - fwd
-            if (fwd, both) != (1, 2):
-                raise AssertionError(f"toeplitz launches: {fwd} per forward, "
-                                     f"{both} per forward+backward")
+            both = getattr(cc, mine) - before[0] - fwd
+            if (fwd, both) != (1, 2) or getattr(cc, other) != before[1]:
+                raise AssertionError(f"toeplitz {dname} launches: {fwd} per "
+                                     f"forward, {both} per forward+backward "
+                                     f"on {mine}, or some on {other}")
             want = _toeplitz_grads(tc, x, w, t, g, plain=True)
             for name, a, b in zip(("fwd", "dx", "dw"), got, want):
                 rel = rel_err(a, b)[1]
@@ -781,7 +802,9 @@ def ladder_phase(ml) -> list:
     plain version, launches counted around it), then every rung's times:
     ``ms`` by CUDA events over back-to-back calls (the wrapper's host work
     included: the kernels take microseconds), ``device_ms`` the kernel's
-    own time in a profiler trace."""
+    own time in a profiler trace, and ``library_device_ms`` the device
+    time per call of every kernel, copy and memset of the one PyTorch call
+    that computes the same thing."""
     import torch
 
     inp = ml.inputs("cuda")
@@ -846,6 +869,8 @@ def ladder_phase(ml) -> list:
                 "plain_ms": cuda_ms(lambda rung=rung: rung(inp, plain=True),
                                     50, 2),
                 "library_ms": cuda_ms(library(name), 200, 5),
+                "library_device_ms": device_ms(library(name),
+                                               per_call=True),
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "launches": launches[kernel]}
@@ -855,17 +880,18 @@ def ladder_phase(ml) -> list:
 
 
 def tensor_core_ptxas(lines: list) -> dict:
-    """{"<kernel>_tc_kernel<template args>": {"registers", "spill_stores",
+    """{"<kernel>_tc_kernel[<template args>]": {"registers", "spill_stores",
     "spill_loads"}} for each tensor-core kernel instance, from the ptxas
     lines (entry function, then its spill line, then its register line)."""
     out, name = {}, None
     for ln in lines:
         entry = re.search(r"entry function '(\S+)'", ln)
         if entry:
-            m = re.search(r"\D\d+([a-z_]+_tc_kernel)I((?:L[ib]\d+E)+)E",
+            m = re.search(r"\D\d+([a-z_]+_tc_kernel)(?:I((?:L[ib]\d+E)+)E)?",
                           entry.group(1))
-            args = re.findall(r"L[ib](\d+)E", m.group(2)) if m else ()
-            name = f"{m.group(1)}<{','.join(args)}>" if m else None
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else ()
+            name = (m.group(1) + (f"<{','.join(args)}>" if args else "")
+                    if m else None)
             if name:
                 out[name] = {}
             continue
@@ -890,11 +916,12 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
     N=16, the forward for the wide conv and K5; the ladder: the rung named
     in LADDER_MAIN); every case is listed under "cases". ``launches`` are
     the counts of each kernel's path: the first --wide_conv=on
-    --fast_dw=on run for K1-K4 (bf16: K2 and K4 on their tensor-core
-    routes), the toeplitz_conv and probe_ladder phases' runs for K5 and the
-    ladder's kernels. K1-K4 add ``device_ms`` and ``library_device_ms``
-    (device time per call, profiler), and K2 and K4 ``f32_ms`` (the f32
-    route, the FMA kernels, at the same case). ``max_err`` is the largest error
+    --fast_dw=on run for K1-K4 (bf16: K2, K3 and K4 on their tensor-core
+    routes), the toeplitz_conv and probe_ladder phases' runs for K5 (its
+    bf16 route's counter) and the ladder's kernels. K1-K5 and the ladder
+    add ``device_ms`` and ``library_device_ms`` (device time per call,
+    profiler), and K2-K5 ``f32_ms`` (the f32 route, the FMA kernels, at
+    the same case). ``max_err`` is the largest error
     relative to max |plain| over the compared outputs, the number held
     against ``tol``; ``max_abs_err`` is the largest absolute difference."""
     meta = (
@@ -914,11 +941,11 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
          lambda c: (c["kernel"] == "wide_fwd" and c["dtype"] == "bfloat16"
                     and c["Ci"] == 32 and c["D"] == 64),
          "forward, bfloat16 (tensor cores), N=16, Ci=Co=32, 64^3"),
-        ("conv3d_dw", "conv3d_k3.cu", "gan3d_tpu/ops/dw_conv.py:133", "dw",
-         conv_cases, lambda c: c["kernel"] == "dw",
+        ("conv3d_dw", "conv3d_k3.cu", "gan3d_tpu/ops/dw_conv.py:133",
+         "dw_tc", conv_cases, lambda c: c["kernel"] == "dw",
          lambda c: c["dtype"] == "bfloat16" and c["Ci"] == 32
          and c["D"] == 64,
-         "bfloat16, N=16, Ci=Co=32, 64^3"),
+         "bfloat16 (tensor cores), N=16, Ci=Co=32, 64^3"),
     )
     out = []
     for name, src, replaces, key, pool, mine_if, main_if, at in meta:
@@ -944,6 +971,8 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
             out[-1]["f32_ms"] = f32["ms"]
     k5 = next(c for c in toeplitz_cases
               if c["dtype"] == "bfloat16" and (c["C"], c["S"]) == (32, 64))
+    k5_f32 = next(c for c in toeplitz_cases
+                  if c["dtype"] == "float32" and (c["C"], c["S"]) == (32, 64))
     out.append({
         "name": "toeplitz_conv3d", "route": "cuda",
         "source": "gan3d_tpu_torch/csrc/conv3d_toeplitz.cu",
@@ -952,7 +981,10 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
         "tol": k5["tol"], "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
-        "at": "forward, bfloat16, N=16, Ci=Co=32, 64^3, T=4",
+        "device_ms": k5["device_ms"],
+        "library_device_ms": k5["library_device_ms"],
+        "f32_ms": k5_f32["ms"],
+        "at": "forward, bfloat16 (tensor cores), N=16, Ci=Co=32, 64^3, T=4",
         "cases": toeplitz_cases})
     for kernel, rung in LADDER_MAIN.items():
         mine = [c for c in ladder_cases if c["kernel"] == kernel]
@@ -967,7 +999,9 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
-            "device_ms": main["device_ms"], "at": f"rung {rung}",
+            "device_ms": main["device_ms"],
+            "library_device_ms": main["library_device_ms"],
+            "at": f"rung {rung}",
             "cases": mine})
     return {"kernels": out}
 
@@ -1014,8 +1048,8 @@ def expected_conv_launches(start: int, niters: int, iter_d: int,
                            img_every: int, n_g: int, n_d: int, wide: bool,
                            fast_dw: bool) -> dict:
     """Conv kernel launches a bf16 run of steps [start, niters) implies
-    (the wide conv on its tensor-core route), with n_g / n_d eligible convs
-    in each G / D forward.
+    (the wide conv and dW on their tensor-core routes), with n_g / n_d
+    eligible convs in each G / D forward.
 
     With wide_conv on, every eligible conv's forward is a wide launch: G
     forwards iter_d times (no-grad, in the D iterations) and once (G step)
@@ -1030,11 +1064,11 @@ def expected_conv_launches(start: int, niters: int, iter_d: int,
     img_logs = sum(1 for i in range(start, niters) if i % img_every == 0) + 1
     dw = steps * (2 * iter_d * n_d + n_g) if (wide or fast_dw) else 0
     if not wide:
-        return {"wide_tc": 0, "dw": dw}
+        return {"wide_tc": 0, "dw_tc": dw}
     fwd = ((steps * (iter_d + 1) + img_logs) * n_g
            + steps * (2 * iter_d + 1) * n_d)
     dx = steps * ((2 * iter_d + 1) * n_d + n_g)
-    return {"wide_tc": fwd + dx, "dw": dw}
+    return {"wide_tc": fwd + dx, "dw_tc": dw}
 
 
 def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
@@ -1061,16 +1095,17 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
             out = run_cli(base + [f"--niters={niters}"])
             got = {"fwd": ca.fwd_launches, "bwd": ca.bwd_launches,
                    "bwd_tc": ca.bwd_tc_launches, "wide": cc.wide_launches,
-                   "wide_tc": cc.wide_tc_launches, "dw": cc.dw_launches}
-            # bf16 runs: the f32 routes of K2 and K4 launch nothing
-            want = {"bwd": 0, "wide": 0,
+                   "wide_tc": cc.wide_tc_launches, "dw": cc.dw_launches,
+                   "dw_tc": cc.dw_tc_launches}
+            # bf16 runs: the f32 routes of K2, K3 and K4 launch nothing
+            want = {"bwd": 0, "wide": 0, "dw": 0,
                     **expected_launches(start, niters, 2, 50),
                     **expected_conv_launches(start, niters, 2, 50, n_g, n_d,
                                              wide, fast_dw)}
             if got != want or not (got["fwd"] and got["bwd_tc"]):
                 raise AssertionError(f"{name}: launches {got} != expected "
                                      f"{want}")
-            if (wide or fast_dw) and not got["dw"]:
+            if (wide or fast_dw) and not got["dw_tc"]:
                 raise AssertionError(f"{name}: the dW kernel never launched")
             if wide and not got["wide_tc"]:
                 raise AssertionError(f"{name}: the wide kernel never "

@@ -25,8 +25,11 @@
 //   wide_conv.py:140-141,186); see its comment below.
 // - wide (f32): f32 FMAs on the CUDA cores (tensor cores would run f32 as
 //   TF32, outside the f32 tolerance), ceiling the 67 TF f32 line.
-// dW is the f32-FMA kernel for both dtypes (its tensor-core version is
-// later work).
+// dW has two routes the same way:
+// - dw_tc (bf16): an implicit GEMM on the tensor cores with the positions
+//   as its k (bf16 operands, f32 sums: the TPU kernel's rounding,
+//   dw_conv.py:157-158); see its comment below.
+// - dW (f32): f32 FMAs on the CUDA cores, as below.
 // - wide (f32): a block owns a box of output positions of one sample (td x th x
 //   tw) and up to 32 output channels; it stages the box's input plus its
 //   1-voxel halo, 4 input channels at a time, and those channels' weights
@@ -43,13 +46,13 @@
 //   race. Here the (n, box) list is split into P chunks (split-K): a block
 //   reduces one chunk for 32 output x 16 input channels x 27 taps into
 //   registers (8 x 4 per thread, one tap) and writes f32 partials
-//   [P, Co, Ci*27]; a second kernel sums the P partials in a fixed order.
+//   [P, Co, 27, Ci]; a second kernel sums the P partials in a fixed order.
 //   No atomics, so a repeated dW is bit-identical. Per position a thread
 //   reads 8 gradients and 4 inputs as three float4s and does 32 FMAs.
 //
-// Inputs: wide f32, wide_tc bf16, dW f32 or bf16 (dtype 0 / 1),
-// the same for both operands; every accumulation is f32; the wide output
-// takes the input's dtype, dW is f32.
+// Inputs: wide and dW f32, wide_tc and dw_tc bf16, the same for both
+// operands; every accumulation is f32; the wide output takes the input's
+// dtype, dW is f32 on both routes.
 // Any N, Ci, Co, D, H, W >= 1; ragged channel and spatial tiles are masked.
 // The tiling is chosen by the caller (gan3d_tpu_torch/ops/cuda_conv.py).
 // Each entry point returns cudaGetLastError() after its launches, or
@@ -524,9 +527,174 @@ __global__ void repack_kernel(const __nv_bfloat16* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
+// dw_tc: the bf16 route of dW, an implicit GEMM on the tensor cores. Per
+// tap dW[co][ci] = sum_pos g[pos][co] x[pos + shift(tap)][ci] is a GEMM
+// with M = Co, N = 27 taps x Ci, K = positions.
+//
+// grid (P split-K parts, Ci tiles of 16, Co tiles of 32), 9 warps.
+// Block p walks the boxes [nboxes*p/P, nboxes*(p+1)/P) of the (n, box)
+// list (td x th x tw positions of one sample, w fastest) in order; warp
+// w owns taps 3w .. 3w+2 (kd = w / 3, kh = w % 3, kw = 0..2) for all the
+// block's 32 x 16 channels: 3 x 2 x 2 m16n8 tiles, 48 f32 sums a thread.
+// Per box it stages, bf16 and channels innermost:
+// - gs [kpad][32 co]: the box's output gradient, kpad = the box rounded
+//   up to 16 positions (rows past the box or the volume are zero, so they
+//   add nothing);
+// - xs [halo rows][16 ci]: the box's input plus its 1-voxel halo,
+//   zero outside the volume.
+// Both are stored with rows = positions (the GEMM's k), so both the A
+// (g) and the B (x) fragments come from ldmatrix.trans, and a tap's shift
+// is a row offset into xs (hrow, the halo row of each box position, is
+// computed once a block): no im2col. Rows are swizzled (tc::swz) so each
+// ldmatrix is free of bank conflicts. Staging reads NCDHW with one
+// two-byte load a channel, coalesced along w, 8 channels at a time, and
+// transposes through registers, with the per-position index work done
+// once for all channels (fdiv). The 8-at-a-time loads keep a thread under
+// 113 registers, so two blocks (18 warps) share an SM and one block's
+// staging overlaps the other's products. Each block writes f32 partials
+// part[p][co][tap][ci] (ci innermost, so a warp's stores fill whole
+// 32-byte sectors);
+// dw_reduce_kernel sums them in a fixed order, so a repeat is
+// bit-identical.
+constexpr int kDwTcThreads = 288;  // 9 warps x 3 taps
+constexpr int kDwTcCo = 32;        // output channels per block
+constexpr int kDwTcCi = 16;        // input channels per block
+
+__global__ void __launch_bounds__(kDwTcThreads, 2)
+dw_tc_kernel(const __nv_bfloat16* __restrict__ x,
+             const __nv_bfloat16* __restrict__ gr, float* __restrict__ part,
+             Geom g, int P) {
+  extern __shared__ uint4 smem_tc[];
+  const TcBox bx = tc_box(g);
+  const int box = g.td * g.th * g.tw;
+  const int kpad = cdiv(box, 16) * 16;
+  uint4* xs = smem_tc;                                   // [R][2]
+  uint4* gs = xs + 2 * bx.R;                             // [kpad][4]
+  int* hrow = reinterpret_cast<int*>(gs + 4 * kpad);     // [kpad]
+
+  const int p = blockIdx.x;
+  const int ci0 = blockIdx.y * kDwTcCi, co0 = blockIdx.z * kDwTcCo;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int kd = warp / 3, kh = warp % 3;
+
+  for (int i = t; i < kpad; i += kDwTcThreads) {
+    int dl, hl, wl;
+    box_pos(i, g, bx, &dl, &hl, &wl);
+    hrow[i] = i < box ? (dl * bx.HB + hl) * bx.WB + wl : 0;
+  }
+
+  const long long HW = (long long)g.H * g.W;
+  const long long DHW = HW * g.D;
+  const long long nboxes = (long long)g.N * g.nbd * g.nbh * g.nbw;
+  const long long b_begin = nboxes * p / P, b_end = nboxes * (p + 1) / P;
+  const uint16_t* xu = reinterpret_cast<const uint16_t*>(x);
+  const uint16_t* gu = reinterpret_cast<const uint16_t*>(gr);
+
+  float acc[3][2][2][4];
+#pragma unroll
+  for (int tt = 0; tt < 3; ++tt)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[tt][mt][nt][e] = 0.f;
+
+  for (long long b = b_begin; b < b_end; ++b) {
+    long long q = b;
+    const int bw = (int)(q % g.nbw); q /= g.nbw;
+    const int bh = (int)(q % g.nbh); q /= g.nbh;
+    const int bd = (int)(q % g.nbd);
+    const int n = (int)(q / g.nbd);
+    const int d0 = bd * g.td, h0 = bh * g.th, w0 = bw * g.tw;
+    const uint16_t* xn = xu + ((long long)n * g.Ci + ci0) * DHW;
+    const uint16_t* gn = gu + ((long long)n * g.Co + co0) * DHW;
+    __syncthreads();  // the previous box's products are done
+    for (int hp = t; hp < bx.R; hp += kDwTcThreads) {
+      const int r = fdiv(hp, bx.inv_WB), ww = hp - r * bx.WB;
+      const int dd = fdiv(r, bx.inv_HB), hh = r - dd * bx.HB;
+      const int gd = d0 + dd - 1, gh = h0 + hh - 1, gw = w0 + ww - 1;
+      const bool in = gd >= 0 && gd < g.D && gh >= 0 && gh < g.H &&
+                      gw >= 0 && gw < g.W;
+      const uint16_t* src = xn + (in ? gd * HW + (long long)gh * g.W + gw : 0);
+#pragma unroll 1
+      for (int c = 0; c < 2; ++c) {
+        uint16_t h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          h[e] = in && ci0 + 8 * c + e < g.Ci ? src[(8 * c + e) * DHW] : 0;
+        xs[tc::swz<2>(hp, c)] = make_uint4(
+            tc::pack_raw(h[0], h[1]), tc::pack_raw(h[2], h[3]),
+            tc::pack_raw(h[4], h[5]), tc::pack_raw(h[6], h[7]));
+      }
+    }
+    for (int s = t; s < kpad; s += kDwTcThreads) {
+      int dl, hl, wl;
+      box_pos(s, g, bx, &dl, &hl, &wl);
+      const int gd = d0 + dl, gh = h0 + hl, gw = w0 + wl;
+      const bool in = s < box && gd < g.D && gh < g.H && gw < g.W;
+      const uint16_t* src = gn + (in ? gd * HW + (long long)gh * g.W + gw : 0);
+#pragma unroll 1
+      for (int c = 0; c < 4; ++c) {
+        uint16_t h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          h[e] = in && co0 + 8 * c + e < g.Co ? src[(8 * c + e) * DHW] : 0;
+        gs[tc::swz<4>(s, c)] = make_uint4(
+            tc::pack_raw(h[0], h[1]), tc::pack_raw(h[2], h[3]),
+            tc::pack_raw(h[4], h[5]), tc::pack_raw(h[6], h[7]));
+      }
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int k0 = 0; k0 < kpad; k0 += 16) {
+      // A (g, 16 co x 16 positions) of each m16 tile; B (x) rows: this
+      // lane's position of the k-step, shifted by each tap
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        tc::ldsm_x4_trans(a[mt], gs + tc::swz<4>(k0 + ((lane >> 4) & 1) * 8 +
+                                                     (lane & 7),
+                                                 mt * 2 + ((lane >> 3) & 1)));
+      const int hr = hrow[k0 + ((lane >> 3) & 1) * 8 + (lane & 7)] +
+                     (kd * bx.HB + kh) * bx.WB;
+#pragma unroll
+      for (int tt = 0; tt < 3; ++tt) {
+        uint32_t bf[4];
+        tc::ldsm_x4_trans(bf, xs + tc::swz<2>(hr + tt, lane >> 4));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          tc::mma(acc[tt][mt][0], a[mt], bf);
+          tc::mma(acc[tt][mt][1], a[mt], bf + 2);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int tt = 0; tt < 3; ++tt) {
+    const int tap = warp * 3 + tt;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int co = co0 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+          const int ci = ci0 + nt * 8 + (lane & 3) * 2 + (e & 1);
+          if (co < g.Co && ci < g.Ci)
+            part[(((long long)p * g.Co + co) * 27 + tap) * g.Ci + ci] =
+                acc[tt][mt][nt][e];
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // dW partials: grid (P, Ci tiles of 16, Co tiles of 32), kDwThreads threads.
 // Block p reduces boxes [nboxes*p/P, nboxes*(p+1)/P) into
-// part[p][co][ci*27 + tap]. Shared memory: gs [box][kGStride], then
+// part[p][co][tap][ci]. Shared memory: gs [box][kGStride], then
 // xs [td+2][th+2][tw+2][kXStride].
 template <typename T>
 __global__ void __launch_bounds__(kDwThreads)
@@ -631,29 +799,40 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ gr,
     }
   }
 
-  const long long row = (long long)g.Ci * 27;
 #pragma unroll
   for (int o = 0; o < 8; ++o) {
     const int co = co0 + cog * 8 + o;
     if (co >= g.Co) break;
-    float* dst = part + ((long long)p * g.Co + co) * row + tap;
+    float* dst = part + (((long long)p * g.Co + co) * 27 + tap) * g.Ci;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ci = ci0 + cig * 4 + i;
-      if (ci < g.Ci) dst[(long long)ci * 27] = acc[o][i];
+      if (ci < g.Ci) dst[ci] = acc[o][i];
     }
   }
 }
 
-// dw[j] = sum_{p = 0 .. P-1} part[p][j], in that order.
+// dw[co][ci][tap] = sum_{p = 0 .. P-1} part[p][co][tap][ci], in that
+// order (reads coalesced along ci; M = Co * 27 * Ci).
 __global__ void dw_reduce_kernel(const float* __restrict__ part,
-                                 float* __restrict__ dw, int P, long long M) {
+                                 float* __restrict__ dw, int P, int Ci,
+                                 long long M) {
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < M;
        j += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int p = 0; p < P; ++p) s += part[(long long)p * M + j];
-    dw[j] = s;
+    const long long r = j / Ci;   // co * 27 + tap
+    dw[(r / 27 * Ci + j % Ci) * 27 + r % 27] = s;
   }
+}
+
+int reduce_partials(const float* part, float* dw, int P, const Geom& g,
+                    cudaStream_t st) {
+  const long long M = (long long)g.Co * 27 * g.Ci;
+  const long long blocks = (M + kReduceThreads - 1) / kReduceThreads;
+  dw_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                     kReduceThreads, 0, st>>>(part, dw, P, g.Ci, M);
+  return (int)cudaGetLastError();
 }
 
 bool make_geom(Geom* g, int N, int Ci, int Co, int D, int H, int W, int td,
@@ -749,12 +928,28 @@ int launch_dw(const void* x, const void* gr, void* part, void* dw,
       static_cast<float*>(part), g, P);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long M = (long long)g.Co * g.Ci * 27;
-  const long long blocks = (M + kReduceThreads - 1) / kReduceThreads;
-  dw_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096),
-                     kReduceThreads, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw), P, M);
-  return (int)cudaGetLastError();
+  return reduce_partials(static_cast<const float*>(part),
+                         static_cast<float*>(dw), P, g, st);
+}
+
+int launch_dw_tc(const void* x, const void* gr, void* part, void* dw,
+                 const Geom& g, int P, cudaStream_t st) {
+  const long long boxes = (long long)g.N * g.nbd * g.nbh * g.nbw;
+  if (P < 1 || P > boxes || cdiv(g.Ci, kDwTcCi) > 65535 ||
+      cdiv(g.Co, kDwTcCo) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int rows = (g.td + 2) * (g.th + 2) * (g.tw + 2);
+  const int kpad = cdiv(g.td * g.th * g.tw, 16) * 16;
+  const size_t smem = (size_t)32 * rows + (size_t)(64 + 4) * kpad;
+  if (!set_smem(dw_tc_kernel, smem)) return (int)cudaErrorInvalidValue;
+  float* pf = static_cast<float*>(part);
+  dw_tc_kernel<<<dim3(P, cdiv(g.Ci, kDwTcCi), cdiv(g.Co, kDwTcCo)),
+                 kDwTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(gr), pf, g, P);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return reduce_partials(pf, static_cast<float*>(dw), P, g, st);
 }
 
 }  // namespace
@@ -800,19 +995,28 @@ int k3_wide_tc(const void* x, const void* wp, void* part, void* out, int N,
   return launch_wide_tc(x, wp, part, out, g, wm, P, (cudaStream_t)stream);
 }
 
-// dw [Co, Ci, 3, 3, 3] (f32) from x [N, Ci, D, H, W] and g [N, Co, D, H, W];
-// part [P, Co, Ci*27] (f32) is scratch. Tiling (td, th, tw, P) as chosen
-// by ops/cuda_conv.py:dw_plan.
+// The f32 route of dW: dw [Co, Ci, 3, 3, 3] from x [N, Ci, D, H, W] and
+// g [N, Co, D, H, W], all f32; part [P, Co, 27, Ci] (f32) is scratch.
+// Tiling (td, th, tw, P) as chosen by ops/cuda_conv.py:dw_plan.
 int k3_dw(const void* x, const void* gr, void* part, void* dw, int N, int Ci,
           int Co, int D, int H, int W, int td, int th, int tw, int P,
-          int dtype, void* stream) {
+          void* stream) {
   Geom g;
   if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_dw<float>(x, gr, part, dw, g, P, st);
-  if (dtype == 1) return launch_dw<__nv_bfloat16>(x, gr, part, dw, g, P, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_dw<float>(x, gr, part, dw, g, P, (cudaStream_t)stream);
+}
+
+// The bf16 route of dW: dw [Co, Ci, 3, 3, 3] (f32) from x [N, Ci, D, H, W]
+// and g [N, Co, D, H, W] (bf16); part [P, Co, 27, Ci] (f32) is scratch.
+// Tiling (td, th, tw, P) as chosen by ops/cuda_conv.py:dw_tc_plan.
+int k3_dw_tc(const void* x, const void* gr, void* part, void* dw, int N,
+             int Ci, int Co, int D, int H, int W, int td, int th, int tw,
+             int P, void* stream) {
+  Geom g;
+  if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
+    return (int)cudaErrorInvalidValue;
+  return launch_dw_tc(x, gr, part, dw, g, P, (cudaStream_t)stream);
 }
 
 }  // extern "C"

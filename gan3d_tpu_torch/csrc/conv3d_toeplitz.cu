@@ -31,20 +31,26 @@
 //   its 4 outputs need (a float4 and a float2) and 3 x 8 weights (broadcast
 //   float4s) and does 96 FMAs: 6 input loads serve 3 taps of 4 outputs,
 //   the reuse the Toeplitz weight bought on the TPU.
-// - Simple first: f32 FMAs on the CUDA cores (ceiling 67 TF), no tensor
-//   cores. W is tiled by the kernel's own rule; the TPU's tile T only has to
-//   divide W and is checked by the caller.
+// - This is the f32 route: f32 FMAs on the CUDA cores (ceiling 67 TF;
+//   tensor cores would run f32 as TF32, outside the f32 tolerance).
+// - The bf16 route, toeplitz_tc_kernel below, is an implicit GEMM on the
+//   tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums: the TPU
+//   kernel's rounding, pallas_conv.py:105-112); see its comment.
+// W is tiled by the kernels' own rule; the TPU's tile T only has to divide
+// W and is checked by the caller.
 //
-// Inputs are f32 or bf16 (dtype 0 / 1), the same for x and w; accumulation
-// is f32; out takes x's dtype. Any N, D, H, W, Ci, Co >= 1; ragged tiles
-// are masked. The tiling (bh, wg, cg) is chosen by the caller
-// (gan3d_tpu_torch/ops/cuda_conv.py:toeplitz_plan). The entry point returns
-// cudaGetLastError() after its launch, or cudaErrorInvalidValue for
-// arguments it does not take.
+// Inputs are f32 (toeplitz) or bf16 (toeplitz_tc), the same for x and w;
+// accumulation is f32; out takes x's dtype. Any N, D, H, W, Ci, Co >= 1;
+// ragged tiles are masked. The tilings are chosen by the caller
+// (gan3d_tpu_torch/ops/cuda_conv.py: toeplitz_plan, toeplitz_tc_plan).
+// Each entry point returns cudaGetLastError() after its launches, or
+// cudaErrorInvalidValue for arguments it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -53,19 +59,6 @@ constexpr int kRC = 8;        // output channels per thread
 constexpr int kCi = 8;        // input channels per shared-memory stage
 constexpr int kMaxThreads = 256;
 constexpr int kMaxSmem = 227 * 1024;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -81,10 +74,9 @@ __host__ __device__ inline int row_stride(int bw) { return (bw + 2 + 3) & ~3; }
 
 // grid (N*D*nbh*nbw, Co tiles of cg*8), block cg * wg * bh threads.
 // Shared memory: xs [kCi][3][bh+2][row_stride], then ws [kCi][27][cg*8].
-template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-toeplitz_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ out, Geom g) {
+toeplitz_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                float* __restrict__ out, Geom g) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
   const int bw = g.wg * kRW;
@@ -129,7 +121,7 @@ toeplitz_kernel(const T* __restrict__ x, const T* __restrict__ w,
           gw >= 0 && gw < g.W) {
         const long long pos =
             (((long long)n * g.D + gd) * g.H + gh) * g.W + gw;
-        v = to_f32(x[pos * g.Ci + ci0 + c]);
+        v = x[pos * g.Ci + ci0 + c];
       }
       xs[c * slab + (a * HB + hh) * rs + ww] = v;
     }
@@ -141,7 +133,7 @@ toeplitz_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int co = co0 + col, ci = ci0 + c;
       float v = 0.f;
       if (co < g.Co && ci < g.Ci)
-        v = to_f32(w[((long long)tap * g.Ci + ci) * g.Co + co]);
+        v = w[((long long)tap * g.Ci + ci) * g.Co + co];
       ws[(c * 27 + tap) * tco + col] = v;
     }
     __syncthreads();
@@ -182,16 +174,15 @@ toeplitz_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int j = 0; j < kRW; ++j) {
     const int wq = w0 + wgi * kRW + j;
     if (wq >= g.W) break;
-    T* op = out + (row + wq) * g.Co;
+    float* op = out + (row + wq) * g.Co;
 #pragma unroll
     for (int o = 0; o < kRC; ++o) {
       const int co = co0 + cog * kRC + o;
-      if (co < g.Co) op[co] = from_f32<T>(acc[o][j]);
+      if (co < g.Co) op[co] = acc[o][j];
     }
   }
 }
 
-template <typename T>
 int launch(const void* x, const void* w, void* out, const Geom& g,
            cudaStream_t st) {
   const int threads = g.cg * g.wg * g.bh;
@@ -202,7 +193,7 @@ int launch(const void* x, const void* w, void* out, const Geom& g,
                                        (size_t)kCi * 27 * g.cg * kRC);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024 &&
-      cudaFuncSetAttribute(toeplitz_kernel<T>,
+      cudaFuncSetAttribute(toeplitz_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
     return (int)cudaErrorInvalidValue;
@@ -210,9 +201,249 @@ int launch(const void* x, const void* w, void* out, const Geom& g,
   const int co_tiles = cdiv(g.Co, g.cg * kRC);
   if (blocks > 0x7fffffffLL || co_tiles > 65535)
     return (int)cudaErrorInvalidValue;
-  toeplitz_kernel<T><<<dim3((unsigned)blocks, co_tiles), threads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(out), g);
+  toeplitz_kernel<<<dim3((unsigned)blocks, co_tiles), threads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), g);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// toeplitz_tc: the bf16 route, an implicit GEMM on the tensor cores. Per
+// (n, d) out[pos, co] = sum_{tap, ci} x[pos + shift(tap), ci] w[tap, ci, co]
+// is a GEMM with M = positions, N = Co, K = 27 * Ci.
+//
+// grid (N * D * row tiles * column tiles, Co tiles of BN = 32 * WN), 8
+// warps. A block owns bh rows x bw columns of one (n, d) (at most
+// 64 * (8 / WN) positions, numbered w fastest) and BN output channels;
+// warp (wp, wn) computes 64 positions x 32 channels (4 x 4 m16n8 tiles,
+// 64 f32 sums a thread). Per stage of 16 input channels:
+// - xs [3][bh+2][bw+2][16] bf16: the halo box of the three input planes
+//   d-1 .. d+1, channels innermost as x already is in NDHWC: each row's
+//   two 16-byte chunks arrive by cp.async, zero-filled outside the volume
+//   (no padded copy). An A fragment (16 positions x 16 channels) is one
+//   ldmatrix.x4 of halo rows, each lane passing its own position's row,
+//   so a tap's shift is a row offset: no im2col.
+// - ws [27][BN][16] bf16: the stage's weights, copied from wp
+//   [Ci/16][27][Cop][16] (toeplitz_repack_kernel, once a call; zero where
+//   ci >= Ci or co >= Co); a B fragment pair is one ldmatrix.x4.
+// Rows are 32 bytes, swizzled (tc::swz<2>) so every ldmatrix is free of
+// bank conflicts. Where Ci is not a multiple of 8 (or x is not 16-byte
+// aligned) the chunks are not whole 16-byte units, and xs is filled by
+// two-byte loads instead (kVec false). A block waits for each stage's
+// copies before its products; two blocks share an SM (one buffer each,
+// under 113 KB, and at most 128 registers a thread), so one block's copies
+// overlap the other's products (two buffers in one block would leave room
+// for one block an SM). The C fragments' rows are positions and their
+// columns channels, so they store straight into NDHWC out.
+constexpr int kTcThreads = 256;
+constexpr int kTcCi = 16;      // input channels per stage: one k-step a tap
+constexpr int kTcCoPad = 64;   // wp's Co is padded to a multiple of this
+
+struct TcGeom {
+  int N, D, H, W, Ci, Co;
+  int bh, bw, nbh, nbw;
+};
+
+// n / d for small non-negative n (< 2^22), exactly, as a float product
+// with d's reciprocal (a run-time integer division takes ~20 instructions).
+__device__ __forceinline__ int fdiv(int n, float inv) {
+  return __float2int_rz(__fmul_rn(__fadd_rn((float)n, 0.5f), inv));
+}
+
+template <int WN, bool kVec>
+__global__ void __launch_bounds__(kTcThreads, 2)
+toeplitz_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ wp,
+                   __nv_bfloat16* __restrict__ out, TcGeom g) {
+  constexpr int BN = 32 * WN;
+  extern __shared__ uint4 smem_tc[];
+  const int HB = g.bh + 2, WB = g.bw + 2;
+  const int R = 3 * HB * WB;           // halo rows
+  uint4* xs = smem_tc;             // [R] rows of 2 chunks
+  uint4* ws = smem_tc + 2 * R;     // [27 * BN] rows of 2 chunks
+  const float inv_WB = 1.f / WB, inv_HB = 1.f / HB, inv_bw = 1.f / g.bw;
+
+  int b = blockIdx.x;
+  const int bwi = b % g.nbw; b /= g.nbw;
+  const int bhi = b % g.nbh; b /= g.nbh;
+  const int d = b % g.D;
+  const int n = b / g.D;
+  const int h0 = bhi * g.bh, w0 = bwi * g.bw;
+  const int co0 = blockIdx.y * BN;
+  const int box = g.bh * g.bw;
+  const int nstage = cdiv(g.Ci, kTcCi);
+  const int Cop = cdiv(g.Co, kTcCoPad) * kTcCoPad;
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int wn = warp % WN, wpos = (warp / WN) * 64;
+  const bool active = wpos < box;   // warp has positions in the block
+
+  // halo row (tap (0, 0, 0)) of the position each lane addresses in m
+  // tile mt; positions past the block read row 0 and are not stored
+  int hb[4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int pos = wpos + mt * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+    const int hl = fdiv(pos, inv_bw), wl = pos - hl * g.bw;
+    hb[mt] = pos < box ? hl * WB + wl : 0;
+  }
+
+  const uint16_t* xu = reinterpret_cast<const uint16_t*>(x);
+  auto load = [&](int c) {
+    for (int i = t; i < 27 * BN * 2; i += kTcThreads) {
+      const int half = i & 1, row = i >> 1;   // row = tap * BN + co
+      const int tap = row / BN, co = row % BN;
+      tc::cp_async16(ws + tc::swz<2>(row, half),
+                     wp + ((((long long)c * 27 + tap) * Cop + co0 + co) *
+                               kTcCi + half * 8));
+    }
+    for (int i = t; i < (kVec ? 2 * R : R); i += kTcThreads) {
+      const int half = kVec ? (i & 1) : 0, hp = kVec ? i >> 1 : i;
+      const int r = fdiv(hp, inv_WB), ww = hp - r * WB;
+      const int a = fdiv(r, inv_HB), hh = r - a * HB;
+      const int gd = d + a - 1, gh = h0 + hh - 1, gw = w0 + ww - 1;
+      const bool in = gd >= 0 && gd < g.D && gh >= 0 && gh < g.H &&
+                      gw >= 0 && gw < g.W;
+      const long long pos =
+          in ? ((((long long)n * g.D + gd) * g.H + gh) * g.W + gw) : 0;
+      const int ci = c * kTcCi + half * 8;
+      if (kVec) {
+        tc::cp_async16(xs + tc::swz<2>(hp, half), x + pos * g.Ci + ci,
+                       in && ci < g.Ci ? 16 : 0);
+      } else {
+        uint16_t h[kTcCi];
+#pragma unroll
+        for (int cl = 0; cl < kTcCi; ++cl)
+          h[cl] = in && ci + cl < g.Ci ? xu[pos * g.Ci + ci + cl] : 0;
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch)
+          xs[tc::swz<2>(hp, ch)] = make_uint4(
+              tc::pack_raw(h[8 * ch], h[8 * ch + 1]),
+              tc::pack_raw(h[8 * ch + 2], h[8 * ch + 3]),
+              tc::pack_raw(h[8 * ch + 4], h[8 * ch + 5]),
+              tc::pack_raw(h[8 * ch + 6], h[8 * ch + 7]));
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int c = 0; c < nstage; ++c) {
+    __syncthreads();   // the previous stage's products are done
+    load(c);
+    tc::cp_async_wait<0>();
+    __syncthreads();   // stage c landed
+    if (!active) continue;
+#pragma unroll 1
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int k9 = 0; k9 < 9; ++k9) {
+        const int kh = k9 / 3, kw = k9 % 3;
+        const int tap = a * 9 + k9;
+        const int toff = (a * HB + kh) * WB + kw;
+        uint32_t bf[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          tc::ldsm_x4(bf[j], ws + tc::swz<2>(tap * BN + wn * 32 + j * 16 +
+                                                 (lane >> 4) * 8 + (lane & 7),
+                                             (lane >> 3) & 1));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          uint32_t af[4];
+          tc::ldsm_x4(af, xs + tc::swz<2>(hb[mt] + toff, lane >> 4));
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            tc::mma(acc[mt][2 * j], af, bf[j]);
+            tc::mma(acc[mt][2 * j + 1], af, bf[j] + 2);
+          }
+        }
+      }
+    }
+  }
+  if (!active) return;
+
+  const bool pair = g.Co % 2 == 0;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int pos = wpos + mt * 16 + (lane >> 2) + e2 * 8;
+      const int hl = fdiv(pos, inv_bw), wl = pos - hl * g.bw;
+      const int h = h0 + hl, w = w0 + wl;
+      if (pos >= box || h >= g.H || w >= g.W) continue;
+      __nv_bfloat16* op =
+          out + ((((long long)n * g.D + d) * g.H + h) * g.W + w) * g.Co;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = co0 + wn * 32 + nt * 8 + (lane & 3) * 2;
+        const float v0 = acc[mt][nt][e2 * 2], v1 = acc[mt][nt][e2 * 2 + 1];
+        if (pair && co + 1 < g.Co) {
+          *reinterpret_cast<__nv_bfloat162*>(op + co) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (co < g.Co) op[co] = __float2bfloat16_rn(v0);
+          if (co + 1 < g.Co) op[co + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
+}
+
+// wp [Ci/16][27][Cop][16] from w [27, Ci, Co] (DHWIO, bf16), zero where
+// ci >= Ci or co >= Co: the layout toeplitz_tc_kernel's weight stages copy
+// from (ops/cuda_conv.py:repack_toeplitz_weight is its plain version).
+__global__ void toeplitz_repack_kernel(const __nv_bfloat16* __restrict__ w,
+                                       __nv_bfloat16* __restrict__ wp, int Ci,
+                                       int Co, int Cop, long long total) {
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       j < total; j += (long long)gridDim.x * blockDim.x) {
+    const int i = (int)(j % kTcCi);
+    long long r = j / kTcCi;
+    const int co = (int)(r % Cop);
+    r /= Cop;
+    const int tap = (int)(r % 27), ci = (int)(r / 27) * kTcCi + i;
+    wp[j] = co < Co && ci < Ci ? w[((long long)tap * Ci + ci) * Co + co]
+                               : __float2bfloat16_rn(0.f);
+  }
+}
+
+int launch_tc(const void* x, const void* wp, void* out, const TcGeom& g,
+              int wn, cudaStream_t st) {
+  if ((wn != 1 && wn != 2) || g.bh * g.bw > 64 * (8 / wn))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)g.N * g.D * g.nbh * g.nbw;
+  const int co_tiles = cdiv(g.Co, 32 * wn);
+  if (blocks > 0x7fffffffLL || co_tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int rows = 3 * (g.bh + 2) * (g.bw + 2);
+  const size_t smem = 32 * ((size_t)rows + 27 * 32 * wn);
+  const bool vec = g.Ci % 8 == 0 && (uintptr_t)x % 16 == 0;
+  const dim3 grid((unsigned)blocks, co_tiles);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(wp);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto run = [&](auto kernel) {
+    if (smem > (size_t)kMaxSmem) return false;
+    if (smem > 48 * 1024 &&
+        cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) != cudaSuccess)
+      return false;
+    kernel<<<grid, kTcThreads, smem, st>>>(xb, wb, ob, g);
+    return true;
+  };
+  const bool ok = wn == 1 ? (vec ? run(toeplitz_tc_kernel<1, true>)
+                                 : run(toeplitz_tc_kernel<1, false>))
+                          : (vec ? run(toeplitz_tc_kernel<2, true>)
+                                 : run(toeplitz_tc_kernel<2, false>));
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -220,19 +451,44 @@ int launch(const void* x, const void* w, void* out, const Geom& g,
 
 extern "C" {
 
-// out [N, D, H, W, Co] from x [N, D, H, W, Ci] and w [3, 3, 3, Ci, Co];
-// tiling (bh, wg, cg) as chosen by ops/cuda_conv.py:toeplitz_plan.
+// The f32 route: out [N, D, H, W, Co] from x [N, D, H, W, Ci] and w
+// [3, 3, 3, Ci, Co], all f32; tiling (bh, wg, cg) as chosen by
+// ops/cuda_conv.py:toeplitz_plan.
 int k3_toeplitz(const void* x, const void* w, void* out, int N, int D, int H,
-                int W, int Ci, int Co, int bh, int wg, int cg, int dtype,
-                void* stream) {
+                int W, int Ci, int Co, int bh, int wg, int cg, void* stream) {
   if (N < 1 || D < 1 || H < 1 || W < 1 || Ci < 1 || Co < 1 || bh < 1 ||
       wg < 1 || cg < 1)
     return (int)cudaErrorInvalidValue;
   const Geom g{N, D, H, W, Ci, Co, bh, wg, cg, cdiv(H, bh), cdiv(W, wg * kRW)};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(x, w, out, g, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, out, g, st);
-  return (int)cudaErrorInvalidValue;
+  return launch(x, w, out, g, (cudaStream_t)stream);
+}
+
+// wp [Ci/16][27][Cop][16] bf16 (Cop = Co rounded up to 64) from w
+// [3, 3, 3, Ci, Co] bf16: the bf16 route's weight layout.
+int k3_toeplitz_repack(const void* w, void* wp, int Ci, int Co,
+                       void* stream) {
+  if (Ci < 1 || Co < 1) return (int)cudaErrorInvalidValue;
+  const int Cop = cdiv(Co, kTcCoPad) * kTcCoPad;
+  const long long total = (long long)cdiv(Ci, kTcCi) * 27 * Cop * kTcCi;
+  const long long blocks = (total + 255) / 256;
+  toeplitz_repack_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                           (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wp),
+      Ci, Co, Cop, total);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 route: out [N, D, H, W, Co] bf16 from x [N, D, H, W, Ci] bf16
+// and wp [Ci/16][27][Cop][16] bf16 (the repacked weight); tiling (bh, bw,
+// wn) as chosen by ops/cuda_conv.py:toeplitz_tc_plan.
+int k3_toeplitz_tc(const void* x, const void* wp, void* out, int N, int D,
+                   int H, int W, int Ci, int Co, int bh, int bw, int wn,
+                   void* stream) {
+  if (N < 1 || D < 1 || H < 1 || W < 1 || Ci < 1 || Co < 1 || bh < 1 ||
+      bw < 1)
+    return (int)cudaErrorInvalidValue;
+  const TcGeom g{N, D, H, W, Ci, Co, bh, bw, cdiv(H, bh), cdiv(W, bw)};
+  return launch_tc(x, wp, out, g, wn, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -14,12 +14,18 @@ stream:
   f32 to the f32-FMA ``wide_kernel``; any other dtype raises;
 - ``conv3d_dw_cuda(x, g)``: its weight gradient (K3), split-K partials
   summed in a fixed order by a second kernel, so a repeated dW is
-  bit-identical;
+  bit-identical. Two routes by dtype: bf16 goes to the tensor-core
+  implicit GEMM over the positions (``dw_tc_kernel``), f32 to the f32-FMA
+  ``dw_partial_kernel``;
 - ``toeplitz_conv3d_cuda(x, w)``: the direct k3/s1/p1 conv in the JAX
   op's channels-last layout (K5), the conv of ``ops/toeplitz_conv.py``.
+  Two routes by dtype: bf16 goes to the tensor-core implicit GEMM
+  (``toeplitz_tc_kernel``, on the weight as ``repack_toeplitz_weight_cuda``
+  lays it out; ``repack_toeplitz_weight`` is its plain version), f32 to
+  the f32-FMA ``toeplitz_kernel``.
 
 The tiling of each launch (``wide_plan``, ``wide_tc_plan``, ``dw_plan``,
-``toeplitz_plan``)
+``dw_tc_plan``, ``toeplitz_plan``, ``toeplitz_tc_plan``)
 is chosen here, so the CPU tests reach it. Two ``autograd.Function``s
 carry the routes of ``ops/conv3d.conv3d``, counterparts of the JAX custom
 VJPs (K5's is ``ops/toeplitz_conv.py:ToeplitzConv3d``):
@@ -31,13 +37,15 @@ On a CPU tensor both run the plain versions of ``ops/conv3d.py`` in the
 kernels' place; on a CUDA tensor they run the kernels, which raise on a
 dtype or shape they do not take. Nothing falls back.
 
-``wide_launches`` (f32 route) / ``wide_tc_launches`` (bf16 route) /
-``dw_launches`` / ``toeplitz_launches`` count the wrappers' launches.
+``wide_launches`` / ``dw_launches`` / ``toeplitz_launches`` (f32 routes)
+and ``wide_tc_launches`` / ``dw_tc_launches`` / ``toeplitz_tc_launches``
+(bf16 routes) count the wrappers' launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import Dict, Tuple
 
@@ -49,33 +57,42 @@ from gan3d_tpu_torch.ops import cuda_build
 from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
 from gan3d_tpu_torch.ops.cuda_build import SMS
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 WIDE_POS_THREADS = 64      # K4: threads (4 output rows each) per co group
 WIDE_MAX_CO_GROUPS = 4     # K4: co groups (8 channels each) per block
-TC_CI = 16                 # K4 bf16: input channels per stage (csrc kTcCi)
-TC_CO_PAD = 64             # K4 bf16: repacked Co multiple (csrc kTcCoPad)
+TC_CI = 16                 # K4, K5 bf16: input channels per stage (kTcCi)
+TC_CO_PAD = 64             # K4, K5 bf16: repacked Co multiple (csrc kTcCoPad)
 DW_BOX = 128               # K3: output positions per staged box
-DW_CI, DW_CO = 16, 32      # K3: channels per block (csrc kDwCi / kDwCo)
-DW_BLOCKS_PER_SM = 2       # K3: resident 432-thread blocks per SM
+DW_CI, DW_CO = 16, 32      # K3: channels per block (csrc kDwCi / kDwCo;
+                           # the bf16 route's kDwTcCi / kDwTcCo too)
+DW_BLOCKS_PER_SM = 2       # K3: resident blocks per SM (both routes)
+DW_TC_BOX = 512            # K3 bf16: most positions per staged box
 TOEPLITZ_THREADS = 256     # K5: most threads per block (csrc kMaxThreads)
 TOEPLITZ_CI = 8            # K5: input channels per stage (csrc kCi)
 TOEPLITZ_SMEM = 96 << 10   # K5: shared-memory budget of one block
+TOEPLITZ_TC_WARPS = 8      # K5 bf16: warps per block (csrc kTcThreads / 32)
+TOEPLITZ_TC_SMEM = 113 << 10  # K5 bf16: shared memory of one of 2 blocks/SM
 
 wide_launches = 0
 wide_tc_launches = 0
 dw_launches = 0
+dw_tc_launches = 0
 toeplitz_launches = 0
+toeplitz_tc_launches = 0
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
 def reset_counters() -> None:
-    global wide_launches, wide_tc_launches, dw_launches, toeplitz_launches
+    global wide_launches, wide_tc_launches, dw_launches, dw_tc_launches
+    global toeplitz_launches, toeplitz_tc_launches
     wide_launches = 0
     wide_tc_launches = 0
     dw_launches = 0
+    dw_tc_launches = 0
     toeplitz_launches = 0
+    toeplitz_tc_launches = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -146,6 +163,32 @@ def dw_plan(n: int, ci: int, co: int, d: int, h: int, w: int
     return td, th, tw, p
 
 
+def dw_tc_plan(n: int, ci: int, co: int, d: int, h: int, w: int
+               ) -> Tuple[int, int, int, int]:
+    """K3 bf16 tiling (td, th, tw, P): boxes of up to DW_TC_BOX
+    positions (tw up to 32 along w, th and td about equal, so the halo
+    stays small), blocks of DW_CO output x DW_CI input channels, and P
+    split-K chunks of the N x boxes list: as many as the card holds at
+    once (DW_BLOCKS_PER_SM a SM), so the grid runs in one wave."""
+    tw = min(w, 32)
+    rest = DW_TC_BOX // tw
+    th = min(h, 1 << (math.isqrt(rest).bit_length() - 1))
+    td = min(d, max(1, rest // th))
+    th = min(h, max(1, rest // td))
+    boxes = n * _cdiv(d, td) * _cdiv(h, th) * _cdiv(w, tw)
+    tiles = _cdiv(ci, DW_CI) * _cdiv(co, DW_CO)
+    p = max(1, min(boxes, DW_BLOCKS_PER_SM * SMS // tiles))
+    return td, th, tw, p
+
+
+def dw_tc_smem(td: int, th: int, tw: int) -> int:
+    """Shared-memory bytes of a K3 bf16 block (csrc launch_dw_tc): the x
+    halo box (32 bytes a row), the g box (64 bytes a position, rounded up
+    to 16 positions) and its halo-row table."""
+    kpad = _cdiv(td * th * tw, 16) * 16
+    return 32 * (td + 2) * (th + 2) * (tw + 2) + (64 + 4) * kpad
+
+
 def toeplitz_smem(bh: int, wg: int, cg: int) -> int:
     """Shared-memory bytes of a K5 block: the staged 3-row slab (rows of
     4*wg + 2 columns rounded up to 4) and the chunk's weights, f32."""
@@ -171,12 +214,48 @@ def toeplitz_plan(n: int, d: int, h: int, w: int, co: int
     return bh, wg, cg
 
 
+def toeplitz_tc_smem(bh: int, bw: int, wn: int) -> int:
+    """Shared-memory bytes of a K5 bf16 block (csrc launch_tc): the
+    3-plane halo box and the stage's weights, 32 bytes a row."""
+    return 32 * (3 * (bh + 2) * (bw + 2) + 27 * 32 * wn)
+
+
+def toeplitz_tc_plan(n: int, d: int, h: int, w: int, co: int
+                     ) -> Tuple[int, int, int]:
+    """K5 bf16 tiling (bh, bw, wn): a block of TOEPLITZ_TC_WARPS warps
+    computes 32*wn output channels (wn = 1 for Co <= 32, else 2) x bh rows
+    x bw columns (up to 32) of one (n, d), at most 64 * (8 // wn)
+    positions, rows halved while its shared memory would keep two blocks
+    off one SM (TOEPLITZ_TC_SMEM)."""
+    wn = 1 if co <= 32 else 2
+    bw = min(w, 32)
+    bh = min(h, max(1, 64 * (TOEPLITZ_TC_WARPS // wn) // bw))
+    while bh > 1 and toeplitz_tc_smem(bh, bw, wn) > TOEPLITZ_TC_SMEM:
+        bh = _cdiv(bh, 2)
+    return bh, bw, wn
+
+
+def repack_toeplitz_weight(w: torch.Tensor) -> torch.Tensor:
+    """w [3, 3, 3, Ci, Co] (DHWIO) -> the K5 bf16 kernel's [Ci/16, 27,
+    Cop, 16] (tap = a*9 + b*3 + c; Ci and Co zero-padded to multiples of 16
+    and 64): chunk k, tap t holds the B operand w[t, 16k + i, co] of that
+    k-step, 16 contiguous input channels per output channel. The plain
+    version of ``repack_toeplitz_weight_cuda``."""
+    ci, co = w.shape[3:]
+    cip, cop = _cdiv(ci, TC_CI) * TC_CI, _cdiv(co, TC_CO_PAD) * TC_CO_PAD
+    wp = F.pad(w.reshape(27, ci, co), (0, cop - co, 0, cip - ci))
+    return (wp.reshape(27, cip // TC_CI, TC_CI, cop).permute(1, 0, 3, 2)
+            .contiguous())
+
+
 # library -> entry point -> (pointer arguments, int arguments); each entry
 # point also takes the stream and returns a cudaError_t.
 _SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 10), "k3_wide_tc": (4, 11),
                               "k3_repack": (2, 2),
-                              "k3_dw": (4, 11)},
-               "conv3d_toeplitz": {"k3_toeplitz": (3, 10)}}
+                              "k3_dw": (4, 10), "k3_dw_tc": (4, 10)},
+               "conv3d_toeplitz": {"k3_toeplitz": (3, 9),
+                                   "k3_toeplitz_repack": (2, 2),
+                                   "k3_toeplitz_tc": (3, 9)}}
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -199,7 +278,7 @@ def _check(x: torch.Tensor, other: torch.Tensor, name: str) -> None:
         if not t.is_cuda:
             raise ValueError(f"k3 conv kernel: {what} is on {t.device}, not "
                              "a CUDA device")
-        if t.dtype not in _DTYPE_CODE:
+        if t.dtype not in _DTYPES:
             raise ValueError(f"k3 conv kernel: {what} dtype {t.dtype} not in "
                              "(float32, bfloat16)")
         if t.dim() != 5 or not t.is_contiguous() or t.numel() == 0:
@@ -276,8 +355,9 @@ def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3d_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K3: dW of a k3/s1/p1 conv from its input x [N,Ci,D,H,W] and output
-    gradient g [N,Co,D,H,W] (same dtype): f32 [Co, Ci, 3, 3, 3]."""
-    global dw_launches
+    gradient g [N,Co,D,H,W] (same dtype): f32 [Co, Ci, 3, 3, 3]. bf16 runs
+    on the tensor cores, f32 on the FMA pipes."""
+    global dw_launches, dw_tc_launches
     x, g = x.contiguous(), g.contiguous()
     _check(x, g, "gradient")
     n, ci, d, h, wd = x.shape
@@ -286,22 +366,46 @@ def conv3d_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dW kernel: gradient {tuple(g.shape)} does not "
                          f"match input {tuple(x.shape)}, or Ci or Co < 8 "
                          "(the dispatcher's rule)")
-    td, th, tw, p = dw_plan(n, ci, co, d, h, wd)
-    part = torch.empty((p, co, ci * 27), dtype=torch.float32, device=x.device)
     dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.float32, device=x.device)
+    lib = _load("conv3d_k3")
+    if x.dtype == torch.bfloat16:
+        td, th, tw, p = dw_tc_plan(n, ci, co, d, h, wd)
+        part = torch.empty((p, co, 27, ci), dtype=torch.float32,
+                           device=x.device)
+        with torch.cuda.device(x.device):
+            err = lib.k3_dw_tc(_ptr(x), _ptr(g), _ptr(part), _ptr(dw), n, ci,
+                               co, d, h, wd, td, th, tw, p, _stream(x))
+        _raise_if(err, "dW (bf16)")
+        dw_tc_launches += 1
+        return dw
+    td, th, tw, p = dw_plan(n, ci, co, d, h, wd)
+    part = torch.empty((p, co, 27, ci), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _load("conv3d_k3").k3_dw(
-            _ptr(x), _ptr(g), _ptr(part), _ptr(dw), n, ci, co, d, h, wd, td,
-            th, tw, p, _DTYPE_CODE[x.dtype], _stream(x))
-    _raise_if(err, "dW")
+        err = lib.k3_dw(_ptr(x), _ptr(g), _ptr(part), _ptr(dw), n, ci, co, d,
+                        h, wd, td, th, tw, p, _stream(x))
+    _raise_if(err, "dW (f32)")
     dw_launches += 1
     return dw
 
 
+def repack_toeplitz_weight_cuda(w: torch.Tensor) -> torch.Tensor:
+    """``repack_toeplitz_weight`` of a contiguous bf16 CUDA weight by one
+    kernel launch (part of each K5 bf16 call, so not counted apart)."""
+    ci, co = w.shape[3:]
+    wp = torch.empty((_cdiv(ci, TC_CI), 27, _cdiv(co, TC_CO_PAD) * TC_CO_PAD,
+                      TC_CI), dtype=torch.bfloat16, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _load("conv3d_toeplitz").k3_toeplitz_repack(
+            _ptr(w), _ptr(wp), ci, co, _stream(w))
+    _raise_if(err, "toeplitz weight repack")
+    return wp
+
+
 def toeplitz_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K5: k3/s1/p1 conv of x [N,D,H,W,Ci] with w [3,3,3,Ci,Co] (same
-    dtype), f32 accumulation; [N,D,H,W,Co] in x's dtype."""
-    global toeplitz_launches
+    dtype), f32 accumulation; [N,D,H,W,Co] in x's dtype. bf16 runs on the
+    tensor cores, f32 on the FMA pipes."""
+    global toeplitz_launches, toeplitz_tc_launches
     x, w = x.contiguous(), w.contiguous()
     _check(x, w, "weight")
     n, d, h, wd, ci = x.shape
@@ -309,13 +413,22 @@ def toeplitz_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if tuple(w.shape) != (3, 3, 3, ci, co):
         raise ValueError(f"toeplitz conv kernel: weight {tuple(w.shape)} is "
                          f"not [3, 3, 3, {ci}, Co]")
-    bh, wg, cg = toeplitz_plan(n, d, h, wd, co)
     out = torch.empty((n, d, h, wd, co), dtype=x.dtype, device=x.device)
+    lib = _load("conv3d_toeplitz")
+    if x.dtype == torch.bfloat16:
+        bh, bw, wn = toeplitz_tc_plan(n, d, h, wd, co)
+        wp = repack_toeplitz_weight_cuda(w)
+        with torch.cuda.device(x.device):
+            err = lib.k3_toeplitz_tc(_ptr(x), _ptr(wp), _ptr(out), n, d, h,
+                                     wd, ci, co, bh, bw, wn, _stream(x))
+        _raise_if(err, "toeplitz (bf16)")
+        toeplitz_tc_launches += 1
+        return out
+    bh, wg, cg = toeplitz_plan(n, d, h, wd, co)
     with torch.cuda.device(x.device):
-        err = _load("conv3d_toeplitz").k3_toeplitz(
-            _ptr(x), _ptr(w), _ptr(out), n, d, h, wd, ci, co, bh, wg, cg,
-            _DTYPE_CODE[x.dtype], _stream(x))
-    _raise_if(err, "toeplitz")
+        err = lib.k3_toeplitz(_ptr(x), _ptr(w), _ptr(out), n, d, h, wd, ci,
+                              co, bh, wg, cg, _stream(x))
+    _raise_if(err, "toeplitz (f32)")
     toeplitz_launches += 1
     return out
 

@@ -1,0 +1,261 @@
+"""The bf16 tensor-core routes of K3 (dW) and K5 (the W-Toeplitz conv) on
+the CPU: what of them runs without a card.
+
+- the launch plans (``dw_tc_plan``, ``toeplitz_tc_plan``) at every flagship
+  and bench shape and the chip check's ragged ones: grid limits, shared
+  memory for two blocks an SM, every position covered,
+  and K3's split-K parts covering every box exactly once;
+- K5's weight repack (DHWIO, as the forward and as dx takes it) against
+  its definition, bit for bit;
+- numpy emulations of the two kernels' data movement (csrc/conv3d_k3.cu
+  ``dw_tc_kernel``, csrc/conv3d_toeplitz.cu ``toeplitz_tc_kernel``): the
+  staged boxes, the halo-row table, each tap's row offset, the repacked
+  weight, and for K3 the split-K partials summed in the kernel's fixed
+  order, on bf16-rounded inputs with f32 sums; against the plain versions
+  (1e-5 of max |plain|: both sum in f32, in other orders) and, for K3,
+  against ``gan3d_tpu.ops.dw_conv.conv3d_dw`` in Pallas interpret mode;
+- the bf16 routes refuse CPU tensors and count nothing.
+
+Inputs come from numpy seeds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from gan3d_tpu.ops import dw_conv
+from gan3d_tpu_torch.ops import cuda_conv
+from gan3d_tpu_torch.ops import toeplitz_conv as tc
+from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain
+from gan3d_tpu_torch.ops.cuda_build import SMS
+
+torch.set_num_threads(1)
+
+cdiv = cuda_conv._cdiv
+# (channels, side) of the flagship's eligible convs, G then D
+FLAGSHIP = [(128, 4), (128, 8), (128, 16), (64, 16), (64, 32), (32, 32),
+            (32, 64), (256, 8), (256, 4)]
+# (N, Ci, Co, D, H, W): the flagship's convs at N=16, the chip check's
+# ragged shapes (chip_smoke.py CONV_RAGGED) and a deep, thin column
+DW_SHAPES = ([(16, c, c, r, r, r) for c, r in FLAGSHIP]
+             + [(1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3),
+                (1, 16, 40, 1, 1, 33), (3, 40, 16, 7, 6, 70),
+                (1, 256, 8, 4, 4, 4), (1, 8, 8, 200, 1, 1)])
+# (N, D, H, W, Ci, Co): scripts/bench_lane_conv.py's shapes at batch 16,
+# the chip check's checked ones (chip_smoke.py TOEPLITZ_EXTRA), both ways
+# round for dx, and a tall, narrow volume
+TOEPLITZ_SHAPES = ([(16, s, s, s, c, c) for c, s in ((16, 64), (32, 64),
+                                                      (32, 32), (64, 32),
+                                                      (128, 16))]
+                   + [(2, 4, 4, 8, 32, 32), (1, 3, 5, 8, 16, 16),
+                      (1, 4, 4, 8, 8, 64), (1, 4, 4, 8, 64, 8),
+                      (3, 5, 7, 12, 24, 40), (3, 5, 7, 12, 40, 24),
+                      (2, 3, 37, 70, 20, 40), (2, 3, 37, 70, 40, 20),
+                      (1, 2, 4000, 1, 8, 8)])
+
+
+def bf16(a: np.ndarray) -> np.ndarray:
+    """a rounded to bf16, as f32."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def split_k(nboxes: int, p: int) -> list:
+    """Part j's boxes [nboxes*j//p, nboxes*(j+1)//p), as the kernel walks
+    them."""
+    return [range(nboxes * j // p, nboxes * (j + 1) // p) for j in range(p)]
+
+
+@pytest.mark.parametrize("n,ci,co,d,h,w", DW_SHAPES)
+def test_dw_tc_plan_covers_every_box_once_and_fits_the_card(n, ci, co, d,
+                                                           h, w):
+    td, th, tw, p = cuda_conv.dw_tc_plan(n, ci, co, d, h, w)
+    assert 1 <= td <= d and 1 <= th <= h and 1 <= tw <= min(w, 32)
+    assert td * th * tw <= cuda_conv.DW_TC_BOX
+    nboxes = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw)
+    assert nboxes * td * th * tw >= n * d * h * w
+    assert 1 <= p <= nboxes
+    walked = [b for part in split_k(nboxes, p) for b in part]
+    assert walked == list(range(nboxes))
+    assert all(len(part) for part in split_k(nboxes, p))
+    # two blocks an SM (launch bounds and shared memory)
+    assert 2 * cuda_conv.dw_tc_smem(td, th, tw) <= 227 * 1024
+    assert cdiv(ci, 16) <= 65535 and cdiv(co, cuda_conv.DW_CO) <= 65535
+    tiles = cdiv(ci, 16) * cdiv(co, cuda_conv.DW_CO)
+    # one wave of blocks that fills the card, where the boxes allow it
+    assert p * tiles <= 2 * SMS or p == 1
+    assert p * tiles >= SMS or p == nboxes
+
+
+@pytest.mark.parametrize("n,d,h,w,ci,co", TOEPLITZ_SHAPES)
+def test_toeplitz_tc_plan_covers_the_volume_and_fits_the_card(n, d, h, w, ci,
+                                                             co):
+    bh, bw, wn = cuda_conv.toeplitz_tc_plan(n, d, h, w, co)
+    assert (wn == 1) == (co <= 32)
+    assert 1 <= bh <= h and 1 <= bw <= min(w, 32)
+    assert bh * bw <= 64 * (cuda_conv.TOEPLITZ_TC_WARPS // wn)
+    # two blocks an SM (launch bounds and shared memory)
+    assert 2 * cuda_conv.toeplitz_tc_smem(bh, bw, wn) <= 227 * 1024
+    blocks = n * d * cdiv(h, bh) * cdiv(w, bw)
+    assert blocks * bh * bw >= n * d * h * w and blocks < 2 ** 31
+    assert cdiv(co, 32 * wn) <= 65535
+
+
+@pytest.mark.parametrize("ci,co", [(8, 8), (20, 40), (32, 32), (128, 64)])
+def test_toeplitz_weight_repack_is_exact(ci, co):
+    """repack_toeplitz_weight lays w [3, 3, 3, Ci, Co] out as [Ci/16, 27,
+    Cop, 16] with wp[i // 16, tap, o, i % 16] = w[tap, i, o] and zeros in
+    the padding, bit for bit; for the dx weight (flipped in space, Ci/Co
+    swapped, as ToeplitzConv3d.backward builds it) that entry is
+    w[26 - tap, o, i]."""
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(rng.normal(size=(3, 3, 3, ci, co)).astype(
+        np.float32)).bfloat16()
+    for name, wt in (("fwd", w),
+                     ("dx", w.flip(0, 1, 2).transpose(3, 4).contiguous())):
+        i_n, o_n = wt.shape[3:]
+        wp = cuda_conv.repack_toeplitz_weight(wt)
+        assert wp.dtype == torch.bfloat16 and wp.is_contiguous()
+        assert wp.shape == (cdiv(i_n, 16), 27, cdiv(o_n, 64) * 64, 16), name
+        i, o, t = (torch.from_numpy(a) for a in np.meshgrid(
+            np.arange(i_n), np.arange(o_n), np.arange(27), indexing="ij"))
+        got = wp[i // 16, t, o, i % 16]
+        w27 = w.reshape(27, ci, co)
+        want = w27[t, i, o] if name == "fwd" else w27[26 - t, o, i]
+        assert torch.equal(got, want), name
+        rest = wp.clone()
+        rest[i // 16, t, o, i % 16] = 0
+        assert not rest.any(), name
+
+
+def emulate_dw_tc(x: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """dw_tc_kernel's data movement in numpy: x [N,Ci,D,H,W], g
+    [N,Co,D,H,W] (f32 holding bf16 values) -> f32 [Co, Ci, 3, 3, 3]."""
+    n, ci, d, h, w = x.shape
+    co = g.shape[1]
+    td, th, tw, p = cuda_conv.dw_tc_plan(n, ci, co, d, h, w)
+    nbd, nbh, nbw = cdiv(d, td), cdiv(h, th), cdiv(w, tw)
+    HB, WB = th + 2, tw + 2
+    box = td * th * tw
+    kpad = cdiv(box, 16) * 16
+    s = np.arange(kpad)
+    wl, hl, dl = s % tw, (s // tw) % th, s // (tw * th)
+    hrow = np.where(s < box, (dl * HB + hl) * WB + wl, 0)
+    toff = [(kd * HB + kh) * WB + kw
+            for kd in range(3) for kh in range(3) for kw in range(3)]
+    # zero outside the volume, wide enough for the ragged last boxes
+    xp = np.pad(x, ((0, 0), (0, 0), (1, nbd * td - d + 1),
+                    (1, nbh * th - h + 1), (1, nbw * tw - w + 1)))
+    gp = np.pad(g, ((0, 0), (0, 0), (0, nbd * td - d), (0, nbh * th - h),
+                    (0, nbw * tw - w)))
+    part = np.zeros((p, co, ci, 27), np.float32)
+    for j, boxes in enumerate(split_k(n * nbd * nbh * nbw, p)):
+        for b in boxes:
+            b, bw = divmod(b, nbw)
+            b, bh = divmod(b, nbh)
+            i, bd = divmod(b, nbd)
+            d0, h0, w0 = bd * td, bh * th, bw * tw
+            xs = (xp[i, :, d0:d0 + td + 2, h0:h0 + HB, w0:w0 + WB]
+                  .reshape(ci, -1).T)                       # [halo rows, ci]
+            gs = np.zeros((kpad, co), np.float32)
+            gs[:box] = (gp[i, :, d0:d0 + td, h0:h0 + th, w0:w0 + tw]
+                        .reshape(co, -1).T)
+            for tap in range(27):
+                part[j, :, :, tap] += gs.T @ xs[hrow + toff[tap]]
+    dw = np.zeros((co, ci, 27), np.float32)
+    for j in range(p):
+        dw += part[j]
+    return dw.reshape(co, ci, 3, 3, 3)
+
+
+@pytest.mark.parametrize("n,ci,co,d,h,w", [(2, 16, 24, 5, 9, 7),
+                                           (1, 8, 40, 3, 5, 33),
+                                           (2, 40, 16, 4, 4, 4)])
+def test_dw_tc_emulation_matches_plain(n, ci, co, d, h, w):
+    rng = np.random.default_rng(9)
+    x = bf16(rng.normal(size=(n, ci, d, h, w)).astype(np.float32))
+    g = bf16(rng.normal(size=(n, co, d, h, w)).astype(np.float32))
+    got = emulate_dw_tc(x, g)
+    want = conv3d_dw_plain(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_dw_tc_emulation_matches_jax_dw_conv():
+    """At tests/test_dw_conv.py's deep shape, against the Pallas dW in
+    interpret mode (f32 sums of the same bf16-valued inputs)."""
+    rng = np.random.default_rng(10)
+    x = bf16(rng.normal(size=(1, 4, 32, 32, 8)).astype(np.float32))
+    g = bf16(rng.normal(size=(1, 4, 32, 32, 64)).astype(np.float32))
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(dw_conv.conv3d_dw(jnp.asarray(x), jnp.asarray(g)))
+    got = emulate_dw_tc(np.ascontiguousarray(np.moveaxis(x, -1, 1)),
+                        np.ascontiguousarray(np.moveaxis(g, -1, 1)))
+    got = got.transpose(2, 3, 4, 1, 0)                      # DHWIO
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def emulate_toeplitz_tc(x: np.ndarray, w: torch.Tensor) -> np.ndarray:
+    """toeplitz_tc_kernel's data movement in numpy: x [N,D,H,W,Ci] (f32
+    holding bf16 values), w [3,3,3,Ci,Co] bf16 -> f32 [N,D,H,W,Co]."""
+    n, d, h, wd, ci = x.shape
+    co = w.shape[4]
+    bh, bw, _ = cuda_conv.toeplitz_tc_plan(n, d, h, wd, co)
+    wp = cuda_conv.repack_toeplitz_weight(w).float().numpy()
+    stages = wp.shape[0]
+    nbh, nbw = cdiv(h, bh), cdiv(wd, bw)
+    HB, WB = bh + 2, bw + 2
+    s = np.arange(bh * bw)
+    hrow = (s // bw) * WB + s % bw
+    toff = [(a * HB + b) * WB + c
+            for a in range(3) for b in range(3) for c in range(3)]
+    xp = np.pad(x, ((0, 0), (1, 1), (1, nbh * bh - h + 1),
+                    (1, nbw * bw - wd + 1), (0, 16 * stages - ci)))
+    out = np.zeros((n, d, nbh * bh, nbw * bw, co), np.float32)
+    for i in range(n):
+        for dd in range(d):
+            for bhi in range(nbh):
+                for bwi in range(nbw):
+                    h0, w0 = bhi * bh, bwi * bw
+                    xs = xp[i, dd:dd + 3, h0:h0 + HB, w0:w0 + WB].reshape(
+                        -1, stages, 16)
+                    acc = np.zeros((bh * bw, wp.shape[2]), np.float32)
+                    for c in range(stages):
+                        for tap in range(27):
+                            acc += xs[hrow + toff[tap], c] @ wp[c, tap].T
+                    out[i, dd, h0:h0 + bh, w0:w0 + bw] = acc[:, :co].reshape(
+                        bh, bw, co)
+    return out[:, :, :h, :wd]
+
+
+@pytest.mark.parametrize("shape,ci,co,t", [((1, 3, 5, 8), 16, 16, 8),
+                                           ((2, 3, 7, 12), 24, 40, 4),
+                                           ((1, 2, 37, 70), 20, 40, 2)])
+def test_toeplitz_tc_emulation_matches_plain(shape, ci, co, t):
+    """The forward, and dx as ToeplitzConv3d.backward calls the conv (the
+    output gradient with the flipped, swapped weight)."""
+    rng = np.random.default_rng(11)
+    x = bf16(rng.normal(size=(*shape, ci)).astype(np.float32))
+    g = bf16(rng.normal(size=(*shape, co)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(3, 3, 3, ci, co))
+                          / np.sqrt(27 * ci)).astype(np.float32)).bfloat16()
+    w_flip = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+    for inp, wt in ((x, w), (g, w_flip)):
+        got = emulate_toeplitz_tc(inp, wt)
+        want = tc.toeplitz_conv3d_plain(torch.from_numpy(inp), wt.float(),
+                                        t).numpy()
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_bf16_routes_refuse_cpu_tensors():
+    cuda_conv.reset_counters()
+    x = torch.zeros((1, 8, 2, 2, 2), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        cuda_conv.conv3d_dw_cuda(x, x)
+    xl = torch.zeros((1, 2, 2, 4, 8), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        cuda_conv.toeplitz_conv3d_cuda(
+            xl, torch.zeros((3, 3, 3, 8, 8), dtype=torch.bfloat16))
+    assert cuda_conv.dw_tc_launches == cuda_conv.dw_launches == 0
+    assert cuda_conv.toeplitz_tc_launches == cuda_conv.toeplitz_launches == 0

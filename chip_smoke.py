@@ -14,16 +14,17 @@ Phases, each printing its own line:
 3. kernels — runs the pooled-attention forward and backward kernels at the
              two shapes of the 64^3 BigGAN-Deep flagship (G: L=32768,
              M=4096, c=16; D: L=4096, M=512, c=32; N=16) in f32 and bf16
-             (the backward's two routes: bf16 on the tensor-core kernels,
-             f32 on the FMA kernels),
+             (each pass has two routes: bf16 on the tensor-core kernels,
+             f32 on the FMA kernels; the backward's check runs on the
+             forward's o and lse),
              holds each against the plain PyTorch version, and times the
              kernel, the plain version and F.scaled_dot_product_attention
              (a yardstick the port never calls) with CUDA events, and the
              kernel's and the yardstick's device time in a profiler trace;
              then
              checks every c and ragged L/M tails at small shapes, that a
-             repeated backward is bit-identical and that a double
-             backward through the kernels raises;
+             repeated forward and backward are bit-identical and that a
+             double backward through the kernels raises;
 4. conv    — finds the flagship's eligible k3 convs with forward hooks on
              the port's models, and at each distinct shape (N=16, f32 and
              bf16: the wide conv's and dW's bf16 routes on the tensor
@@ -42,11 +43,16 @@ Phases, each printing its own line:
              iterD 2, biggan, hinge) through gan3d_tpu_torch.cli.train:
              the default run (a few steps and a resume; no conv kernel
              launches), the run with --wide_conv=on --fast_dw=on (a few
-             steps and a resume) and a short --fast_dw=on run, all bf16.
+             steps and a resume), a short --fast_dw=on run and a default
+             run with --profile_dir (10 steps), all bf16.
              Each checks the kernel launch counts the step implies (on the
              bf16 routes' counters; the f32 routes' stay 0); after the first
              two, the trained G and D on the card (kernels) are held
              against the same networks on the CPU (plain path);
+   step_trace — reads the profiled run's trace of steps 5-9: each device
+             op's time (the top 15), the attention kernels' share of the
+             device time (K1: the forward, K2: the backward) and the
+             device's idle share over the window;
 6. toeplitz_conv — the W-Toeplitz direct conv op (K5, ops/toeplitz_conv.py,
              the port of scripts/bench_lane_conv.py's "pl" variant): at the
              bench's shapes (16/32/32/64/128 channels at 64/64/32/32/16^3,
@@ -69,7 +75,8 @@ Phases, each printing its own line:
              each rung's time per call (CUDA events) and its kernel's
              device time (a torch.profiler trace) beside its plain
              version, its bound and one PyTorch call computing the same
-             thing (its time per call and its device time);
+             thing (its time per call and its device time; a clone for
+             the rungs that copy a whole array);
 8. the kernels JSON line, then the result line.
 
 Any failure raises and the script exits non-zero without the result line.
@@ -109,10 +116,10 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SFU_OPS = 132 * 16 * 1.98e9
 PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32))
 # Tensor-core kernel instances that must not spill (ptxas): every K3, K4
-# and K5 bf16 instance and the K2 bf16 kernels at the flagship's c = 16
-# and 32.
+# and K5 bf16 instance and the K1 and K2 bf16 kernels at the flagship's
+# c = 16 and 32.
 NO_SPILL = re.compile(r"wide_tc_kernel|dw_tc_kernel|toeplitz_tc_kernel|"
-                      r"bwd_\w+_tc_kernel<(16|32)>")
+                      r"(fwd|bwd_\w+)_tc_kernel<(16|32)>")
 # Off the main path, checked but not timed: every template instance of c,
 # and ragged L and M tails (neither a multiple of any tile).
 EXTRA_SHAPES = ((2, 1000, 125, 8), (3, 300, 38, 16), (1, 4133, 517, 32),
@@ -131,8 +138,20 @@ TRAIN_RUNS = (
     ("wide_conv+fast_dw", ["--wide_conv=on", "--fast_dw=on"],
      ((6, 0), (8, 6))),
     ("fast_dw", ["--fast_dw=on"], ((3, 0),)),
+    ("profiled", ["--profile_dir={tmp}/trace"], ((10, 0),)),
 )
 KNOB_RUN = "wide_conv+fast_dw"
+PROFILED_RUN = "profiled"
+# The attention kernels' device ops in the step's trace (sum_partials: the
+# bf16 dk/dv pass's fixed-order sum at D; no conv kernel runs in the
+# profiled default run).
+TRACE_KERNELS = {"K1": ("fwd_tc_kernel",),
+                 "K2": ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel",
+                        "sum_partials_kernel")}
+# The ladder's rungs that copy a whole array: a view of it is contiguous,
+# so their yardstick is a clone.
+WHOLE_COPIES = ("copy", "cost_estimate", "manual_dma", "dma_dyn_slot",
+                "dma_when_guard")
 # The flagship's eligible k3 convs, (channels, side), in call order; each
 # deep block has two (conv2, conv3). The conv phase checks this list
 # against forward hooks on the port's models.
@@ -347,8 +366,8 @@ def kernel_phase(ca, attention_plain) -> list:
                           {x: errs[x] for x in ("dq", "dk", "dv")})
                 case = {
                     "kernel": kind, "placement": place, "dtype": dname,
-                    "route": ("tensor_core" if kind == "bwd"
-                              and dname == "bfloat16" else "fma"),
+                    "route": ("tensor_core" if dname == "bfloat16"
+                              else "fma"),
                     "N": n, "L": L, "M": m, "c": c,
                     "max_err": max(e[1] for e in errs_k.values()),
                     "max_abs_err": max(e[0] for e in errs_k.values()),
@@ -364,7 +383,7 @@ def kernel_phase(ca, attention_plain) -> list:
 
 def extra_checks(ca, attention_plain) -> dict:
     """The kernels against the plain version at EXTRA_SHAPES, a repeated
-    backward bit-identical, and the backward refusing a second
+    forward and backward bit-identical, and the backward refusing a second
     differentiation."""
     import torch
 
@@ -379,10 +398,12 @@ def extra_checks(ca, attention_plain) -> dict:
             do = torch.randn((n, L, c), generator=gen, device="cuda").to(dt)
             o, lse = ca.attention_fwd(q, k, v)
             got = (o, *ca.attention_bwd(q, k, v, o, lse, do))
-            again = ca.attention_bwd(q, k, v, o, lse, do)
-            if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+            again = (ca.attention_fwd(q, k, v)[0],
+                     *ca.attention_bwd(q, k, v, o, lse, do))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{(n, L, m, c)} {dname}: a repeated "
-                                     "backward is not bit-identical")
+                                     "forward or backward is not "
+                                     "bit-identical")
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             o_ref = attention_plain(*leaves)
             want = (o_ref, *torch.autograd.grad(o_ref, leaves, do))
@@ -405,7 +426,7 @@ def extra_checks(ca, attention_plain) -> dict:
         raise AssertionError("double backward through the kernels did not "
                              "raise")
     return {"shapes": EXTRA_SHAPES, "worst_rel_err": worst,
-            "repeated_backward": "bit-identical",
+            "repeated_forward_backward": "bit-identical",
             "double_backward": "raises"}
 
 
@@ -831,6 +852,8 @@ def ladder_phase(ml) -> list:
              "minor_slice_reshape": ("xt", ml.RESH)}
 
     def library(name):
+        if name in WHOLE_COPIES:
+            return inp.x.clone
         if name in boxes:
             src, b = boxes[name]
             return lambda: torch.as_strided(
@@ -926,10 +949,11 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
     against ``tol``; ``max_abs_err`` is the largest absolute difference."""
     meta = (
         ("pooled_attention_fwd", "pooled_attention.cu",
-         "gan3d_tpu/ops/pallas_attention.py:28", "fwd", cases,
+         "gan3d_tpu/ops/pallas_attention.py:28", "fwd_tc", cases,
          lambda c: c["kernel"] == "fwd",
          lambda c: c["placement"] == "G" and c["dtype"] == "bfloat16",
-         "G placement, bfloat16, N=16, L=32768, M=4096, c=16"),
+         "G placement, bfloat16 (tensor cores), N=16, L=32768, M=4096, "
+         "c=16"),
         ("pooled_attention_bwd", "pooled_attention.cu",
          "gan3d_tpu/ops/pallas_attention.py:67", "bwd_tc", cases,
          lambda c: c["kernel"] == "bwd",
@@ -1028,8 +1052,8 @@ def run_cli(argv: list) -> str:
 
 def expected_launches(start: int, niters: int, iter_d: int,
                       img_every: int) -> dict:
-    """Attention launches a bf16 run of steps [start, niters) implies (its
-    backward on the tensor-core route).
+    """Attention launches a bf16 run of steps [start, niters) implies (the
+    forward and the backward on the tensor-core route).
 
     Per step: G attention forward iter_d times (no-grad G in each D
     iteration) + once (G step); D attention forward 2 * iter_d times (real
@@ -1040,7 +1064,7 @@ def expected_launches(start: int, niters: int, iter_d: int,
     """
     steps = niters - start
     img_logs = sum(1 for i in range(start, niters) if i % img_every == 0) + 1
-    return {"fwd": steps * (iter_d + 1 + 2 * iter_d + 1) + img_logs,
+    return {"fwd_tc": steps * (iter_d + 1 + 2 * iter_d + 1) + img_logs,
             "bwd_tc": steps * (1 + 2 * iter_d + 1)}
 
 
@@ -1085,6 +1109,7 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
     results = {}
     for name, flags, runs in TRAIN_RUNS:
         log_dir = os.path.join(tmp, name)
+        flags = [f.format(tmp=tmp) for f in flags]
         base = FLAGSHIP + flags + [f"--data_path={data}",
                                    f"--log_dir={log_dir}"]
         wide, fast_dw = "--wide_conv=on" in flags, "--fast_dw=on" in flags
@@ -1093,16 +1118,17 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
             cc.reset_counters()
             torch.cuda.reset_peak_memory_stats()
             out = run_cli(base + [f"--niters={niters}"])
-            got = {"fwd": ca.fwd_launches, "bwd": ca.bwd_launches,
+            got = {"fwd": ca.fwd_launches, "fwd_tc": ca.fwd_tc_launches,
+                   "bwd": ca.bwd_launches,
                    "bwd_tc": ca.bwd_tc_launches, "wide": cc.wide_launches,
                    "wide_tc": cc.wide_tc_launches, "dw": cc.dw_launches,
                    "dw_tc": cc.dw_tc_launches}
-            # bf16 runs: the f32 routes of K2, K3 and K4 launch nothing
-            want = {"bwd": 0, "wide": 0, "dw": 0,
+            # bf16 runs: the f32 routes of K1-K4 launch nothing
+            want = {"fwd": 0, "bwd": 0, "wide": 0, "dw": 0,
                     **expected_launches(start, niters, 2, 50),
                     **expected_conv_launches(start, niters, 2, 50, n_g, n_d,
                                              wide, fast_dw)}
-            if got != want or not (got["fwd"] and got["bwd_tc"]):
+            if got != want or not (got["fwd_tc"] and got["bwd_tc"]):
                 raise AssertionError(f"{name}: launches {got} != expected "
                                      f"{want}")
             if (wide or fast_dw) and not got["dw_tc"]:
@@ -1143,9 +1169,59 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
         for f in ("params.json", "models/checkpoint.pt", f"images/{last}.png"):
             if not os.path.isfile(os.path.join(log_dir, f)):
                 raise AssertionError(f"{name}: missing {f}")
-        if name != "fast_dw":
+        if name not in ("fast_dw", PROFILED_RUN):
             phase("model_check", run=name, **model_check(log_dir, cc))
     return results
+
+
+def trace_phase(trace_dir: str, steps: int) -> dict:
+    """The profiled run's Chrome trace (its one file in ``trace_dir``) of
+    ``steps`` steps: every device op's time (kernels, copies, memsets) by
+    name, the top 15 by total; K1's and K2's share of the summed device
+    time (TRACE_KERNELS); the device's busy time (the union of the ops'
+    intervals) per step and its idle share, 1 - busy / the span from the
+    first op's start to the last one's end."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"want one trace in {trace_dir}, got {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    ops = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset")),
+                 key=lambda t: t[0])
+    if not ops:
+        raise AssertionError(f"{files[0]}: no device op in the trace")
+    by_name = {}
+    for t0, t1, name in ops:
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += t1 - t0
+        tot[1] += 1
+    total = sum(v[0] for v in by_name.values())
+    busy, end = 0.0, ops[0][0]
+    for t0, t1, _ in ops:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    span = end - ops[0][0]
+    attention = {k: sum(v[0] for n, v in by_name.items()
+                        if any(w in n for w in names))
+                 for k, names in TRACE_KERNELS.items()}
+    share = {k: t / total for k, t in attention.items()}
+    if not all(share.values()):
+        raise AssertionError(f"attention kernels missing in the trace: "
+                             f"{share}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"trace": files[0], "steps": steps, "device_ops": len(ops),
+            "device_ms_per_step": total / steps / 1e3,
+            "busy_ms_per_step": busy / steps / 1e3,
+            "span_ms_per_step": span / steps / 1e3,
+            "idle_share": 1.0 - busy / span,
+            "attention_ms_per_step": {k: t / steps / 1e3
+                                      for k, t in attention.items()},
+            "share_of_device_time": share,
+            "top_ops": [{"name": n[:160], "ms_per_step": v[0] / steps / 1e3,
+                         "calls_per_step": v[1] / steps,
+                         "share": v[0] / total} for n, v in top]}
 
 
 def model_check(log_dir: str, cc) -> dict:
@@ -1226,6 +1302,7 @@ def main() -> int:
     from gan3d_tpu_torch.ops import cuda_conv as cc
     from gan3d_tpu_torch.ops.attention import attention_plain
     from gan3d_tpu_torch.probes import mosaic_ladder as ml
+    from gan3d_tpu_torch.utils.profiling import PROFILE_STEPS
 
     t0 = time.time()
     libs = cuda_build.build("pooled_attention", "conv3d_k3",
@@ -1254,6 +1331,8 @@ def main() -> int:
     phase("conv_extra", **conv_extra_checks(cc))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train = train_phase(ca, cc, tmp, shapes)
+        phase("step_trace", **trace_phase(os.path.join(tmp, "trace"),
+                                          PROFILE_STEPS))
     # the op-level paths after the train runs, which then see the card as
     # the earlier phases leave it
     toeplitz_cases = toeplitz_phase(cc)

@@ -86,7 +86,8 @@ class Config:
                                 # updates are identical); False keeps one
     ema_decay: float = 0.5      # stylegan2 only (not ported)
     data_loader_workers: int = 4  # threads that assemble host batches
-    profile_dir: str = ""       # the profiler is not ported: set, it raises
+    profile_dir: str = ""       # set: a torch.profiler trace of steps 5-9
+                                # is written there (utils/profiling.py)
     platform: str = ""          # "" = the CUDA card (raises without one);
                                 # "cpu" = run on the CPU
     gp_weight: float = 0.0      # WGAN-GP weight (reference has it commented

@@ -14,18 +14,19 @@
 // then the products; memory is far below both. The TPU kernel was
 // softmax-bound for the same reason.
 //
-// What the designs do about it. The forward (K1) is the first, simple
-// version: one thread owns one query row and keeps its C-wide operand and
-// accumulators in registers in f32; K/V stream through shared memory in
-// tiles every thread reads by broadcast; products on the f32 FMA pipes.
-// Exponentials are exp2 of log2-scaled scores (one MUFU op each). The
-// backward (K2) has two routes, picked by dtype in ops/cuda_attention.py:
+// What the designs do about it. Exponentials are exp2 of log2-scaled
+// scores (one MUFU op each). The forward (K1) and the backward (K2) each
+// have two routes, picked by dtype in ops/cuda_attention.py:
 // - bf16: the *_tc kernels, the products on the tensor cores (mma.sync
-//   m16n8k16, 16 rows a warp), so the exponentials are again the ceiling;
-//   the dk/dv pass splits L into P parts where M alone gives too few
-//   blocks (the D placement), summing f32 partials in a fixed order.
-// - f32: one thread per query (dq) or key (dk/dv) row on the f32 FMA
-//   pipes (tensor cores would run f32 as TF32, outside the f32 tolerance).
+//   m16n8k16, 16 rows a warp), so the exponentials are the ceiling. The
+//   forward is the FlashAttention-2 forward (fwd_tc_kernel, below); the
+//   dk/dv pass of the backward splits L into P parts where M alone gives
+//   too few blocks (the D placement), summing f32 partials in a fixed
+//   order.
+// - f32: one thread per query (forward, dq) or key (dk/dv) row, its C-wide
+//   operand and accumulators in f32 registers, K/V (or Q/dO) tiles read
+//   by broadcast from shared memory, products on the f32 FMA pipes
+//   (tensor cores would run f32 as TF32, outside the f32 tolerance).
 
 // Differences from the TPU kernel:
 // - The TPU kept all M keys of a sample resident in VMEM and did one
@@ -41,10 +42,11 @@
 //   loops over the queries of its sample. Both get p from the saved lse
 //   instead of a second softmax pass.
 //
-// Inputs: forward f32 or bf16 (dtype 0 / 1), backward f32 (pa_bwd) or bf16
-// (pa_bwd_tc); every accumulation is f32; outputs take the inputs' dtype.
-// C is one of 8, 16, 32, 64. Ragged L and M tails are masked. Each entry point returns cudaGetLastError() after its
-// launches, or cudaErrorInvalidValue for a C or dtype it does not take.
+// Inputs: f32 (pa_fwd, pa_bwd) or bf16 (pa_fwd_tc, pa_bwd_tc); every
+// accumulation is f32; outputs take the inputs' dtype.
+// C is one of 8, 16, 32, 64. Ragged L and M tails are masked. Each entry
+// point returns cudaGetLastError() after its launches, or
+// cudaErrorInvalidValue for a C or a size it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,10 +77,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Copy rows [row0, row0 + nrows) of a [rows, C] matrix into a [tile, C]
 // f32 shared-memory tile, zero-filling the rows past nrows.
@@ -384,6 +382,142 @@ __device__ __forceinline__ void frags_times_tile(float (*acc)[4],
   }
 }
 
+// K1 bf16, the FlashAttention-2 forward: grid (ceil(L / kFwdTcRows), N),
+// kFwdTcWarps warps of 16 query rows; Q's A fragments stay in registers,
+// K and V stream in 64-key tiles, double-buffered by cp.async (the
+// staging of bwd_dq_tc_kernel). Per tile: S = Q K^T on mma; keys past M get score
+// -inf before the row max; the row max (log2 units) is reduced over the
+// quad that shares a row (shfl_xor 1, 2); the running output and row sum
+// are rescaled by 2^(m_old - m_new); p = 2^(s log2e - m) in f32, added to
+// the row sum in f32 (the TPU kernel's denom) and rounded to bf16 for
+// O += P V (pallas_attention.py:40, p.astype(v.dtype); frags_times_tile
+// packs it). Each lane sums its own columns; the quad's sums meet once,
+// after the last tile. o = acc / den, rounded to bf16 once; lse =
+// (m + log2 den) ln2 in f32, for K2.
+//
+// What bounds it: each score costs one MUFU ex2 against about four f32-pipe
+// operations (the scaling FFMA, the max, the sum, half a bf16 pack); the
+// f32 pipe does 128 a clock per SM, the MUFU 16, so the exponentials are
+// the ceiling (0.514 ms at the G placement). The two products are 64 FLOP
+// a score, a few percent of the tensor cores' peak. 8 warps, not 4: with 4,
+// ptxas spilled the c = 32 instance (72 registers, 8 bytes), and 8 ran 8%
+// faster at the G placement and 5% at the D placement (H100, one run).
+constexpr int kFwdTcWarps = 8;
+constexpr int kFwdTcThreads = 32 * kFwdTcWarps;
+constexpr int kFwdTcRows = 16 * kFwdTcWarps;  // query rows per block
+
+template <int C>
+__global__ void __launch_bounds__(kFwdTcThreads)
+    fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int L, int M) {
+  using S = TcShape<C>;
+  __shared__ uint4 ks[2][kTcTile * S::NC];
+  __shared__ uint4 vs[2][kTcTile * S::NC];
+  const int n = blockIdx.y;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int r0 = blockIdx.x * kFwdTcRows + warp * 16 + g, r1 = r0 + 8;
+  const bool ok0 = r0 < L, ok1 = r1 < L;
+  const size_t nl = (size_t)n * L;
+  const __nv_bfloat16* kn = k + (size_t)n * M * C;
+  const __nv_bfloat16* vn = v + (size_t)n * M * C;
+
+  uint32_t qa[S::KS][4];
+  load_a_frags<C>(qa, q + nl * C, r0, ok0, ok1, qd);
+
+  float acc[S::NT][4];
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  float mx[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+  float den[2] = {0.f, 0.f};             // this lane's share of the row sum
+
+  // two stages: tile j + 1 is in flight while tile j's products run
+  auto request = [&](int j0, int st) {
+    load_tile_tc<C>(ks[st], kn, j0, min(kTcTile, M - j0));
+    load_tile_tc<C>(vs[st], vn, j0, min(kTcTile, M - j0));
+    tc::cp_async_commit();
+  };
+  request(0, 0);
+  for (int j0 = 0, st = 0; j0 < M; j0 += kTcTile, st ^= 1) {
+    const int nt = min(kTcTile, M - j0);
+    if (j0 + kTcTile < M) {
+      request(j0 + kTcTile, st ^ 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+    rows_times_tile<C>(s, qa, ks[st], lane);
+    if (nt < kTcTile) {  // the ragged last tile: keys past M
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (t * 8 + 2 * qd + (e & 1) >= nt) s[t][e] = -INFINITY;
+    }
+    float tm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      tm[0] = fmaxf(tm[0], fmaxf(s[t][0], s[t][1]));
+      tm[1] = fmaxf(tm[1], fmaxf(s[t][2], s[t][3]));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tm[h] = fmaxf(tm[h], __shfl_xor_sync(0xffffffffu, tm[h], 1));
+      tm[h] = fmaxf(tm[h], __shfl_xor_sync(0xffffffffu, tm[h], 2));
+      // finite: every tile holds at least one key
+      const float mnew = fmaxf(mx[h], tm[h] * kLog2e);
+      const float scale = tc::exp2_approx(mx[h] - mnew);
+      mx[h] = mnew;
+      den[h] *= scale;
+#pragma unroll
+      for (int t = 0; t < S::NT; ++t) {
+        acc[t][2 * h] *= scale;
+        acc[t][2 * h + 1] *= scale;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = tc::exp2_approx(fmaf(s[t][e], kLog2e, -mx[e >> 1]));
+        den[e >> 1] += p;
+        s[t][e] = p;
+      }
+    frags_times_tile<C>(acc, s, vs[st], lane);
+    __syncthreads();  // stage st is refilled two tiles on
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+  }
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t) {
+    const int col = t * 8 + 2 * qd;
+    if (ok0)
+      *reinterpret_cast<uint32_t*>(o + (nl + r0) * C + col) =
+          tc::pack(acc[t][0] / den[0], acc[t][1] / den[0]);
+    if (ok1)
+      *reinterpret_cast<uint32_t*>(o + (nl + r1) * C + col) =
+          tc::pack(acc[t][2] / den[1], acc[t][3] / den[1]);
+  }
+  if (qd == 0) {
+    if (ok0) lse[nl + r0] = (mx[0] + log2f(den[0])) * kLn2;
+    if (ok1) lse[nl + r1] = (mx[1] + log2f(den[1])) * kLn2;
+  }
+}
+
 // dq: grid (ceil(L / 64), N), 4 warps of 16 query rows. The prologue
 // writes delta_i = sum_c dO_i O_i (4 lanes a row, fixed order). Per 64-key
 // tile: S = Q K^T and dP = dO V^T on mma; P = 2^(S log2e - lse log2e) in
@@ -620,12 +754,22 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
   return tc::sum_partials((const float*)dvp, (B*)dv, P, count, st);
 }
 
-template <typename T, int C>
+template <int C>
 void launch_fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, int N, int L, int M, cudaStream_t st) {
   dim3 grid((L + kFwdThreads - 1) / kFwdThreads, N);
-  fwd_kernel<T, C><<<grid, kFwdThreads, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, L, M);
+  fwd_kernel<float, C><<<grid, kFwdThreads, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, L, M);
+}
+
+template <int C>
+void launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int N, int L, int M, cudaStream_t st) {
+  using B = __nv_bfloat16;
+  dim3 grid((L + kFwdTcRows - 1) / kFwdTcRows, N);
+  fwd_tc_kernel<C><<<grid, kFwdTcThreads, 0, st>>>(
+      (const B*)q, (const B*)k, (const B*)v, (B*)o, (float*)lse, L, M);
 }
 
 template <typename T, int C>
@@ -641,22 +785,6 @@ void launch_bwd(const void* q, const void* k, const void* v, const void* o,
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
       (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, L, M);
 }
-
-// Instantiate F<T, C> for the supported (dtype, C) pairs; false otherwise.
-#define PA_DISPATCH(DTYPE, C, CALL)                          \
-  [&]() -> bool {                                            \
-    switch ((DTYPE) * 1000 + (C)) {                          \
-      case 8: { using T = float; constexpr int CC = 8; CALL; return true; }      \
-      case 16: { using T = float; constexpr int CC = 16; CALL; return true; }    \
-      case 32: { using T = float; constexpr int CC = 32; CALL; return true; }    \
-      case 64: { using T = float; constexpr int CC = 64; CALL; return true; }    \
-      case 1008: { using T = __nv_bfloat16; constexpr int CC = 8; CALL; return true; }  \
-      case 1016: { using T = __nv_bfloat16; constexpr int CC = 16; CALL; return true; } \
-      case 1032: { using T = __nv_bfloat16; constexpr int CC = 32; CALL; return true; } \
-      case 1064: { using T = __nv_bfloat16; constexpr int CC = 64; CALL; return true; } \
-      default: return false;                                 \
-    }                                                        \
-  }()
 
 // f(std::integral_constant<int, C>) for a supported C; false otherwise.
 template <typename F>
@@ -674,11 +802,26 @@ bool dispatch_c(int C, F&& f) {
 
 extern "C" {
 
-// o [N, L, C] and lse [N, L] (f32) from q [N, L, C], k/v [N, M, C].
+// The f32 route of the forward: o [N, L, C] and lse [N, L] (f32) from q
+// [N, L, C], k/v [N, M, C], all f32.
 int pa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-           int N, int L, int M, int C, int dtype, void* stream) {
+           int N, int L, int M, int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!PA_DISPATCH(dtype, C, (launch_fwd<T, CC>(q, k, v, o, lse, N, L, M, st))))
+  if (!dispatch_c(C, [&](auto c) {
+        launch_fwd<decltype(c)::value>(q, k, v, o, lse, N, L, M, st);
+      }))
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The bf16 route of the forward (q, k, v, o bf16; lse f32).
+int pa_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+              int N, int L, int M, int C, void* stream) {
+  if (N < 1 || L < 1 || M < 1 || N > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!dispatch_c(C, [&](auto c) {
+        launch_fwd_tc<decltype(c)::value>(q, k, v, o, lse, N, L, M, st);
+      }))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

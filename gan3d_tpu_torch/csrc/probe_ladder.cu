@@ -23,11 +23,13 @@
 //   sample concatenated along the lanes into [216, 864] (lane_concat27
 //   :121).
 // - gram27_kernel: views[0]^T @ X27 summed over the samples, f32 [32, 864],
-//   on the tensor cores (mma.sync m16n8k16 bf16, f32 accumulation); the sum
-//   over the TPU's sequential grid is a loop inside the block, so the
-//   result does not depend on block order (wide_dot_accum :153 with the
-//   samples staged by plain loads; dw_skeleton :199 through the
-//   double-buffered bulk-copy ring).
+//   on the tensor cores (mma.sync m16n8k16 bf16, f32 accumulation); a tap
+//   is a constant row offset into the staged sample, so its fragments come
+//   by ldmatrix.trans through one table of view 0's rows; the sum over the
+//   TPU's sequential grid is a loop inside the block and a fixed-order sum
+//   of the warps' partials, so the result does not depend on block order
+//   (wide_dot_accum :153 with the samples staged by plain loads;
+//   dw_skeleton :199 through the double-buffered bulk-copy ring).
 // - wide_fwd_kernel: per sample W2 [8, 432] @ X27 [432, 128] -> bf16
 //   [8, 128], the same tensor-core product (wide_fwd_skeleton
 //   probe_mosaic2.py:83).
@@ -222,104 +224,200 @@ __global__ void im2col27_kernel(const uint16_t* __restrict__ x,
 // Tensor-core products: tc::mma (mma_bf16.cuh, which gives the fragment
 // layouts) on fragments packed by tc::pack_raw.
 
-// Position (d, h, w) of row r of the 6^3 view at shift (kd, kh, kw), as a
-// flat index into an 8^3 sample; rows past the last give -1 (zero).
-__device__ __forceinline__ int view_pos(int r, int kd, int kh, int kw) {
-  if (r >= kRows) return -1;
-  return ((kd + r / 36) * kS + kh + (r / 6) % 6) * kS + kw + r % 6;
+// Position (d, h, w) = (r / 36, (r / 6) % 6, r % 6) of row r of view 0 (the
+// 6^3 box at the origin), as a row index into an 8^3 sample; rows past the
+// last give the zero row. The view at shift (kd, kh, kw) is view 0 plus the
+// constant (kd * 8 + kh) * 8 + kw.
+constexpr int kZeroRow = kS * kS * kS;                 // 512
+__device__ __forceinline__ int base_pos(int r) {
+  if (r >= kRows) return kZeroRow;
+  return ((r / 36) * kS + (r / 6) % 6) * kS + r % 6;
+}
+
+// gram27's staged sample: [513 rows][32 channels] bf16 in 16-byte units,
+// row 512 zero. An ldmatrix tile reads one chunk of 8 consecutive rows of
+// a view: the tail of one 6-row run of the volume and the head of the next
+// (h + 1, or d + 1 and h = 0). With f = (w + 6 h + 4 d) mod 8 those 8 rows
+// take 8 consecutive values of f (a run's 6, then the next run's from +6),
+// for view 0 and every shift of it. So unit (4 p + c) XOR mu(p), mu(p) = f
+// of p's even partner / 2, puts them in 8 different bank groups (bit 2 of
+// the group is w's parity, bits 0-1 c XOR mu): no conflicts. 128 bytes (two
+// rows) stay together, so the rows' 16-byte stores are conflict-free too.
+constexpr int kRowUnits = kC / 8;                      // 4
+constexpr int kBufUnits = (kZeroRow + 1) * kRowUnits;  // 2052
+constexpr int kGroupWarps = 4;                 // warps of one sample group
+constexpr int kGroupThreads = kGroupWarps * 32;
+constexpr int kGramThreads = 2 * kGroupThreads;        // two groups
+constexpr int kKSteps = kK / 16;                       // 14
+constexpr int kUnitsPerThread = kSample / 8 / kGroupThreads;  // 16
+
+__device__ __forceinline__ int gram_swz(int p, int c) {
+  const int f = (p & 6) + 6 * ((p >> 3) & 7) + 4 * (p >> 6);
+  return (p * kRowUnits + c) ^ ((f & 7) >> 1);
+}
+
+// Barrier over the threads of one sample group (ids 1 and 2).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(kGroupThreads)
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
-// gram27: grid 27 (output columns tap*32 .. +32), 4 warps; warp w computes
-// columns tap*32 + w*8 .. +8 for all 32 rows (two m16 tiles), summing over
-// the samples in order. out[m, tap*32 + c] =
-//   sum_s sum_r x[s, view_pos(r, 0,0,0), m] x[s, view_pos(r, tap), c].
-// Staging: plain 16-byte loads into one slot, or (kBulk) one bulk copy per
-// sample into a 2-slot ring with the next sample's copy in flight.
+// gram27: out[m, tap*32 + c] = sum_s sum_r x[s, base(r), m] x[s, base(r) +
+// off(tap), c], the 216 rows r of view 0 as the k of the product, padded to
+// 224 with the zero row. grid 27 (one tap a block), two groups of 4 warps;
+// group g takes samples g, g + 2, ... in order, each staged into the
+// group's own copy. Tables of the padded rows for A (view 0) and B (the
+// tap's view: base + off) are built once a block; every fragment then
+// comes by ldmatrix.trans from the staged sample, whose rows are
+// positions: A[m, k] (channels m of row k) and B[k, n] alike. Warp w of a
+// group takes k-steps [14 w / 4, 14 (w + 1) / 4) and all 32 x 32 outputs of
+// the tap (2 m16 x 4 n8 tiles); the 8 warps' partial sums meet in shared
+// memory and are added in order (group 0's warps, then group 1's), so
+// repeats are bit-identical and blocks independent. Staging: plain 16-byte
+// loads into the swizzled copy, the group's next sample's loads in
+// registers while this one is multiplied; or (kBulk) one bulk copy a sample
+// into a 2-slot ring on mbarriers (slot g for group g), the next sample in
+// flight, each sample re-staged from its slot into the swizzled copy (the
+// ring's raw 64-byte rows would put 8 positions in 2 bank groups: 4-way
+// conflicts). What bounds it: latency, not a rate. At 12 MFLOP and 64 KB
+// each of the 27 blocks waits on its staging, its products and its
+// partials in turn (PERF.md section 6 times each on an H100).
 template <bool kBulk>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kGramThreads)
 gram27_kernel(const uint16_t* __restrict__ x, float* __restrict__ out,
               int nsamples) {
   extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int tab_a[kK], tab_b[kK];
+  constexpr uint32_t kBytes = kSample * 2;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   unsigned char* ring = smem + 128;
-  constexpr uint32_t kBytes = kSample * 2;
+  uint4* bufs = reinterpret_cast<uint4*>(ring + (kBulk ? 2 * kBytes : 0));
   const int tap = blockIdx.x;
-  const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+  const int off = ((tap / 9) * kS + (tap / 3) % 3) * kS + tap % 3;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, q = lane % 4;
-  const int col = warp * 8 + g;              // B column: channel of the tap
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  const int group = threadIdx.x / kGroupThreads;
+  const int gt = threadIdx.x % kGroupThreads;
+  uint4* buf = bufs + group * kBufUnits;
+  const uint4* xg = reinterpret_cast<const uint4*>(x);
 
+  for (int r = threadIdx.x; r < kK; r += blockDim.x) {
+    const int p = base_pos(r);
+    tab_a[r] = p;
+    tab_b[r] = p == kZeroRow ? p : p + off;
+  }
+  if (threadIdx.x < 2 * kRowUnits)
+    bufs[(threadIdx.x / kRowUnits) * kBufUnits + kZeroRow * kRowUnits +
+         threadIdx.x % kRowUnits] = make_uint4(0u, 0u, 0u, 0u);
+  uint4 pre[kUnitsPerThread];
   if (kBulk) {
     init_barriers(bar, 2);
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(bar, kBytes);
-      bulk_copy(ring, x, kBytes, bar);
+    if (threadIdx.x == 0)
+      for (int s = 0; s < 2 && s < nsamples; ++s) {
+        mbar_expect_tx(bar + s, kBytes);
+        bulk_copy(ring + (size_t)s * kBytes, x + (long long)s * kSample,
+                  kBytes, bar + s);
+      }
+  } else {
+    __syncthreads();
+    if (group < nsamples) {
+#pragma unroll
+      for (int i = 0; i < kUnitsPerThread; ++i)
+        pre[i] = xg[(long long)group * (kSample / 8) + gt +
+                    i * kGroupThreads];
     }
   }
-  for (int s = 0; s < nsamples; ++s) {
-    const int slot = kBulk ? s % 2 : 0;
-    const uint16_t* xs =
-        reinterpret_cast<const uint16_t*>(ring + (size_t)slot * kBytes);
+
+  // this lane's table rows at its warp's k-steps, read while the samples
+  // are on their way. ldmatrix.x4.trans: lanes 8i .. 8i+7 give the rows of
+  // tile i. A (m16 x k16 of view 0^T): tiles (k 0-7 | 8-15) x (m 0-7 |
+  // 8-15) as a0..a3; B (k16 x two n8): tiles (k 0-7 | 8-15) x (n 0-7 |
+  // 8-15) as b0, b1 of the first n8 tile and b0, b1 of the second.
+  constexpr int kMaxSteps = (kKSteps + kGroupWarps - 1) / kGroupWarps;
+  const int wg = warp % kGroupWarps;
+  const int kbeg = kKSteps * wg / kGroupWarps;
+  const int steps = kKSteps * (wg + 1) / kGroupWarps - kbeg;
+  int ra[kMaxSteps], rb[kMaxSteps];
+#pragma unroll
+  for (int j = 0; j < kMaxSteps; ++j) {
+    const int k0 = min(kbeg + j, kKSteps - 1) * 16 + (lane & 7);
+    ra[j] = tab_a[k0 + ((lane >> 4) & 1) * 8];
+    rb[j] = tab_b[k0 + ((lane >> 3) & 1) * 8];
+  }
+  float acc[2][4][4] = {};
+  const uint4* raw = reinterpret_cast<const uint4*>(ring + group * kBytes);
+  for (int s = group; s < nsamples; s += 2) {
+    if (kBulk) mbar_wait(bar + group, (uint32_t)(s / 2) & 1);
+    if (s >= 2) group_sync(group);  // the group is done with its last one
+#pragma unroll
+    for (int i = 0; i < kUnitsPerThread; ++i) {
+      const int u = gt + i * kGroupThreads;
+      buf[gram_swz(u / kRowUnits, u % kRowUnits)] = kBulk ? raw[u] : pre[i];
+    }
     if (kBulk) {
-      if (s + 1 < nsamples && threadIdx.x == 0) {
-        uint64_t* nb = bar + (s + 1) % 2;
-        mbar_expect_tx(nb, kBytes);
-        bulk_copy(ring + (size_t)((s + 1) % 2) * kBytes,
-                  x + (long long)(s + 1) * kSample, kBytes, nb);
+      // the slot is read: refill it (the async proxy after the reads)
+      group_sync(group);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      if (s + 2 < nsamples && gt == 0) {
+        mbar_expect_tx(bar + group, kBytes);
+        bulk_copy(ring + (size_t)group * kBytes,
+                  x + (long long)(s + 2) * kSample, kBytes, bar + group);
       }
-      mbar_wait(bar + slot, (uint32_t)(s / 2) & 1);
     } else {
-      const uint4* src =
-          reinterpret_cast<const uint4*>(x + (long long)s * kSample);
-      uint4* dst = reinterpret_cast<uint4*>(ring);
-      for (int i = threadIdx.x; i < kSample / 8; i += blockDim.x)
-        dst[i] = src[i];
-      __syncthreads();
-    }
-    for (int k0 = 0; k0 < kK; k0 += 16) {
-      // B: rows k0 + 2q (+1, +8, +9) of the tap's view, column `col`
-      uint16_t bv[4];
+      if (s + 2 < nsamples) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p = view_pos(k0 + 2 * q + (e & 1) + (e >> 1) * 8, kd, kh, kw);
-        bv[e] = p < 0 ? 0 : xs[p * kC + col];
+        for (int i = 0; i < kUnitsPerThread; ++i)
+          pre[i] = xg[(long long)(s + 2) * (kSample / 8) + gt +
+                      i * kGroupThreads];
       }
-      const uint32_t b[2] = {tc::pack_raw(bv[0], bv[1]),
-                             tc::pack_raw(bv[2], bv[3])};
-      // A = views[0]^T: A[m, k] = x[view_pos(k, 0, 0, 0), m]
-      int pk[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        pk[e] = view_pos(k0 + 2 * q + (e & 1) + (e >> 1) * 8, 0, 0, 0);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        uint16_t av[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          // e: bit 0 column pair, bit 1 row +8, bit 2 column +8
-          const int m = mt * 16 + g + ((e >> 1) & 1) * 8;
-          const int p = pk[(e & 1) + ((e >> 2) & 1) * 2];
-          av[e] = p < 0 ? 0 : xs[p * kC + m];
-        }
-        const uint32_t a[4] = {
-            tc::pack_raw(av[0], av[1]), tc::pack_raw(av[2], av[3]),
-            tc::pack_raw(av[4], av[5]), tc::pack_raw(av[6], av[7])};
-        tc::mma(acc[mt], a, b);
-      }
+      group_sync(group);
     }
-    release_slot();
-  }
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+    for (int j = 0; j < kMaxSteps; ++j) {
+      if (j >= steps) break;
+      uint32_t a[2][4], b[2][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = mt * 16 + g + (e >> 1) * 8;
-      const int c = tap * kC + warp * 8 + 2 * q + (e & 1);
-      out[m * kCols + c] = acc[mt][e];
+      for (int mt = 0; mt < 2; ++mt)
+        tc::ldsm_x4_trans(a[mt],
+                          buf + gram_swz(ra[j], 2 * mt + ((lane >> 3) & 1)));
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        tc::ldsm_x4_trans(b[np],
+                          buf + gram_swz(rb[j], 2 * np + ((lane >> 4) & 1)));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+          tc::mma(acc[mt][nj], a[mt], b[nj >> 1] + (nj & 1) * 2);
     }
   }
+
+  // the warps' partials, [warp][8 tiles (mt, nj)][32 lanes] float4s (a
+  // lane's C fragment) over the staged copies, added in warp order; warp
+  // t / 32 sums tile t / 32 of lane t % 32: rows g and g + 8, columns 2q and
+  // 2q + 1
+  __syncthreads();
+  float4* part = reinterpret_cast<float4*>(bufs);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const float* f = acc[t >> 2][t & 3];
+    part[(warp * 8 + t) * 32 + lane] = make_float4(f[0], f[1], f[2], f[3]);
+  }
+  __syncthreads();
+  float4 sum = part[warp * 32 + lane];
+#pragma unroll
+  for (int w = 1; w < 2 * kGroupWarps; ++w) {
+    const float4 v = part[(w * 8 + warp) * 32 + lane];
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+  const int g = lane / 4, q = lane % 4;
+  const int m = (warp >> 2) * 16 + g, c = tap * kC + (warp & 3) * 8 + 2 * q;
+  *reinterpret_cast<float2*>(out + m * kCols + c) = make_float2(sum.x, sum.y);
+  *reinterpret_cast<float2*>(out + (m + 8) * kCols + c) =
+      make_float2(sum.z, sum.w);
 }
 
 // ---------------------------------------------------------------------------
@@ -433,18 +531,19 @@ int ladder_gram(const void* x, void* out, int nsamples, int mode,
                 void* stream) {
   if (nsamples < 1 || (mode != 0 && mode != 1))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 128 + (mode ? 2 : 1) * (size_t)kSample * 2;
+  const size_t smem =
+      128 + (mode ? 2 : 0) * (size_t)kSample * 2 + 2 * (size_t)kBufUnits * 16;
   cudaStream_t st = (cudaStream_t)stream;
   const uint16_t* xs = static_cast<const uint16_t*>(x);
   float* o = static_cast<float*>(out);
   if (mode == 0) {
     if (!smem_ok((const void*)gram27_kernel<false>, smem))
       return (int)cudaErrorInvalidValue;
-    gram27_kernel<false><<<27, 128, smem, st>>>(xs, o, nsamples);
+    gram27_kernel<false><<<27, kGramThreads, smem, st>>>(xs, o, nsamples);
   } else {
     if (!smem_ok((const void*)gram27_kernel<true>, smem))
       return (int)cudaErrorInvalidValue;
-    gram27_kernel<true><<<27, 128, smem, st>>>(xs, o, nsamples);
+    gram27_kernel<true><<<27, kGramThreads, smem, st>>>(xs, o, nsamples);
   }
   return (int)cudaGetLastError();
 }

@@ -10,14 +10,14 @@ Nothing here touches CUDA or ``nvcc`` at import time. Every wrapper takes
 only CUDA tensors and raises on anything the kernels do not take; the
 dispatcher in ``ops/attention.py`` sends CPU tensors to the plain version.
 
-The backward has two routes, picked by dtype: bf16 goes to the
-tensor-core kernels (``pa_bwd_tc``; the dk/dv pass split over L into
-``dkdv_split`` parts), f32 to the f32-FMA kernels (``pa_bwd``); any other
-dtype raises. Nothing falls back.
+The forward and the backward each have two routes, picked by dtype: bf16
+goes to the tensor-core kernels (``pa_fwd_tc``; ``pa_bwd_tc``, its dk/dv
+pass split over L into ``dkdv_split`` parts), f32 to the f32-FMA kernels
+(``pa_fwd``, ``pa_bwd``); any other dtype raises. Nothing falls back.
 
-``fwd_launches`` / ``bwd_launches`` (f32 route) / ``bwd_tc_launches``
-(bf16 route) count the wrappers' launches, so a run can show that its
-attention went through the kernels and which ones.
+``fwd_launches`` / ``bwd_launches`` (f32 route) and ``fwd_tc_launches`` /
+``bwd_tc_launches`` (bf16 route) count the wrappers' launches, so a run
+can show that its attention went through the kernels and which ones.
 """
 
 from __future__ import annotations
@@ -35,9 +35,10 @@ from gan3d_tpu_torch.ops.cuda_build import SMS
 SUPPORTED_C = (8, 16, 32, 64)
 TC_ROWS = 64       # bf16 backward: key rows per dk/dv block (csrc kTcRows)
 TC_TILE = 64       # bf16 backward: queries per staged tile (csrc kTcTile)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 fwd_launches = 0
+fwd_tc_launches = 0
 bwd_launches = 0
 bwd_tc_launches = 0
 
@@ -46,8 +47,9 @@ _lib_lock = threading.Lock()
 
 
 def reset_counters() -> None:
-    global fwd_launches, bwd_launches, bwd_tc_launches
+    global fwd_launches, fwd_tc_launches, bwd_launches, bwd_tc_launches
     fwd_launches = 0
+    fwd_tc_launches = 0
     bwd_launches = 0
     bwd_tc_launches = 0
 
@@ -69,8 +71,10 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = cuda_build.load("pooled_attention")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.pa_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+            lib.pa_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
             lib.pa_fwd.restype = i
+            lib.pa_fwd_tc.argtypes = [p] * 5 + [i] * 4 + [p]
+            lib.pa_fwd_tc.restype = i
             lib.pa_bwd.argtypes = [p] * 10 + [i] * 4 + [p]
             lib.pa_bwd.restype = i
             lib.pa_bwd_tc.argtypes = [p] * 12 + [i] * 5 + [p]
@@ -81,7 +85,7 @@ def _load() -> ctypes.CDLL:
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ValueError unless the kernels take (q, k, v)."""
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _DTYPES:
         raise ValueError(f"pooled-attention kernel: dtype {q.dtype} not in "
                          f"(float32, bfloat16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -124,8 +128,9 @@ def _raise_if(err: int, what: str) -> None:
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel: returns (o [N,L,c] in q's dtype, lse [N,L] f32)."""
-    global fwd_launches
+    """Forward kernel: returns (o [N,L,c] in q's dtype, lse [N,L] f32);
+    bf16 on the tensor cores, f32 on the FMA pipes."""
+    global fwd_launches, fwd_tc_launches
     check_inputs(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     n, L, c = q.shape
@@ -133,11 +138,17 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     o = torch.empty_like(q)
     lse = torch.empty((n, L), dtype=torch.float32, device=q.device)
     lib = _load()
+    tc = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
-        err = lib.pa_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse),
-                         n, L, m, c, _DTYPE_CODE[q.dtype], _stream(q))
-    _raise_if(err, "forward")
-    fwd_launches += 1
+        err = (lib.pa_fwd_tc if tc else lib.pa_fwd)(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), n, L, m, c,
+            _stream(q))
+    if tc:
+        _raise_if(err, "forward (bf16)")
+        fwd_tc_launches += 1
+    else:
+        _raise_if(err, "forward (f32)")
+        fwd_launches += 1
     return o, lse
 
 

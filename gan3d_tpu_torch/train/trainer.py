@@ -12,7 +12,9 @@ D/G step of train/step.py, run eagerly. Kept from the JAX trainer:
   state update during these forwards too);
 - a rolling checkpoint every ``steps_per_ckpt`` steps and a final one, and
   automatic resume that prints ``starting from step N``;
-- the closing ``...Done (...)`` line with the steady rate in vol/s.
+- the closing ``...Done (...)`` line with the steady rate in vol/s;
+- with ``profile_dir`` set, a ``torch.profiler`` trace of steps 5-9
+  (utils/profiling.py) written there.
 
 Noise is reproducible per (seed, step), like the JAX package's key folding:
 every step draws from a generator seeded by (cfg.seed, step).
@@ -37,6 +39,7 @@ from gan3d_tpu_torch.train.state import Adam
 from gan3d_tpu_torch.train.step import train_step
 from gan3d_tpu_torch.utils.platform import configure_precision, resolve_device
 from gan3d_tpu_torch.utils.png import save_volume_grid
+from gan3d_tpu_torch.utils.profiling import StepProfiler
 
 
 def _reject_unported(cfg: Config) -> None:
@@ -47,8 +50,6 @@ def _reject_unported(cfg: Config) -> None:
         later.append("multi-device runs (ROADMAP.md queue A, slice 8)")
     if cfg.fid_in_loop:
         later.append("in-loop FID (ROADMAP.md queue A, slice 7)")
-    if cfg.profile_dir:
-        later.append("the profiler (ROADMAP.md queue A, slice 8)")
     if cfg.track_energy:
         later.append("energy tracking (ROADMAP.md queue A, slice 8)")
     if cfg.async_log:
@@ -103,6 +104,8 @@ class Trainer:
         self.fid: List[float] = []
         self.fid_epoch: List[float] = []
         self._pending: List[Dict[str, torch.Tensor]] = []
+        self.profiler = StepProfiler(cfg.profile_dir,
+                                     cuda=self.device.type == "cuda")
 
     # ------------------------------------------------------------------
     def _generator(self, *words: int) -> torch.Generator:
@@ -188,6 +191,7 @@ class Trainer:
         t0 = t_first = time.time()
         try:
             for i in range(step_done, cfg.niters):
+                self.profiler.step(i)
                 metrics, _ = train_step(cfg, self.G, self.D, self.g_opt,
                                         self.d_opt, self._reals(batches),
                                         generator=self._generator(1, i))
@@ -208,6 +212,7 @@ class Trainer:
         finally:
             batches.close()
             self.loader.close()
+        self.profiler.close()
         i = cfg.niters - 1
         self.log_train(i)
         self._sync()

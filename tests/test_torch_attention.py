@@ -5,9 +5,11 @@ is held against the JAX einsum reference and against the Pallas kernel run
 in interpret mode, forward and gradients; the dispatcher must send CPU
 tensors to the plain version without touching the CUDA kernels. The CUDA
 kernels themselves run only on the card (chip_smoke.py holds them against
-the plain version there); here a blocked emulation of the bf16 backward's
-arithmetic (its rounding points, tiles and split-L partials) is held
-against the Pallas backward. Inputs drawn with numpy from a seed.
+the plain version there); here blocked emulations of the bf16 forward's
+arithmetic (64-key tiles, online softmax, p rounded to bf16 before PV) and
+of the bf16 backward's (its rounding points, tiles and split-L partials)
+are held against the Pallas forward and backward. Inputs drawn with numpy
+from a seed.
 """
 
 import numpy as np
@@ -93,13 +95,19 @@ def test_dispatcher_sends_cpu_tensors_to_plain():
     for x, y in zip(a, b):
         assert torch.equal(x.grad, y.grad)
     assert cuda_attention.fwd_launches == 0
+    assert cuda_attention.fwd_tc_launches == 0
     assert cuda_attention.bwd_launches == 0
+    assert cuda_attention.bwd_tc_launches == 0
 
 
-@pytest.mark.parametrize("case", ["c12", "float16", "mixed", "cpu", "shape"])
+@pytest.mark.parametrize("case", ["c12", "float16", "mixed", "cpu", "shape",
+                                  "bf16_cpu"])
 def test_kernel_wrapper_rejects(case):
     """The kernel wrapper raises on what the kernels do not take; it never
-    hands a tensor to the plain version."""
+    hands a tensor to the plain version, and a refusal counts no launch on
+    either route (bf16_cpu: bf16 tensors on the CPU, the tensor-core
+    route's dtype); reset_counters zeroes every counter."""
+    cuda_attention.reset_counters()
     q, k, v = _t(_qkv(4, L=64, m=8))
     if case == "c12":
         q, k, v = (torch.zeros(2, 64, 12), torch.zeros(2, 8, 12),
@@ -110,11 +118,72 @@ def test_kernel_wrapper_rejects(case):
         q = q.bfloat16()
     elif case == "shape":
         k = k[:1]
+    elif case == "bf16_cpu":
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     with pytest.raises(ValueError):
         cuda_attention.attention_fwd(q, k, v)
     with pytest.raises(ValueError):
         cuda_attention.pooled_attention_cuda(q, k, v)
     assert cuda_attention.fwd_launches == 0
+    assert cuda_attention.fwd_tc_launches == 0
+    if case == "bf16_cpu":
+        names = ("fwd_launches", "fwd_tc_launches", "bwd_launches",
+                 "bwd_tc_launches")
+        for name in names:
+            setattr(cuda_attention, name, 3)
+        cuda_attention.reset_counters()
+        assert all(getattr(cuda_attention, name) == 0 for name in names)
+
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def emulate_fwd_tc(q, k, v, tile=64):
+    """The arithmetic of the bf16 tensor-core forward
+    (csrc/pooled_attention.cu, fwd_tc_kernel) in plain PyTorch: q, k, v are
+    bf16; the scores are f32 sums of bf16 products, scaled to log2 units;
+    per 64-key tile (the last one ragged: its missing keys are the kernel's
+    -inf scores) the running row max and the rescale 2^(m_old - m_new); p =
+    2^(s - m) in f32, added to the row sum in f32 and rounded to bf16 for
+    the PV product; o = acc / den rounded to bf16 once, and lse = (m +
+    log2 den) ln2 in f32. Returns (o, lse)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    n, L, c = q.shape
+    mx = torch.full((n, L, 1), -float("inf"))
+    den = torch.zeros((n, L, 1))
+    acc = torch.zeros((n, L, c))
+    for j in range(0, k.shape[1], tile):
+        s = (qf @ kf[:, j:j + tile].transpose(1, 2)) * LOG2E
+        mnew = torch.maximum(mx, s.amax(-1, keepdim=True))
+        scale = torch.exp2(mx - mnew)
+        p = torch.exp2(s - mnew)
+        den = den * scale + p.sum(-1, keepdim=True)
+        acc = acc * scale + p.bfloat16().float() @ vf[:, j:j + tile]
+        mx = mnew
+    return (acc / den).bfloat16(), ((mx + torch.log2(den)) * LN2)[..., 0]
+
+
+@pytest.mark.parametrize("c", [16, 32])
+def test_bf16_forward_emulation_matches_pallas_interpret(c):
+    """The bf16 forward's arithmetic (emulate_fwd_tc) against the Pallas
+    forward (interpret mode) at N=2, L=512, M=72 (a second, masked key
+    tile of 8), on the same bf16-valued inputs given as bf16 and as f32:
+    o within 2e-2 of the largest |o| (the card's bf16 tolerance) of both,
+    the bf16 run having the TPU kernel's rounding point for p (cast to v's
+    dtype before PV), the f32 run none; lse within 1e-3 of the largest
+    |lse| of the f32 logsumexp of the scores."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(7, m=72, c=c))
+    o, lse = emulate_fwd_tc(q, k, v)
+    ref = torch.logsumexp(q.float() @ k.float().transpose(1, 2), -1)
+    assert (lse - ref).abs().max() / ref.abs().max() <= 1e-3
+    for dt in (jnp.float32, jnp.bfloat16):
+        jq, jk, jv = (jnp.asarray(t.float().numpy(), dt) for t in (q, k, v))
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(pallas_pooled_attention(jq, jk, jv).astype(
+                jnp.float32))
+        err = np.abs(o.float().numpy() - want).max() / np.abs(want).max()
+        assert err <= 2e-2, (str(dt), err)
 
 
 def emulate_bwd_tc(q, k, v, o, lse, do, parts, tile=64):

@@ -12,7 +12,9 @@ element in f32 in orders of their own, and elements near zero differ by
 that order's noise alone) or rounded to bf16 (wide_fwd_skeleton: 2e-2 of
 max |ref|).
 The ladder's entry raises without a card, and the kernel wrappers refuse
-CPU tensors.
+CPU tensors. The gram27 kernel's premise (a tap's view is view 0 shifted
+by a constant row offset) is checked against ``views27``, and a numpy
+emulation of its fixed summation order against the JAX probe's t_dot.
 """
 
 import numpy as np
@@ -105,3 +107,59 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                  lambda: ml.wide_fwd_cuda(inp.w2, inp.xt)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+
+
+def test_tap_is_a_row_offset_of_view_zero():
+    """Row r of the view at shift (kd, kh, kw) is the position of row r of
+    view 0 plus (kd * 8 + kh) * 8 + kw, for all 216 rows and 27 taps: what
+    the gram27 kernel's one table of rows relies on."""
+    pos = torch.arange(ml.S ** 3, dtype=torch.float64).reshape(ml.S, ml.S,
+                                                               ml.S, 1)
+    views = ml.views27(pos.expand(-1, -1, -1, ml.C))     # [216, 27 * 32]
+    base = views[:, 0]
+    for t, (kd, kh, kw) in enumerate(ml.TAPS):
+        assert torch.equal(views[:, t * ml.C],
+                           base + (kd * ml.S + kh) * ml.S + kw), t
+    r = torch.arange(ml.V ** 3)
+    assert torch.equal(base.long(), ((r // 36) * ml.S + (r // 6) % 6) * ml.S
+                       + r % 6)
+
+
+# csrc/probe_ladder.cu gram27_kernel: the 216 rows padded to 14 k-steps of
+# 16; two groups of 4 warps, group g walking samples g, g + 2, ...; warp w
+# of a group taking k-steps [14 w / 4, 14 (w + 1) / 4)
+GRAM_STEPS, GROUP_WARPS = 14, 4
+
+
+def emulate_gram27(x: np.ndarray) -> np.ndarray:
+    """The gram27 kernel's summation order in numpy f32: each warp sums
+    one 16-row product (an mma) after another into its f32 partial, over
+    its samples in order, then over its k-steps in order; the 8 partials
+    are added in warp order (group 0's warps, then group 1's)."""
+    parts = []
+    for group in range(2):
+        for w in range(GROUP_WARPS):
+            acc = np.zeros((ml.C, 27 * ml.C), np.float32)
+            for s in range(group, x.shape[0], 2):
+                v = ml.views27(torch.from_numpy(x[s])).numpy()
+                v = np.concatenate([v, np.zeros((GRAM_STEPS * 16 - len(v),
+                                                 v.shape[1]), np.float32)])
+                for kk in range(GRAM_STEPS * w // GROUP_WARPS,
+                                GRAM_STEPS * (w + 1) // GROUP_WARPS):
+                    blk = v[kk * 16:(kk + 1) * 16]
+                    acc = acc + blk[:, :ml.C].T @ blk
+            parts.append(acc)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def test_gram27_summation_order_matches_jax_probe():
+    """The emulation of the kernel's fixed order against the JAX probe's
+    t_dot (interpret mode), within 1e-5 of its largest |value|."""
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax.jit(pm.t_dot)())
+    got = emulate_gram27(ml.inputs("cpu").x.float().numpy())
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.abs(got - want).max() / np.abs(want).max() <= ml.TOL["gram27"]

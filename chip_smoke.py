@@ -9,8 +9,10 @@ Phases, each printing its own line:
 2. build   — compiles csrc/pooled_attention.cu, conv3d_k3.cu,
              conv3d_toeplitz.cu and probe_ladder.cu with nvcc for sm_90a,
              one nvcc each, started together, and prints the kernels' ptxas
-             lines (registers, spills), each tensor-core kernel's registers
-             and spills, and fails if one spills at a flagship instance;
+             lines (registers, spills), the registers and spills of each
+             tensor-core kernel and of the ladder's wide_fwd and box_copy
+             kernels, and fails if one of them spills (the attention
+             kernels: at a flagship instance);
 3. kernels — runs the pooled-attention forward and backward kernels at the
              two shapes of the 64^3 BigGAN-Deep flagship (G: L=32768,
              M=4096, c=16; D: L=4096, M=512, c=32; N=16) in f32 and bf16
@@ -71,12 +73,15 @@ Phases, each printing its own line:
              dtype's route;
 7. probe_ladder — the 14 rungs of the Mosaic probe ladders
              (probes/mosaic_ladder.py) on the card, each held against its
-             plain version, with each kernel's launches from that run; then
+             plain version, with each kernel's launches from that run, and
+             a repeated t_fwd and t_dma2 bit-identical; then
              each rung's time per call (CUDA events) and its kernel's
              device time (a torch.profiler trace) beside its plain
              version, its bound and one PyTorch call computing the same
              thing (its time per call and its device time; a clone for
-             the rungs that copy a whole array);
+             the rungs that copy a whole array); then the bulk copy rungs'
+             device time by variants (the launch alone, + the barrier
+             init, + the copies, the whole kernel) and under other plans;
 8. the kernels JSON line, then the result line.
 
 Any failure raises and the script exits non-zero without the result line.
@@ -115,11 +120,15 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SFU_OPS = 132 * 16 * 1.98e9
 PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32))
-# Tensor-core kernel instances that must not spill (ptxas): every K3, K4
-# and K5 bf16 instance and the K1 and K2 bf16 kernels at the flagship's
-# c = 16 and 32.
+# Kernel instances that must not spill (ptxas): every K3, K4 and K5 bf16
+# instance, the K1 and K2 bf16 kernels at the flagship's c = 16 and 32,
+# and the ladder's wide_fwd and box_copy (both modes).
 NO_SPILL = re.compile(r"wide_tc_kernel|dw_tc_kernel|toeplitz_tc_kernel|"
-                      r"(fwd|bwd_\w+)_tc_kernel<(16|32)>")
+                      r"(fwd|bwd_\w+)_tc_kernel<(16|32)>|wide_fwd_kernel|"
+                      r"box_copy_kernel")
+# The kernels whose registers and spills the build phase reports: the
+# tensor-core kernels, the ladder's wide_fwd and box_copy.
+REPORTED = r"[a-z_]+_tc_kernel|wide_fwd_kernel|box_copy_kernel"
 # Off the main path, checked but not timed: every template instance of c,
 # and ragged L and M tails (neither a multiple of any tile).
 EXTRA_SHAPES = ((2, 1000, 125, 8), (3, 300, 38, 16), (1, 4133, 517, 32),
@@ -237,30 +246,35 @@ def device_ms(fn, needle: str = "", iters: int = 20, per_call: bool = False):
     missing); only the kernels that start in the marked second round,
     after the card has finished the first, are counted. 50 ms of idle on
     each side of the mark's start keep a skew between the host's and the
-    card's clocks in the trace from moving a kernel across it."""
+    card's clocks in the trace from moving a kernel across it. The
+    profiler can drop a round's kernels: up to three traces are taken
+    before None."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     mark = "chip_smoke.measured"
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        with record_function(mark):
-            time.sleep(0.05)
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-    events = prof.events()
-    cuda = torch.autograd.DeviceType.CUDA
-    start = next(e.time_range.start for e in events
-                 if e.name == mark and e.device_type != cuda)
-    us = [e.device_time_total for e in events
-          if e.device_type == cuda and e.name != mark and needle in e.name
-          and e.time_range.start >= start]
-    return sum(us) / (iters if per_call else len(us)) / 1e3 if us else None
+            time.sleep(0.05)
+            with record_function(mark):
+                time.sleep(0.05)
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        start = next(e.time_range.start for e in events
+                     if e.name == mark and e.device_type != cuda)
+        us = [e.device_time_total for e in events
+              if e.device_type == cuda and e.name != mark and needle in e.name
+              and e.time_range.start >= start]
+        if us:
+            return sum(us) / (iters if per_call else len(us)) / 1e3
+    return None
 
 
 def timings(kern, lib, iters: int) -> dict:
@@ -836,26 +850,26 @@ def ladder_phase(ml) -> list:
     if failed or not all(launches.values()):
         raise AssertionError(f"ladder rungs failed: {failed}; launches "
                              f"{launches}")
-    phase("ladder_path", rungs=len(results), launches=launches)
+    # the product's fixed-order sum and the double-buffered ring: two calls
+    # give the same bits
+    for rung in (ml.t_fwd, ml.t_dma2):
+        first, second = rung(inp), rung(inp)
+        if not torch.equal(first.view(torch.int16), second.view(torch.int16)):
+            raise AssertionError(f"{rung.__name__}: a repeat differs")
+    phase("ladder_path", rungs=len(results), launches=launches,
+          repeats_bit_identical=["t_fwd", "t_dma2"])
 
     x27 = torch.stack([ml.views27(inp.x[s]) for s in range(ml.N)])
     gram_a = torch.cat([x27[s, :, :ml.C].T for s in range(ml.N)], 1)
     gram_b = x27.reshape(-1, 27 * ml.C)
     fwd_x27 = ml.x27_fwd(inp.xt)
     flat = {"x": inp.x.reshape(-1), "xt": inp.xt.reshape(-1)}
-    boxes = {"copy": ("x", ml.WHOLE), "cost_estimate": ("x", ml.WHOLE),
-             "manual_dma": ("x", ml.WHOLE), "dma_dyn_slot": ("x", ml.WHOLE),
-             "dma_when_guard": ("x", ml.WHOLE), "dma_pds_src": ("x", ml.PDS),
-             "dma_pds_src_offset": ("x", ml.PDS_OFF),
-             "dma_double_buffer": ("x", ml.PDS),
-             "lane_value_slice": ("xt", ml.LANE),
-             "minor_slice_reshape": ("xt", ml.RESH)}
 
     def library(name):
         if name in WHOLE_COPIES:
             return inp.x.clone
-        if name in boxes:
-            src, b = boxes[name]
+        if name in ml.BOX_RUNGS:
+            src, b = ml.BOX_RUNGS[name][:2]
             return lambda: torch.as_strided(
                 flat[src], (b.n, b.a, b.b, b.length), (b.sn, b.sa, b.sb, 1),
                 b.off).contiguous()
@@ -902,15 +916,50 @@ def ladder_phase(ml) -> list:
     return cases
 
 
-def tensor_core_ptxas(lines: list) -> dict:
-    """{"<kernel>_tc_kernel[<template args>]": {"registers", "spill_stores",
-    "spill_loads"}} for each tensor-core kernel instance, from the ptxas
+def ladder_breakdown(ml) -> dict:
+    """Device µs of the bulk box rungs by variants of their plan: the
+    kernel ended at entry (the launch alone), after the barrier init, and
+    with the copies landed but not written out, beside the whole kernel;
+    then each bulk rung with its samples split over other numbers of
+    blocks (``parts`` 1, 2, 3 or 4, where they divide the box)."""
+    import torch
+
+    inp = ml.inputs("cuda")
+
+    def us(src, box, plan):
+        want = ml.box_plain(src, box)
+        if plan.stop == 0 and not torch.equal(ml.box_copy_on(src, box, plan),
+                                              want):
+            raise AssertionError(f"box_copy on {plan} differs")
+        return device_ms(lambda: ml.box_copy_on(src, box, plan),
+                         "box_copy_kernel") * 1e3
+
+    out = {}
+    for name, (src, box, walk, slots, bulk) in ml.BOX_RUNGS.items():
+        if not bulk:
+            continue
+        plan = ml.box_plan(box, walk, slots, True)
+        out[name] = {stage: us(getattr(inp, src), box,
+                               plan._replace(stop=stop))
+                     for stop, stage in ((1, "launch"), (2, "init"),
+                                         (3, "copies"), (0, "whole"))}
+        for parts in (1, 2, 3, 4):
+            if plan.dims[plan.rank - 2] % parts == 0 and parts != plan.parts:
+                out[name][f"parts_{parts}"] = us(
+                    getattr(inp, src), box,
+                    ml.box_plan(box, walk, slots, True, parts))
+    return out
+
+
+def kernel_ptxas(lines: list) -> dict:
+    """{"<kernel>[<template args>]": {"registers", "spill_stores",
+    "spill_loads"}} for each instance of a REPORTED kernel, from the ptxas
     lines (entry function, then its spill line, then its register line)."""
     out, name = {}, None
     for ln in lines:
         entry = re.search(r"entry function '(\S+)'", ln)
         if entry:
-            m = re.search(r"\D\d+([a-z_]+_tc_kernel)(?:I((?:L[ib]\d+E)+)E)?",
+            m = re.search(rf"\D\d+({REPORTED})(?:I((?:L[ib]\d+E)+)E)?",
                           entry.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else ()
             name = (m.group(1) + (f"<{','.join(args)}>" if args else "")
@@ -1313,15 +1362,17 @@ def main() -> int:
             ptxas += [ln.strip() for ln in f
                       if any(w in ln for w in ("entry function", "registers",
                                                "spill"))]
-    tc_kernels = tensor_core_ptxas(ptxas)
+    registers = kernel_ptxas(ptxas)
     phase("build", seconds=time.time() - t0,
           libraries=[os.path.relpath(lib, REPO) for lib in libs],
-          ptxas=ptxas, tensor_core_kernels=tc_kernels)
-    spills = [k for k, v in tc_kernels.items()
+          ptxas=ptxas, registers=registers)
+    spills = [k for k, v in registers.items()
               if NO_SPILL.search(k) and (v["spill_stores"] or v["spill_loads"])]
-    if spills or not tc_kernels:
-        raise AssertionError(f"tensor-core kernels spill: {spills}, or none "
-                             "found in ptxas.log")
+    missing = [k for k in ("wide_fwd_kernel", "box_copy_kernel<0>",
+                           "box_copy_kernel<1>") if k not in registers]
+    if spills or missing or not any("_tc_kernel" in k for k in registers):
+        raise AssertionError(f"kernels spill: {spills}; not in ptxas.log: "
+                             f"{missing} or no tensor-core kernel")
 
     cases = kernel_phase(ca, attention_plain)
     phase("kernel_extra", **extra_checks(ca, attention_plain))
@@ -1338,6 +1389,7 @@ def main() -> int:
     toeplitz_cases = toeplitz_phase(cc)
     phase("toeplitz_extra", **toeplitz_extra_checks(cc))
     ladder_cases = ladder_phase(ml)
+    phase("ladder_breakdown", us=ladder_breakdown(ml))
     first = next(runs[0] for name, _, runs in TRAIN_RUNS if name == KNOB_RUN)
     launches = train["%s/run_%d_%d" % (KNOB_RUN, first[1], first[0])][
         "launches"]

@@ -9,16 +9,24 @@
 //
 // Kernels, and the pallas_call sites they replace:
 // - box_copy_kernel: a copy of a box of rows (contiguous in the source) of
-//   a tensor into a contiguous output. Direct mode: 16-byte loads where
-//   the rows allow it, else 2-byte ones (copy :48, cost_estimate :301;
+//   a tensor into a contiguous output, on a launch plan computed by the
+//   host (probes/mosaic_ladder.py box_plan: the source-contiguous rows
+//   merged, the grid, the box as a tensor for the copy unit). Direct mode:
+//   a grid over (unit chunk, row chunk, sample); each thread decomposes
+//   its one row once, in 32 bits, and issues all of its one or two 16-byte
+//   loads before its first store; rows that start off 16 bytes are read as
+//   aligned 4-byte words and shifted (copy :48, cost_estimate :301;
 //   lane_value_slice probe_mosaic2.py:38, minor_slice_reshape :56). Bulk
-//   mode: one thread (the pl.when guard) arms an mbarrier with the box's
-//   bytes and issues one cp.async.bulk global->shared copy per row into a
-//   1- or 2-slot ring; the block waits on the barrier's phase, then
-//   writes the slot out (manual_dma :66, dma_dyn_slot :220, dma_when_guard
-//   :246, dma_pds_src :267, dma_pds_src_offset :289, dma_double_buffer
-//   :99, the last with one block walking both samples and the next
-//   sample's copy in flight while the current one is written).
+//   mode: one thread (the pl.when guard) arms an mbarrier with a sample's
+//   bytes and issues one bulk tensor copy (cp.async.bulk.tensor, the map
+//   encoded by the launcher) into a 1- or 2-slot ring, the slot of sample
+//   i being i % slots; the block waits on the barrier's phase and the
+//   thread writes the slot out with one bulk shared->global copy
+//   (manual_dma :66, dma_dyn_slot :220, dma_when_guard :246, dma_pds_src
+//   :267, dma_pds_src_offset :289: a sample split over blocks of >= 2 KB,
+//   each with its own ring and barrier; dma_double_buffer :99: one block
+//   walks both samples, the next sample's copy in flight while the
+//   current one is written out).
 // - im2col27_kernel: the 27 shifted 6^3 views of one staged 8^3 x 32
 //   sample concatenated along the lanes into [216, 864] (lane_concat27
 //   :121).
@@ -31,17 +39,22 @@
 //   (wide_dot_accum :153 with the samples staged by plain loads;
 //   dw_skeleton :199 through the double-buffered bulk-copy ring).
 // - wide_fwd_kernel: per sample W2 [8, 432] @ X27 [432, 128] -> bf16
-//   [8, 128], the same tensor-core product (wide_fwd_skeleton
+//   [8, 128] as the swapped product out^T = X27^T W2^T on the tensor cores:
+//   the 128 positions are m (one m16 tile a warp), the 8 rows of W2 one n8
+//   tile; the sample restaged channels-innermost, so a tap is a constant
+//   row offset and both operands come by ldmatrix (wide_fwd_skeleton
 //   probe_mosaic2.py:83).
 //
 // What bounds them: nothing at these sizes; a few microseconds of launch
-// each (the largest moves 373 KB, the largest product is 12 MFLOP). They
-// exist to hold each construct against a plain PyTorch version.
+// and latency each (the largest moves 64 KB, the largest product is 12
+// MFLOP). They exist to hold each construct against a plain PyTorch
+// version.
 // Each entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for arguments it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>  // CUtensorMap, the encoder's type
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
@@ -60,10 +73,29 @@ constexpr int kXT = kCi * kDD * (kH + 2) * (kW + 2); // 3200 values
 constexpr int kM2 = 8, kK2 = 27 * kCi, kN2 = kDD * kH * kW;  // 8, 432, 128
 constexpr int kMaxSmem = 227 * 1024;
 
-struct Box {          // rows of `len` values at off + i*sn + j*sa + k*sb
-  long long off, sn, sa, sb;
-  int n, a, b, len;
+// A box copy's launch plan, field for field probes/mosaic_ladder.py's
+// Plan (built there by box_plan): row (j, k) of sample s of the box,
+// source-contiguous rows already merged, holds `len` values from element
+// off + s sn + j sa + k sb; out is [n][rows][len], contiguous. Direct mode
+// (bulk 0): threads a block, 2^tx_log2 of them along a row and the rest
+// over rows, each moving `items` 16-byte units of its row. Bulk mode: the
+// box as a tensor of `rank` dims from element off (innermost first, the
+// last the samples; extents `dims`, element strides `strides` of dims
+// 1.., padded to 5 dims), a block's share of a sample the sub-box `box`,
+// the sample split over `parts` blocks along its outermost dim (rank - 2),
+// each block
+// walking `walk` samples through its ring of `slots` slots. grid_* is the
+// launch grid. `stop` (bulk mode, for measurement; 0 otherwise) ends the
+// kernel early: 1 at entry (the launch alone), 2 after the barrier init,
+// 3 with the copy landed but not written out.
+struct Plan {
+  int n, off, sn, sa, sb, b, rows, len;
+  int bulk, threads, tx_log2, items;
+  int rank, parts, walk, slots;
+  int dims[5], strides[4], box[5];
+  int grid_x, grid_y, grid_z, stop;
 };
+constexpr int kMaxItems = 2;
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
@@ -90,9 +122,11 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   return done != 0;
 }
 
+// A copy that never lands (a fault of the async unit) traps after 2^22
+// tries, far past any real wait, instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
+  for (int tries = 0; !mbar_try_wait(bar, parity);)
+    if (++tries == 1 << 22) __trap();
 }
 
 // One bulk copy global -> shared, completing `bytes` on the barrier.
@@ -114,89 +148,141 @@ __device__ __forceinline__ void init_barriers(uint64_t* bar, int count) {
   __syncthreads();
 }
 
-// Generic-proxy reads of a slot are done before the async proxy refills it.
-__device__ __forceinline__ void release_slot() {
-  __syncthreads();
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+// Sample s's share of block `part` (the sub-box at coordinate part * box[d]
+// of its outermost dim d) by one tensor copy into `slot`, completing on
+// `bar`, which the calling thread arms with its bytes first.
+__device__ __forceinline__ void issue_box(const CUtensorMap* tmap,
+                                          const Plan& p, int s, int part,
+                                          uint32_t bytes, unsigned char* slot,
+                                          uint64_t* bar) {
+  int c[5] = {0, 0, 0, 0, 0};
+  c[p.rank - 2] = part * p.box[p.rank - 2];
+  c[p.rank - 1] = s;
+  mbar_expect_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];" ::"r"(
+          tc::smem_addr(slot)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c[0]), "r"(c[1]), "r"(c[2]),
+      "r"(c[3]), "r"(c[4]), "r"(tc::smem_addr(bar))
+      : "memory");
 }
 
-// Thread 0: arm slot `slot` for sample `s` of the box and issue its rows.
-__device__ void issue_box(const uint16_t* src, const Box& bx, int s,
-                          unsigned char* ring, uint32_t slot_bytes,
-                          uint64_t* bar, int slot) {
-  const uint32_t row_bytes = (uint32_t)bx.len * 2;
-  const int rows = bx.a * bx.b;
-  mbar_expect_tx(bar + slot, row_bytes * rows);
-  unsigned char* dst = ring + (size_t)slot * slot_bytes;
-  for (int r = 0; r < rows; ++r) {
-    const long long at = bx.off + s * bx.sn + (long long)(r / bx.b) * bx.sa +
-                         (long long)(r % bx.b) * bx.sb;
-    bulk_copy(dst + (size_t)r * row_bytes, src + at, row_bytes, bar + slot);
-  }
+// One bulk copy shared -> global of `bytes` (a multiple of 16), in this
+// thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "fence.proxy.async.shared::cta;\n"
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;" ::"l"(dst),
+      "r"(tc::smem_addr(src)), "r"(bytes)
+      : "memory");
 }
 
-// Copy `bytes` (a multiple of 16) from shared to global memory.
-__device__ __forceinline__ void store16(const unsigned char* from, void* to,
-                                        uint32_t bytes) {
-  const uint4* f = reinterpret_cast<const uint4*>(from);
-  uint4* o = reinterpret_cast<uint4*>(to);
-  for (uint32_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) o[i] = f[i];
+// This thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Eight bf16 values that start `half` (0 or 1) values into word w[0].
+__device__ __forceinline__ uint4 shifted(const uint32_t* w, bool half) {
+  if (!half) return make_uint4(w[0], w[1], w[2], w[3]);
+  return make_uint4(__funnelshift_r(w[0], w[1], 16),
+                    __funnelshift_r(w[1], w[2], 16),
+                    __funnelshift_r(w[2], w[3], 16),
+                    __funnelshift_r(w[3], w[4], 16));
 }
 
 // ---------------------------------------------------------------------------
-// box copy: grid bx.n / walk blocks, block b handles samples
-// [b*walk, (b+1)*walk). Output [n][a][b][len], contiguous.
+// box copy on plan p. Direct: block (unit chunk, row chunk, sample); a
+// thread takes one row and `items` of its 16-byte units, 2^tx_log2 apart.
+// Bulk: block (part, group of `walk` samples), one warp; thread 0 (the
+// guard) issues each sample's tensor copy (tmap: the box as a tensor) and
+// its one bulk write-out; every thread waits on the barrier's phase.
 template <bool kBulk>
 __global__ void box_copy_kernel(const uint16_t* __restrict__ src,
-                                uint16_t* __restrict__ out, Box bx, int walk,
-                                int slots, int vec) {
-  const int rows = bx.a * bx.b;
-  const long long box = (long long)rows * bx.len;
-  const int s0 = blockIdx.x * walk;
+                                uint16_t* __restrict__ out, const Plan p,
+                                const __grid_constant__ CUtensorMap tmap) {
   if (!kBulk) {
-    for (int j = 0; j < walk; ++j) {
-      const int s = s0 + j;
-      uint16_t* o = out + s * box;
-      if (vec) {  // rows and offsets in whole 16-byte units
-        const int per_row = bx.len / 8;
-        for (long long i = threadIdx.x; i < box / 8; i += blockDim.x) {
-          const int r = (int)(i / per_row), e = (int)(i % per_row) * 8;
-          const long long at = bx.off + s * bx.sn +
-                               (long long)(r / bx.b) * bx.sa +
-                               (long long)(r % bx.b) * bx.sb + e;
-          reinterpret_cast<uint4*>(o)[i] =
-              *reinterpret_cast<const uint4*>(src + at);
-        }
-      } else {
-        for (long long i = threadIdx.x; i < box; i += blockDim.x) {
-          const int r = (int)(i / bx.len), e = (int)(i % bx.len);
-          o[i] = src[bx.off + s * bx.sn + (long long)(r / bx.b) * bx.sa +
-                     (long long)(r % bx.b) * bx.sb + e];
+    const int r = blockIdx.y * (p.threads >> p.tx_log2) +
+                  (threadIdx.x >> p.tx_log2);
+    if (r >= p.rows) return;
+    const int s = blockIdx.z, units = p.len / 8;
+    const int j = r / p.b;  // the row's one decomposition
+    const int at = p.off + s * p.sn + j * p.sa + (r - j * p.b) * p.sb;
+    const int e0 = (blockIdx.x * p.items << p.tx_log2) +
+                   (threadIdx.x & ((1 << p.tx_log2) - 1));
+    uint4 v[kMaxItems];
+    // every load of the thread goes out before its first store
+    if (at % 8 == 0) {  // a 16-byte aligned row
+      const uint4* g = reinterpret_cast<const uint4*>(src + at);
+#pragma unroll
+      for (int m = 0; m < kMaxItems; ++m) {
+        const int e = e0 + (m << p.tx_log2);
+        if (m < p.items && e < units) v[m] = __ldg(g + e);
+      }
+    } else {  // aligned 4-byte words, shifted by the row's odd value
+      const uint32_t* g = reinterpret_cast<const uint32_t*>(src + (at & ~1));
+      const bool half = at & 1;
+#pragma unroll
+      for (int m = 0; m < kMaxItems; ++m) {
+        const int e = e0 + (m << p.tx_log2);
+        if (m < p.items && e < units) {
+          uint32_t w[5];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w[i] = __ldg(g + 4 * e + i);
+          w[4] = half ? __ldg(g + 4 * e + 4) : 0u;
+          v[m] = shifted(w, half);
         }
       }
     }
+    uint4* o = reinterpret_cast<uint4*>(out + (s * p.rows + r) * p.len);
+#pragma unroll
+    for (int m = 0; m < kMaxItems; ++m) {
+      const int e = e0 + (m << p.tx_log2);
+      if (m < p.items && e < units) o[e] = v[m];
+    }
     return;
   }
+  if (p.stop == 1) return;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   unsigned char* ring = smem + 128;
-  const uint32_t box_bytes = (uint32_t)box * 2;
-  const uint32_t slot_bytes = (box_bytes + 127) & ~127u;
-  init_barriers(bar, slots);
+  const int part = blockIdx.x, s0 = blockIdx.y * p.walk;
+  const int vals = p.box[0] * p.box[1] * p.box[2] * p.box[3] * p.box[4];
+  const uint32_t bytes = (uint32_t)vals * 2;
+  const uint32_t slot_bytes = (bytes + 127) & ~127u;
+  init_barriers(bar, p.slots);
+  if (p.stop == 2) return;
   if (threadIdx.x == 0)
-    issue_box(src, bx, s0, ring, slot_bytes, bar, s0 % slots);
-  for (int j = 0; j < walk; ++j) {
-    const int s = s0 + j, slot = s % slots;
-    // double buffering: the next sample's copy goes into the other slot
-    // before this one is waited for
-    if (slots == 2 && j + 1 < walk && threadIdx.x == 0)
-      issue_box(src, bx, s + 1, ring, slot_bytes, bar, (s + 1) % slots);
-    mbar_wait(bar + slot, (uint32_t)(j / slots) & 1);
-    store16(ring + (size_t)slot * slot_bytes, out + s * box, box_bytes);
-    release_slot();
-    if (slots == 1 && j + 1 < walk && threadIdx.x == 0)
-      issue_box(src, bx, s + 1, ring, slot_bytes, bar, 0);
+    issue_box(&tmap, p, s0, part, bytes, ring + (s0 % p.slots) * slot_bytes,
+              bar + s0 % p.slots);
+  for (int j = 0; j < p.walk; ++j) {
+    const int s = s0 + j, slot = s % p.slots;
+    // every thread is past its last wait, so a barrier may be re-armed
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      // one slot: this sample's copy once the last write-out has read it
+      if (p.slots == 1 && j > 0) {
+        bulk_wait_read();
+        issue_box(&tmap, p, s, part, bytes, ring, bar);
+      }
+      // double buffering: the next sample's copy goes into the other slot
+      // (its last write-out has read it) before this one is waited for
+      if (p.slots == 2 && j + 1 < p.walk) {
+        bulk_wait_read();
+        issue_box(&tmap, p, s + 1, part, bytes,
+                  ring + (1 - slot) * slot_bytes, bar + 1 - slot);
+      }
+    }
+    mbar_wait(bar + slot, (uint32_t)(j / p.slots) & 1);
+    if (threadIdx.x == 0 && p.stop != 3)
+      bulk_store(out + ((size_t)s * p.rows * p.len + (size_t)part * vals),
+                 ring + slot * slot_bytes, bytes);
   }
+  // the shared memory lives until the write-outs have read it
+  if (threadIdx.x == 0) bulk_wait_read();
 }
 
 // ---------------------------------------------------------------------------
@@ -421,57 +507,120 @@ gram27_kernel(const uint16_t* __restrict__ x, float* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// wide_fwd: grid nsamples, 4 warps; warp w computes columns w*32 .. +32
-// (4 n8 tiles) of out[s] = W2 [8, 432] @ X27 [432, 128], X27[tap*16 + ci,
-// (dd*8 + h)*8 + w] = xt[s, ci, dd, kh + h, kw + w]; K steps of 16 are the
-// 27 taps. A's rows 8..15 are zero; out is bf16 [nsamples, 8, 128].
-__global__ void __launch_bounds__(128)
+// wide_fwd: out[s] = W2 [8, 432] @ X27 [432, 128], X27[tap*16 + ci,
+// (dd*8 + h)*8 + w] = xt[s, ci, dd, kh + h, kw + w] (every kd reads the same
+// xt), computed swapped: out[s]^T [128, 8] = X27^T W2^T, m = the 128
+// positions (8 m16 tiles), n = the 8 rows of W2 (one n8 tile), k = 27
+// taps x 16 ci. Grid nsamples, 8 warps; warp w takes m tile w (dd = w / 4,
+// h = 2 (w % 4) + 0..1, w 0..7).
+// - Staging: W2 and the sample by 16-byte cp.async, all in flight at once;
+//   W2's rows 55 units apart (rows 7 bank groups apart: B's ldmatrix reads
+//   8 rows conflict-free); the sample then restaged channels-innermost,
+//   [dd][h+2][w+2][16 ci] (32 bytes a position) from pairs of positions
+//   read as 4-byte words and split by byte permutes.
+// - A tap (kh, kw) is the constant row offset kh*10 + kw of the staged
+//   sample, so A (16 positions x 16 ci) comes by ldmatrix from rows of
+//   consecutive positions; chunk c of row r is unit 2r + (c ^ (r/4 & 1)),
+//   which puts any 8 consecutive rows in 8 bank groups.
+// - The taps kd*9 + t share A: one ldmatrix, three mma, each kd into its own
+//   f32 accumulator (chains of 9); the three are added in kd order and
+//   rounded once to bf16. B (W2's 27 k-steps, 54 registers) is loaded
+//   once by ldmatrix before the products.
+// - Out: the bf16 [8][128] tile through shared memory (rows 136 values
+//   apart), written with 16-byte stores.
+constexpr int kPos = kDD * (kH + 2) * (kW + 2);  // 200 padded positions
+constexpr int kW2Units = kK2 / 8;                // 54 units a row of W2
+constexpr int kW2Stride = kW2Units + 1;          // 55
+constexpr int kOutStride = kN2 + 8;              // 136 values
+constexpr int kFwdThreads = 256;
+
+__device__ __forceinline__ int fwd_swz(int r, int c) {
+  return 2 * r + (c ^ ((r >> 2) & 1));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(tc::smem_addr(p))
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kFwdThreads)
 wide_fwd_kernel(const uint16_t* __restrict__ w2,
                 const uint16_t* __restrict__ xt, uint16_t* __restrict__ out) {
-  __shared__ uint16_t ws[kM2 * kK2];
-  __shared__ uint16_t xs[kXT];
-  const int s = blockIdx.x;
-  for (int i = threadIdx.x; i < kM2 * kK2; i += blockDim.x) ws[i] = w2[i];
-  for (int i = threadIdx.x; i < kXT; i += blockDim.x)
-    xs[i] = xt[(long long)s * kXT + i];
+  __shared__ uint4 ws[kM2 * kW2Stride];
+  __shared__ uint4 raw[kXT / 8];
+  __shared__ uint4 xs[2 * kPos];
+  __shared__ uint4 os[kM2 * kOutStride / 8];
+  const int s = blockIdx.x, t = threadIdx.x;
+  const uint4* wg = reinterpret_cast<const uint4*>(w2);
+  const uint4* xg = reinterpret_cast<const uint4*>(xt) + s * (kXT / 8);
+#pragma unroll
+  for (int u = t; u < kM2 * kW2Units; u += kFwdThreads)
+    tc::cp_async16(ws + (u / kW2Units) * kW2Stride + u % kW2Units, wg + u);
+#pragma unroll
+  for (int u = t; u < kXT / 8; u += kFwdThreads)
+    tc::cp_async16(raw + u, xg + u);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
   __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  // restage: thread t < 200 takes positions p, p + 1 (p even) and ci
+  // half*8 .. +8: eight words of two positions each, one ci a word
+  if (t < kPos) {
+    const int p = 2 * (t % (kPos / 2)), half = t / (kPos / 2);
+    const uint32_t* r32 = reinterpret_cast<const uint32_t*>(raw);
+    uint32_t v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = r32[((half * 8 + i) * kPos + p) / 2];
+    xs[fwd_swz(p, half)] =
+        make_uint4(__byte_perm(v[0], v[1], 0x5410),
+                   __byte_perm(v[2], v[3], 0x5410),
+                   __byte_perm(v[4], v[5], 0x5410),
+                   __byte_perm(v[6], v[7], 0x5410));
+    xs[fwd_swz(p + 1, half)] =
+        make_uint4(__byte_perm(v[0], v[1], 0x7632),
+                   __byte_perm(v[2], v[3], 0x7632),
+                   __byte_perm(v[4], v[5], 0x7632),
+                   __byte_perm(v[6], v[7], 0x7632));
+  }
+  __syncthreads();
+
+  const int lane = t % 32, warp = t / 32;
+  // B: ldmatrix tile i of a pair of k-steps is (W2 row lane % 8, step
+  // k + i / 2, half i % 2), so the registers are b0, b1 of step k, then of
+  // step k + 1
+  uint32_t b[27][2];
+  const uint4* wrow = ws + (lane % 8) * kW2Stride + (lane >> 3);
+#pragma unroll
+  for (int k = 0; k + 1 < 27; k += 2) tc::ldsm_x4(b[k], wrow + 2 * k);
+  ldsm_x2(b[26], wrow + 2 * 26);
+  // A: tile i = (positions 8 (i & 1) + lane % 8, ci half i >> 1)
+  const int tile = lane >> 3;
+  const int r0 = ((warp >> 2) * (kH + 2) + (warp & 3) * 2 + (tile & 1)) *
+                     (kW + 2) + (lane & 7);
+  float acc[3][4] = {};
+#pragma unroll
+  for (int t9 = 0; t9 < 9; ++t9) {
+    uint32_t a[4];
+    tc::ldsm_x4(a, xs + fwd_swz(r0 + (t9 / 3) * (kW + 2) + t9 % 3, tile >> 1));
+#pragma unroll
+    for (int kd = 0; kd < 3; ++kd) tc::mma(acc[kd], a, b[kd * 9 + t9]);
+  }
+
+  // C: (position g (+8), W2 row 2q (+1)) -> os[row][position], bf16
+  uint16_t* o16 = reinterpret_cast<uint16_t*>(os);
   const int g = lane / 4, q = lane % 4;
-  float acc[4][4] = {};
-  for (int tap = 0; tap < 27; ++tap) {
-    const int kh = (tap / 3) % 3, kw = tap % 3;
-    const int k0 = tap * kCi;
-    // A: row g of W2 (rows 8..15 are zero)
-    const uint32_t a[4] = {
-        tc::pack_raw(ws[g * kK2 + k0 + 2 * q], ws[g * kK2 + k0 + 2 * q + 1]),
-        0u,
-        tc::pack_raw(ws[g * kK2 + k0 + 2 * q + 8],
-                     ws[g * kK2 + k0 + 2 * q + 9]),
-        0u};
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n = warp * 32 + nt * 8 + g;
-      const int dd = n / (kH * kW), h = (n / kW) % kH, w = n % kW;
-      uint16_t bv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ci = 2 * q + (e & 1) + (e >> 1) * 8;
-        bv[e] = xs[((ci * kDD + dd) * (kH + 2) + kh + h) * (kW + 2) + kw + w];
-      }
-      const uint32_t b[2] = {tc::pack_raw(bv[0], bv[1]),
-                             tc::pack_raw(bv[2], bv[3])};
-      tc::mma(acc[nt], a, b);
-    }
+  for (int e = 0; e < 4; ++e) {
+    const float v = (acc[0][e] + acc[1][e]) + acc[2][e];
+    o16[(2 * q + (e & 1)) * kOutStride + warp * 16 + g + (e >> 1) * 8] =
+        __bfloat16_as_ushort(__float2bfloat16_rn(v));
   }
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {  // rows g (< 8); rows g + 8 are padding
-      const int n = warp * 32 + nt * 8 + 2 * q + e;
-      out[((long long)s * kM2 + g) * kN2 + n] =
-          __bfloat16_as_ushort(__float2bfloat16_rn(acc[nt][e]));
-    }
-  }
+  __syncthreads();
+  if (t < kM2 * kN2 / 8)
+    reinterpret_cast<uint4*>(out)[s * (kM2 * kN2 / 8) + t] =
+        os[(t / (kN2 / 8)) * (kOutStride / 8) + t % (kN2 / 8)];
 }
 
 bool smem_ok(const void* kernel, size_t bytes) {
@@ -482,38 +631,91 @@ bool smem_ok(const void* kernel, size_t bytes) {
                               (int)bytes) == cudaSuccess;
 }
 
+// cuTensorMapEncodeTiled, looked up once through the runtime's
+// cudaGetDriverEntryPoint (so nothing links against libcuda), or null.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  return encode;
+}
+
+// The box of plan p in src as a tensor map, 5 dims of 16-bit values.
+bool encode_box(const uint16_t* src, const Plan& p, CUtensorMap* tmap) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return false;
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t box[5], step[5];
+  for (int d = 0; d < 5; ++d) {
+    dims[d] = (cuuint64_t)p.dims[d];
+    box[d] = (cuuint32_t)p.box[d];
+    step[d] = 1;
+    if (d < 4) strides[d] = (cuuint64_t)p.strides[d] * 2;
+  }
+  return encode(tmap, CU_TENSOR_MAP_DATA_TYPE_UINT16, 5,
+                const_cast<uint16_t*>(src + p.off), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
 
-// out [n, a, b, len] = the box of src (bf16 values); mode 0: direct loads
-// (vec 1: 16-byte ones), mode 1: bulk copies into a ring of `slots` (1 or
-// 2) slots, each block walking `walk` samples.
-int ladder_box(const void* src, void* out, long long off, long long sn,
-               long long sa, long long sb, int n, int a, int b, int len,
-               int walk, int slots, int mode, int vec, void* stream) {
-  if (n < 1 || a < 1 || b < 1 || len < 1 || walk < 1 || n % walk ||
-      slots < 1 || slots > 2)
+// out [n, rows, len] = the box of src (bf16 values) on `plan` (a Plan: a
+// void pointer, since a type of the unnamed namespace in the signature
+// would make the entry point internal).
+int ladder_box(const void* src, void* out, const void* plan, void* stream) {
+  const Plan p = *static_cast<const Plan*>(plan);
+  if (p.n < 1 || p.rows < 1 || p.len < 8 || p.len % 8 || p.b < 1 ||
+      p.off < 0 || p.sn < 0 || p.sa < 0 || p.sb < 0 || p.threads < 32 ||
+      p.threads > 1024 || p.threads % 32 || p.grid_x < 1 || p.grid_y < 1 ||
+      p.grid_z < 1 || p.stop < 0 || p.stop > 3 || (!p.bulk && p.stop) ||
+      (long long)p.n * p.rows * p.len > INT32_MAX)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.grid_x, p.grid_y, p.grid_z);
   cudaStream_t st = (cudaStream_t)stream;
-  const Box bx{off, sn, sa, sb, n, a, b, len};
   const uint16_t* s = static_cast<const uint16_t*>(src);
   uint16_t* o = static_cast<uint16_t*>(out);
-  if (mode == 0) {
-    if (vec && (len % 8 || off % 8 || sn % 8 || sa % 8 || sb % 8))
+  CUtensorMap tmap{};
+  if (!p.bulk) {
+    if (p.tx_log2 < 0 || (1 << p.tx_log2) > p.threads || p.items < 1 ||
+        p.items > kMaxItems || p.grid_z != p.n)
       return (int)cudaErrorInvalidValue;
-    box_copy_kernel<false><<<n / walk, 256, 0, st>>>(s, o, bx, walk, slots,
-                                                      vec);
+    box_copy_kernel<false><<<grid, p.threads, 0, st>>>(s, o, p, tmap);
     return (int)cudaGetLastError();
   }
-  if (mode != 1 || (len * 2) % 16 || (off * 2) % 16 || (sn * 2) % 16 ||
-      (sa * 2) % 16 || (sb * 2) % 16)
+  // the tensor: 16-byte aligned base, strides and inner box rows; the box
+  // a sample's, split over `parts` blocks along its outermost dim, one
+  // sample deep
+  long long vals = 1;
+  bool ok = p.rank >= 2 && p.rank <= 5 && p.parts >= 1 && p.walk >= 1 &&
+            p.n % p.walk == 0 && p.slots >= 1 && p.slots <= 2 &&
+            p.off % 8 == 0 && p.box[0] % 8 == 0 && p.grid_x == p.parts &&
+            p.grid_y == p.n / p.walk && p.grid_z == 1 &&
+            p.dims[p.rank - 1] == p.n && p.box[p.rank - 1] == 1;
+  for (int d = 0; d < 5 && ok; ++d) {
+    ok = p.box[d] >= 1 && p.box[d] <= 256 &&
+         (d >= 4 || p.strides[d] % 8 == 0) &&
+         (d == p.rank - 1 ||
+          p.dims[d] == p.box[d] * (d == p.rank - 2 ? p.parts : 1));
+    vals *= p.box[d];
+  }
+  if (!ok || vals * p.parts != (long long)p.rows * p.len)
     return (int)cudaErrorInvalidValue;
-  const size_t slot_bytes = ((size_t)a * b * len * 2 + 127) & ~(size_t)127;
-  const size_t smem = 128 + slots * slot_bytes;
-  if (!smem_ok((const void*)box_copy_kernel<true>, smem))
+  const size_t smem =
+      128 + p.slots * ((size_t)(vals * 2 + 127) & ~(size_t)127);
+  if (!encode_box(s, p, &tmap) ||
+      !smem_ok((const void*)box_copy_kernel<true>, smem))
     return (int)cudaErrorInvalidValue;
-  box_copy_kernel<true><<<n / walk, 256, smem, st>>>(s, o, bx, walk, slots, 0);
+  box_copy_kernel<true><<<grid, p.threads, smem, st>>>(s, o, p, tmap);
   return (int)cudaGetLastError();
 }
 
@@ -553,7 +755,7 @@ int ladder_gram(const void* x, void* out, int nsamples, int mode,
 int ladder_wide_fwd(const void* w2, const void* xt, void* out, int nsamples,
                     void* stream) {
   if (nsamples < 1) return (int)cudaErrorInvalidValue;
-  wide_fwd_kernel<<<nsamples, 128, 0, (cudaStream_t)stream>>>(
+  wide_fwd_kernel<<<nsamples, kFwdThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint16_t*>(w2), static_cast<const uint16_t*>(xt),
       static_cast<uint16_t*>(out));
   return (int)cudaGetLastError();

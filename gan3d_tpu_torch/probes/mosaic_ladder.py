@@ -12,11 +12,14 @@ same numpy seeds), through one of four hand-written kernels in
 ``gan3d_tpu_torch/csrc/probe_ladder.cu`` that plays the TPU construct's
 part (the file's header says which):
 
-- box_copy: copy, cost_estimate (``CostEstimate`` has no CUDA counterpart:
-  the copy kernel), lane_value_slice and minor_slice_reshape by direct
-  loads; manual_dma, dma_dyn_slot, dma_when_guard, dma_pds_src,
-  dma_pds_src_offset and dma_double_buffer by bulk async copies completed
-  on an mbarrier, into a 1- or 2-slot ring;
+- box_copy, on a launch plan from ``box_plan`` (the box's
+  source-contiguous rows merged, the grid, the box as a tensor for the
+  copy unit): copy, cost_estimate (``CostEstimate`` has no CUDA
+  counterpart: the copy kernel), lane_value_slice and minor_slice_reshape
+  by direct loads; manual_dma, dma_dyn_slot, dma_when_guard, dma_pds_src,
+  dma_pds_src_offset and dma_double_buffer by bulk tensor copies completed
+  on an mbarrier, into a 1- or 2-slot ring, each slot written out by one
+  bulk copy;
 - im2col27: lane_concat27;
 - gram27: wide_dot_accum and dw_skeleton (staged through the
   double-buffered bulk-copy ring), bf16 tensor-core products, f32 sums;
@@ -41,6 +44,7 @@ when there is no CUDA device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import sys
 import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -116,6 +120,157 @@ RESH = Box(XT_SAMPLE + (W + 2) + 2, 1, CI * DD, H, W, XT_SAMPLE,
            (H + 2) * (W + 2), W + 2)
 
 
+class Plan(NamedTuple):
+    """box_copy_kernel's launch plan (csrc/probe_ladder.cu ``Plan``, field
+    for field). Row (j, k) of sample s, after merging the box's
+    source-contiguous rows, holds ``length`` values from element off +
+    s*sn + j*sa + k*sb, j < rows / b, k < b; the output is [n, rows,
+    length]. Direct (``bulk`` 0): blocks of ``threads``, 2**tx_log2 of them
+    along a row and the rest over rows, each moving ``items`` 16-byte units
+    of its row. Bulk: the box as a tensor of ``rank`` dims from element off
+    (innermost first, the last the samples; extents ``dims``, element
+    strides ``strides`` of dims 1.., padded to 5 dims), a block's share of
+    a sample the sub-box ``box``, the sample split over ``parts`` blocks
+    along its outermost dim (rank - 2), each block (one warp) walking
+    ``walk`` samples through a ring of ``slots`` slots. grid_* is the
+    launch grid. ``stop`` (bulk, for measurement) ends the kernel early: 1
+    at entry, 2 after the barrier init, 3 with the copy landed but not
+    written out."""
+    n: int
+    off: int
+    sn: int
+    sa: int
+    sb: int
+    b: int
+    rows: int
+    length: int
+    bulk: int
+    threads: int
+    tx_log2: int
+    items: int
+    rank: int
+    parts: int
+    walk: int
+    slots: int
+    dims: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    box: Tuple[int, ...]
+    grid_x: int
+    grid_y: int
+    grid_z: int
+    stop: int = 0
+
+
+DIRECT_THREADS = 128   # a direct block
+MAX_ITEMS = 2          # 16-byte units a direct thread moves (kMaxItems)
+TENSOR_BOX = 256       # the most values of a tensor copy's box along a dim
+# Where a block takes one sample (walk 1), the sample is split over as many
+# blocks of at least BLOCK_BYTES as its outermost dim allows: the copies'
+# landing and write-out on one SM are what a bulk rung waits for (PERF.md
+# section 6), and more SMs share them.
+BLOCK_BYTES = 2048
+MAX_SMEM = 227 * 1024
+
+
+def merged_rows(box: Box) -> Tuple[int, int, int, int, int]:
+    """(a, b, length, sa, sb) of the box with source-contiguous rows merged:
+    the b rows of a j-plane when sb == length, then the a planes when they
+    are contiguous in turn."""
+    a, b, length, sa, sb = box.a, box.b, box.length, box.sa, box.sb
+    if b > 1 and sb == length:
+        length, b, sb = length * b, 1, 0
+    if b == 1 and a > 1 and sa == length:
+        length, a, sa = length * a, 1, 0
+    return a, b, length, sa, sb
+
+
+def tensor_dims(box: Box) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(extents, element strides of dims 1..) of the box as a tensor for
+    the copy unit, innermost first: a merged row cut into rows of at most
+    TENSOR_BOX values, then the b rows, the a planes, the samples; dims of
+    extent 1 dropped. Raises where a dim would pass TENSOR_BOX."""
+    a, b, length, sa, sb = merged_rows(box)
+    inner = min(length, TENSOR_BOX)
+    if length % inner:
+        raise ValueError(f"box_copy kernel: rows of {length} values do not "
+                         f"cut into rows of {TENSOR_BOX}")
+    dims = [(inner, 1)] + [(e, st) for e, st in ((length // inner, inner),
+                                                 (b, sb), (a, sa)) if e > 1]
+    if any(e > TENSOR_BOX for e, _ in dims):
+        raise ValueError(f"box_copy kernel: {box} has a dim past "
+                         f"{TENSOR_BOX} values")
+    dims.append((box.n, box.sn))
+    return tuple(e for e, _ in dims), tuple(st for _, st in dims[1:])
+
+
+def _divisors(m: int):
+    return [d for d in range(1, m + 1) if m % d == 0]
+
+
+@functools.lru_cache(maxsize=None)
+def box_plan(box: Box, walk: int = 1, slots: int = 1, bulk: bool = False,
+             parts: Optional[int] = None) -> Plan:
+    """The launch plan of the box: direct loads (``walk`` and ``slots`` 1),
+    or one tensor copy a block and sample into a ring of ``slots``, a
+    sample split over ``parts`` blocks along its outermost dim (by
+    default 1 where a block walks several samples, else as many blocks of
+    at least BLOCK_BYTES as divide that dim; other values for
+    measurements). Raises on a box the kernel does not take: rows not
+    whole 16-byte units, element offsets past 32 bits, tensor copies off
+    16 bytes."""
+    a, b, length, sa, sb = merged_rows(box)
+    rows = a * b
+    last = (box.off + (box.n - 1) * box.sn + (box.a - 1) * box.sa
+            + (box.b - 1) * box.sb + box.length)
+    if length % 8 or min(box.off, box.sn, box.sa, box.sb) < 0 \
+            or max(last, box.n * box.sn, box.n * rows * length) >= 2 ** 31:
+        raise ValueError(f"box_copy kernel: {box} is not rows of whole "
+                         "16-byte units within 32-bit offsets")
+    if not bulk:
+        if walk != 1 or slots != 1 or parts not in (None, 1):
+            raise ValueError("box_copy kernel: walk, slots and parts are "
+                             "bulk-mode parameters")
+        units = length // 8
+        tx = min(1 << (units - 1).bit_length(), DIRECT_THREADS)
+        items = min(MAX_ITEMS, -(-units // tx))
+        return Plan(box.n, box.off, box.sn, sa, sb, b, rows, length, 0,
+                    DIRECT_THREADS, tx.bit_length() - 1, items, 0, 1, 1, 1,
+                    (1,) * 5, (0,) * 4, (1,) * 5,
+                    -(-units // (tx * items)),
+                    -(-rows // (DIRECT_THREADS // tx)), box.n)
+    dims, strides = tensor_dims(box)
+    rank, split = len(dims), len(dims) - 2
+    if any(v % 8 for v in (box.off, dims[0]) + strides) or walk < 1 \
+            or box.n % walk or slots not in (1, 2):
+        raise ValueError(f"box_copy kernel: tensor copies of {box} (walk "
+                         f"{walk}, slots {slots}) are not 16-byte aligned "
+                         "or the samples do not split into walks")
+    if parts is None:
+        parts = 1 if walk > 1 else max(
+            d for d in _divisors(dims[split])
+            if d == 1 or (2 * rows * length // d >= BLOCK_BYTES
+                          and (split or dims[0] // d % 8 == 0)))
+    if dims[split] % parts or (split == 0 and dims[0] // parts % 8):
+        raise ValueError(f"box_copy kernel: {parts} parts do not divide "
+                         f"{box}")
+    sub = tuple(1 if d == rank - 1 else e // parts if d == split else e
+                for d, e in enumerate(dims))
+    pad = 5 - rank
+    plan = Plan(box.n, box.off, box.sn, sa, sb, b, rows, length, 1, 32, 0, 1,
+                rank, parts, walk, slots, dims + (1,) * pad,
+                strides + (strides[-1] * box.n,) * pad, sub + (1,) * pad,
+                parts, box.n // walk, 1)
+    if bulk_smem(plan) > MAX_SMEM:
+        raise ValueError(f"box_copy kernel: {box} needs "
+                         f"{bulk_smem(plan)} bytes of shared memory")
+    return plan
+
+
+def bulk_smem(plan: Plan) -> int:
+    """A bulk block's shared memory: its barriers, then its ring."""
+    return 128 + plan.slots * -(-2 * int(np.prod(plan.box)) // 128) * 128
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 
@@ -169,13 +324,24 @@ def wide_fwd_plain(w2: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
 # kernels
 
 
+class _CPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int * 5 if name in ("dims", "box")
+                 else ctypes.c_int * 4 if name == "strides" else ctypes.c_int)
+                for name in Plan._fields]
+
+
+@functools.lru_cache(maxsize=None)
+def _cplan(plan: Plan) -> _CPlan:
+    return _CPlan(*plan)
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = cuda_build.load("probe_ladder")
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.ladder_box.argtypes = [p, p] + [ll] * 4 + [i] * 8 + [p]
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.ladder_box.argtypes = [p, p, p, p]
             lib.ladder_im2col.argtypes = [p, p, i, p]
             lib.ladder_gram.argtypes = [p, p, i, i, p]
             lib.ladder_wide_fwd.argtypes = [p, p, p, i, p]
@@ -207,21 +373,25 @@ def _call(kernel: str, fn, *args) -> None:
 
 def box_copy_cuda(src: torch.Tensor, box: Box, walk: int = 1,
                   slots: int = 1, bulk: bool = False) -> torch.Tensor:
-    """[n, a, b, length] copy of the box: direct loads, or bulk copies into
-    a ring of ``slots`` slots with each block walking ``walk`` samples."""
+    """[n, a, b, length] copy of the box on its ``box_plan``: direct loads,
+    or bulk copies into a ring of ``slots`` slots with each block walking
+    ``walk`` samples."""
+    return box_copy_on(src, box, box_plan(box, walk, slots, bulk))
+
+
+def box_copy_on(src: torch.Tensor, box: Box, plan: Plan) -> torch.Tensor:
+    """The box copied by the kernel on ``plan`` (box_plan's, or one of its
+    variants for a measurement)."""
     _check("box_copy", src)
     last = (box.off + (box.n - 1) * box.sn + (box.a - 1) * box.sa
             + (box.b - 1) * box.sb + box.length)
     if min(box.off, box.sn, box.sa, box.sb) < 0 or last > src.numel():
         raise ValueError(f"box_copy kernel: {box} leaves the source "
                          f"({src.numel()} values)")
-    vec = int(all(v % 8 == 0 for v in (box.off, box.length, box.sn, box.sa,
-                                       box.sb)))
     out = torch.empty((box.n, box.a, box.b, box.length), dtype=src.dtype,
                       device=src.device)
-    _call("box_copy", _load().ladder_box, src, out, box.off, box.sn, box.sa,
-          box.sb, box.n, box.a, box.b, box.length, walk, slots, int(bulk),
-          vec)
+    _call("box_copy", _load().ladder_box, src, out,
+          ctypes.byref(_cplan(plan)))
     return out
 
 
@@ -272,49 +442,65 @@ def _dispatch(cuda_fn: Callable, plain_fn: Callable, plain: bool,
                      f"{t.device}")
 
 
-def _box(src, box, plain, **kw):
-    return _dispatch(lambda: box_copy_cuda(src, box, **kw),
+def _box(name: str, inp: Inputs, plain: bool) -> torch.Tensor:
+    src_name, box, walk, slots, bulk = BOX_RUNGS[name]
+    src = getattr(inp, src_name)
+    return _dispatch(lambda: box_copy_cuda(src, box, walk, slots, bulk),
                      lambda: box_plain(src, box), plain, src)()
 
 
 # ---------------------------------------------------------------------------
 # the rungs
 
+# The rungs that copy a box: (their source in Inputs, the box, walk,
+# slots, bulk).
+BOX_RUNGS: Dict[str, Tuple[str, Box, int, int, bool]] = {
+    "copy": ("x", WHOLE, 1, 1, False),
+    "cost_estimate": ("x", WHOLE, 1, 1, False),
+    "manual_dma": ("x", WHOLE, 1, 1, True),
+    # each sample into slot i % 2 of a 2-slot ring
+    "dma_dyn_slot": ("x", WHOLE, 1, 2, True),
+    # the start guarded (one thread issues it), the wait unguarded
+    "dma_when_guard": ("x", WHOLE, 1, 1, True),
+    "dma_pds_src": ("x", PDS, 1, 1, True),
+    "dma_pds_src_offset": ("x", PDS_OFF, 1, 1, True),
+    # one block walks both samples, the next one's copy in flight
+    "dma_double_buffer": ("x", PDS, N, 2, True),
+    "lane_value_slice": ("xt", LANE, 1, 1, False),
+    "minor_slice_reshape": ("xt", RESH, 1, 1, False),
+}
+
 
 def t_copy(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    return _box(inp.x, WHOLE, plain).reshape(inp.x.shape)
+    return _box("copy", inp, plain).reshape(inp.x.shape)
 
 
 def t_cost(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    return t_copy(inp, plain)
+    return _box("cost_estimate", inp, plain).reshape(inp.x.shape)
 
 
 def t_dma(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    return _box(inp.x, WHOLE, plain, bulk=True).reshape(inp.x.shape)
+    return _box("manual_dma", inp, plain).reshape(inp.x.shape)
 
 
 def t_dslot(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    """Each sample into slot i % 2 of a 2-slot ring."""
-    return _box(inp.x, WHOLE, plain, slots=2, bulk=True).reshape(inp.x.shape)
+    return _box("dma_dyn_slot", inp, plain).reshape(inp.x.shape)
 
 
 def t_when(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    """The start guarded (one thread issues it), the wait unguarded."""
-    return _box(inp.x, WHOLE, plain, bulk=True).reshape(inp.x.shape)
+    return _box("dma_when_guard", inp, plain).reshape(inp.x.shape)
 
 
 def t_pds(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    return _box(inp.x, PDS, plain, bulk=True).reshape(N, 6, 6, S, C)
+    return _box("dma_pds_src", inp, plain).reshape(N, 6, 6, S, C)
 
 
 def t_pds_off(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    return _box(inp.x, PDS_OFF, plain, bulk=True).reshape(N, 6, 6, 6, C)
+    return _box("dma_pds_src_offset", inp, plain).reshape(N, 6, 6, 6, C)
 
 
 def t_dma2(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    """One block walks both samples, the next one's copy in flight."""
-    return _box(inp.x, PDS, plain, walk=N, slots=2,
-                bulk=True).reshape(N, 6, 6, S, C)
+    return _box("dma_double_buffer", inp, plain).reshape(N, 6, 6, S, C)
 
 
 def t_concat(inp: Inputs, plain: bool = False) -> torch.Tensor:
@@ -333,11 +519,11 @@ def t_full(inp: Inputs, plain: bool = False) -> torch.Tensor:
 
 
 def t_lane(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    return _box(inp.xt, LANE, plain).reshape(2, CI, DD, H + 2, W)
+    return _box("lane_value_slice", inp, plain).reshape(2, CI, DD, H + 2, W)
 
 
 def t_resh(inp: Inputs, plain: bool = False) -> torch.Tensor:
-    return _box(inp.xt, RESH, plain).reshape(CI, DD * H * W)
+    return _box("minor_slice_reshape", inp, plain).reshape(CI, DD * H * W)
 
 
 def t_fwd(inp: Inputs, plain: bool = False) -> torch.Tensor:

@@ -10,12 +10,14 @@ Phases, each printing its own line:
              conv3d_toeplitz.cu and probe_ladder.cu with nvcc for sm_90a,
              one nvcc each, started together, and prints the kernels' ptxas
              lines (registers, spills), the registers and spills of each
-             tensor-core kernel and of the ladder's wide_fwd and box_copy
-             kernels, and fails if one of them spills (the attention
-             kernels: at a flagship instance);
+             tensor-core kernel and of the ladder's wide_fwd, box_copy and
+             im2col27 kernels, and fails if one of them spills (the
+             attention kernels: at a flagship instance);
 3. kernels — runs the pooled-attention forward and backward kernels at the
              two shapes of the 64^3 BigGAN-Deep flagship (G: L=32768,
-             M=4096, c=16; D: L=4096, M=512, c=32; N=16) in f32 and bf16
+             M=4096, c=16; D: L=4096, M=512, c=32) and the two of the 64^3
+             DCGAN with --sagan (G: L=4096, M=512, c=16; D: L=512, M=64,
+             c=32), N=16, in f32 and bf16
              (each pass has two routes: bf16 on the tensor-core kernels,
              f32 on the FMA kernels; the backward's check runs on the
              forward's o and lse),
@@ -46,11 +48,20 @@ Phases, each printing its own line:
              the default run (a few steps and a resume; no conv kernel
              launches), the run with --wide_conv=on --fast_dw=on (a few
              steps and a resume), a short --fast_dw=on run and a default
-             run with --profile_dir (10 steps), all bf16.
+             run with --profile_dir (10 steps); then the DCGAN-3D family
+             at the same widths: --dcgan (WGAN loss, LayerNorm D; a few
+             steps and a resume; no attention), --dcgan --sagan --hinge
+             (K1 8 and K2 6 launches a step), --dcgan --msl, the hybrid
+             (--hybrid --biggan: K1/K2 in G only) and --dcgan
+             --gp_weight=10 (the double backward through conv and
+             LayerNorm); all bf16.
              Each checks the kernel launch counts the step implies (on the
-             bf16 routes' counters; the f32 routes' stay 0); after the first
-             two, the trained G and D on the card (kernels) are held
-             against the same networks on the CPU (plain path);
+             bf16 routes' counters; the f32 routes' stay 0), its log line,
+             checkpoint and sample grid; after each run but the short
+             --fast_dw=on and the profiled ones, the trained G and D on the
+             card (kernels) are held against the same networks on the CPU
+             (plain path; the msl D at fixed crop offsets). Last, the
+             gradient penalty with attention in D must be refused;
    step_trace — reads the profiled run's trace of steps 5-9: each device
              op's time (the top 15), the attention kernels' share of the
              device time (K1: the forward, K2: the backward) and the
@@ -74,7 +85,7 @@ Phases, each printing its own line:
 7. probe_ladder — the 14 rungs of the Mosaic probe ladders
              (probes/mosaic_ladder.py) on the card, each held against its
              plain version, with each kernel's launches from that run, and
-             a repeated t_fwd and t_dma2 bit-identical; then
+             a repeated t_fwd, t_dma2 and t_concat bit-identical; then
              each rung's time per call (CUDA events) and its kernel's
              device time (a torch.profiler trace) beside its plain
              version, its bound and one PyTorch call computing the same
@@ -119,38 +130,65 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SFU_OPS = 132 * 16 * 1.98e9
-PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32))
+# K1/K2 placements (name, L, M, c), N=16: the 64^3 BigGAN-Deep flagship's
+# G (32^3) and D (16^3) attention, then the 64^3 DCGAN's with --sagan, G at
+# 16^3 and D at 8^3.
+PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32),
+              ("dcgan_G", 4096, 512, 16), ("dcgan_D", 512, 64, 32))
 # Kernel instances that must not spill (ptxas): every K3, K4 and K5 bf16
 # instance, the K1 and K2 bf16 kernels at the flagship's c = 16 and 32,
-# and the ladder's wide_fwd and box_copy (both modes).
+# and the ladder's wide_fwd, box_copy (both modes) and im2col27.
 NO_SPILL = re.compile(r"wide_tc_kernel|dw_tc_kernel|toeplitz_tc_kernel|"
                       r"(fwd|bwd_\w+)_tc_kernel<(16|32)>|wide_fwd_kernel|"
-                      r"box_copy_kernel")
+                      r"box_copy_kernel|im2col27_kernel")
 # The kernels whose registers and spills the build phase reports: the
-# tensor-core kernels, the ladder's wide_fwd and box_copy.
-REPORTED = r"[a-z_]+_tc_kernel|wide_fwd_kernel|box_copy_kernel"
+# tensor-core kernels, the ladder's wide_fwd, box_copy and im2col27.
+REPORTED = (r"[a-z_]+_tc_kernel|wide_fwd_kernel|box_copy_kernel|"
+            r"im2col27_kernel")
 # Off the main path, checked but not timed: every template instance of c,
 # and ragged L and M tails (neither a multiple of any tile).
 EXTRA_SHAPES = ((2, 1000, 125, 8), (3, 300, 38, 16), (1, 4133, 517, 32),
                 (2, 777, 97, 64))
 N_FLAGSHIP = 16
 # The CLI's defaults otherwise (steps_per_log=10, steps_per_img_log=50).
-FLAGSHIP = ["--biggan=True", "--hinge=True", "--resolution=64",
-            "--filterG=64", "--filterD=64", "--z_size=512",
-            "--batch_size=16", "--iterD=2"]
-# Runs of the train phase: (name, extra flags, ((niters, step it resumes
-# from), ...)); the CLI's defaults otherwise. The default path trains 12
-# steps and resumes for 2; the conv kernel paths take fewer steps (each
-# of their steps is slower), at the same widths.
+WIDTHS = ["--resolution=64", "--filterG=64", "--filterD=64", "--z_size=512",
+          "--batch_size=16", "--iterD=2"]
+FLAGSHIP = ["--biggan=True", "--hinge=True"] + WIDTHS
+# bench.py's dcgan config (BASELINE config 2 without its eval loop): WGAN
+# loss, the LayerNorm D by default
+DCGAN = ["--dcgan=True"] + WIDTHS
+# the hybrid: the BigGAN-Deep G (attention at 32^3) and the DCGAN WGAN-LN D
+HYBRID = ["--hybrid=True", "--biggan=True"] + WIDTHS
+# Runs of the train phase: (name, flags, ((niters, step it resumes from),
+# ...), (SelfAttention3d blocks in G, in D)); the CLI's defaults
+# otherwise. The flagship's default path trains 12 steps and resumes for
+# 2; its conv kernel paths take fewer steps (each of their steps is
+# slower), at the same widths. Then the DCGAN family (slice 4): the
+# default WGAN-LN D (6 steps and a resume), --sagan (K1/K2 at 16^3 in G
+# and 8^3 in D), --msl, the hybrid, and the gradient penalty's double
+# backward through conv and LayerNorm.
 TRAIN_RUNS = (
-    ("default", [], ((12, 0), (14, 12))),
-    ("wide_conv+fast_dw", ["--wide_conv=on", "--fast_dw=on"],
-     ((6, 0), (8, 6))),
-    ("fast_dw", ["--fast_dw=on"], ((3, 0),)),
-    ("profiled", ["--profile_dir={tmp}/trace"], ((10, 0),)),
+    ("default", FLAGSHIP, ((12, 0), (14, 12)), (1, 1)),
+    ("wide_conv+fast_dw", FLAGSHIP + ["--wide_conv=on", "--fast_dw=on"],
+     ((6, 0), (8, 6)), (1, 1)),
+    ("fast_dw", FLAGSHIP + ["--fast_dw=on"], ((3, 0),), (1, 1)),
+    ("profiled", FLAGSHIP + ["--profile_dir={tmp}/trace"], ((10, 0),),
+     (1, 1)),
+    ("dcgan", DCGAN, ((6, 0), (8, 6)), (0, 0)),
+    ("dcgan_sagan", DCGAN + ["--sagan=True", "--hinge=True"], ((6, 0),),
+     (1, 1)),
+    ("dcgan_msl", DCGAN + ["--msl=True"], ((3, 0),), (0, 0)),
+    ("hybrid", HYBRID, ((3, 0),), (1, 0)),
+    ("dcgan_gp", DCGAN + ["--gp_weight=10"], ((2, 0),), (0, 0)),
 )
 KNOB_RUN = "wide_conv+fast_dw"
 PROFILED_RUN = "profiled"
+# Runs without a model check: the flagship's short conv-knob and profiled
+# runs.
+UNCHECKED_RUNS = ("fast_dw", PROFILED_RUN)
+# The paths whose K1/K2 launches the kernels line lists beside the knob
+# run's: each run's first part.
+ATTENTION_PATHS = ("default", "dcgan_sagan", "hybrid")
 # The attention kernels' device ops in the step's trace (sum_partials: the
 # bf16 dk/dv pass's fixed-order sum at D; no conv kernel runs in the
 # profiled default run).
@@ -850,14 +888,15 @@ def ladder_phase(ml) -> list:
     if failed or not all(launches.values()):
         raise AssertionError(f"ladder rungs failed: {failed}; launches "
                              f"{launches}")
-    # the product's fixed-order sum and the double-buffered ring: two calls
-    # give the same bits
-    for rung in (ml.t_fwd, ml.t_dma2):
+    # the product's fixed-order sum, the double-buffered ring and the
+    # im2col: two calls give the same bits
+    repeats = (ml.t_fwd, ml.t_dma2, ml.t_concat)
+    for rung in repeats:
         first, second = rung(inp), rung(inp)
         if not torch.equal(first.view(torch.int16), second.view(torch.int16)):
             raise AssertionError(f"{rung.__name__}: a repeat differs")
     phase("ladder_path", rungs=len(results), launches=launches,
-          repeats_bit_identical=["t_fwd", "t_dma2"])
+          repeats_bit_identical=[r.__name__ for r in repeats])
 
     x27 = torch.stack([ml.views27(inp.x[s]) for s in range(ml.N)])
     gram_a = torch.cat([x27[s, :, :ml.C].T for s in range(ml.N)], 1)
@@ -981,7 +1020,13 @@ def kernel_ptxas(lines: list) -> dict:
     return out
 
 
-def kernels_line(cases: list, conv_cases: list, launches: dict,
+def f32_fields(case: dict) -> dict:
+    """An f32 case's kernel and library times, for the kernels line."""
+    return {f"f32_{k}": case[k] for k in ("ms", "device_ms", "library_ms",
+                                           "library_device_ms")}
+
+
+def kernels_line(cases: list, conv_cases: list, paths: dict,
                  toeplitz_cases: list, ladder_cases: list) -> dict:
     """One entry per kernel; the top-level numbers are the main path's
     case (attention: G placement, bf16, N=16; convs: 32ch@64^3, bf16,
@@ -989,13 +1034,18 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
     in LADDER_MAIN); every case is listed under "cases". ``launches`` are
     the counts of each kernel's path: the first --wide_conv=on
     --fast_dw=on run for K1-K4 (bf16: K2, K3 and K4 on their tensor-core
-    routes), the toeplitz_conv and probe_ladder phases' runs for K5 (its
-    bf16 route's counter) and the ladder's kernels. K1-K5 and the ladder
-    add ``device_ms`` and ``library_device_ms`` (device time per call,
-    profiler), and K2-K5 ``f32_ms`` (the f32 route, the FMA kernels, at
-    the same case). ``max_err`` is the largest error
+    routes; ``paths`` holds each train run's counts by run name), the
+    toeplitz_conv and probe_ladder phases' runs for K5 (its bf16 route's
+    counter) and the ladder's kernels; K1 and K2 add ``launches_by_path``,
+    their counts in the first part of each ATTENTION_PATHS run (the
+    flagship's default, the DCGAN's --sagan, the hybrid). K1-K5 and the
+    ladder add ``device_ms`` and ``library_device_ms`` (device time per
+    call, profiler), and K1-K5 the f32 route's (the FMA kernels') numbers
+    at the same case: ``f32_ms``, ``f32_device_ms``, ``f32_library_ms``
+    and ``f32_library_device_ms``. ``max_err`` is the largest error
     relative to max |plain| over the compared outputs, the number held
     against ``tol``; ``max_abs_err`` is the largest absolute difference."""
+    launches = paths[KNOB_RUN]
     meta = (
         ("pooled_attention_fwd", "pooled_attention.cu",
          "gan3d_tpu/ops/pallas_attention.py:28", "fwd_tc", cases,
@@ -1036,12 +1086,14 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
             "library_device_ms": main["library_device_ms"], "at": at,
             "cases": mine,
         })
-        if main["route"] == "tensor_core":
-            # the same case's f32 route (FMA kernels) beside it
-            f32 = next(c for c in mine if c["dtype"] == "float32" and all(
-                c[k] == main[k] for k in main
-                if k in ("kernel", "placement", "Ci", "D")))
-            out[-1]["f32_ms"] = f32["ms"]
+        if key in ("fwd_tc", "bwd_tc"):
+            out[-1]["launches_by_path"] = {p: paths[p][key]
+                                           for p in ATTENTION_PATHS}
+        # the same case's f32 route (FMA kernels) beside it
+        f32 = next(c for c in mine if c["dtype"] == "float32" and all(
+            c[k] == main[k] for k in main
+            if k in ("kernel", "placement", "Ci", "D")))
+        out[-1].update(f32_fields(f32))
     k5 = next(c for c in toeplitz_cases
               if c["dtype"] == "bfloat16" and (c["C"], c["S"]) == (32, 64))
     k5_f32 = next(c for c in toeplitz_cases
@@ -1056,7 +1108,7 @@ def kernels_line(cases: list, conv_cases: list, launches: dict,
         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
         "device_ms": k5["device_ms"],
         "library_device_ms": k5["library_device_ms"],
-        "f32_ms": k5_f32["ms"],
+        **f32_fields(k5_f32),
         "at": "forward, bfloat16 (tensor cores), N=16, Ci=Co=32, 64^3, T=4",
         "cases": toeplitz_cases})
     for kernel, rung in LADDER_MAIN.items():
@@ -1100,21 +1152,24 @@ def run_cli(argv: list) -> str:
 
 
 def expected_launches(start: int, niters: int, iter_d: int,
-                      img_every: int) -> dict:
+                      img_every: int, attention: tuple) -> dict:
     """Attention launches a bf16 run of steps [start, niters) implies (the
-    forward and the backward on the tensor-core route).
+    forward and the backward on the tensor-core route), with
+    ``attention`` = (SelfAttention3d blocks in G, in D).
 
-    Per step: G attention forward iter_d times (no-grad G in each D
-    iteration) + once (G step); D attention forward 2 * iter_d times (real
-    and fake per D iteration) + once (G step). Backward: every D forward
-    that carries a gradient (all of them) and the G step's G forward.
-    Each sample-grid log (every img_every steps and once at the end) adds a
-    G forward.
+    Per step and block: G attention forward iter_d times (no-grad G in
+    each D iteration) + once (G step); D attention forward 2 * iter_d
+    times (real and fake per D iteration) + once (G step). Backward: every
+    D forward that carries a gradient (all of them) and the G step's G
+    forward. Each sample-grid log (every img_every steps and once at the
+    end) adds a G forward.
     """
+    g, d = attention
     steps = niters - start
     img_logs = sum(1 for i in range(start, niters) if i % img_every == 0) + 1
-    return {"fwd_tc": steps * (iter_d + 1 + 2 * iter_d + 1) + img_logs,
-            "bwd_tc": steps * (1 + 2 * iter_d + 1)}
+    return {"fwd_tc": (steps * (g * (iter_d + 1) + d * (2 * iter_d + 1))
+                       + g * img_logs),
+            "bwd_tc": steps * (d * (2 * iter_d + 1) + g)}
 
 
 def expected_conv_launches(start: int, niters: int, iter_d: int,
@@ -1146,7 +1201,8 @@ def expected_conv_launches(start: int, niters: int, iter_d: int,
 
 def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
     """Every run of TRAIN_RUNS through the CLI, with its launch counts, and
-    the model check after the default and the conv kernel runs."""
+    the model check after each run but UNCHECKED_RUNS; then the gradient
+    penalty refused for a D with attention."""
     import numpy as np
     import torch
 
@@ -1156,11 +1212,10 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
                                                  np.float32)))
     n_g, n_d = len(shapes["G"]), len(shapes["D"])
     results = {}
-    for name, flags, runs in TRAIN_RUNS:
+    for name, flags, runs, attention in TRAIN_RUNS:
         log_dir = os.path.join(tmp, name)
         flags = [f.format(tmp=tmp) for f in flags]
-        base = FLAGSHIP + flags + [f"--data_path={data}",
-                                   f"--log_dir={log_dir}"]
+        base = flags + [f"--data_path={data}", f"--log_dir={log_dir}"]
         wide, fast_dw = "--wide_conv=on" in flags, "--fast_dw=on" in flags
         for niters, start in runs:
             ca.reset_counters()
@@ -1174,10 +1229,11 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
                    "dw_tc": cc.dw_tc_launches}
             # bf16 runs: the f32 routes of K1-K4 launch nothing
             want = {"fwd": 0, "bwd": 0, "wide": 0, "dw": 0,
-                    **expected_launches(start, niters, 2, 50),
+                    **expected_launches(start, niters, 2, 50, attention),
                     **expected_conv_launches(start, niters, 2, 50, n_g, n_d,
                                              wide, fast_dw)}
-            if got != want or not (got["fwd_tc"] and got["bwd_tc"]):
+            if got != want or (any(attention) and not (got["fwd_tc"]
+                                                       and got["bwd_tc"])):
                 raise AssertionError(f"{name}: launches {got} != expected "
                                      f"{want}")
             if (wide or fast_dw) and not got["dw_tc"]:
@@ -1218,9 +1274,27 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
         for f in ("params.json", "models/checkpoint.pt", f"images/{last}.png"):
             if not os.path.isfile(os.path.join(log_dir, f)):
                 raise AssertionError(f"{name}: missing {f}")
-        if name not in ("fast_dw", PROFILED_RUN):
+        if name not in UNCHECKED_RUNS:
             phase("model_check", run=name, **model_check(log_dir, cc))
+    phase("gp_refusal", **gp_refusal(data, tmp))
     return results
+
+
+def gp_refusal(data: str, tmp: str) -> dict:
+    """The gradient penalty with a D that has attention (--dcgan --sagan):
+    the attention kernels' backward is first-order, so the trainer must
+    refuse it on the card before a step runs."""
+    try:
+        run_cli(DCGAN + ["--sagan=True", "--gp_weight=10", "--niters=1",
+                         f"--data_path={data}",
+                         f"--log_dir={os.path.join(tmp, 'gp_sagan')}"])
+    except NotImplementedError as e:
+        if "first-order" not in str(e):
+            raise
+        return {"flags": "--dcgan=True --sagan=True --gp_weight=10",
+                "raised": str(e)}
+    raise AssertionError("the gradient penalty ran through the first-order "
+                         "attention kernels")
 
 
 def trace_phase(trace_dir: str, steps: int) -> dict:
@@ -1276,7 +1350,8 @@ def trace_phase(trace_dir: str, steps: int) -> dict:
 def model_check(log_dir: str, cc) -> dict:
     """The trained G and D, in f32 and eval mode: on the card (kernels, the
     run's conv routes) against the same weights on the CPU (plain
-    attention, F.conv3d)."""
+    attention, F.conv3d); the msl D crops at the same fixed offsets on
+    both."""
     import torch
 
     from gan3d_tpu_torch.config import Config
@@ -1293,24 +1368,29 @@ def model_check(log_dir: str, cc) -> dict:
     G.eval()
     D.eval()
     z = torch.randn((2, cfg.z_size), generator=torch.Generator().manual_seed(1))
+    crops = {}
     try:
         set_wide_conv_mode("off")
         set_fast_dw_mode("off")
         with torch.no_grad():
             x_cpu = G(z)
-            d_cpu = D(x_cpu)
+            if getattr(D, "msl", False):
+                crops["offsets"] = D.draw_offsets(
+                    x_cpu, torch.Generator().manual_seed(2))
+            d_cpu = D(x_cpu, **crops)
         set_wide_conv_mode(cfg.wide_conv)
         set_fast_dw_mode(cfg.fast_dw)
         cc.reset_counters()
         with torch.no_grad():
             Gc, Dc = copy.deepcopy(G).cuda(), copy.deepcopy(D).cuda()
             x_gpu = Gc(z.cuda())
-            d_gpu = Dc(x_cpu.cuda())
+            d_gpu = Dc(x_cpu.cuda(), **crops)
         torch.cuda.synchronize()
     finally:
         set_wide_conv_mode("auto")
         set_fast_dw_mode("auto")
-    if x_gpu.shape != (2, 1, 64, 64, 64) or not torch.isfinite(x_gpu).all():
+    r = cfg.resolution
+    if x_gpu.shape != (2, 1, r, r, r) or not torch.isfinite(x_gpu).all():
         raise AssertionError(f"bad sample {tuple(x_gpu.shape)}")
     # the card and the CPU sum in different orders; 1e-3 of the tanh range
     ex = (x_gpu.cpu() - x_cpu).abs().max().item()
@@ -1369,7 +1449,8 @@ def main() -> int:
     spills = [k for k, v in registers.items()
               if NO_SPILL.search(k) and (v["spill_stores"] or v["spill_loads"])]
     missing = [k for k in ("wide_fwd_kernel", "box_copy_kernel<0>",
-                           "box_copy_kernel<1>") if k not in registers]
+                           "box_copy_kernel<1>", "im2col27_kernel")
+               if k not in registers]
     if spills or missing or not any("_tc_kernel" in k for k in registers):
         raise AssertionError(f"kernels spill: {spills}; not in ptxas.log: "
                              f"{missing} or no tensor-core kernel")
@@ -1390,11 +1471,12 @@ def main() -> int:
     phase("toeplitz_extra", **toeplitz_extra_checks(cc))
     ladder_cases = ladder_phase(ml)
     phase("ladder_breakdown", us=ladder_breakdown(ml))
-    first = next(runs[0] for name, _, runs in TRAIN_RUNS if name == KNOB_RUN)
-    launches = train["%s/run_%d_%d" % (KNOB_RUN, first[1], first[0])][
-        "launches"]
-    print(json.dumps(kernels_line(cases, conv_cases, launches,
-                                  toeplitz_cases, ladder_cases)), flush=True)
+    first = {name: runs[0] for name, _, runs, _ in TRAIN_RUNS}
+    paths = {name: train["%s/run_%d_%d" % (name, first[name][1],
+                                             first[name][0])]["launches"]
+             for name in (KNOB_RUN,) + ATTENTION_PATHS}
+    print(json.dumps(kernels_line(cases, conv_cases, paths, toeplitz_cases,
+                                  ladder_cases)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

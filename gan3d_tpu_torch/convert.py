@@ -1,18 +1,24 @@
 """Carry JAX-package weights across: variable trees -> the port's state_dicts.
 
 ``from_jax_variables(variables, cfg, which)`` takes the JAX package's
-``{"params", "batch_stats", "spectral"}`` trees of one BigGAN network (as
-numpy arrays) and returns the state_dict of the port's module of the same
-config, which loads with ``strict=True``. The key names and layouts are the
-reference's torch ones (the same mapping as gan3d_tpu/eval/export.py:59-104
-and 193-252):
+``{"params", "batch_stats", "spectral"}`` trees of one network of the
+BigGAN, DCGAN or hybrid family (as numpy arrays) and returns the
+state_dict of the port's module of the same config, which loads with
+``strict=True``. The key names and layouts are the reference's torch ones
+(the same mapping as gan3d_tpu/eval/export.py:59-252):
 
 - conv kernel [kd, kh, kw, I, O]  -> weight [O, I, kd, kh, kw]
+- transposed conv kernel          -> weight [I, O, kd, kh, kw] (no flip)
 - linear kernel [I, O]            -> weight [O, I]
 - spectral {u, v}                 -> ``parametrizations.weight.original``,
                                      ``.0._u``, ``.0._v``
 - BN scale/bias + batch_stats     -> weight/bias/running_mean/running_var
                                      (+ num_batches_tracked = 0)
+- LayerNorm scale/bias [D,H,W,C]  -> weight/bias [C, D, H, W]
+
+The DCGAN networks are ``main.{i}`` Sequentials whose indices count the
+parameterless ReLU, LeakyReLU, Tanh and RandomCrop3D slots (export.py
+:115-201); the hybrid is the BigGAN G and the DCGAN D.
 """
 
 from __future__ import annotations
@@ -48,8 +54,9 @@ def _weight(sd: StateDict, prefix: str, w: np.ndarray,
 
 
 def conv_state(sd: StateDict, prefix: str, params: Tree,
-               spectral: Optional[Tree]) -> None:
-    w = np.asarray(params["kernel"], np.float32).transpose(4, 3, 0, 1, 2)
+               spectral: Optional[Tree], transposed: bool = False) -> None:
+    w = np.asarray(params["kernel"], np.float32).transpose(
+        (3, 4, 0, 1, 2) if transposed else (4, 3, 0, 1, 2))
     _weight(sd, prefix, w, spectral)
     if "bias" in params:
         sd[_key(prefix, "bias")] = _t(params["bias"])
@@ -68,6 +75,12 @@ def bn_state(sd: StateDict, prefix: str, params: Tree, stats: Tree) -> None:
     sd[_key(prefix, "running_mean")] = _t(stats["mean"])
     sd[_key(prefix, "running_var")] = _t(stats["var"])
     sd[_key(prefix, "num_batches_tracked")] = torch.tensor(0, dtype=torch.int64)
+
+
+def layernorm_state(sd: StateDict, prefix: str, params: Tree) -> None:
+    for name, key in (("scale", "weight"), ("bias", "bias")):
+        sd[_key(prefix, key)] = _t(np.asarray(params[name], np.float32)
+                                   .transpose(3, 0, 1, 2))
 
 
 def attention_state(sd: StateDict, prefix: str, params: Tree,
@@ -132,17 +145,79 @@ def _discriminator(params: Tree, spectral: Tree, cfg: Config) -> StateDict:
     return sd
 
 
+def _dcgan_generator(params: Tree, stats: Tree, spectral: Tree,
+                     cfg: Config) -> StateDict:
+    """main: [ConvT, BN, ReLU] a stage, SelfAttention3d after the res/4
+    stage with sagan, then [ConvT, Tanh] (export.py:115-147)."""
+    sd: StateDict = {}
+    chans = cfg.dcgan_g_channels()
+    i, res = 0, 4
+    for stage in range(len(chans)):
+        conv_state(sd, f"main.{i}", params[f"ConvTranspose3d_{stage}"], None,
+                   transposed=True)
+        bn_state(sd, f"main.{i + 1}", params[f"BatchNorm3d_{stage}"],
+                 stats[f"BatchNorm3d_{stage}"])
+        i += 3
+        if stage > 0:
+            res *= 2
+            if cfg.sagan and res == cfg.resolution // 4:
+                attention_state(sd, f"main.{i}", params["SelfAttention3d_0"],
+                                spectral.get("SelfAttention3d_0"))
+                i += 1
+    conv_state(sd, f"main.{i}", params[f"ConvTranspose3d_{len(chans)}"],
+               None, transposed=True)
+    return sd
+
+
+def _dcgan_discriminator(params: Tree, spectral: Tree,
+                         cfg: Config) -> StateDict:
+    """main for the four D variants (export.py:150-187)."""
+    sd: StateDict = {}
+    chans = cfg.dcgan_d_channels()
+    if cfg.msl:
+        n = max(1, len(chans) - 1)
+        for j in range(n + 1):   # after main.0, the RandomCrop3D
+            conv_state(sd, f"main.{1 + 2 * j}", params[f"SNConv3d_{j}"],
+                       spectral[f"SNConv3d_{j}"])
+    elif cfg.sngan or cfg.sagan:
+        i, res = 0, cfg.resolution
+        for j in range(len(chans)):
+            conv_state(sd, f"main.{i}", params[f"SNConv3d_{j}"],
+                       spectral[f"SNConv3d_{j}"])
+            i += 2
+            res //= 2
+            if cfg.sagan and res == 8:
+                attention_state(sd, f"main.{i}", params["SelfAttention3d_0"],
+                                spectral.get("SelfAttention3d_0"))
+                i += 1
+        conv_state(sd, f"main.{i}", params[f"SNConv3d_{len(chans)}"],
+                   spectral[f"SNConv3d_{len(chans)}"])
+    else:
+        for j in range(len(chans)):
+            conv_state(sd, f"main.{3 * j}", params[f"Conv3d_{j}"], None)
+            layernorm_state(sd, f"main.{3 * j + 1}",
+                            params[f"LayerNormVolume_{j}"])
+        conv_state(sd, f"main.{3 * len(chans)}",
+                   params[f"Conv3d_{len(chans)}"], None)
+    return sd
+
+
 def from_jax_variables(variables: Tree, cfg: Config, which: str = "g"
                        ) -> StateDict:
     """JAX variable trees (numpy leaves) -> the port's G or D state_dict."""
-    if cfg.family() != "biggan":
+    fam = cfg.family()
+    if fam not in ("biggan", "dcgan", "hybrid"):
         raise NotImplementedError(
-            f"weight conversion for family {cfg.family()!r} is not ported yet")
+            f"weight conversion for family {fam!r} is not ported yet")
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     spectral = variables.get("spectral", {})
     if which == "g":
+        if fam == "dcgan":
+            return _dcgan_generator(params, stats, spectral, cfg)
         return _generator(params, stats, spectral, cfg)
     if which == "d":
-        return _discriminator(params, spectral, cfg)
+        if fam == "biggan":
+            return _discriminator(params, spectral, cfg)
+        return _dcgan_discriminator(params, spectral, cfg)
     raise ValueError(f"which must be 'g' or 'd', not {which!r}")

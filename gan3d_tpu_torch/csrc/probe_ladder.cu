@@ -27,9 +27,12 @@
 //   each with its own ring and barrier; dma_double_buffer :99: one block
 //   walks both samples, the next sample's copy in flight while the
 //   current one is written out).
-// - im2col27_kernel: the 27 shifted 6^3 views of one staged 8^3 x 32
-//   sample concatenated along the lanes into [216, 864] (lane_concat27
-//   :121).
+// - im2col27_kernel: the 27 shifted 6^3 views of one 8^3 x 32 sample
+//   concatenated along the lanes into [216, 864] (lane_concat27 :121). A
+//   block owns 3 whole output rows (one contiguous span of the output)
+//   and a thread one 16-byte column unit of each: 3 direct 16-byte loads
+//   from the sample (L2-resident, 32 KB), all issued before the first
+//   store; no shared memory, no barrier.
 // - gram27_kernel: views[0]^T @ X27 summed over the samples, f32 [32, 864],
 //   on the tensor cores (mma.sync m16n8k16 bf16, f32 accumulation); a tap
 //   is a constant row offset into the staged sample, so its fragments come
@@ -286,24 +289,34 @@ __global__ void box_copy_kernel(const uint16_t* __restrict__ src,
 }
 
 // ---------------------------------------------------------------------------
-// im2col27: grid 27 (one tap each), out[r, tap*32 + c] =
-// x[sample, kd + r/36, kh + (r/6)%6, kw + r%6, c]. The sample is staged in
-// shared memory with 16-byte loads; each thread writes 8 channels at once.
-__global__ void im2col27_kernel(const uint16_t* __restrict__ x,
-                                uint16_t* __restrict__ out, int sample) {
-  __shared__ uint4 xs[kSample / 8];
-  const uint4* xn = reinterpret_cast<const uint4*>(x + (long long)sample *
-                                                           kSample);
-  for (int i = threadIdx.x; i < kSample / 8; i += blockDim.x) xs[i] = xn[i];
-  __syncthreads();
-  const int tap = blockIdx.x;
+// im2col27: out[r, tap*32 + c] = x[sample, kd + r/36, kh + (r/6)%6,
+// kw + r%6, c]. Block b owns the R = 3 rows r0 = 3b .. 3b + 2 (R divides
+// 6, so they share (d, h) = (r0/36, (r0/6)%6) and w runs from r0%6: one
+// decomposition a block); thread t stores 16-byte column unit t of each
+// row (tap t/4, channels 8(t%4) .. +8; divisors known at compile time), so
+// a warp's stores are 512 contiguous bytes and the block's 3 x 1,728.
+// Row i + 1 of the block reads one position (32 values) past row i. The
+// grid is 72 blocks of 108 threads.
+constexpr int kUnits = kCols / 8;                    // 108 units a row
+constexpr int kIm2colRows = 3;                       // R
+__global__ void __launch_bounds__(kUnits)
+    im2col27_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+                    int sample) {
+  constexpr int R = kIm2colRows;
+  static_assert(kV % R == 0, "a block's rows share (d, h)");
+  const int r0 = blockIdx.x * R;
+  const int d = r0 / (kV * kV), h = (r0 / kV) % kV, w = r0 % kV;
+  const int t = threadIdx.x, tap = t / 4;
   const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-  for (int i = threadIdx.x; i < kRows * (kC / 8); i += blockDim.x) {
-    const int r = i / (kC / 8), c8 = i % (kC / 8);
-    const int pos = ((kd + r / 36) * kS + kh + (r / 6) % 6) * kS + kw + r % 6;
-    reinterpret_cast<uint4*>(out + (long long)r * kCols + tap * kC)[c8] =
-        xs[pos * (kC / 8) + c8];
-  }
+  const uint4* src = x + (long long)sample * (kSample / 8) +
+                     (((d + kd) * kS + h + kh) * kS + w + kw) * (kC / 8) +
+                     t % 4;
+  uint4 v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[i] = __ldg(src + i * (kC / 8));
+  uint4* dst = out + (long long)r0 * kUnits + t;
+#pragma unroll
+  for (int i = 0; i < R; ++i) dst[i * kUnits] = v[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -719,11 +732,11 @@ int ladder_box(const void* src, void* out, const void* plan, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// out [216, 864] = the 27 views of x[sample] ([2, 8, 8, 8, 32] bf16).
+// out [216, 864] = the 27 views of x[sample] ([n, 8, 8, 8, 32] bf16).
 int ladder_im2col(const void* x, void* out, int sample, void* stream) {
   if (sample < 0) return (int)cudaErrorInvalidValue;
-  im2col27_kernel<<<27, 256, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), sample);
+  im2col27_kernel<<<kRows / kIm2colRows, kUnits, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out), sample);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Models: the BigGAN family and the family registry."""
+"""Models: the BigGAN and DCGAN families and the family registry."""
 
 from gan3d_tpu_torch.models.registry import build_models
 

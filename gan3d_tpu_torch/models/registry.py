@@ -1,7 +1,9 @@
 """Model family selection (reference: trainer.py:52-68).
 
-The port builds the BigGAN family (the sngan / sagan / biggan variants);
-every other family raises, naming the ROADMAP slice that ports it.
+Precedence, as gan3d_tpu/models/registry.py: hybrid (BigGAN G + DCGAN D)
+> dcgan > stylegan2 > stylegan > BigGAN (the sngan / sagan / biggan
+variants). The StyleGAN families raise, naming the ROADMAP slice that
+ports them.
 """
 
 from __future__ import annotations
@@ -12,8 +14,7 @@ import torch
 
 from gan3d_tpu_torch.config import Config
 
-_LATER = {"dcgan": "slice 4", "hybrid": "slice 4", "stylegan2": "slice 5",
-          "stylegan": "slice 6"}
+_LATER = {"stylegan2": "slice 5", "stylegan": "slice 6"}
 
 
 def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
@@ -32,8 +33,10 @@ def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
         raise NotImplementedError(
             "remat is not ported yet: torch.utils.checkpoint would step the "
             "spectral-norm and BN state twice (ROADMAP.md queue A)")
-    from gan3d_tpu_torch.models import biggan
+    from gan3d_tpu_torch.models import biggan, dcgan
 
+    g_cls = dcgan.Generator if fam == "dcgan" else biggan.Generator
+    d_cls = biggan.Discriminator if fam == "biggan" else dcgan.Discriminator
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        return biggan.Generator(cfg), biggan.Discriminator(cfg)
+        return g_cls(cfg), d_cls(cfg)

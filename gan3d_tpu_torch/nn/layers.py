@@ -22,10 +22,20 @@ Convs go through ``ops/conv3d.conv3d``, which picks the route the
 original weight through the route's weight input.
 
 ``plain=True`` skips spectral norm: the reference's inverted ``sngan=True``
-flag (utils.py:9-11).
+flag (utils.py:9-11). ``std`` draws the weight from N(0, std) before the
+spectral norm's warm start (the DCGAN's init, gan3d_tpu/models/dcgan.py:61).
+
+``ConvTranspose3d`` (gan3d_tpu/nn/layers.py:177-209, ops/conv3d.py:97-133)
+is torch's, with its weight [Cin, Cout, kd, kh, kw] and bias cast to the
+input's dtype; the JAX kernel [kd, kh, kw, Cin, Cout] maps to it by the
+transpose (3, 4, 0, 1, 2) and no flip (the JAX op flips internally to
+reproduce these semantics). The JAX ``fast_pix`` rewrite of it is exact
+algebra (ROADMAP A8): the port runs the plain op.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -40,16 +50,37 @@ class Conv3d(nn.Conv3d):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
-                 bias: bool = True, orthogonal: bool = False):
+                 bias: bool = True, orthogonal: bool = False,
+                 std: Optional[float] = None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, bias=bias)
         if orthogonal:
             nn.init.orthogonal_(self.weight)
+        if std is not None:
+            nn.init.normal_(self.weight, 0.0, std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return conv3d(x, w, b, self.stride, self.padding)
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """nn.ConvTranspose3d whose weight and bias are cast to the input's
+    dtype; ``std`` draws the weight from N(0, std)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 4, stride: int = 2, padding: int = 1,
+                 bias: bool = True, std: Optional[float] = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, bias=bias)
+        if std is not None:
+            nn.init.normal_(self.weight, 0.0, std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose3d(x, w, b, self.stride, self.padding)
 
 
 class Linear(nn.Linear):
@@ -73,9 +104,9 @@ class SNConv3d(Conv3d):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
                  bias: bool = True, plain: bool = False,
-                 orthogonal: bool = False):
+                 orthogonal: bool = False, std: Optional[float] = None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding, bias=bias, orthogonal=orthogonal)
+                         padding, bias=bias, orthogonal=orthogonal, std=std)
         if not plain:
             spectral_norm(self)
 

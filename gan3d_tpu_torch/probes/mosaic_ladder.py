@@ -65,6 +65,9 @@ KERNELS = ("box_copy", "im2col27", "gram27", "wide_fwd")
 # bit-equal; the products sum bf16 products in f32 in another order (f32
 # outputs), or round the f32 sum to bf16 (2^-8 relative).
 TOL = {"box_copy": 0.0, "im2col27": 0.0, "gram27": 1e-5, "wide_fwd": 2e-2}
+# im2col27_kernel's output rows a block (csrc/probe_ladder.cu kIm2colRows):
+# 72 blocks of 108 threads.
+IM2COL_ROWS = 3
 
 launches = {k: 0 for k in KERNELS}
 
@@ -393,6 +396,26 @@ def box_copy_on(src: torch.Tensor, box: Box, plan: Plan) -> torch.Tensor:
     _call("box_copy", _load().ladder_box, src, out,
           ctypes.byref(_cplan(plan)))
     return out
+
+
+def im2col27_units() -> Tuple[np.ndarray, np.ndarray]:
+    """im2col27_kernel's launch on blocks of IM2COL_ROWS output rows, in
+    the kernel's own index arithmetic: (dst, src), each [blocks, 108,
+    rows], the 16-byte unit of the output [216, 864] that thread t of
+    block b stores as its i-th and the unit of the sample [8, 8, 8, 32] it
+    loads for it."""
+    rows = IM2COL_ROWS
+    units = 27 * C // 8
+    b, t, i = np.meshgrid(np.arange(V ** 3 // rows), np.arange(units),
+                          np.arange(rows), indexing="ij")
+    r0 = b * rows
+    d, h, w = r0 // (V * V), (r0 // V) % V, r0 % V
+    tap = t // 4
+    kd, kh, kw = tap // 9, (tap // 3) % 3, tap % 3
+    src = (((d + kd) * S + h + kh) * S + w + kw) * (C // 8) + t % 4 \
+        + i * (C // 8)
+    dst = r0 * units + t + i * units
+    return dst, src
 
 
 def im2col27_cuda(x: torch.Tensor) -> torch.Tensor:

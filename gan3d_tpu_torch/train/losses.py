@@ -5,8 +5,9 @@
   WGAN (trainer.py:272);
 - WGAN D loss: D(G(z)).mean() - D(x).mean() (trainer.py:240-243), with the
   opt-in gradient penalty. The penalty differentiates D twice, which the
-  attention kernels' first-order backward refuses: on the card it runs only
-  for models without attention.
+  attention kernels' first-order backward refuses: on the card the trainer
+  takes it only for a D without attention (the WGAN-LN and msl DCGAN Ds,
+  the hybrid's).
 """
 
 from __future__ import annotations
@@ -36,11 +37,15 @@ def g_adversarial(d_fake: torch.Tensor) -> torch.Tensor:
 def gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
                      real: torch.Tensor, fake: torch.Tensor,
                      weight: float = 10.0,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
-    """WGAN-GP: ((||grad_x D(x_interp)|| - 1)^2).mean() * weight."""
-    alpha = torch.rand((real.shape[0], 1, 1, 1, 1), dtype=real.dtype,
-                       device=real.device, generator=generator)
+                     generator: Optional[torch.Generator] = None,
+                     alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """WGAN-GP: ((||grad_x D(x_interp)|| - 1)^2).mean() * weight, x_interp
+    = alpha real + (1 - alpha) fake with alpha [B, 1, 1, 1, 1] given or
+    uniform from ``generator``."""
+    if alpha is None:
+        alpha = torch.rand((real.shape[0], 1, 1, 1, 1), dtype=real.dtype,
+                           device=real.device, generator=generator)
+    alpha = alpha.to(real.device, real.dtype)
     interp = (alpha * real + (1.0 - alpha) * fake).requires_grad_(True)
     (grads,) = torch.autograd.grad(d_apply(interp).sum(), interp,
                                    create_graph=True)

@@ -17,6 +17,20 @@ of the conv kernels would otherwise run their dW kernel for nothing.
 
 Noise comes from ``noises`` when given (iterD + 1 tensors [B, z], so a test
 can inject the JAX package's draws), else from ``generator``.
+
+The msl DCGAN D crops its input at random offsets (nn/msl.py). As in the
+JAX step (step.py:57, 67-69, 81, 105), each D forward draws its own
+offsets, all from ``generator`` (never from the global RNG): D(real),
+D(fake), the G update's D(fake); the gradient penalty's D forward reuses
+D(real)'s offsets.
+
+The gradient penalty's D forward is, as in the JAX step (step.py:79-81),
+D applied from the spectral-norm state the D update started from (so it
+steps the power iteration as D(real) did and sees D(real)'s sigma),
+with what it writes to that state discarded: D's SN vectors step twice
+per D update with or without the penalty. Its interpolation weights come
+from ``alphas`` when given (iterD tensors [B, 1, 1, 1, 1]), else from
+``generator``.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ import contextlib
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
+from torch.func import functional_call
 
 from gan3d_tpu_torch.config import Config
 from gan3d_tpu_torch.train import losses
@@ -46,7 +61,8 @@ def _frozen(net: torch.nn.Module) -> Iterator[None]:
 def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
                g_opt: Adam, d_opt: Adam, reals: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               noises: Optional[Sequence[torch.Tensor]] = None
+               noises: Optional[Sequence[torch.Tensor]] = None,
+               alphas: Optional[Sequence[torch.Tensor]] = None
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """One fused step. ``reals`` is [iterD, B, 1, R, R, R] on the device.
 
@@ -61,13 +77,36 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
             return noises[i].to(dev, torch.float32)
         return torch.randn((b, cfg.z_size), generator=generator, device=dev)
 
+    msl = getattr(D, "msl", False)
+
+    def d_out(x: torch.Tensor, offsets: Optional[torch.Tensor] = None,
+              state: Optional[Dict[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
+        """D(x) in f32; the msl D crops at ``offsets``, else at offsets
+        drawn from ``generator``. With ``state`` D runs on those tensors as
+        its SN vectors, so the power iteration writes there and D's own
+        buffers are not touched."""
+        args = (x,)
+        if msl:
+            args += (D.draw_offsets(x, generator) if offsets is None
+                     else offsets,)
+        if state is None:
+            return D(*args).float()
+        return functional_call(D, state, args).float()
+
+    # D's spectral-norm vectors, for the penalty's forward
+    sn = ({name: buf for name, buf in D.named_buffers()
+           if name.endswith(("._u", "._v"))} if cfg.gp_weight > 0 else {})
+
     err_real = err_fake = torch.zeros((), device=dev)
     for i in range(cfg.iterD):
         real = reals[i]
         with torch.no_grad():
             fake = G(noise(i)).to(real.dtype)
-        d_real = D(real).float()
-        d_fake = D(fake).float()
+        start = {name: buf.clone() for name, buf in sn.items()}
+        crops = D.draw_offsets(real, generator) if msl else None
+        d_real = d_out(real, crops)
+        d_fake = d_out(fake)
         if cfg.hinge:
             err_real, err_fake = losses.d_hinge(d_real, d_fake)
             err = err_real + err_fake
@@ -76,14 +115,15 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
             err = err_fake - err_real
             if cfg.gp_weight > 0:
                 err = err + losses.gradient_penalty(
-                    lambda x: D(x).float(), real, fake, cfg.gp_weight,
-                    generator=generator)
+                    lambda x: d_out(x, crops, start), real, fake,
+                    cfg.gp_weight, generator=generator,
+                    alpha=None if alphas is None else alphas[i])
         d_opt.step(torch.autograd.grad(err, d_opt.params))
         err_real, err_fake = err_real.detach(), err_fake.detach()
 
     fake = G(noise(cfg.iterD))
     with _frozen(D):
-        err_g = losses.g_adversarial(D(fake).float())
+        err_g = losses.g_adversarial(d_out(fake))
         g_opt.step(torch.autograd.grad(err_g, g_opt.params))
     return ({"d_real": err_real, "d_fake": err_fake,
              "g_loss": err_g.detach()}, fake.detach())

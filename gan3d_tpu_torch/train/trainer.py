@@ -33,6 +33,7 @@ import torch
 from gan3d_tpu_torch.config import Config
 from gan3d_tpu_torch.data.loader import Loader
 from gan3d_tpu_torch.models.registry import build_models
+from gan3d_tpu_torch.nn.attention import SelfAttention3d
 from gan3d_tpu_torch.ops.conv3d import set_fast_dw_mode, set_wide_conv_mode
 from gan3d_tpu_torch.train.checkpoint import CheckpointManager
 from gan3d_tpu_torch.train.state import Adam
@@ -88,6 +89,13 @@ class Trainer:
         self.cfg = cfg
 
         G, D = build_models(cfg)
+        if cfg.gp_weight > 0 and self.device.type == "cuda" and any(
+                isinstance(m, SelfAttention3d) for m in D.modules()):
+            raise NotImplementedError(
+                "the gradient penalty differentiates D twice, and the "
+                "pooled-attention kernels' backward (K2, ops/cuda_attention"
+                ".py) is first-order: on the card gp_weight > 0 takes a D "
+                "without attention (ROADMAP.md queue A)")
         self.G = G.to(self.device).train()
         self.D = D.to(self.device).train()
         self.g_opt = Adam(self.G.parameters(), cfg.lrG, cfg.adam_b1,

@@ -265,10 +265,12 @@ def test_bf16_backward_emulation_matches_pallas_interpret(c):
 @pytest.mark.parametrize("n,L,m,want", [(16, 32768, 4096, 1),
                                         (16, 4096, 512, 3),
                                         (2, 1000, 125, 16), (1, 4133, 517, 30),
-                                        (2, 512, 64, 8)])
+                                        (2, 512, 64, 8), (16, 512, 64, 8)])
 def test_dkdv_split_covers_the_card(n, L, m, want):
     """The bf16 dk/dv pass's parts: none at the G placement (1024 key
-    blocks), 3 at the D placement (128 blocks -> 384); at most one part
+    blocks), 3 at the D placement (128 blocks -> 384; also the DCGAN G's
+    L and M), 8 at the DCGAN D's (16 blocks, one 64-query tile a part:
+    128 blocks); at most one part
     per 64-query tile, and a grid of at least 2 x 132 blocks where L
     allows it."""
     parts = cuda_attention.dkdv_split(n, L, m)

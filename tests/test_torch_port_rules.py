@@ -4,10 +4,12 @@
   anything of gan3d_tpu (checked in a fresh interpreter).
 - With the default platform ("" = the CUDA card) the trainer raises when
   there is no CUDA device; it never carries on on the CPU.
-- Options whose code paths are not ported raise instead of being ignored.
+- Options whose code paths are not ported raise instead of being ignored;
+  on the card, so does the gradient penalty for a D with attention.
 - A 2-step CPU run of ``python -m gan3d_tpu_torch.cli.train`` at 16^3,
   filters 8 writes params.json, a checkpoint and a PNG, and a re-run with
-  more steps resumes ("starting from step 2"); with ``--wide_conv=on
+  more steps resumes ("starting from step 2"), for the BigGAN flagship's
+  flags and for ``--dcgan=True --sagan=True``; with ``--wide_conv=on
   --fast_dw=on`` at filters 32 it trains and resumes through the k3 conv
   routes, and a conv mode outside off|auto|on raises.
 """
@@ -76,7 +78,7 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
         Trainer(open_dataset(_dataset(tmp_path)), cfg)
 
 
-@pytest.mark.parametrize("kw", [dict(dcgan=True), dict(stylegan2=True),
+@pytest.mark.parametrize("kw", [dict(stylegan=True), dict(stylegan2=True),
                                 dict(remat=True), dict(fid_in_loop=True),
                                 dict(spatial_devices=2), dict(async_log=True),
                                 dict(fused_step=False),
@@ -87,6 +89,27 @@ def test_unported_options_raise(tmp_path, kw):
     cfg = Config(resolution=16, filterG=8, filterD=8, z_size=8, batch_size=2,
                  platform="cpu", log_dir=str(tmp_path / "run"), **kw)
     with pytest.raises(NotImplementedError):
+        Trainer(open_dataset(_dataset(tmp_path)), cfg)
+
+
+@pytest.mark.parametrize("kw", [dict(dcgan=True, sagan=True),
+                                dict(biggan=True, resolution=32),
+                                dict(hybrid=True, sagan=True)])
+def test_gradient_penalty_with_attention_in_d_raises_on_the_card(
+        tmp_path, monkeypatch, kw):
+    """gp_weight > 0 differentiates D twice; the attention kernels' backward
+    is first-order, so on the card the trainer refuses a D with attention
+    (the device is stubbed: the check runs before anything moves to it)."""
+    from gan3d_tpu_torch.data import open_dataset
+    from gan3d_tpu_torch.train import trainer
+
+    monkeypatch.setattr(trainer, "resolve_device",
+                        lambda platform: torch.device("cuda"))
+    monkeypatch.setattr(trainer, "configure_precision", lambda device: None)
+    kw = {"resolution": 16, **kw}
+    cfg = Config(filterG=8, filterD=8, z_size=8, batch_size=2,
+                 gp_weight=10.0, log_dir=str(tmp_path / "run"), **kw)
+    with pytest.raises(NotImplementedError, match="first-order"):
         Trainer(open_dataset(_dataset(tmp_path)), cfg)
 
 
@@ -170,6 +193,36 @@ def test_cli_train_and_resume_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "starting from step 2" in out
     assert "[2|3]" in out and "...Done (1 steps in " in out
+
+
+def test_cli_train_and_resume_dcgan_sagan_on_cpu(tmp_path, capsys):
+    """--dcgan=True --sagan=True at 16^3: the DCGAN G and the SN D with
+    attention at 8^3 train, log, write a [2, 1, 16, 16, 16] sample grid and
+    a reference-layout checkpoint, and resume."""
+    from gan3d_tpu_torch.cli.train import main
+
+    data = _dataset(tmp_path)
+    log_dir = str(tmp_path / "run")
+    argv = [f"--data_path={data}", f"--log_dir={log_dir}", "--platform=cpu",
+            "--dcgan=True", "--sagan=True", "--resolution=16",
+            "--filterG=8", "--filterD=8", "--z_size=8", "--batch_size=2",
+            "--steps_per_log=1", "--data_loader_workers=1"]
+    main(argv + ["--niters=2"])
+    out = capsys.readouterr().out
+    assert "[1|2]\tD(x): " in out and "...Done (2 steps in " in out
+    assert os.path.isfile(os.path.join(log_dir, "images", "1.png"))
+    ckpt = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
+                      weights_only=True)
+    assert "main.0.parametrizations.weight.original" in \
+        ckpt["modelD_state_dict"]
+    assert ckpt["modelG_state_dict"]["main.0.weight"].shape == (8, 16, 4, 4,
+                                                                4)
+    main(argv + ["--niters=3"])
+    out = capsys.readouterr().out
+    assert "starting from step 2" in out and "[2|3]" in out
+    ckpt = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
+                      weights_only=True)
+    assert ckpt["step"] == 3 and all(np.isfinite(ckpt["lossG"]))
 
 
 def test_cli_train_and_resume_with_conv_kernels_on_cpu(tmp_path, capsys,

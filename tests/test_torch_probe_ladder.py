@@ -14,7 +14,9 @@ max |ref|).
 The ladder's entry raises without a card, and the kernel wrappers refuse
 CPU tensors. The gram27 kernel's premise (a tap's view is view 0 shifted
 by a constant row offset) is checked against ``views27``, and a numpy
-emulation of its fixed summation order against the JAX probe's t_dot.
+emulation of its fixed summation order against the JAX probe's t_dot;
+the im2col27 kernel's launch (``im2col27_units``) writes each output unit
+once, from the right input unit, in whole rows a block.
 """
 
 import numpy as np
@@ -123,6 +125,33 @@ def test_tap_is_a_row_offset_of_view_zero():
     r = torch.arange(ml.V ** 3)
     assert torch.equal(base.long(), ((r // 36) * ml.S + (r // 6) % 6) * ml.S
                        + r % 6)
+
+
+def test_im2col27_launch_writes_every_unit_once():
+    """im2col27_kernel's launch on blocks of IM2COL_ROWS rows, in its own
+    index arithmetic (``im2col27_units``): every one of the 216 x 108
+    16-byte output units is stored exactly once, from the sample's unit
+    that ``views27`` puts there; each block's units are its own whole rows,
+    one contiguous span, and no two blocks share a row."""
+    rows = ml.IM2COL_ROWS
+    dst, src = ml.im2col27_units()
+    units = 27 * ml.C // 8
+    assert dst.shape == (ml.V ** 3 // rows, units, rows)
+    assert np.bincount(dst.ravel(), minlength=ml.V ** 3 * units).max() == 1
+    assert dst.size == ml.V ** 3 * units
+    # the input unit each output unit must come from: the sample's units
+    # numbered, put through the plain views
+    ids = torch.arange(ml.SAMPLE // 8, dtype=torch.float64)
+    want = ml.views27(ids.repeat_interleave(8).reshape(ml.S, ml.S, ml.S,
+                                                       ml.C))
+    want = want.reshape(-1, 8)[:, 0].long().numpy()
+    np.testing.assert_array_equal(src.ravel(), want[dst.ravel()])
+    for b in range(dst.shape[0]):
+        span = np.sort(dst[b].ravel())
+        np.testing.assert_array_equal(
+            span, np.arange(b * rows * units, (b + 1) * rows * units))
+    # a warp's 32 stores of one row are one contiguous run
+    assert (np.diff(dst[:, :32, :], axis=1) == 1).all()
 
 
 # csrc/probe_ladder.cu gram27_kernel: the 216 rows padded to 14 k-steps of

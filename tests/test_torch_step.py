@@ -92,14 +92,25 @@ def jax_noise(cfg, base_key, step=0):
     return [np.array(n) for n in out]
 
 
+def jax_alphas(cfg, base_key, step=0):
+    """The gradient penalty's interpolation weights build_train_step draws
+    at ``step`` (step.py:57 kgp, losses.py:62), [B, 1, 1, 1, 1] a D
+    update."""
+    key = fold_step(base_key, step)
+    return [np.array(jax.random.uniform(
+        jax.random.split(jax.random.fold_in(key, i), 4)[3],
+        (cfg.batch_size, 1, 1, 1, 1), jnp.float32))
+        for i in range(cfg.iterD)]
+
+
 _JAX_WORKER = ThreadPoolExecutor(max_workers=1)
 
 
 def jax_step(cfg_kw, seed=0):
     """One JAX fused step from random weights: returns (gv, dv, reals,
-    noises, pending) as numpy, for ``port_step_matches``; ``pending`` is
-    the future of the step's (new state, metrics), run in a worker
-    thread."""
+    noises, penalty alphas, pending) as numpy, for ``port_step_matches``;
+    ``pending`` is the future of the step's (new state, metrics), run in a
+    worker thread."""
     jcfg = JConfig(**cfg_kw)
     R = jcfg.resolution
     G_j, D_j = jbuild(jcfg)
@@ -130,13 +141,15 @@ def jax_step(cfg_kw, seed=0):
         return to_np(new), {k: float(v) for k, v in metrics.items()}
 
     pending = _JAX_WORKER.submit(run)
-    return gv, dv, reals, jax_noise(jcfg, base_key), pending
+    return (gv, dv, reals, jax_noise(jcfg, base_key),
+            jax_alphas(jcfg, base_key), pending)
 
 
-def port_step_matches(cfg, ref):
+def port_step_matches(cfg, ref, stateful=("g", "d")):
     """Run the port's step on ``jax_step``'s weights, reals and noise and
-    hold it against the JAX step (tolerances: module docstring)."""
-    gv, dv, reals, noise, pending = ref
+    hold it against the JAX step (tolerances: module docstring); the
+    networks named in ``stateful`` must have BN or SN state."""
+    gv, dv, reals, noise, alphas, pending = ref
     R = cfg.resolution
     G, D = build_models(cfg)
     G.load_state_dict(convert.from_jax_variables(gv, cfg, "g"), strict=True)
@@ -145,7 +158,8 @@ def port_step_matches(cfg, ref):
     d_opt = Adam(D.parameters(), cfg.lrD, 0.0, 0.9)
     noises = [torch.from_numpy(n) for n in noise]
     got, fake = train_step(cfg, G.train(), D.train(), g_opt, d_opt,
-                           torch.from_numpy(reals), noises=noises)
+                           torch.from_numpy(reals), noises=noises,
+                           alphas=[torch.from_numpy(a) for a in alphas])
     assert fake.shape == (cfg.batch_size, 1, R, R, R)
     new, metrics = pending.result()
 
@@ -187,7 +201,7 @@ def port_step_matches(cfg, ref):
                                            **STATE_TOL,
                                            err_msg=f"{which} {key}")
                 n_state += 1
-        assert n_state > 0
+        assert (n_state > 0) == (which in stateful), (which, n_state)
 
 
 def test_fused_step_matches_jax():

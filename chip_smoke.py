@@ -54,18 +54,29 @@ Phases, each printing its own line:
              (K1 8 and K2 6 launches a step), --dcgan --msl, the hybrid
              (--hybrid --biggan: K1/K2 in G only) and --dcgan
              --gp_weight=10 (the double backward through conv and
-             LayerNorm); all bf16.
+             LayerNorm); then StyleGAN2 at the reference's widths (64^3,
+             filters 128, z 512, batch 16, iterD 2): --stylegan2 (18
+             steps, with the lazy R1/PL steps 0 and 16, and a resume to
+             20), --sg2_reg_grads=True (2 steps: the double backward
+             through the modulated and FIR convs) and a run with
+             --profile_dir (10 steps); all bf16.
              Each checks the kernel launch counts the step implies (on the
-             bf16 routes' counters; the f32 routes' stay 0), its log line,
-             checkpoint and sample grid; after each run but the short
-             --fast_dw=on and the profiled ones, the trained G and D on the
-             card (kernels) are held against the same networks on the CPU
-             (plain path; the msl D at fixed crop offsets). Last, the
-             gradient penalty with attention in D must be refused;
-   step_trace — reads the profiled run's trace of steps 5-9: each device
-             op's time (the top 15), the attention kernels' share of the
-             device time (K1: the forward, K2: the backward) and the
-             device's idle share over the window;
+             bf16 routes' counters; the f32 routes' and K5's stay 0, and
+             the StyleGAN2 path launches none of K1-K5), its log line,
+             checkpoint and sample grid; after each run but the flagship's
+             short --fast_dw=on and profiled ones, the trained G and D on
+             the card (kernels) are held against the same networks on the
+             CPU (plain path; the msl D at fixed crop offsets; StyleGAN2's
+             G at fixed ws and noise, its modulated convs both unfused and
+             fused); a StyleGAN2 checkpoint must hold a nonzero pl_mean.
+             Last, the gradient penalty with attention in D must be
+             refused;
+   step_trace — reads each profiled run's trace of steps 5-9 (the
+             flagship's, then StyleGAN2's): each device op's time (the top
+             15), the device's busy time a step and its idle share over
+             the window, and for the flagship the attention kernels'
+             share of the device time (K1: the forward, K2: the
+             backward);
 6. toeplitz_conv — the W-Toeplitz direct conv op (K5, ops/toeplitz_conv.py,
              the port of scripts/bench_lane_conv.py's "pl" variant): at the
              bench's shapes (16/32/32/64/128 channels at 64/64/32/32/16^3,
@@ -159,6 +170,10 @@ FLAGSHIP = ["--biggan=True", "--hinge=True"] + WIDTHS
 DCGAN = ["--dcgan=True"] + WIDTHS
 # the hybrid: the BigGAN-Deep G (attention at 32^3) and the DCGAN WGAN-LN D
 HYBRID = ["--hybrid=True", "--biggan=True"] + WIDTHS
+# StyleGAN2 (bench.py --family=stylegan2, BASELINE config 4) at the
+# reference's channel base 128: channels 32/16/8/4/2 at 4^3-64^3
+SG2 = ["--stylegan2=True", "--resolution=64", "--filterG=128",
+       "--filterD=128", "--z_size=512", "--batch_size=16", "--iterD=2"]
 # Runs of the train phase: (name, flags, ((niters, step it resumes from),
 # ...), (SelfAttention3d blocks in G, in D)); the CLI's defaults
 # otherwise. The flagship's default path trains 12 steps and resumes for
@@ -166,7 +181,9 @@ HYBRID = ["--hybrid=True", "--biggan=True"] + WIDTHS
 # slower), at the same widths. Then the DCGAN family (slice 4): the
 # default WGAN-LN D (6 steps and a resume), --sagan (K1/K2 at 16^3 in G
 # and 8^3 in D), --msl, the hybrid, and the gradient penalty's double
-# backward through conv and LayerNorm.
+# backward through conv and LayerNorm. Then StyleGAN2 (slice 5): 18 steps
+# (steps 0 and 16 run the lazy R1 and PL) and a resume to 20, the double
+# backward of --sg2_reg_grads=True, and a traced run.
 TRAIN_RUNS = (
     ("default", FLAGSHIP, ((12, 0), (14, 12)), (1, 1)),
     ("wide_conv+fast_dw", FLAGSHIP + ["--wide_conv=on", "--fast_dw=on"],
@@ -180,6 +197,11 @@ TRAIN_RUNS = (
     ("dcgan_msl", DCGAN + ["--msl=True"], ((3, 0),), (0, 0)),
     ("hybrid", HYBRID, ((3, 0),), (1, 0)),
     ("dcgan_gp", DCGAN + ["--gp_weight=10"], ((2, 0),), (0, 0)),
+    ("stylegan2", SG2, ((18, 0), (20, 18)), (0, 0)),
+    ("stylegan2_reg_grads", SG2 + ["--sg2_reg_grads=True"], ((2, 0),),
+     (0, 0)),
+    ("stylegan2_profiled", SG2 + ["--profile_dir={tmp}/sg2_trace"],
+     ((10, 0),), (0, 0)),
 )
 KNOB_RUN = "wide_conv+fast_dw"
 PROFILED_RUN = "profiled"
@@ -195,6 +217,10 @@ ATTENTION_PATHS = ("default", "dcgan_sagan", "hybrid")
 TRACE_KERNELS = {"K1": ("fwd_tc_kernel",),
                  "K2": ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel",
                         "sum_partials_kernel")}
+# The traced runs: (run, its trace directory under the temporary one, the
+# kernels whose share of the device time step_trace reports).
+TRACED = ((PROFILED_RUN, "trace", TRACE_KERNELS),
+          ("stylegan2_profiled", "sg2_trace", {}))
 # The ladder's rungs that copy a whole array: a view of it is contiguous,
 # so their yardstick is a clone.
 WHOLE_COPIES = ("copy", "cost_estimate", "manual_dma", "dma_dyn_slot",
@@ -1226,9 +1252,13 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
                    "bwd": ca.bwd_launches,
                    "bwd_tc": ca.bwd_tc_launches, "wide": cc.wide_launches,
                    "wide_tc": cc.wide_tc_launches, "dw": cc.dw_launches,
-                   "dw_tc": cc.dw_tc_launches}
-            # bf16 runs: the f32 routes of K1-K4 launch nothing
-            want = {"fwd": 0, "bwd": 0, "wide": 0, "dw": 0,
+                   "dw_tc": cc.dw_tc_launches,
+                   "toeplitz": cc.toeplitz_launches,
+                   "toeplitz_tc": cc.toeplitz_tc_launches}
+            # bf16 runs: the f32 routes of K1-K4 launch nothing, and K5
+            # is on no train path
+            want = {"fwd": 0, "bwd": 0, "wide": 0, "dw": 0, "toeplitz": 0,
+                    "toeplitz_tc": 0,
                     **expected_launches(start, niters, 2, 50, attention),
                     **expected_conv_launches(start, niters, 2, 50, n_g, n_d,
                                              wide, fast_dw)}
@@ -1254,6 +1284,12 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
                     or not all(math.isfinite(x) for x in vals)):
                 raise AssertionError(f"{len(ckpt['lossG'])} G losses for "
                                      f"{niters} steps, or a non-finite loss")
+            pl_mean = (float(ckpt["pl_mean"]) if "--stylegan2=True" in flags
+                       else None)
+            if pl_mean is not None and not (math.isfinite(pl_mean)
+                                            and pl_mean != 0.0):
+                raise AssertionError(f"{name}: pl_mean {pl_mean} after the "
+                                     "lazy step 0")
             done = re.search(r"\.\.\.Done \((\d+) steps in ([\d.]+)s, "
                              r"([\d.]+) steps/s(?:; steady ([\d.]+) steps/s "
                              r"= ([\d.]+) vol/s)?\)", out)
@@ -1268,7 +1304,7 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
                 "steady_vol_per_s": (float(done.group(5)) if done.group(5)
                                      else None),
                 "launches": got, "max_memory_allocated":
-                    torch.cuda.max_memory_allocated()}
+                    torch.cuda.max_memory_allocated(), "pl_mean": pl_mean}
             phase("train_run", run=name, niters=niters, **results[key])
         last = runs[-1][0] - 1
         for f in ("params.json", "models/checkpoint.pt", f"images/{last}.png"):
@@ -1297,13 +1333,14 @@ def gp_refusal(data: str, tmp: str) -> dict:
                          "attention kernels")
 
 
-def trace_phase(trace_dir: str, steps: int) -> dict:
-    """The profiled run's Chrome trace (its one file in ``trace_dir``) of
+def trace_phase(trace_dir: str, steps: int, kernels: dict) -> dict:
+    """A profiled run's Chrome trace (its one file in ``trace_dir``) of
     ``steps`` steps: every device op's time (kernels, copies, memsets) by
-    name, the top 15 by total; K1's and K2's share of the summed device
-    time (TRACE_KERNELS); the device's busy time (the union of the ops'
-    intervals) per step and its idle share, 1 - busy / the span from the
-    first op's start to the last one's end."""
+    name, the top 15 by total; the share of the summed device time of each
+    group of ``kernels`` (TRACE_KERNELS: K1's and K2's), which must be
+    there; the device's busy time (the union of the ops' intervals) per
+    step and its idle share, 1 - busy / the span from the first op's start
+    to the last one's end."""
     files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
     if len(files) != 1:
         raise AssertionError(f"want one trace in {trace_dir}, got {files}")
@@ -1328,7 +1365,7 @@ def trace_phase(trace_dir: str, steps: int) -> dict:
     span = end - ops[0][0]
     attention = {k: sum(v[0] for n, v in by_name.items()
                         if any(w in n for w in names))
-                 for k, names in TRACE_KERNELS.items()}
+                 for k, names in kernels.items()}
     share = {k: t / total for k, t in attention.items()}
     if not all(share.values()):
         raise AssertionError(f"attention kernels missing in the trace: "
@@ -1351,7 +1388,7 @@ def model_check(log_dir: str, cc) -> dict:
     """The trained G and D, in f32 and eval mode: on the card (kernels, the
     run's conv routes) against the same weights on the CPU (plain
     attention, F.conv3d); the msl D crops at the same fixed offsets on
-    both."""
+    both; StyleGAN2 by ``sg2_model_check``."""
     import torch
 
     from gan3d_tpu_torch.config import Config
@@ -1367,6 +1404,8 @@ def model_check(log_dir: str, cc) -> dict:
     D.load_state_dict(payload["modelD_state_dict"])
     G.eval()
     D.eval()
+    if cfg.family() == "stylegan2":
+        return sg2_model_check(G, D, cfg)
     z = torch.randn((2, cfg.z_size), generator=torch.Generator().manual_seed(1))
     crops = {}
     try:
@@ -1401,6 +1440,44 @@ def model_check(log_dir: str, cc) -> dict:
                              f"{ed:.3e} (tol 1e-3)")
     return {"g_max_abs_err": ex, "d_rel_err": ed, "tol": 1e-3,
             "wide_launches": cc.wide_launches}
+
+
+def sg2_model_check(G, D, cfg) -> dict:
+    """The trained StyleGAN2 G and D (f32, eval mode) on the card against
+    the CPU: the mapping's ws; the synthesis at the CPU's ws and fixed
+    noise, its modulated convs unfused (the training path) and fused (one
+    grouped conv); D on the CPU's image. Tolerances as model_check's."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    z = torch.randn((2, cfg.z_size), generator=gen)
+    noise = [torch.randn(s, generator=gen)
+             for s in G.synthesis.noise_shapes(2)]
+    with torch.no_grad():
+        ws = G.map_ws(z)
+        x_cpu = G.synthesize(ws, noise)
+        d_cpu = D(x_cpu)
+        Gc, Dc = copy.deepcopy(G).cuda(), copy.deepcopy(D).cuda()
+        ws_gpu = Gc.map_ws(z.cuda())
+        noise_gpu = [n.cuda() for n in noise]
+        x_gpu = Gc.synthesize(ws.cuda(), noise_gpu)
+        x_fused = Gc.synthesize(ws.cuda(), noise_gpu, fused_modconv=True)
+        d_gpu = Dc(x_cpu.cuda())
+    torch.cuda.synchronize()
+    r = cfg.resolution
+    if x_gpu.shape != (2, 1, r, r, r) or not torch.isfinite(x_gpu).all():
+        raise AssertionError(f"bad sample {tuple(x_gpu.shape)}")
+    ew = ((ws_gpu.cpu() - ws).abs().max() / ws.abs().max()).item()
+    ex = (x_gpu.cpu() - x_cpu).abs().max().item()
+    ef = (x_fused.cpu() - x_cpu).abs().max().item()
+    ed = ((d_gpu.cpu() - d_cpu).abs().max()
+          / d_cpu.abs().max().clamp_min(1e-30)).item()
+    if not max(ew, ex, ef, ed) <= 1e-3:
+        raise AssertionError(f"card vs CPU: ws rel err {ew:.3e}, G max err "
+                             f"{ex:.3e} (fused {ef:.3e}), D rel err "
+                             f"{ed:.3e} (tol 1e-3)")
+    return {"ws_rel_err": ew, "g_max_abs_err": ex,
+            "g_fused_max_abs_err": ef, "d_rel_err": ed, "tol": 1e-3}
 
 
 def main() -> int:
@@ -1463,8 +1540,9 @@ def main() -> int:
     phase("conv_extra", **conv_extra_checks(cc))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train = train_phase(ca, cc, tmp, shapes)
-        phase("step_trace", **trace_phase(os.path.join(tmp, "trace"),
-                                          PROFILE_STEPS))
+        for run, sub, kernels in TRACED:
+            phase("step_trace", run=run, **trace_phase(
+                os.path.join(tmp, sub), PROFILE_STEPS, kernels))
     # the op-level paths after the train runs, which then see the card as
     # the earlier phases leave it
     toeplitz_cases = toeplitz_phase(cc)

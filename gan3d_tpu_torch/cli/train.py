@@ -4,6 +4,8 @@ Example (the 64^3 BigGAN-Deep flagship on the card):
     python -m gan3d_tpu_torch.cli.train --data_path=train.npz --log_dir=run \
         --biggan=True --hinge=True --resolution=64 --filterG=64 \
         --filterD=64 --z_size=512 --batch_size=16 --iterD=2
+StyleGAN2 at the reference's widths: ``--stylegan2=True --resolution=64
+--filterG=128 --filterD=128 --z_size=512 --batch_size=16 --iterD=2``.
 Add ``--platform=cpu`` to run on the CPU.
 """
 

@@ -84,7 +84,8 @@ class Config:
     adam_b2: float = 0.9
     mu_free_adam: bool = True   # b1=0 keeps no first-moment buffer (the
                                 # updates are identical); False keeps one
-    ema_decay: float = 0.5      # stylegan2 only (not ported)
+    ema_decay: float = 0.5      # stylegan2: ema = params = d * ema +
+                                # (1 - d) * params after each G update
     data_loader_workers: int = 4  # threads that assemble host batches
     profile_dir: str = ""       # set: a torch.profiler trace of steps 5-9
                                 # is written there (utils/profiling.py)
@@ -93,7 +94,9 @@ class Config:
     gp_weight: float = 0.0      # WGAN-GP weight (reference has it commented
                                 # out at trainer.py:242); needs the double
                                 # backward of the plain attention (CPU)
-    sg2_reg_grads: bool = False  # stylegan2 only (not ported)
+    sg2_reg_grads: bool = False  # stylegan2: True lets R1 and PL add
+                                 # gradients (double backward); False, the
+                                 # reference, logs their values only
     track_energy: bool = False   # energy tracking is not ported: True raises
     channel_ratio: int = 4       # BigGAN-deep bottleneck shrink factor
                                  # (reference utils.py:48 fixes 4)

@@ -19,6 +19,16 @@ state_dict of the port's module of the same config, which loads with
 The DCGAN networks are ``main.{i}`` Sequentials whose indices count the
 parameterless ReLU, LeakyReLU, Tanh and RandomCrop3D slots (export.py
 :115-201); the hybrid is the BigGAN G and the DCGAN D.
+
+StyleGAN2 (export.py:259-339, ``export_stylegan2_g`` / ``export_stylegan_d``):
+the raw style-conv weights [k, k, k, I, O] -> [O, I, k, k, k], the FC
+weights [I, O] -> [O, I] (stored divided by lr_mult, as both packages
+keep them), G's 4^3 const [4, 4, 4, C] -> [C, 4, 4, 4], ``mapping.w_avg``
+from the ``moving`` collection (zeros without one), and each
+SynthesisLayer's 2-D [res, res] ``noise_const``, which the JAX G does not
+carry: standard normals from numpy's default_rng(0) in block order, the
+exporter's draw. D's epilogue FC weight is permuted from the JAX NDHWC
+flatten to the NCDHW one.
 """
 
 from __future__ import annotations
@@ -202,22 +212,92 @@ def _dcgan_discriminator(params: Tree, spectral: Tree,
     return sd
 
 
+def _fc(sd: StateDict, prefix: str, params: Tree) -> None:
+    sd[_key(prefix, "weight")] = _t(np.asarray(params["weight"],
+                                               np.float32).T)
+    if "bias" in params:
+        sd[_key(prefix, "bias")] = _t(params["bias"])
+
+
+def _style_layer(sd: StateDict, prefix: str, params: Tree) -> None:
+    """A StyleGAN conv layer's raw weight [k, k, k, I, O] -> [O, I, k, k,
+    k], its bias, and its affine FC, if any."""
+    sd[_key(prefix, "weight")] = _t(np.asarray(params["weight"], np.float32)
+                                    .transpose(4, 3, 0, 1, 2))
+    if "bias" in params:
+        sd[_key(prefix, "bias")] = _t(params["bias"])
+    if "affine" in params:
+        _fc(sd, _key(prefix, "affine"), params["affine"])
+
+
+def _stylegan2_generator(params: Tree, moving: Tree) -> StateDict:
+    """mapping.fc{i}, mapping.w_avg; synthesis.b{res} with const / conv0 /
+    conv1 / torgb (export.py:273-312)."""
+    sd: StateDict = {}
+    for fc, p in sorted(params["mapping"].items()):
+        _fc(sd, f"mapping.{fc}", p)
+    w_avg = moving.get("mapping", {}).get("w_avg")
+    sd["mapping.w_avg"] = (_t(w_avg) if w_avg is not None
+                           else torch.zeros(512))
+    rng = np.random.default_rng(0)
+    syn = params["synthesis"]
+    for bname in sorted(syn, key=lambda b: int(b[1:])):
+        blk, res = syn[bname], int(bname[1:])
+        if "const" in blk:
+            sd[f"synthesis.{bname}.const"] = _t(
+                np.asarray(blk["const"], np.float32).transpose(3, 0, 1, 2))
+        for lname in ("conv0", "conv1", "torgb"):
+            if lname not in blk:
+                continue
+            prefix = f"synthesis.{bname}.{lname}"
+            _style_layer(sd, prefix, blk[lname])
+            if "noise_strength" in blk[lname]:
+                sd[f"{prefix}.noise_strength"] = _t(
+                    blk[lname]["noise_strength"])
+                sd[f"{prefix}.noise_const"] = _t(rng.standard_normal(
+                    (res, res)).astype(np.float32))
+    return sd
+
+
+def _stylegan_discriminator(params: Tree) -> StateDict:
+    """b{res} resnet blocks (fromrgb, conv0, conv1, skip) and the epilogue
+    b4 (conv, fc, out), export.py:315-339."""
+    sd: StateDict = {}
+    for bname, blk in params.items():
+        for lname in ("fromrgb", "conv0", "conv1", "skip", "conv"):
+            if lname in blk:
+                _style_layer(sd, f"{bname}.{lname}", blk[lname])
+        if "fc" in blk:
+            w = np.asarray(blk["fc"]["weight"], np.float32)  # [flat, O]
+            flat, o = w.shape
+            w = (w.reshape(4, 4, 4, flat // 64, o).transpose(3, 0, 1, 2, 4)
+                 .reshape(flat, o))
+            _fc(sd, f"{bname}.fc", {**blk["fc"], "weight": w})
+        if "out" in blk:
+            _fc(sd, f"{bname}.out", blk["out"])
+    return sd
+
+
 def from_jax_variables(variables: Tree, cfg: Config, which: str = "g"
                        ) -> StateDict:
     """JAX variable trees (numpy leaves) -> the port's G or D state_dict."""
     fam = cfg.family()
-    if fam not in ("biggan", "dcgan", "hybrid"):
+    if fam not in ("biggan", "dcgan", "hybrid", "stylegan2"):
         raise NotImplementedError(
             f"weight conversion for family {fam!r} is not ported yet")
+    if which not in ("g", "d"):
+        raise ValueError(f"which must be 'g' or 'd', not {which!r}")
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     spectral = variables.get("spectral", {})
+    if fam == "stylegan2":
+        if which == "g":
+            return _stylegan2_generator(params, variables.get("moving", {}))
+        return _stylegan_discriminator(params)
     if which == "g":
         if fam == "dcgan":
             return _dcgan_generator(params, stats, spectral, cfg)
         return _generator(params, stats, spectral, cfg)
-    if which == "d":
-        if fam == "biggan":
-            return _discriminator(params, spectral, cfg)
-        return _dcgan_discriminator(params, spectral, cfg)
-    raise ValueError(f"which must be 'g' or 'd', not {which!r}")
+    if fam == "biggan":
+        return _discriminator(params, spectral, cfg)
+    return _dcgan_discriminator(params, spectral, cfg)

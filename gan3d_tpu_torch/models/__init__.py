@@ -1,4 +1,5 @@
-"""Models: the BigGAN and DCGAN families and the family registry."""
+"""Models: the BigGAN, DCGAN and StyleGAN2 families and the family
+registry."""
 
 from gan3d_tpu_torch.models.registry import build_models
 

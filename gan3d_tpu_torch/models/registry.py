@@ -2,8 +2,7 @@
 
 Precedence, as gan3d_tpu/models/registry.py: hybrid (BigGAN G + DCGAN D)
 > dcgan > stylegan2 > stylegan > BigGAN (the sngan / sagan / biggan
-variants). The StyleGAN families raise, naming the ROADMAP slice that
-ports them.
+variants). StyleGAN-1 raises, naming the ROADMAP slice that ports it.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ import torch
 
 from gan3d_tpu_torch.config import Config
 
-_LATER = {"stylegan2": "slice 5", "stylegan": "slice 6"}
+_LATER = {"stylegan": "slice 6"}
 
 
 def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
@@ -33,10 +32,14 @@ def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
         raise NotImplementedError(
             "remat is not ported yet: torch.utils.checkpoint would step the "
             "spectral-norm and BN state twice (ROADMAP.md queue A)")
-    from gan3d_tpu_torch.models import biggan, dcgan
+    from gan3d_tpu_torch.models import biggan, dcgan, stylegan
 
-    g_cls = dcgan.Generator if fam == "dcgan" else biggan.Generator
-    d_cls = biggan.Discriminator if fam == "biggan" else dcgan.Discriminator
+    if fam == "stylegan2":
+        g_cls, d_cls = stylegan.Generator, stylegan.Discriminator
+    else:
+        g_cls = dcgan.Generator if fam == "dcgan" else biggan.Generator
+        d_cls = (biggan.Discriminator if fam == "biggan"
+                 else dcgan.Discriminator)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         return g_cls(cfg), d_cls(cfg)

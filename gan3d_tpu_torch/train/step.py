@@ -47,7 +47,8 @@ from gan3d_tpu_torch.train.state import Adam
 
 
 @contextlib.contextmanager
-def _frozen(net: torch.nn.Module) -> Iterator[None]:
+def frozen(net: torch.nn.Module) -> Iterator[None]:
+    """``net``'s parameters with requires_grad off inside the block."""
     params = [p for p in net.parameters() if p.requires_grad]
     for p in params:
         p.requires_grad_(False)
@@ -122,7 +123,7 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
         err_real, err_fake = err_real.detach(), err_fake.detach()
 
     fake = G(noise(cfg.iterD))
-    with _frozen(D):
+    with frozen(D):
         err_g = losses.g_adversarial(d_out(fake))
         g_opt.step(torch.autograd.grad(err_g, g_opt.params))
     return ({"d_real": err_real, "d_fake": err_fake,

@@ -1,7 +1,9 @@
 """Host-side training loop (counterpart of gan3d_tpu/train/trainer.py).
 
 Reference: trainer.py:28-313 (Trainer). One device; the step is the fused
-D/G step of train/step.py, run eagerly. Kept from the JAX trainer:
+D/G step of train/step.py, or for StyleGAN2 that of
+models/stylegan/loss.py (with the lazy R1/PL step chosen on the host by
+step % 16), run eagerly. Kept from the JAX trainer:
 - config persisted as ``params.json`` (``load_params`` reads it back);
 - Adam(lr, betas=(0, 0.9)) per network, in the JAX op order;
 - the log line ``[i|niters]\\tD(x): ..\\tD(G(z)): ..|..\\tFID ..`` every
@@ -11,7 +13,10 @@ D/G step of train/step.py, run eagerly. Kept from the JAX trainer:
   and at the end, with G in train mode as in the reference (its BN and SN
   state update during these forwards too);
 - a rolling checkpoint every ``steps_per_ckpt`` steps and a final one, and
-  automatic resume that prints ``starting from step N``;
+  automatic resume that prints ``starting from step N``; for StyleGAN2 it
+  also holds ``pl_mean``, and G's state seeds the EMA on resume (the
+  reference's trainer.py:133-134; the EMA equals G's parameters after
+  every G update);
 - the closing ``...Done (...)`` line with the steady rate in vol/s;
 - with ``profile_dir`` set, a ``torch.profiler`` trace of steps 5-9
   (utils/profiling.py) written there.
@@ -33,6 +38,7 @@ import torch
 from gan3d_tpu_torch.config import Config
 from gan3d_tpu_torch.data.loader import Loader
 from gan3d_tpu_torch.models.registry import build_models
+from gan3d_tpu_torch.models.stylegan import loss as sg2_loss
 from gan3d_tpu_torch.nn.attention import SelfAttention3d
 from gan3d_tpu_torch.ops.conv3d import set_fast_dw_mode, set_wide_conv_mode
 from gan3d_tpu_torch.train.checkpoint import CheckpointManager
@@ -98,6 +104,12 @@ class Trainer:
                 "without attention (ROADMAP.md queue A)")
         self.G = G.to(self.device).train()
         self.D = D.to(self.device).train()
+        self.stylegan2 = cfg.family() == "stylegan2"
+        # StyleGAN2's EMA of G (a copy of G, gan3d_tpu/train/trainer.py
+        # :185-190) and path-length mean
+        self.ema = ([p.detach().clone() for p in self.G.parameters()]
+                    if self.stylegan2 else [])
+        self.pl_mean = torch.zeros((), device=self.device)
         self.g_opt = Adam(self.G.parameters(), cfg.lrG, cfg.adam_b1,
                           cfg.adam_b2, mu_free=cfg.mu_free_adam)
         self.d_opt = Adam(self.D.parameters(), cfg.lrD, cfg.adam_b1,
@@ -147,7 +159,11 @@ class Trainer:
                 (self.cfg.batch_size, self.cfg.z_size),
                 generator=self._generator(2), device=self.device)
         with torch.no_grad():
-            fake = self.G(self.fixed_test_noise)
+            if self.stylegan2:
+                fake = self.G(self.fixed_test_noise,
+                              generator=self._generator(3, step))[0]
+            else:
+                fake = self.G(self.fixed_test_noise)
         save_volume_grid(os.path.join(self.images_dir, f"{step}.png"),
                          fake.float().cpu().numpy()[:, 0])
 
@@ -160,7 +176,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self) -> None:
         self._flush_pending()
-        self.ckpt.save({
+        payload = {
             "step": self.step,
             "modelG_state_dict": self.G.state_dict(),
             "modelD_state_dict": self.D.state_dict(),
@@ -168,7 +184,10 @@ class Trainer:
             "optimizerD_state_dict": self.d_opt.state_dict(),
             "lossG": self.G_losses, "lossD": self.D_losses,
             "fid": self.fid_epoch,
-        })
+        }
+        if self.stylegan2:
+            payload["pl_mean"] = self.pl_mean
+        self.ckpt.save(payload)
 
     def start_from_checkpoint(self) -> int:
         payload = self.ckpt.restore(self.device)
@@ -178,6 +197,9 @@ class Trainer:
         self.D.load_state_dict(payload["modelD_state_dict"])
         self.g_opt.load_state_dict(payload["optimizerG_state_dict"])
         self.d_opt.load_state_dict(payload["optimizerD_state_dict"])
+        if self.stylegan2:
+            self.pl_mean = payload["pl_mean"].to(self.device)
+            self.ema = [p.detach().clone() for p in self.G.parameters()]
         self.G_losses = list(payload["lossG"])
         self.D_losses = [list(x) for x in payload["lossD"]]
         self.fid_epoch = list(payload["fid"])
@@ -200,9 +222,14 @@ class Trainer:
         try:
             for i in range(step_done, cfg.niters):
                 self.profiler.step(i)
-                metrics, _ = train_step(cfg, self.G, self.D, self.g_opt,
-                                        self.d_opt, self._reals(batches),
-                                        generator=self._generator(1, i))
+                reals, gen = self._reals(batches), self._generator(1, i)
+                if self.stylegan2:
+                    metrics, _, self.pl_mean = sg2_loss.train_step(
+                        cfg, self.G, self.D, self.g_opt, self.d_opt, reals,
+                        i, self.ema, self.pl_mean, generator=gen)
+                else:
+                    metrics, _ = train_step(cfg, self.G, self.D, self.g_opt,
+                                            self.d_opt, reals, generator=gen)
                 self.step = i + 1
                 self._pending.append(metrics)
                 self.log(i)

@@ -58,6 +58,7 @@ def test_no_jax_or_reference_package_imported():
     assert "gan3d_tpu_torch.ops.cuda_conv" in res["modules"]
     assert "gan3d_tpu_torch.ops.toeplitz_conv" in res["modules"]
     assert "gan3d_tpu_torch.probes.mosaic_ladder" in res["modules"]
+    assert "gan3d_tpu_torch.models.stylegan.loss" in res["modules"]
     assert res["bad"] == []
 
 
@@ -78,7 +79,8 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
         Trainer(open_dataset(_dataset(tmp_path)), cfg)
 
 
-@pytest.mark.parametrize("kw", [dict(stylegan=True), dict(stylegan2=True),
+@pytest.mark.parametrize("kw", [dict(stylegan=True),
+                                dict(stylegan2=True, remat=True),
                                 dict(remat=True), dict(fid_in_loop=True),
                                 dict(spatial_devices=2), dict(async_log=True),
                                 dict(fused_step=False),

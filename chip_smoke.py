@@ -29,8 +29,10 @@ Phases, each printing its own line:
              checks every c and ragged L/M tails at small shapes, that a
              repeated forward and backward are bit-identical and that a
              double backward through the kernels raises;
-4. conv    — finds the flagship's eligible k3 convs with forward hooks on
-             the port's models, and at each distinct shape (N=16, f32 and
+4. conv    — finds the eligible k3 convs of the flagship's G and D and of
+             the StyleGAN-1 G (512 -> 32 channels at 4^3-64^3) with forward
+             hooks on the port's models, and at each distinct shape (N=16,
+             f32 and
              bf16: the wide conv's and dW's bf16 routes on the tensor
              cores, their f32 routes on the FMA kernels) holds the wide-N
              conv kernel (forward, and dx with the flipped weights) and the
@@ -59,24 +61,39 @@ Phases, each printing its own line:
              steps, with the lazy R1/PL steps 0 and 16, and a resume to
              20), --sg2_reg_grads=True (2 steps: the double backward
              through the modulated and FIR convs) and a run with
-             --profile_dir (10 steps); all bf16.
+             --profile_dir (10 steps); then StyleGAN-1 at the same widths
+             (its G's table runs 512 -> 32 channels): --stylegan (8 steps
+             and a resume to 10, R1 on every D step; no conv kernel),
+             --stylegan --wide_conv=on --fast_dw=on (4 steps: K4 and K3 at
+             the G's 8 eligible convs, 3 G forwards a step and one a
+             logged sample) and a run with --profile_dir (10 steps); all
+             bf16.
              Each checks the kernel launch counts the step implies (on the
              bf16 routes' counters; the f32 routes' and K5's stay 0, and
              the StyleGAN2 path launches none of K1-K5), its log line,
              checkpoint and sample grid; after each run but the flagship's
-             short --fast_dw=on and profiled ones, the trained G and D on
+             short --fast_dw=on and the profiled ones, the trained G and D on
              the card (kernels) are held against the same networks on the
              CPU (plain path; the msl D at fixed crop offsets; StyleGAN2's
              G at fixed ws and noise, its modulated convs both unfused and
-             fused); a StyleGAN2 checkpoint must hold a nonzero pl_mean.
+             fused); a StyleGAN2 checkpoint must hold a nonzero pl_mean,
+             a StyleGAN-1 checkpoint a pl_mean of 0.
              Last, the gradient penalty with attention in D must be
              refused;
+   eval    — on the --stylegan run's directory: the generate CLI (32
+             volumes), then the eval CLI with --n_seeds=1 on a synthetic
+             test set (32 volumes tanh(N(0, 1)) at 64^3, seed 0; batch
+             16) with random-init extractors; checks the stats file's
+             keys and finite values, ms_ssim_3d(x, x) = 1, and the 3D-FID
+             and slice-FID features on the card against the CPU on the
+             same 4 volumes (f32, 1e-3 of the largest value); prints the
+             seconds a batch of each metric;
    step_trace — reads each profiled run's trace of steps 5-9 (the
-             flagship's, then StyleGAN2's): each device op's time (the top
-             15), the device's busy time a step and its idle share over
-             the window, and for the flagship the attention kernels'
-             share of the device time (K1: the forward, K2: the
-             backward);
+             flagship's, then StyleGAN2's and StyleGAN-1's): each device
+             op's time (the top 15), the device's busy time a step and
+             its idle share over the window, and for the flagship the
+             attention kernels' share of the device time (K1: the
+             forward, K2: the backward);
 6. toeplitz_conv — the W-Toeplitz direct conv op (K5, ops/toeplitz_conv.py,
              the port of scripts/bench_lane_conv.py's "pl" variant): at the
              bench's shapes (16/32/32/64/128 channels at 64/64/32/32/16^3,
@@ -174,6 +191,11 @@ HYBRID = ["--hybrid=True", "--biggan=True"] + WIDTHS
 # reference's channel base 128: channels 32/16/8/4/2 at 4^3-64^3
 SG2 = ["--stylegan2=True", "--resolution=64", "--filterG=128",
        "--filterD=128", "--z_size=512", "--batch_size=16", "--iterD=2"]
+# StyleGAN-1 (bench.py --family=stylegan) with the D at StyleGAN2's channel
+# base 128; its G runs the reference's table, 512/256/128/64/32 channels at
+# 4^3-64^3, whatever filterG
+SG1 = ["--stylegan=True", "--resolution=64", "--filterG=128",
+       "--filterD=128", "--z_size=512", "--batch_size=16", "--iterD=2"]
 # Runs of the train phase: (name, flags, ((niters, step it resumes from),
 # ...), (SelfAttention3d blocks in G, in D)); the CLI's defaults
 # otherwise. The flagship's default path trains 12 steps and resumes for
@@ -183,7 +205,9 @@ SG2 = ["--stylegan2=True", "--resolution=64", "--filterG=128",
 # and 8^3 in D), --msl, the hybrid, and the gradient penalty's double
 # backward through conv and LayerNorm. Then StyleGAN2 (slice 5): 18 steps
 # (steps 0 and 16 run the lazy R1 and PL) and a resume to 20, the double
-# backward of --sg2_reg_grads=True, and a traced run.
+# backward of --sg2_reg_grads=True, and a traced run. Then StyleGAN-1
+# (slice 6): 8 steps and a resume to 10, 4 steps with the conv knobs, and
+# a traced run.
 TRAIN_RUNS = (
     ("default", FLAGSHIP, ((12, 0), (14, 12)), (1, 1)),
     ("wide_conv+fast_dw", FLAGSHIP + ["--wide_conv=on", "--fast_dw=on"],
@@ -202,12 +226,26 @@ TRAIN_RUNS = (
      (0, 0)),
     ("stylegan2_profiled", SG2 + ["--profile_dir={tmp}/sg2_trace"],
      ((10, 0),), (0, 0)),
+    ("stylegan", SG1, ((8, 0), (10, 8)), (0, 0)),
+    ("stylegan_knobs", SG1 + ["--wide_conv=on", "--fast_dw=on"], ((4, 0),),
+     (0, 0)),
+    ("stylegan_profiled", SG1 + ["--profile_dir={tmp}/sg1_trace"],
+     ((10, 0),), (0, 0)),
 )
 KNOB_RUN = "wide_conv+fast_dw"
+# The runs whose K3/K4 launches the kernels line lists by path (the first
+# part of each): the flagship's and StyleGAN-1's knob runs.
+CONV_PATHS = (KNOB_RUN, "stylegan_knobs")
+# The run the eval phase reads, and its synthetic test set: volumes, batch
+# and seed (the eval CLI's --seed default).
+EVAL_RUN = "stylegan"
+EVAL_N, EVAL_BATCH, EVAL_SEED = 32, 16, 0
+# Volumes of the eval phase's card-against-CPU feature check.
+EVAL_CHECK_N = 4
 PROFILED_RUN = "profiled"
 # Runs without a model check: the flagship's short conv-knob and profiled
-# runs.
-UNCHECKED_RUNS = ("fast_dw", PROFILED_RUN)
+# runs, StyleGAN-1's profiled run.
+UNCHECKED_RUNS = ("fast_dw", PROFILED_RUN, "stylegan_profiled")
 # The paths whose K1/K2 launches the kernels line lists beside the knob
 # run's: each run's first part.
 ATTENTION_PATHS = ("default", "dcgan_sagan", "hybrid")
@@ -220,7 +258,8 @@ TRACE_KERNELS = {"K1": ("fwd_tc_kernel",),
 # The traced runs: (run, its trace directory under the temporary one, the
 # kernels whose share of the device time step_trace reports).
 TRACED = ((PROFILED_RUN, "trace", TRACE_KERNELS),
-          ("stylegan2_profiled", "sg2_trace", {}))
+          ("stylegan2_profiled", "sg2_trace", {}),
+          ("stylegan_profiled", "sg1_trace", {}))
 # The ladder's rungs that copy a whole array: a view of it is contiguous,
 # so their yardstick is a clone.
 WHOLE_COPIES = ("copy", "cost_estimate", "manual_dma", "dma_dyn_slot",
@@ -232,6 +271,11 @@ CONV_G = ((128, 4), (128, 8), (128, 8), (128, 16), (64, 16), (64, 32),
           (32, 32), (32, 64))
 CONV_D = ((32, 64), (32, 32), (64, 32), (64, 16), (128, 16), (128, 8),
           (256, 8), (256, 4))
+# The StyleGAN-1 G's eligible convs at 64^3, (Ci, Co, side), in call order:
+# C1 at 4^3, then each stage's halving and same conv, the last stage's
+# halving; its D (StyleGAN2's) has none.
+CONV_SG1 = ((512, 512, 4), (512, 256, 8), (256, 256, 8), (256, 128, 16),
+            (128, 128, 16), (128, 64, 32), (64, 64, 32), (64, 32, 64))
 # Off the main path, checked but not timed: (N, Ci, Co, D, H, W) with odd,
 # non-cubic volumes, Ci != Co, the narrowest and widest channels.
 CONV_RAGGED = ((1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3),
@@ -527,8 +571,9 @@ def conv_bound(kind: str, dtype: str, n: int, ci: int, co: int, s: int):
 
 def conv_shapes() -> dict:
     """(Ci, Co, D, H, W) of every conv the port's rule admits, per network
-    in call order, from forward pre-hooks on the flagship's G and D (on the
-    card, N=1, the default route); checked against CONV_G / CONV_D."""
+    in call order, from forward pre-hooks on the flagship's G and D and on
+    StyleGAN-1's G and D (on the card, N=1, the default route); checked
+    against CONV_G / CONV_D / CONV_SG1 (StyleGAN-1's D: none)."""
     import torch
 
     from gan3d_tpu_torch.config import Config
@@ -539,7 +584,10 @@ def conv_shapes() -> dict:
     cfg = Config(resolution=64, filterG=64, filterD=64, z_size=512,
                  biggan=True, hinge=True, compute_dtype="float32")
     G, D = (net.cuda() for net in build_models(cfg))
-    seen = {"G": [], "D": []}
+    sg1 = Config(stylegan=True, resolution=64, filterG=128, filterD=128,
+                 z_size=512, compute_dtype="float32")
+    G1, D1 = (net.cuda().eval() for net in build_models(sg1))
+    seen = {"G": [], "D": [], "SG1": [], "SG1_D": []}
 
     def hook(name):
         def record(mod, args):
@@ -549,17 +597,22 @@ def conv_shapes() -> dict:
                                    *args[0].shape[2:]))
         return record
 
-    for name, net in (("G", G), ("D", D)):
+    for name, net in (("G", G), ("D", D), ("SG1", G1), ("SG1_D", D1)):
         for m in net.modules():
             if isinstance(m, Conv3d):
                 m.register_forward_pre_hook(hook(name))
     with torch.no_grad():
         D(G(torch.zeros((1, cfg.z_size), device="cuda")))
-    for name, want in (("G", CONV_G), ("D", CONV_D)):
-        want = [(c, c, r, r, r) for c, r in want for _ in range(2)]
+        D1(G1(torch.zeros((1, sg1.z_size), device="cuda")))
+    wants = {name: [(c, c, r, r, r) for c, r in want for _ in range(2)]
+             for name, want in (("G", CONV_G), ("D", CONV_D))}
+    wants["SG1"] = [(ci, co, r, r, r) for ci, co, r in CONV_SG1]
+    wants["SG1_D"] = []
+    for name, want in wants.items():
         if seen[name] != want:
             raise AssertionError(f"{name} eligible convs {seen[name]} != "
                                  f"{want}")
+    del seen["SG1_D"]
     return seen
 
 
@@ -577,8 +630,10 @@ def _conv_inputs(gen, n, ci, co, d, h, w, dt):
 
 def conv_kernel_phase(cc, shapes: dict) -> list:
     """The wide-N conv (forward; dx) and the dW kernel at each distinct
-    flagship shape, N=16, f32 and bf16: error against the plain version,
-    and times of the kernel, the plain version and the PyTorch call."""
+    shape of the flagship's G and D and StyleGAN-1's G, N=16, f32 and bf16:
+    error against the plain version, and times of the kernel, the plain
+    version and the PyTorch call. Each case names the networks that run
+    its shape ("paths": G, D, SG1)."""
     import torch
     import torch.nn.functional as F
 
@@ -588,8 +643,9 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
     gen.manual_seed(2)
     cases = []
     n = N_FLAGSHIP
-    for ci, co, d, h, w in sorted(set(shapes["G"] + shapes["D"])):
+    for ci, co, d, h, w in sorted(set(sum(shapes.values(), []))):
         s = d * h * w
+        paths = [p for p in shapes if (ci, co, d, h, w) in shapes[p]]
         iters = max(3, min(20, int(5e11 / (2 * n * s * ci * 27 * co))))
         for dname, dt in (("float32", torch.float32),
                           ("bfloat16", torch.bfloat16)):
@@ -621,7 +677,7 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
                 b_ms, b_by = conv_bound("dw" if kind == "dw" else "wide",
                                         dname, n, cin, cout, s)
                 case = {
-                    "kernel": kind, "dtype": dname,
+                    "kernel": kind, "dtype": dname, "paths": paths,
                     "route": ("tensor_core" if dname == "bfloat16"
                               else "fma"),
                     "N": n, "Ci": cin, "Co": cout, "D": d, "H": h, "W": w,
@@ -1064,7 +1120,10 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
     toeplitz_conv and probe_ladder phases' runs for K5 (its bf16 route's
     counter) and the ladder's kernels; K1 and K2 add ``launches_by_path``,
     their counts in the first part of each ATTENTION_PATHS run (the
-    flagship's default, the DCGAN's --sagan, the hybrid). K1-K5 and the
+    flagship's default, the DCGAN's --sagan, the hybrid), K3 and K4 their
+    counts in the first part of each CONV_PATHS run (the flagship's and
+    StyleGAN-1's knob runs); each conv case lists the networks that run
+    its shape ("paths": G, D, SG1). K1-K5 and the
     ladder add ``device_ms`` and ``library_device_ms`` (device time per
     call, profiler), and K1-K5 the f32 route's (the FMA kernels') numbers
     at the same case: ``f32_ms``, ``f32_device_ms``, ``f32_library_ms``
@@ -1112,9 +1171,9 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
             "library_device_ms": main["library_device_ms"], "at": at,
             "cases": mine,
         })
-        if key in ("fwd_tc", "bwd_tc"):
-            out[-1]["launches_by_path"] = {p: paths[p][key]
-                                           for p in ATTENTION_PATHS}
+        by_path = (ATTENTION_PATHS if key in ("fwd_tc", "bwd_tc")
+                   else CONV_PATHS)
+        out[-1]["launches_by_path"] = {p: paths[p][key] for p in by_path}
         # the same case's f32 route (FMA kernels) beside it
         f32 = next(c for c in mine if c["dtype"] == "float32" and all(
             c[k] == main[k] for k in main
@@ -1213,6 +1272,9 @@ def expected_conv_launches(start: int, niters: int, iter_d: int,
     forwards and the G step's D and G forwards. dW (wide_conv or fast_dw
     on): the D-step D forwards' convs and the G step's G convs; D's
     parameters are frozen in the G update, so its D forward asks none.
+    StyleGAN-1's fused step has the same G forwards (iter_d no-grad ones
+    for the D updates, one with a backward for the G update) and its D no
+    eligible conv (n_d = 0).
     """
     steps = niters - start
     img_logs = sum(1 for i in range(start, niters) if i % img_every == 0) + 1
@@ -1236,13 +1298,16 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
     rng = np.random.default_rng(0)
     np.savez(data, X=np.tanh(rng.standard_normal((48, 64, 64, 64),
                                                  np.float32)))
-    n_g, n_d = len(shapes["G"]), len(shapes["D"])
     results = {}
     for name, flags, runs, attention in TRAIN_RUNS:
         log_dir = os.path.join(tmp, name)
         flags = [f.format(tmp=tmp) for f in flags]
         base = flags + [f"--data_path={data}", f"--log_dir={log_dir}"]
         wide, fast_dw = "--wide_conv=on" in flags, "--fast_dw=on" in flags
+        sg1 = "--stylegan=True" in flags
+        # eligible convs a G and a D forward: StyleGAN-1's D has none
+        n_g, n_d = ((len(shapes["SG1"]), 0) if sg1
+                    else (len(shapes["G"]), len(shapes["D"])))
         for niters, start in runs:
             ca.reset_counters()
             cc.reset_counters()
@@ -1284,12 +1349,14 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
                     or not all(math.isfinite(x) for x in vals)):
                 raise AssertionError(f"{len(ckpt['lossG'])} G losses for "
                                      f"{niters} steps, or a non-finite loss")
-            pl_mean = (float(ckpt["pl_mean"]) if "--stylegan2=True" in flags
-                       else None)
-            if pl_mean is not None and not (math.isfinite(pl_mean)
-                                            and pl_mean != 0.0):
+            sg2 = "--stylegan2=True" in flags
+            pl_mean = float(ckpt["pl_mean"]) if sg2 or sg1 else None
+            if sg2 and not (math.isfinite(pl_mean) and pl_mean != 0.0):
                 raise AssertionError(f"{name}: pl_mean {pl_mean} after the "
                                      "lazy step 0")
+            if sg1 and pl_mean != 0.0:
+                raise AssertionError(f"{name}: StyleGAN-1's pl_mean "
+                                     f"{pl_mean}, not 0")
             done = re.search(r"\.\.\.Done \((\d+) steps in ([\d.]+)s, "
                              r"([\d.]+) steps/s(?:; steady ([\d.]+) steps/s "
                              r"= ([\d.]+) vol/s)?\)", out)
@@ -1314,6 +1381,85 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
             phase("model_check", run=name, **model_check(log_dir, cc))
     phase("gp_refusal", **gp_refusal(data, tmp))
     return results
+
+
+def eval_phase(tmp: str, run_dir: str) -> dict:
+    """The generate and eval CLIs on the card, on a trained StyleGAN-1 run
+    (``run_dir``) and a synthetic test set; then the metric and feature
+    checks against the CPU. The eval CLI reads run dirs as ``path + seed``:
+    ``path + "0"`` links to ``run_dir``."""
+    import numpy as np
+    import torch
+
+    from gan3d_tpu_torch.cli import eval as cli_eval
+    from gan3d_tpu_torch.cli import generate as cli_generate
+    from gan3d_tpu_torch.eval.fid_resnet import get_fid_model
+    from gan3d_tpu_torch.eval.metrics import ms_ssim_3d
+    from gan3d_tpu_torch.eval.slice_fid import SliceFID, volumes_to_slices
+
+    t0 = time.time()
+    r = 64
+    data = os.path.join(tmp, "eval_test.npz")
+    rng = np.random.default_rng(EVAL_SEED)
+    np.savez(data, X=np.tanh(rng.standard_normal((EVAL_N, r, r, r),
+                                                  np.float32)))
+    out = os.path.join(tmp, "generated.npz")
+    t = time.time()
+    cli_generate.main(["-l", run_dir, f"--num={EVAL_N}",
+                       f"--batch={EVAL_BATCH}", f"--out={out}"])
+    gen_s = time.time() - t
+    fakes = np.load(out)["X"]
+    if (fakes.shape != (EVAL_N, r, r, r) or not np.isfinite(fakes).all()
+            or np.abs(fakes).max() > 1):
+        raise AssertionError(f"generate: {fakes.shape}, or values outside "
+                             "[-1, 1]")
+    model = os.path.join(tmp, "stylegan_eval")
+    os.symlink(run_dir, model + "0")
+    stats_dir = os.path.join(tmp, "eval_stats")
+    t = time.time()
+    per_batch = cli_eval.main([
+        "-l", model, f"--data_path={data}", f"--batch_size={EVAL_BATCH}",
+        "--n_seeds=1", f"--log_dir={stats_dir}", f"--seed={EVAL_SEED}"])
+    eval_s = time.time() - t
+    stats = np.load(os.path.join(stats_dir, "stylegan_eval_stats.npz"))
+    keys = {"ssim", "mmds", "fid", "fid_ax", "fid_cor", "fid_sag"}
+    n_batches = EVAL_N // EVAL_BATCH
+    if set(stats.files) != keys or not all(
+            stats[k].shape == (n_batches,) and np.isfinite(stats[k]).all()
+            for k in keys):
+        raise AssertionError(f"eval stats {dict(stats)}")
+
+    x = torch.from_numpy(np.load(data)["X"][:EVAL_CHECK_N, None])
+    xc = x.cuda()
+    ssim_self = ms_ssim_3d(xc, xc)
+    if abs(ssim_self - 1.0) > 1e-5:
+        raise AssertionError(f"ms_ssim_3d(x, x) = {ssim_self}")
+    errs = {}
+    feats = {"fid_3d": (get_fid_model(None, torch.device("cuda")),
+                        get_fid_model(None, torch.device("cpu")))}
+    card = SliceFID(device=torch.device("cuda"))
+    host = SliceFID(device=torch.device("cpu"))
+    for axis in ("axial", "coronal", "sagittal"):
+        feats[f"slice_{axis}"] = (
+            lambda v, a=axis: torch.from_numpy(card._acts(
+                volumes_to_slices(v, a))),
+            lambda v, a=axis: torch.from_numpy(host._acts(
+                volumes_to_slices(v, a))))
+    for name, (on_card, on_host) in feats.items():
+        got, want = on_card(xc).cpu().float(), on_host(x).float()
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: {tuple(got.shape)} on the card, "
+                                 f"{tuple(want.shape)} on the CPU")
+        _, errs[name] = rel_err(got, want)
+        if not errs[name] <= 1e-3:
+            raise AssertionError(f"{name} features, card vs CPU: relative "
+                                 f"error {errs[name]:.3e} > 1e-3")
+    return {"run": run_dir, "test_volumes": EVAL_N, "batch": EVAL_BATCH,
+            "stats": {k: stats[k].tolist() for k in sorted(keys)},
+            "seconds_a_batch": per_batch, "generate_s": gen_s,
+            "eval_s": eval_s, "ms_ssim_self": ssim_self,
+            "features_rel_err": errs, "tol": 1e-3,
+            "seconds": time.time() - t0}
 
 
 def gp_refusal(data: str, tmp: str) -> dict:
@@ -1535,11 +1681,12 @@ def main() -> int:
     cases = kernel_phase(ca, attention_plain)
     phase("kernel_extra", **extra_checks(ca, attention_plain))
     shapes = conv_shapes()
-    phase("conv_shapes", G=shapes["G"], D=shapes["D"])
+    phase("conv_shapes", **shapes)
     conv_cases = conv_kernel_phase(cc, shapes)
     phase("conv_extra", **conv_extra_checks(cc))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train = train_phase(ca, cc, tmp, shapes)
+        phase("eval", **eval_phase(tmp, os.path.join(tmp, EVAL_RUN)))
         for run, sub, kernels in TRACED:
             phase("step_trace", run=run, **trace_phase(
                 os.path.join(tmp, sub), PROFILE_STEPS, kernels))
@@ -1552,7 +1699,7 @@ def main() -> int:
     first = {name: runs[0] for name, _, runs, _ in TRAIN_RUNS}
     paths = {name: train["%s/run_%d_%d" % (name, first[name][1],
                                              first[name][0])]["launches"]
-             for name in (KNOB_RUN,) + ATTENTION_PATHS}
+             for name in CONV_PATHS + ATTENTION_PATHS}
     print(json.dumps(kernels_line(cases, conv_cases, paths, toeplitz_cases,
                                   ladder_cases)), flush=True)
     print(json.dumps({"ok": True, "device": {

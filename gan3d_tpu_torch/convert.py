@@ -2,7 +2,7 @@
 
 ``from_jax_variables(variables, cfg, which)`` takes the JAX package's
 ``{"params", "batch_stats", "spectral"}`` trees of one network of the
-BigGAN, DCGAN or hybrid family (as numpy arrays) and returns the
+model family (as numpy arrays) and returns the
 state_dict of the port's module of the same config, which loads with
 ``strict=True``. The key names and layouts are the reference's torch ones
 (the same mapping as gan3d_tpu/eval/export.py:59-252):
@@ -29,6 +29,11 @@ SynthesisLayer's 2-D [res, res] ``noise_const``, which the JAX G does not
 carry: standard normals from numpy's default_rng(0) in block order, the
 exporter's draw. D's epilogue FC weight is permuted from the JAX NDHWC
 flatten to the NCDHW one.
+
+StyleGAN-1's G (export.py:342-357, ``export_stylegan1_g``): ``map{i}``
+-> ``latentMapping.{2i}`` (the Sequential counts the LeakyReLU slots),
+``A{i}`` linears, the biasless convs ``C{i}`` / ``C_out`` -> ``C{i}.0`` /
+``C_out.0``; its D is StyleGAN2's.
 """
 
 from __future__ import annotations
@@ -278,22 +283,34 @@ def _stylegan_discriminator(params: Tree) -> StateDict:
     return sd
 
 
+def _stylegan1_generator(params: Tree) -> StateDict:
+    """latentMapping.{2i}, A{i}, C{i}.0, C_out.0 (export.py:342-357)."""
+    sd: StateDict = {}
+    for name, p in params.items():
+        if name.startswith("map"):
+            linear_state(sd, f"latentMapping.{2 * int(name[3:])}", p, None)
+        elif name.startswith("C"):
+            conv_state(sd, f"{name}.0", p, None)
+        elif name.startswith("A"):
+            linear_state(sd, name, p, None)
+    return sd
+
+
 def from_jax_variables(variables: Tree, cfg: Config, which: str = "g"
                        ) -> StateDict:
     """JAX variable trees (numpy leaves) -> the port's G or D state_dict."""
     fam = cfg.family()
-    if fam not in ("biggan", "dcgan", "hybrid", "stylegan2"):
-        raise NotImplementedError(
-            f"weight conversion for family {fam!r} is not ported yet")
     if which not in ("g", "d"):
         raise ValueError(f"which must be 'g' or 'd', not {which!r}")
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     spectral = variables.get("spectral", {})
-    if fam == "stylegan2":
-        if which == "g":
-            return _stylegan2_generator(params, variables.get("moving", {}))
-        return _stylegan_discriminator(params)
+    if fam in ("stylegan2", "stylegan"):
+        if which == "d":
+            return _stylegan_discriminator(params)
+        if fam == "stylegan":
+            return _stylegan1_generator(params)
+        return _stylegan2_generator(params, variables.get("moving", {}))
     if which == "g":
         if fam == "dcgan":
             return _dcgan_generator(params, stats, spectral, cfg)

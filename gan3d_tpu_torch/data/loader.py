@@ -41,6 +41,16 @@ class Loader:
         self.rng.shuffle(idx)
         return idx[:(len(idx) // self.batch_size) * self.batch_size]
 
+    def __iter__(self) -> Iterator[np.ndarray]:
+        """One shuffled epoch of whole batches (the evaluation CLIs'
+        pass, gan3d_tpu/data/loader.py:53-60)."""
+        idx = self._epoch_indices()
+        for i in range(0, len(idx), self.batch_size):
+            yield self.dataset.batch(idx[i:i + self.batch_size])
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
     def infinite(self) -> Iterator[np.ndarray]:
         """Infinite shuffled batches with background prefetch.
 

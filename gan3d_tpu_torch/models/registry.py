@@ -2,7 +2,8 @@
 
 Precedence, as gan3d_tpu/models/registry.py: hybrid (BigGAN G + DCGAN D)
 > dcgan > stylegan2 > stylegan > BigGAN (the sngan / sagan / biggan
-variants). StyleGAN-1 raises, naming the ROADMAP slice that ports it.
+variants). StyleGAN-1 pairs its AdaIN G with StyleGAN2's D
+(gan3d_tpu/models/registry.py:51-55).
 """
 
 from __future__ import annotations
@@ -13,8 +14,6 @@ import torch
 
 from gan3d_tpu_torch.config import Config
 
-_LATER = {"stylegan": "slice 6"}
-
 
 def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
     """(generator, discriminator) on the CPU, initialized from ``cfg.seed``.
@@ -24,10 +23,6 @@ def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
     every run with that seed and leaves the global RNG untouched.
     """
     fam = cfg.family()
-    if fam in _LATER:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet (ROADMAP.md queue A, "
-            f"{_LATER[fam]})")
     if cfg.remat:
         raise NotImplementedError(
             "remat is not ported yet: torch.utils.checkpoint would step the "
@@ -36,6 +31,8 @@ def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
 
     if fam == "stylegan2":
         g_cls, d_cls = stylegan.Generator, stylegan.Discriminator
+    elif fam == "stylegan":
+        g_cls, d_cls = stylegan.StyleGAN1Generator, stylegan.Discriminator
     else:
         g_cls = dcgan.Generator if fam == "dcgan" else biggan.Generator
         d_cls = (biggan.Discriminator if fam == "biggan"

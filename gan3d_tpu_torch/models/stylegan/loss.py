@@ -1,4 +1,4 @@
-"""StyleGAN2 loss and fused train step.
+"""StyleGAN2 and StyleGAN-1 loss and fused train step.
 
 Counterpart of gan3d_tpu/models/stylegan/loss.py (reference stylegan.py
 :6-99, trainer.py:214-220, 262-269), in its order: iterD D updates, then
@@ -27,6 +27,12 @@ Every random draw goes through ``Draws``, in the JAX step's order: each D
 update draws z, then G's mixing cutoff, its coin, the mixing z and the
 synthesis noise; the G update the same, then (on a lazy step) the PL
 synthesis noise and pl_noise.
+
+StyleGAN-1 (``cfg.stylegan``, the JAX loss's v1 branch, loss.py:63-146)
+runs the same losses with R1 on every D update, no path-length penalty and
+no EMA; ``pl_mean`` passes through unchanged. Its G forward draws only its
+own mixing (a swap point, then a permutation: models/stylegan/
+stylegan1.py), so each update draws z, the swap point and the permutation.
 """
 
 from __future__ import annotations
@@ -84,6 +90,11 @@ class Draws:
             return self._next(()).float()
         return torch.rand((), generator=self.generator, device=self.device)
 
+    def permutation(self, n: int) -> torch.Tensor:
+        if self._replay is not None:
+            return self._next((n,)).long()
+        return torch.randperm(n, generator=self.generator, device=self.device)
+
 
 def run_generator(G: torch.nn.Module, z: torch.Tensor,
                   draws: Draws) -> torch.Tensor:
@@ -140,26 +151,33 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
                draws: Optional[Draws] = None
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                           torch.Tensor]:
-    """One fused StyleGAN2 step at ``step``. ``reals`` is [iterD, B, 1, R,
-    R, R]; ``ema`` (aligned with ``g_opt.params``) is updated in place.
-    Draws come from ``draws`` when given, else from ``generator``.
+    """One fused StyleGAN2 or StyleGAN-1 step at ``step``. ``reals`` is
+    [iterD, B, 1, R, R, R]; ``ema`` (aligned with ``g_opt.params``) is
+    updated in place. Draws come from ``draws`` when given, else from
+    ``generator``.
 
     Returns ({"d_real", "d_fake", "g_loss"} as 0-d tensors, the G update's
-    image, detached, and the new pl_mean).
+    image, detached, and the new pl_mean). StyleGAN-1 (``cfg.family()`` ==
+    "stylegan") takes an empty ``ema``.
     """
     b = reals.shape[1]
     draws = draws or Draws(reals.device, generator)
+    v2 = cfg.family() == "stylegan2"
     lazy = step % LAZY_INTERVAL == 0
+    r1, pl = (lazy, lazy) if v2 else (True, False)
     reg_grads = cfg.sg2_reg_grads
+
+    def generate(z: torch.Tensor) -> torch.Tensor:
+        return run_generator(G, z, draws) if v2 else G(z, draws=draws)
 
     err_real = err_fake = torch.zeros((), device=reals.device)
     for i in range(cfg.iterD):
         real = reals[i]
         z = draws.normal((b, cfg.z_size))
         with torch.no_grad():
-            fake = run_generator(G, z, draws).to(real.dtype)
+            fake = generate(z).to(real.dtype)
         err_fake = F.softplus(D(fake).float()).mean()
-        if lazy:
+        if r1:
             real_logits, pen = r1_penalty(D, real, reg_grads)
             if not reg_grads:
                 pen = pen.detach()
@@ -171,17 +189,18 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
 
     z = draws.normal((b, cfg.z_size))
     with frozen(D):
-        img = run_generator(G, z, draws)
+        img = generate(z)
         err_g = F.softplus(-D(img).float()).mean()
-        if lazy:
+        if pl:
             pen, pl_mean = path_length_penalty(
                 G, z[:b // PL_BATCH_SHRINK], pl_mean, draws, reg_grads)
             err_g = err_g + (pen if reg_grads else pen.detach())
         g_opt.step(torch.autograd.grad(err_g, g_opt.params))
-    d = cfg.ema_decay
-    with torch.no_grad():
-        for p, e in zip(g_opt.params, ema):
-            e.copy_(d * e + (1 - d) * p)
-            p.copy_(e)
+    if v2:
+        d = cfg.ema_decay
+        with torch.no_grad():
+            for p, e in zip(g_opt.params, ema):
+                e.copy_(d * e + (1 - d) * p)
+                p.copy_(e)
     return ({"d_real": err_real, "d_fake": err_fake,
              "g_loss": err_g.detach()}, img.detach(), pl_mean)

@@ -27,7 +27,8 @@ the batch and over depth (one sample's f32 X27 at 32ch@64^3 is 0.9 GB):
 - ``conv3d_dw_plain``: dW[co, ci, k] = sum_{n,s} g[n, co, s] x[n, ci, s+k-1]
   as G[Co, S] @ X27[27*Ci, S]^T, in f32 [Co, Ci, 3, 3, 3].
 
-Pooling helpers: counterparts of gan3d_tpu/ops/conv3d.py:134-190.
+Pooling and resampling helpers: counterparts of
+gan3d_tpu/ops/conv3d.py:134-250.
 """
 
 from __future__ import annotations
@@ -160,6 +161,16 @@ def max_pool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 def upsample_nearest3d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsample (torch F.interpolate's default mode)."""
     return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def upsample_trilinear3d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Trilinear upsample with half-pixel taps (torch F.interpolate,
+    align_corners=False), the StyleGAN-1 G's (gan3d_tpu/ops/conv3d.py
+    :225-250). The JAX ``fast_tri`` lowering computes the same taps as
+    three banded matmuls; in bf16 it rounds after each axis, where this op
+    rounds once (ROADMAP.md C). The knob is accepted and runs this op."""
+    return F.interpolate(x, scale_factor=scale, mode="trilinear",
+                         align_corners=False)
 
 
 def global_sum_pool(x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Host-side training loop (counterpart of gan3d_tpu/train/trainer.py).
 
 Reference: trainer.py:28-313 (Trainer). One device; the step is the fused
-D/G step of train/step.py, or for StyleGAN2 that of
-models/stylegan/loss.py (with the lazy R1/PL step chosen on the host by
-step % 16), run eagerly. Kept from the JAX trainer:
+D/G step of train/step.py, or for StyleGAN2 and StyleGAN-1 that of
+models/stylegan/loss.py (StyleGAN2's lazy R1/PL step chosen on the host
+by step % 16; StyleGAN-1's R1 on every step), run eagerly. Kept from the
+JAX trainer:
 - config persisted as ``params.json`` (``load_params`` reads it back);
 - Adam(lr, betas=(0, 0.9)) per network, in the JAX op order;
 - the log line ``[i|niters]\\tD(x): ..\\tD(G(z)): ..|..\\tFID ..`` every
@@ -13,10 +14,11 @@ step % 16), run eagerly. Kept from the JAX trainer:
   and at the end, with G in train mode as in the reference (its BN and SN
   state update during these forwards too);
 - a rolling checkpoint every ``steps_per_ckpt`` steps and a final one, and
-  automatic resume that prints ``starting from step N``; for StyleGAN2 it
-  also holds ``pl_mean``, and G's state seeds the EMA on resume (the
-  reference's trainer.py:133-134; the EMA equals G's parameters after
-  every G update);
+  automatic resume that prints ``starting from step N``; for both StyleGAN
+  families it also holds ``pl_mean`` (StyleGAN-1's stays 0,
+  gan3d_tpu/train/trainer.py:189), and for StyleGAN2 G's state seeds the
+  EMA on resume (the reference's trainer.py:133-134; the EMA equals G's
+  parameters after every G update);
 - the closing ``...Done (...)`` line with the steady rate in vol/s;
 - with ``profile_dir`` set, a ``torch.profiler`` trace of steps 5-9
   (utils/profiling.py) written there.
@@ -38,7 +40,7 @@ import torch
 from gan3d_tpu_torch.config import Config
 from gan3d_tpu_torch.data.loader import Loader
 from gan3d_tpu_torch.models.registry import build_models
-from gan3d_tpu_torch.models.stylegan import loss as sg2_loss
+from gan3d_tpu_torch.models.stylegan import loss as sg_loss
 from gan3d_tpu_torch.nn.attention import SelfAttention3d
 from gan3d_tpu_torch.ops.conv3d import set_fast_dw_mode, set_wide_conv_mode
 from gan3d_tpu_torch.train.checkpoint import CheckpointManager
@@ -105,6 +107,7 @@ class Trainer:
         self.G = G.to(self.device).train()
         self.D = D.to(self.device).train()
         self.stylegan2 = cfg.family() == "stylegan2"
+        self.stylegan = self.stylegan2 or cfg.family() == "stylegan"
         # StyleGAN2's EMA of G (a copy of G, gan3d_tpu/train/trainer.py
         # :185-190) and path-length mean
         self.ema = ([p.detach().clone() for p in self.G.parameters()]
@@ -162,6 +165,10 @@ class Trainer:
             if self.stylegan2:
                 fake = self.G(self.fixed_test_noise,
                               generator=self._generator(3, step))[0]
+            elif self.stylegan:
+                # StyleGAN-1's mixing draws (_apply_g's "mixing" key)
+                fake = self.G(self.fixed_test_noise,
+                              generator=self._generator(3, step))
             else:
                 fake = self.G(self.fixed_test_noise)
         save_volume_grid(os.path.join(self.images_dir, f"{step}.png"),
@@ -185,7 +192,7 @@ class Trainer:
             "lossG": self.G_losses, "lossD": self.D_losses,
             "fid": self.fid_epoch,
         }
-        if self.stylegan2:
+        if self.stylegan:
             payload["pl_mean"] = self.pl_mean
         self.ckpt.save(payload)
 
@@ -197,8 +204,9 @@ class Trainer:
         self.D.load_state_dict(payload["modelD_state_dict"])
         self.g_opt.load_state_dict(payload["optimizerG_state_dict"])
         self.d_opt.load_state_dict(payload["optimizerD_state_dict"])
-        if self.stylegan2:
+        if self.stylegan:
             self.pl_mean = payload["pl_mean"].to(self.device)
+        if self.stylegan2:
             self.ema = [p.detach().clone() for p in self.G.parameters()]
         self.G_losses = list(payload["lossG"])
         self.D_losses = [list(x) for x in payload["lossD"]]
@@ -223,8 +231,8 @@ class Trainer:
             for i in range(step_done, cfg.niters):
                 self.profiler.step(i)
                 reals, gen = self._reals(batches), self._generator(1, i)
-                if self.stylegan2:
-                    metrics, _, self.pl_mean = sg2_loss.train_step(
+                if self.stylegan:
+                    metrics, _, self.pl_mean = sg_loss.train_step(
                         cfg, self.G, self.D, self.g_opt, self.d_opt, reals,
                         i, self.ema, self.pl_mean, generator=gen)
                 else:

@@ -1,7 +1,8 @@
 """Rules the port keeps, and its train CLI end to end on the CPU.
 
 - No module of gan3d_tpu_torch, and not chip_smoke.py, imports JAX or
-  anything of gan3d_tpu (checked in a fresh interpreter).
+  anything of gan3d_tpu (checked in a fresh interpreter); scipy is
+  imported only under gan3d_tpu_torch/eval/.
 - With the default platform ("" = the CUDA card) the trainer raises when
   there is no CUDA device; it never carries on on the CPU.
 - Options whose code paths are not ported raise instead of being ignored;
@@ -59,7 +60,40 @@ def test_no_jax_or_reference_package_imported():
     assert "gan3d_tpu_torch.ops.toeplitz_conv" in res["modules"]
     assert "gan3d_tpu_torch.probes.mosaic_ladder" in res["modules"]
     assert "gan3d_tpu_torch.models.stylegan.loss" in res["modules"]
+    assert "gan3d_tpu_torch.eval.metrics" in res["modules"]
+    assert "gan3d_tpu_torch.cli.eval" in res["modules"]
     assert res["bad"] == []
+
+
+def _imported_roots(path):
+    """The top-level packages a source file imports (at any depth)."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_scipy_only_in_eval():
+    """The port imports torch and numpy; scipy (the Fréchet distance's
+    sqrtm) only in its evaluation package, gan3d_tpu_torch/eval/."""
+    pkg = os.path.join(REPO, "gan3d_tpu_torch")
+    users = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                if "scipy" in _imported_roots(path):
+                    users.append(os.path.relpath(path, pkg))
+    assert users and all(u.startswith("eval" + os.sep) for u in users), users
+    assert "scipy" not in _imported_roots(os.path.join(REPO,
+                                                       "chip_smoke.py"))
 
 
 def _dataset(tmp_path, n=8, r=16):
@@ -79,7 +113,7 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
         Trainer(open_dataset(_dataset(tmp_path)), cfg)
 
 
-@pytest.mark.parametrize("kw", [dict(stylegan=True),
+@pytest.mark.parametrize("kw", [dict(stylegan=True, remat=True),
                                 dict(stylegan2=True, remat=True),
                                 dict(remat=True), dict(fid_in_loop=True),
                                 dict(spatial_devices=2), dict(async_log=True),

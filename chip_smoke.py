@@ -79,7 +79,19 @@ Phases, each printing its own line:
              fused); a StyleGAN2 checkpoint must hold a nonzero pl_mean,
              a StyleGAN-1 checkpoint a pl_mean of 0.
              Last, the gradient penalty with attention in D must be
-             refused;
+             refused. Every run logs its FID as nan and says once that
+             no Inception weights were found;
+   inloop_fid — the flagship with in-loop FID: the random stand-in
+             (--fid_in_loop=True, 4 steps, a log and a checkpoint every 2),
+             a random-init Inception-V3 weights file the script writes in
+             the pt_inception layout (--inception_weights, 2 steps, a log
+             every step), the stand-in with --async_log=True, and the
+             stand-in and the weights at the default steps_per_log=10 over
+             20 steps; each run's log lines and finite FIDs, the
+             checkpoint's FID history, K1/K2 launches as in training; the
+             steady vol/s of each beside the default run's; each in-loop
+             FID's seconds, split into the host's Fréchet distance and
+             the card's feature pass;
    eval    — on the --stylegan run's directory: the generate CLI (32
              volumes), then the eval CLI with --n_seeds=1 on a synthetic
              test set (32 volumes tanh(N(0, 1)) at 64^3, seed 0; batch
@@ -88,6 +100,21 @@ Phases, each printing its own line:
              and slice-FID features on the card against the CPU on the
              same 4 volumes (f32, 1e-3 of the largest value); prints the
              seconds a batch of each metric;
+   tournament — cli/tournament on the flagship, --dcgan --sagan and
+             hybrid runs (one seed each) over the eval phase's test set,
+             by default and with --compat_last_batch: the results block,
+             three win rates in [0, 1], K1's forward launches as the loop
+             implies (2 D scores and 1 own sample a judge batch, 1 sample
+             and 1 score a rival round) and no other kernel's, the seconds
+             of each judge; the flagship's D in f32 scoring the same reals
+             on the card and the CPU (1e-3 of the largest score);
+   export  — cli/export_torch on the flagship and StyleGAN2 runs: the
+             reference's params.pkl and checkpoint keys, torch.optim.Adam
+             loading the exported optimizer states, and the exported dir
+             sampling bit-identically to its source;
+   eval_metrics — calibrate(reps=1) at 64^3, batch 16, on the card
+             (random ResNet-50, slice-FID stand-in): randn vs randn below
+             randn vs uniform in 3D-FID, axial FID and MMD; its seconds;
    step_trace — reads each profiled run's trace of steps 5-9 (the
              flagship's, then StyleGAN2's and StyleGAN-1's): each device
              op's time (the top 15), the device's busy time a step and
@@ -121,7 +148,8 @@ Phases, each printing its own line:
              the rungs that copy a whole array); then the bulk copy rungs'
              device time by variants (the launch alone, + the barrier
              init, + the copies, the whole kernel) and under other plans;
-8. the kernels JSON line, then the result line.
+8. the kernels JSON line (K1 adds the tournament's launches to its
+   launches_by_path), then the result line.
 
 Any failure raises and the script exits non-zero without the result line.
 It needs no arguments and one card; it imports nothing of JAX.
@@ -243,6 +271,36 @@ EVAL_N, EVAL_BATCH, EVAL_SEED = 32, 16, 0
 # Volumes of the eval phase's card-against-CPU feature check.
 EVAL_CHECK_N = 4
 PROFILED_RUN = "profiled"
+# The trainer's line when in-loop FID finds no Inception weights (every
+# TRAIN_RUNS run: fid_in_loop unset, no weights on the machine).
+NO_WEIGHTS_LINE = "in-loop FID: no Inception weights found"
+# The inloop_fid phase's runs of the flagship (name, flags, niters):
+# (a) the random stand-in (fid_in_loop=True) with a log and a checkpoint
+# every 2 steps; (b) a random-init Inception-V3 weights file written in
+# the pt_inception layout ({weights}), a log every step; (c) (a) with
+# async_log; then the stand-in and the weights at the default
+# steps_per_log=10 over 20 steps, for the steady rate (steps 1-19 hold
+# the log of step 10 and the final one).
+INLOOP_RUNS = (
+    ("stand_in", ["--fid_in_loop=True", "--steps_per_log=2",
+                  "--steps_per_ckpt=2"], 4),
+    ("weights", ["--inception_weights={weights}", "--steps_per_log=1"], 2),
+    ("async", ["--fid_in_loop=True", "--steps_per_log=2",
+               "--steps_per_ckpt=2", "--async_log=True"], 4),
+    ("stand_in_rate", ["--fid_in_loop=True"], 20),
+    ("weights_rate", ["--inception_weights={weights}"], 20),
+)
+INCEPTION_SEED = 0
+# The tournament phase's runs (each read as name + "0"): the flagship,
+# the DCGAN with --sagan, the hybrid.
+TOURNAMENT_RUNS = ("default", "dcgan_sagan", "hybrid")
+TOURNAMENT_ROUNDS = 2  # cli/tournament.py play_round's default
+# The export phase's runs, and the keys of the reference's checkpoint
+# (trainer.py:153-163).
+EXPORT_RUNS = ("default", "stylegan2")
+CKPT_KEYS = ["step", "modelG_state_dict", "modelD_state_dict",
+             "optimizerG_state_dict", "optimizerD_state_dict", "lossG",
+             "lossD", "fid"]
 # Runs without a model check: the flagship's short conv-knob and profiled
 # runs, StyleGAN-1's profiled run.
 UNCHECKED_RUNS = ("fast_dw", PROFILED_RUN, "stylegan_profiled")
@@ -1174,6 +1232,9 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
         by_path = (ATTENTION_PATHS if key in ("fwd_tc", "bwd_tc")
                    else CONV_PATHS)
         out[-1]["launches_by_path"] = {p: paths[p][key] for p in by_path}
+        if key == "fwd_tc":  # the tournament's no-grad forwards
+            out[-1]["launches_by_path"]["tournament"] = \
+                paths["tournament"][key]
         # the same case's f32 route (FMA kernels) beside it
         f32 = next(c for c in mine if c["dtype"] == "float32" and all(
             c[k] == main[k] for k in main
@@ -1220,6 +1281,11 @@ def run_cli(argv: list) -> str:
     """Run the train CLI in-process; returns its stdout (also echoed)."""
     from gan3d_tpu_torch.cli import train as cli_train
 
+    return tee(cli_train.main, argv)[1]
+
+
+def tee(fn, *args) -> tuple:
+    """(fn(*args), its stdout), the stdout also echoed."""
     buf = io.StringIO()
 
     class Tee(io.TextIOBase):
@@ -1232,8 +1298,8 @@ def run_cli(argv: list) -> str:
             sys.__stdout__.flush()
 
     with contextlib.redirect_stdout(Tee()):
-        cli_train.main(argv)
-    return buf.getvalue()
+        out = fn(*args)
+    return out, buf.getvalue()
 
 
 def expected_launches(start: int, niters: int, iter_d: int,
@@ -1313,13 +1379,7 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
             cc.reset_counters()
             torch.cuda.reset_peak_memory_stats()
             out = run_cli(base + [f"--niters={niters}"])
-            got = {"fwd": ca.fwd_launches, "fwd_tc": ca.fwd_tc_launches,
-                   "bwd": ca.bwd_launches,
-                   "bwd_tc": ca.bwd_tc_launches, "wide": cc.wide_launches,
-                   "wide_tc": cc.wide_tc_launches, "dw": cc.dw_launches,
-                   "dw_tc": cc.dw_tc_launches,
-                   "toeplitz": cc.toeplitz_launches,
-                   "toeplitz_tc": cc.toeplitz_tc_launches}
+            got = _counters(ca, cc)
             # bf16 runs: the f32 routes of K1-K4 launch nothing, and K5
             # is on no train path
             want = {"fwd": 0, "bwd": 0, "wide": 0, "dw": 0, "toeplitz": 0,
@@ -1336,6 +1396,9 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
             if wide and not got["wide_tc"]:
                 raise AssertionError(f"{name}: the wide kernel never "
                                      "launched")
+            if out.count(NO_WEIGHTS_LINE) != 1 or "\tFID nan" not in out:
+                raise AssertionError(f"{name}: not one '{NO_WEIGHTS_LINE}' "
+                                     "line, or no FID logged as nan")
             if start and f"starting from step {start}" not in out:
                 raise AssertionError(f"resume did not print 'starting from "
                                      f"step {start}'")
@@ -1357,20 +1420,9 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
             if sg1 and pl_mean != 0.0:
                 raise AssertionError(f"{name}: StyleGAN-1's pl_mean "
                                      f"{pl_mean}, not 0")
-            done = re.search(r"\.\.\.Done \((\d+) steps in ([\d.]+)s, "
-                             r"([\d.]+) steps/s(?:; steady ([\d.]+) steps/s "
-                             r"= ([\d.]+) vol/s)?\)", out)
-            if done is None:
-                raise AssertionError("no '...Done' line")
             key = f"{name}/run_{start}_{niters}"
             results[key] = {
-                "steps": int(done.group(1)), "seconds": float(done.group(2)),
-                "steps_per_s": float(done.group(3)),
-                "steady_steps_per_s": (float(done.group(4)) if done.group(4)
-                                       else None),
-                "steady_vol_per_s": (float(done.group(5)) if done.group(5)
-                                     else None),
-                "launches": got, "max_memory_allocated":
+                **_done(out), "launches": got, "max_memory_allocated":
                     torch.cuda.max_memory_allocated(), "pl_mean": pl_mean}
             phase("train_run", run=name, niters=niters, **results[key])
         last = runs[-1][0] - 1
@@ -1460,6 +1512,312 @@ def eval_phase(tmp: str, run_dir: str) -> dict:
             "eval_s": eval_s, "ms_ssim_self": ssim_self,
             "features_rel_err": errs, "tol": 1e-3,
             "seconds": time.time() - t0}
+
+
+def _counters(ca, cc) -> dict:
+    return {"fwd": ca.fwd_launches, "fwd_tc": ca.fwd_tc_launches,
+            "bwd": ca.bwd_launches, "bwd_tc": ca.bwd_tc_launches,
+            "wide": cc.wide_launches, "wide_tc": cc.wide_tc_launches,
+            "dw": cc.dw_launches, "dw_tc": cc.dw_tc_launches,
+            "toeplitz": cc.toeplitz_launches,
+            "toeplitz_tc": cc.toeplitz_tc_launches}
+
+
+def _done(out: str) -> dict:
+    """The numbers of the trainer's '...Done' line (steady: None for a
+    one-step run)."""
+    done = re.search(r"\.\.\.Done \((\d+) steps in ([\d.]+)s, "
+                     r"([\d.]+) steps/s(?:; steady ([\d.]+) steps/s "
+                     r"= ([\d.]+) vol/s)?\)", out)
+    if done is None:
+        raise AssertionError("no '...Done' line")
+    steady = done.group(4) is not None
+    return {"steps": int(done.group(1)), "seconds": float(done.group(2)),
+            "steps_per_s": float(done.group(3)),
+            "steady_steps_per_s": float(done.group(4)) if steady else None,
+            "steady_vol_per_s": float(done.group(5)) if steady else None}
+
+
+def inloop_fid_phase(ca, cc, tmp: str, default_vol_s: float) -> dict:
+    """The flagship with in-loop FID (INLOOP_RUNS) through the train CLI:
+    the log lines' count and finite FIDs, the checkpoint's FID history
+    (the mean of the logged FIDs up to the checkpoint step), K1/K2
+    launches as expected_launches says and no other kernel's, the steady
+    rate; each in-loop FID's seconds (SliceFID.axial, synced) split into
+    the host's Fréchet distance and the rest (the card's feature pass and
+    the slices' copy)."""
+    import numpy as np
+    import torch
+
+    from gan3d_tpu_torch.eval import slice_fid
+    from gan3d_tpu_torch.eval.inception import InceptionV3
+
+    data = os.path.join(tmp, "train.npz")
+    weights = os.path.join(tmp, "pt_inception_random.pth")
+    # He-normal convs: under torch's default init each layer shrinks the
+    # activations and the pooled features come out near 1e-7 (FIDs ~0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(INCEPTION_SEED)
+        model = InceptionV3()
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.weight.normal_(0.0, (2.0 / m.weight[0].numel()) ** 0.5)
+        torch.save(model.state_dict(), weights)
+    axial, frechet = slice_fid.SliceFID.axial, slice_fid.frechet_distance
+    calls = []
+
+    def timed_axial(self, fake, real):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        calls.append({"frechet_s": 0.0})
+        out = axial(self, fake, real)
+        calls[-1]["fid_s"] = time.time() - t0
+        return out
+
+    def timed_frechet(a, b):
+        t0 = time.time()
+        out = frechet(a, b)
+        calls[-1]["frechet_s"] += time.time() - t0
+        calls[-1]["features"] = a.shape[1]
+        return out
+
+    runs = {}
+    slice_fid.SliceFID.axial = timed_axial
+    slice_fid.frechet_distance = timed_frechet
+    try:
+        for name, flags, niters in INLOOP_RUNS:
+            runs[name] = inloop_run(ca, cc, tmp, data, weights, name, flags,
+                                    niters)
+            runs[name]["fid_seconds"] = [
+                {**c, "features_s": c["fid_s"] - c["frechet_s"]}
+                for c in calls]
+            calls.clear()
+            phase("inloop_run", run=name, **runs[name])
+    finally:
+        slice_fid.SliceFID.axial = axial
+        slice_fid.frechet_distance = frechet
+    if len(runs["async"]["fids"]) != len(runs["stand_in"]["fids"]):
+        raise AssertionError("async_log printed another number of lines")
+    return {"runs": {k: {"steady_vol_per_s": v["steady_vol_per_s"],
+                         "seconds": v["seconds"],
+                         "mean_fid_s": float(np.mean(
+                             [c["fid_s"] for c in v["fid_seconds"]])),
+                         "mean_frechet_s": float(np.mean(
+                             [c["frechet_s"] for c in v["fid_seconds"]]))}
+                     for k, v in runs.items()},
+            "default_steady_vol_per_s": default_vol_s}
+
+
+def inloop_run(ca, cc, tmp: str, data: str, weights: str, name: str,
+               flags: list, niters: int) -> dict:
+    """One INLOOP_RUNS run through the train CLI, with its checks."""
+    import numpy as np
+    import torch
+
+    log_dir = os.path.join(tmp, f"inloop_{name}")
+    spl = int(next((f.split("=")[1] for f in flags
+                    if f.startswith("--steps_per_log=")), 10))
+    ca.reset_counters()
+    cc.reset_counters()
+    out = run_cli(FLAGSHIP + [f.format(weights=weights) for f in flags]
+                  + [f"--data_path={data}", f"--log_dir={log_dir}",
+                     f"--niters={niters}"])
+    got = _counters(ca, cc)
+    want = {k: 0 for k in got}
+    want.update(expected_launches(0, niters, 2, 50, (1, 1)))
+    if got != want:
+        raise AssertionError(f"inloop {name}: launches {got} != {want}")
+    lines = re.findall(r"^\[(\d+)\|\d+\]\tD\(x\): .*\tFID (\S+)$", out,
+                       re.M)
+    steps = [int(s) for s, _ in lines]
+    fids = [float(f) for _, f in lines]
+    want_steps = [i for i in range(niters) if i % spl == 0] + [niters - 1]
+    if steps != want_steps or not all(math.isfinite(f) for f in fids):
+        raise AssertionError(f"inloop {name}: log lines {lines}, want "
+                             f"steps {want_steps} with finite FIDs")
+    hist = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
+                      map_location="cpu", weights_only=True)["fid"]
+    if "--steps_per_ckpt=2" in flags:
+        # one checkpoint step (2): the mean of steps 0 and 2's FIDs,
+        # printed to 4 decimals
+        want_hist = float(np.mean(fids[:2]))
+        if len(hist) != 1 or abs(hist[0] - want_hist) > 1e-4:
+            raise AssertionError(f"inloop {name}: FID history {hist}, "
+                                 f"want [{want_hist}]")
+    return {"niters": niters, "steps_per_log": spl, "fids": fids,
+            "fid_history": hist, "launches": got, **_done(out)}
+
+
+def tournament_phase(ca, cc, tmp: str) -> dict:
+    """cli/tournament.main on the card over TOURNAMENT_RUNS (one seed
+    each) and the eval phase's test set, by default and with
+    --compat_last_batch: the results block, three win rates in [0, 1],
+    K1 forward launches (bf16) as the loop implies and no other kernel;
+    the seconds of each judge (its bound and its rivals' rounds, from one
+    judge's bound to the next). Then the flagship's D in f32 scores the
+    same real volumes on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from gan3d_tpu_torch.cli import tournament as cli_tournament
+    from gan3d_tpu_torch.eval.load import load_run, make_discriminator_fn
+
+    attention = {name: att for name, _, _, att in TRAIN_RUNS}
+    names = []
+    for run in TOURNAMENT_RUNS:
+        prefix = os.path.join(tmp, f"tournament_{run}")
+        os.symlink(os.path.join(tmp, run), prefix + "0")
+        names.append(prefix)
+    data = os.path.join(tmp, "eval_test.npz")
+    n_batches = -(-EVAL_N // EVAL_BATCH)
+    # per judge batch: D(real), D(G_own(z)) and G_own; per rival round:
+    # the rival's G and the judge's D; each network once per call
+    want_fwd = 0
+    for judge in TOURNAMENT_RUNS:
+        g, d = attention[judge]
+        want_fwd += n_batches * (2 * d + g) + sum(
+            TOURNAMENT_ROUNDS * (attention[r][0] + d)
+            for r in TOURNAMENT_RUNS if r != judge)
+    result = {"runs": list(TOURNAMENT_RUNS), "batches": n_batches}
+    bound_fn = cli_tournament.get_decision_bound
+    for compat in (False, True):
+        marks = []
+
+        def timed_bound(*a, **kw):
+            torch.cuda.synchronize()
+            marks.append(time.time())
+            return bound_fn(*a, **kw)
+
+        argv = ["--data_path", data, f"--batch_size={EVAL_BATCH}",
+                "--n_seeds=1", f"--seed={EVAL_SEED}"]
+        for n in names:
+            argv += ["-l", n]
+        if compat:
+            argv.append("--compat_last_batch")
+        ca.reset_counters()
+        cc.reset_counters()
+        cli_tournament.get_decision_bound = timed_bound
+        try:
+            means, out = tee(cli_tournament.main, argv)
+        finally:
+            cli_tournament.get_decision_bound = bound_fn
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        got = _counters(ca, cc)
+        want = {k: 0 for k in got}
+        want["fwd_tc"] = want_fwd
+        rates = [float(r) for r in re.findall(r"Mean Win Rate of ([\d.]+)",
+                                               out)]
+        if got != want:
+            raise AssertionError(f"tournament: launches {got} != {want}")
+        if ("------------- Tournament Results -------------" not in out
+                or len(rates) != 3 or sorted(means) != sorted(names)
+                or not all(0.0 <= v <= 1.0 for v in means.values())):
+            raise AssertionError(f"tournament: {out!r}")
+        result["compat_last_batch" if compat else "default"] = {
+            "win_rates": {os.path.basename(k)[len("tournament_"):]: v
+                          for k, v in means.items()},
+            "launches": got,
+            "seconds_per_judge": dict(zip(TOURNAMENT_RUNS,
+                                          np.diff(marks).tolist()))}
+
+    x = torch.from_numpy(np.load(data)["X"][:EVAL_CHECK_N, None])
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        cfg, _, D = load_run(os.path.join(tmp, "default"), "float32",
+                             torch.device(dev))
+        scores[dev] = make_discriminator_fn(cfg, D)(x).cpu()
+    _, err = rel_err(scores["cuda"], scores["cpu"])
+    if not err <= 1e-3:
+        raise AssertionError(f"flagship D (f32), card vs CPU: relative "
+                             f"error {err:.3e} > 1e-3")
+    result.update(judge_f32_rel_err=err, tol=1e-3)
+    return result
+
+
+def export_phase(tmp: str) -> dict:
+    """cli/export_torch on the card's runs EXPORT_RUNS: params.pkl holds
+    the run's config as a Namespace, the checkpoint the reference's keys;
+    torch.optim.Adam of G and D loads the exported optimizer states; the
+    exported dir (params.pkl, no params.json) samples through load_run and
+    make_sampler bit-identically to its source on the card, when the
+    source's sampler repeats bit-identically (else within 1e-6)."""
+    import argparse
+    import pickle
+
+    import torch
+
+    from gan3d_tpu_torch.cli import export_torch
+    from gan3d_tpu_torch.config import Config
+    from gan3d_tpu_torch.eval.load import load_run, make_sampler
+
+    cuda = torch.device("cuda")
+    result = {}
+    for run in EXPORT_RUNS:
+        src, out = os.path.join(tmp, run), os.path.join(tmp, f"export_{run}")
+        path = export_torch.main(["--log_dir", src, "--out", out])
+        with open(os.path.join(out, "params.pkl"), "rb") as f:
+            ns = pickle.load(f)
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if (not isinstance(ns, argparse.Namespace)
+                or vars(ns) != Config.load(src).to_dict()
+                or list(ckpt) != CKPT_KEYS
+                or os.path.exists(os.path.join(out, "params.json"))):
+            raise AssertionError(f"export {run}: params.pkl or checkpoint "
+                                 f"keys {list(ckpt)}")
+        cfg, G, D = load_run(src, device=cuda)
+        torch.optim.Adam(G.parameters()).load_state_dict(
+            ckpt["optimizerG_state_dict"])
+        torch.optim.Adam(D.parameters()).load_state_dict(
+            ckpt["optimizerD_state_dict"])
+        ecfg, eG, _ = load_run(out, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(EVAL_SEED)
+        z = torch.randn((EVAL_BATCH, cfg.z_size), generator=gen, device=cuda)
+        a, again = make_sampler(cfg, G)(z), make_sampler(cfg, G)(z)
+        b = make_sampler(ecfg, eG)(z)
+        control = (a - again).abs().max().item()
+        diff = (a - b).abs().max().item()
+        if diff > (0.0 if control == 0.0 else 1e-6):
+            raise AssertionError(f"export {run}: exported sampler differs by "
+                                 f"{diff:.3e} (source repeat {control:.3e})")
+        result[run] = {"step": ckpt["step"], "max_abs_diff": diff,
+                       "source_repeat_diff": control,
+                       "optimizer_params": [
+                           len(ckpt[k]["param_groups"][0]["params"])
+                           for k in ("optimizerG_state_dict",
+                                     "optimizerD_state_dict")]}
+    return result
+
+
+def eval_metrics_phase(tmp: str) -> dict:
+    """calibrate(reps=1) on the card at 64^3, batch 16: the eval phase's
+    test set as the data batches, the random ResNet-50 and the slice-FID
+    stand-in; randn vs randn must score below randn vs uniform in 3D-FID,
+    axial FID and MMD."""
+    import torch
+
+    from gan3d_tpu_torch.cli.eval_metrics import calibrate
+    from gan3d_tpu_torch.data import Loader, open_dataset
+    from gan3d_tpu_torch.eval.fid_resnet import get_fid_model
+    from gan3d_tpu_torch.eval.slice_fid import SliceFID
+
+    cuda = torch.device("cuda")
+    loader = Loader(open_dataset(os.path.join(tmp, "eval_test.npz")),
+                    EVAL_BATCH, seed=EVAL_SEED, drop_last=False)
+    batches = [torch.from_numpy(b)[:, None]
+               for _, b in zip(range(6), loader)]
+    t0 = time.time()
+    res = calibrate(data_batches=batches, reps=1, size=64, batch=EVAL_BATCH,
+                    fid_features=get_fid_model(None, cuda),
+                    sfid=SliceFID(device=cuda), seed=EVAL_SEED, device=cuda)
+    secs = time.time() - t0
+    bad = [k for k in ("3dFID", "FIDax", "MMD")
+           if not res["randn_vs_randn"][k] < res["randn_vs_rand"][k]]
+    if bad:
+        raise AssertionError(f"calibration: randn vs randn not below randn "
+                             f"vs uniform in {bad}: {res}")
+    return {"results": res, "data_batches": len(batches), "seconds": secs}
 
 
 def gp_refusal(data: str, tmp: str) -> dict:
@@ -1686,7 +2044,13 @@ def main() -> int:
     phase("conv_extra", **conv_extra_checks(cc))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train = train_phase(ca, cc, tmp, shapes)
+        phase("inloop_fid", **inloop_fid_phase(
+            ca, cc, tmp, train["default/run_0_12"]["steady_vol_per_s"]))
         phase("eval", **eval_phase(tmp, os.path.join(tmp, EVAL_RUN)))
+        tourn = tournament_phase(ca, cc, tmp)
+        phase("tournament", **tourn)
+        phase("export", **export_phase(tmp))
+        phase("eval_metrics", **eval_metrics_phase(tmp))
         for run, sub, kernels in TRACED:
             phase("step_trace", run=run, **trace_phase(
                 os.path.join(tmp, sub), PROFILE_STEPS, kernels))
@@ -1700,6 +2064,7 @@ def main() -> int:
     paths = {name: train["%s/run_%d_%d" % (name, first[name][1],
                                              first[name][0])]["launches"]
              for name in CONV_PATHS + ATTENTION_PATHS}
+    paths["tournament"] = tourn["default"]["launches"]
     print(json.dumps(kernels_line(cases, conv_cases, paths, toeplitz_cases,
                                   ladder_cases)), flush=True)
     print(json.dumps({"ok": True, "device": {

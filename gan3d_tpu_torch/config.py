@@ -7,8 +7,8 @@ package; the other fields that name a TPU lowering (``fast_*``,
 ``conv_dx``, ``xla_vmem_limit_kib`` ...) are accepted and the port runs
 the plain op.
 An option whose code path the port does not have makes the trainer raise
-(``train/trainer.py``); ``async_log`` is off by default here for that
-reason.
+(``train/trainer.py``). ``async_log`` is off by default here, where the
+JAX package turns it on.
 
 ``platform`` selects the device: ``""`` (default) means the CUDA card and
 raises when none is present; ``"cpu"`` asks for the CPU.
@@ -20,6 +20,7 @@ where ``sngan/sagan/biggan/msl`` further mutate the selected family.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -73,11 +74,19 @@ class Config:
     remat: bool = False         # not ported: True raises
     remat_scope: str = "block"  # read only with remat
     steps_per_ckpt: int = 100   # reference checkpoints every 100 steps
-    async_log: bool = False     # not ported: the port prints each log line
-                                # when its step is logged; True raises
-    fid_in_loop: Optional[bool] = None  # in-loop FID is not ported: logged
-                                # as nan; True raises
-    inception_weights: str = ""  # read only with in-loop FID
+    async_log: bool = False     # True: a log step's sync, FID and print
+                                # wait for the next log, image or checkpoint
+                                # step, the first step or the end (the
+                                # values printed are the step's own); the
+                                # JAX package defaults to True
+    fid_in_loop: Optional[bool] = None  # axial slice FID every
+                                # steps_per_log: None = when Inception
+                                # weights are found (inception_weights),
+                                # else warn and log nan; True = always (the
+                                # random stand-in without weights); False =
+                                # off
+    inception_weights: str = ""  # pt_inception-2015-12-05 weights; "" =
+                                 # that file name in the cwd, then log_dir
     fused_step: bool = True     # iterD D updates + 1 G update per step; the
                                 # only step the port has: False raises
     adam_b1: float = 0.0        # reference: trainer.py:77-78 betas=(0., 0.9)
@@ -244,6 +253,12 @@ class Config:
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
 
+    def to_namespace(self) -> argparse.Namespace:
+        """argparse.Namespace of every field: the reference's params.pkl
+        payload type (trainer.py:42-47), for the export
+        (eval/export.py)."""
+        return argparse.Namespace(**self.to_dict())
+
 
 def add_config_flags(parser) -> None:
     """Register every Config field on an argparse parser.
@@ -275,8 +290,6 @@ def add_config_flags(parser) -> None:
 
 
 def config_from_args(argv=None) -> Config:
-    import argparse
-
     parser = argparse.ArgumentParser(description="gan3d_tpu_torch")
     add_config_flags(parser)
     args = parser.parse_args(argv)

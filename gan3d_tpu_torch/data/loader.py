@@ -1,11 +1,13 @@
-"""Shuffled, drop-last, prefetching batch loader (the port's copy of
+"""Shuffled, prefetching batch loader (the port's copy of
 gan3d_tpu/data/loader.py, without the device prefetcher).
 
 Replaces the reference's ``DataLoader(batch_size, shuffle=True,
 num_workers=4, drop_last=True)`` + ``inf_train_gen`` infinite wrapper
 (reference: trainer.py:84, 95-98). Batches are assembled by a thread pool
 (npz decompression releases the GIL inside zlib) and prefetched ahead of the
-training step so host IO overlaps device compute.
+training step so host IO overlaps device compute. ``drop_last=False`` (the
+tournament's and the calibration's pass) also yields the last partial
+batch.
 
 Yields float32 arrays of shape [B, D, H, W] in [-1, 1]; the trainer prepends
 the channel axis (NCDHW), as the reference does at trainer.py:300.
@@ -25,31 +27,38 @@ PREFETCH = 2  # batches assembled ahead of the consumer
 
 class Loader:
     def __init__(self, dataset, batch_size: int, seed: int = 0,
+                 shuffle: bool = True, drop_last: bool = True,
                  num_workers: int = 4):
-        if len(dataset) < batch_size:
+        if drop_last and len(dataset) < batch_size:
             raise ValueError(f"{len(dataset)} samples make no batch of "
                              f"{batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
         self.num_workers = max(1, num_workers)
         self._stops: list = []  # stop events of live infinite() producers
 
     def _epoch_indices(self) -> np.ndarray:
-        """A shuffled epoch, cut to whole batches."""
+        """An epoch's sample order, cut to whole batches with drop_last."""
         idx = np.arange(len(self.dataset))
-        self.rng.shuffle(idx)
-        return idx[:(len(idx) // self.batch_size) * self.batch_size]
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        if self.drop_last:
+            idx = idx[:(len(idx) // self.batch_size) * self.batch_size]
+        return idx
 
     def __iter__(self) -> Iterator[np.ndarray]:
-        """One shuffled epoch of whole batches (the evaluation CLIs'
-        pass, gan3d_tpu/data/loader.py:53-60)."""
+        """One epoch (the evaluation CLIs' pass,
+        gan3d_tpu/data/loader.py:53-60)."""
         idx = self._epoch_indices()
         for i in range(0, len(idx), self.batch_size):
             yield self.dataset.batch(idx[i:i + self.batch_size])
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        n, b = len(self.dataset), self.batch_size
+        return n // b if self.drop_last else -(-n // b)
 
     def infinite(self) -> Iterator[np.ndarray]:
         """Infinite shuffled batches with background prefetch.

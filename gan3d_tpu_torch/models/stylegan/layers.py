@@ -159,8 +159,8 @@ class SynthesisLayer(nn.Module):
     ``noise`` it is drawn from ``generator``, which must then be given (no
     draw comes from the global RNG). The reference's 2-D [res, res]
     ``noise_const`` buffer (stylegan.py:515) is carried so that its
-    state_dicts load strictly; noise_mode="const", which reads it, serves
-    only the eval stack and is not ported yet.
+    state_dicts load strictly; noise_mode="const", which reads it, has
+    no caller in either package and is not ported.
     """
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
@@ -188,8 +188,8 @@ class SynthesisLayer(nn.Module):
                 fused_modconv: bool = False) -> torch.Tensor:
         if noise_mode == "const":
             raise NotImplementedError(
-                "noise_mode='const' serves the eval stack, which is not "
-                "ported yet (ROADMAP.md queue A, slice 7)")
+                "noise_mode='const' is not ported: no caller in either "
+                "package (ROADMAP.md queue A, deferred)")
         if noise_mode != "random":
             raise ValueError(f"noise_mode {noise_mode!r} not in ('random', "
                              "'const')")

@@ -8,8 +8,12 @@ JAX trainer:
 - config persisted as ``params.json`` (``load_params`` reads it back);
 - Adam(lr, betas=(0, 0.9)) per network, in the JAX op order;
 - the log line ``[i|niters]\\tD(x): ..\\tD(G(z)): ..|..\\tFID ..`` every
-  ``steps_per_log`` steps and at the end (FID is logged as nan: in-loop FID
-  is not ported);
+  ``steps_per_log`` steps and at the end, with the axial slice FID of the
+  G update's fake against the last D sub-batch's reals (``fid_in_loop``:
+  the JAX trainer's decision table, ``_make_inloop_fid``; nan when off);
+  with ``async_log`` a log step's sync, FID and print wait for the next
+  flush point (the next log, image or checkpoint step, the first step or
+  the end) and print that step's own values;
 - the sample grid of a fixed noise batch every ``steps_per_img_log`` steps
   and at the end, with G in train mode as in the reference (its BN and SN
   state update during these forwards too);
@@ -32,7 +36,7 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -57,18 +61,23 @@ def _reject_unported(cfg: Config) -> None:
     if cfg.num_devices > 1 or cfg.spatial_devices > 1 \
             or cfg.model_devices > 1 or cfg.distributed:
         later.append("multi-device runs (ROADMAP.md queue A, slice 8)")
-    if cfg.fid_in_loop:
-        later.append("in-loop FID (ROADMAP.md queue A, slice 7)")
     if cfg.track_energy:
         later.append("energy tracking (ROADMAP.md queue A, slice 8)")
-    if cfg.async_log:
-        later.append("deferred log printing (async_log; ROADMAP.md queue A)")
     if not cfg.fused_step:
         later.append("the split D/G step (fused_step=False)")
     if cfg.param_dtype != "float32":
         later.append(f"param_dtype={cfg.param_dtype!r}")
     if later:
         raise NotImplementedError("not ported yet: " + "; ".join(later))
+
+
+# the pytorch-fid Inception weights the in-loop FID looks for in the cwd,
+# then the log dir, when inception_weights is unset
+INCEPTION_FILE = "pt_inception-2015-12-05-6726825d.pth"
+
+
+def _nan_fid(fake, real) -> float:
+    return float("nan")
 
 
 def _seed(*words: int) -> int:
@@ -127,8 +136,54 @@ class Trainer:
         self.fid: List[float] = []
         self.fid_epoch: List[float] = []
         self._pending: List[Dict[str, torch.Tensor]] = []
+        # async_log: a log step's (step, metrics, fake, real), printed at
+        # the next flush point
+        self._deferred: Optional[tuple] = None
+        self._fid_fn = self._make_inloop_fid()
         self.profiler = StepProfiler(cfg.profile_dir,
                                      cuda=self.device.type == "cuda")
+
+    # ------------------------------------------------------------------
+    def _make_inloop_fid(self) -> Callable[..., float]:
+        """The in-loop axial slice FID of fake against real, as the JAX
+        trainer decides it (gan3d_tpu/train/trainer.py:373-412; the
+        reference computes it every steps_per_log, trainer.py:100-110).
+        ``fid_in_loop``: None = Inception FID when weights are found
+        (``inception_weights``, else INCEPTION_FILE in the cwd, then the
+        log dir), else a warning and nan; True = the same, with the random
+        stand-in when no weights are found; False = nan. A weights file
+        that fails to load disables it with a message. Reads only
+        ``cfg``, ``log_dir`` and ``device``; sets ``_fid_active``."""
+        mode = self.cfg.fid_in_loop
+        self._fid_active = False
+        if mode is False:
+            return _nan_fid
+        weights = self.cfg.inception_weights
+        if not weights:
+            for d in (os.getcwd(), self.log_dir):
+                cand = os.path.join(d, INCEPTION_FILE)
+                if os.path.isfile(cand):
+                    weights = cand
+                    break
+        from gan3d_tpu_torch.eval.slice_fid import SliceFID
+
+        if weights and os.path.isfile(weights):
+            try:
+                sfid = SliceFID(weights_path=weights, device=self.device)
+            except Exception as e:  # noqa: BLE001 — a bad weights file
+                # must not stop training: report it and log nan
+                print(f"in-loop FID disabled: {e}", flush=True)
+                return _nan_fid
+            self._fid_active = True
+            return sfid.axial
+        if mode is True:  # asked for without weights: the stand-in
+            self._fid_active = True
+            return SliceFID(device=self.device).axial
+        print("in-loop FID: no Inception weights found (set "
+              "cfg.inception_weights); logging FID as nan. The reference "
+              "computes slice-FID every steps_per_log (trainer.py:100-110).",
+              flush=True)
+        return _nan_fid
 
     # ------------------------------------------------------------------
     def _generator(self, *words: int) -> torch.Generator:
@@ -146,15 +201,33 @@ class Trainer:
             self.G_losses.append(float(m["g_loss"]))
         self._pending.clear()
 
-    def log_train(self, step: int) -> None:
-        self.fid.append(float("nan"))
+    def log_train(self, step: int, fake: Optional[torch.Tensor],
+                  real: Optional[torch.Tensor], metrics=None) -> None:
+        """Append the FID of ``fake`` (the G update's batch, in the compute
+        dtype, as the JAX trainer passes it; the extractors compute in
+        f32) against ``real`` (the last D sub-batch, f32 on the host) and
+        print the log line: ``metrics``' values when given (a deferred
+        line), else the latest step's. No fake (a resumed run with no step
+        left) logs nan."""
+        self.fid.append(float("nan") if fake is None
+                        else self._fid_fn(fake, real))
         self._flush_pending()
-        if not self.G_losses:
+        if metrics is not None:
+            d_real, d_fake = float(metrics["d_real"]), float(metrics["d_fake"])
+            g_loss = float(metrics["g_loss"])
+        elif self.G_losses:
+            (d_real, d_fake), g_loss = self.D_losses[-1], self.G_losses[-1]
+        else:
             return
-        d_real, d_fake = self.D_losses[-1]
         print("[%d|%d]\tD(x): %.4f\tD(G(z)): %.4f|%.4f\tFID %.4f"
-              % (step, self.cfg.niters, d_real, d_fake, self.G_losses[-1],
+              % (step, self.cfg.niters, d_real, d_fake, g_loss,
                  self.fid[-1]), flush=True)
+
+    def _flush_deferred(self) -> None:
+        if self._deferred is not None:
+            step, metrics, fake, real = self._deferred
+            self._deferred = None
+            self.log_train(step, fake, real, metrics=metrics)
 
     def log_interpolation(self, step: int) -> None:
         if self.fixed_test_noise is None:
@@ -174,10 +247,16 @@ class Trainer:
         save_volume_grid(os.path.join(self.images_dir, f"{step}.png"),
                          fake.float().cpu().numpy()[:, 0])
 
-    def log(self, step: int) -> None:
+    def log(self, step: int, fake: torch.Tensor, real: torch.Tensor,
+            metrics: Dict[str, torch.Tensor]) -> None:
         if step % self.cfg.steps_per_log == 0:
-            self.log_train(step)
+            if self.cfg.async_log:
+                self._flush_deferred()
+                self._deferred = (step, metrics, fake, real)
+            else:
+                self.log_train(step, fake, real)
         if step % self.cfg.steps_per_img_log == 0:
+            self._flush_deferred()  # keep the [step] line ahead of its PNG
             self.log_interpolation(step)
 
     # ------------------------------------------------------------------
@@ -215,10 +294,12 @@ class Trainer:
         print(f"starting from step {self.step}", flush=True)
         return self.step
 
-    def _reals(self, batches) -> torch.Tensor:
-        """[iterD, B, 1, R, R, R] f32 on the device."""
-        host = np.stack([next(batches) for _ in range(self.cfg.iterD)])
-        return torch.from_numpy(host).to(self.device).unsqueeze(2)
+    def _reals(self, batches) -> tuple:
+        """([iterD, B, 1, R, R, R] f32 on the device, the last D sub-batch
+        [B, R, R, R] f32 on the host: a view of the same host array)."""
+        host = torch.from_numpy(np.stack([next(batches)
+                                          for _ in range(self.cfg.iterD)]))
+        return host.to(self.device).unsqueeze(2), host[-1]
 
     # ------------------------------------------------------------------
     def train(self) -> None:
@@ -227,26 +308,31 @@ class Trainer:
         batches = self.loader.infinite()
         print("Starting Training...", flush=True)
         t0 = t_first = time.time()
+        fake = real = None
         try:
             for i in range(step_done, cfg.niters):
                 self.profiler.step(i)
-                reals, gen = self._reals(batches), self._generator(1, i)
+                reals, real = self._reals(batches)
+                gen = self._generator(1, i)
                 if self.stylegan:
-                    metrics, _, self.pl_mean = sg_loss.train_step(
+                    metrics, fake, self.pl_mean = sg_loss.train_step(
                         cfg, self.G, self.D, self.g_opt, self.d_opt, reals,
                         i, self.ema, self.pl_mean, generator=gen)
                 else:
-                    metrics, _ = train_step(cfg, self.G, self.D, self.g_opt,
-                                            self.d_opt, reals, generator=gen)
+                    metrics, fake = train_step(cfg, self.G, self.D,
+                                               self.g_opt, self.d_opt, reals,
+                                               generator=gen)
                 self.step = i + 1
                 self._pending.append(metrics)
-                self.log(i)
+                self.log(i, fake, real, metrics)
                 if i == step_done:
                     # sync the first step: t_first marks "set-up + first
                     # step", so the steady rate excludes it.
+                    self._flush_deferred()
                     self._sync()
                     t_first = time.time()
                 if i % cfg.steps_per_ckpt == 0 and i > 0:
+                    self._flush_deferred()  # the fid list takes this step
                     vals = [v for v in self.fid if not math.isnan(v)]
                     self.fid_epoch.append(float(np.mean(vals)) if vals
                                           else float("nan"))
@@ -257,7 +343,8 @@ class Trainer:
             self.loader.close()
         self.profiler.close()
         i = cfg.niters - 1
-        self.log_train(i)
+        self._flush_deferred()
+        self.log_train(i, fake, real)
         self._sync()
         t_last_sync = time.time()
         self.log_interpolation(i)

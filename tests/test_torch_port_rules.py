@@ -62,6 +62,8 @@ def test_no_jax_or_reference_package_imported():
     assert "gan3d_tpu_torch.models.stylegan.loss" in res["modules"]
     assert "gan3d_tpu_torch.eval.metrics" in res["modules"]
     assert "gan3d_tpu_torch.cli.eval" in res["modules"]
+    assert "gan3d_tpu_torch.cli.tournament" in res["modules"]
+    assert "gan3d_tpu_torch.cli.eval_metrics" in res["modules"]
     assert res["bad"] == []
 
 
@@ -115,8 +117,8 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(stylegan=True, remat=True),
                                 dict(stylegan2=True, remat=True),
-                                dict(remat=True), dict(fid_in_loop=True),
-                                dict(spatial_devices=2), dict(async_log=True),
+                                dict(remat=True), dict(track_energy=True),
+                                dict(spatial_devices=2), dict(model_devices=2),
                                 dict(fused_step=False),
                                 dict(param_dtype="bfloat16")])
 def test_unported_options_raise(tmp_path, kw):

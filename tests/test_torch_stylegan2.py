@@ -382,14 +382,14 @@ def test_from_jax_variables_matches_export(which):
 
 def test_noise_modes():
     """noise_mode='random' needs the noise or a generator (no draw from
-    the global RNG); 'const' (the eval stack's) is not ported."""
+    the global RNG); 'const' (no caller in either package) is not ported."""
     _, cfg = configs(batch_size=2)
     G, _ = build_models(cfg)
     z = torch.zeros(2, cfg.z_size)
     state = torch.random.get_rng_state()
     with pytest.raises(ValueError, match="generator"):
         G(z)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         G(z, noise_mode="const")
     for m in G.modules():  # the init's noise strengths are 0
         if hasattr(m, "noise_strength"):

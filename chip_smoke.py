@@ -12,12 +12,15 @@ Phases, each printing its own line:
              lines (registers, spills), the registers and spills of each
              tensor-core kernel and of the ladder's wide_fwd, box_copy and
              im2col27 kernels, and fails if one of them spills (the
-             attention kernels: at a flagship instance);
+             attention kernels: at the instances the trainers run, c = 16,
+             32, 64 and 128);
 3. kernels — runs the pooled-attention forward and backward kernels at the
              two shapes of the 64^3 BigGAN-Deep flagship (G: L=32768,
-             M=4096, c=16; D: L=4096, M=512, c=32) and the two of the 64^3
+             M=4096, c=16; D: L=4096, M=512, c=32), the two of the 64^3
              DCGAN with --sagan (G: L=4096, M=512, c=16; D: L=512, M=64,
-             c=32), N=16, in f32 and bf16
+             c=32) and the two of the 128^3 BigGAN-Deep at filters 128 (G:
+             L=32768, M=4096, c=64; D: L=4096, M=512, c=128), N=16, in f32
+             and bf16
              (each pass has two routes: bf16 on the tensor-core kernels,
              f32 on the FMA kernels; the backward's check runs on the
              forward's o and lse),
@@ -81,6 +84,20 @@ Phases, each printing its own line:
              Last, the gradient penalty with attention in D must be
              refused. Every run logs its FID as nan and says once that
              no Inception weights were found;
+   train128 — 128^3, z 512, iterD 2, bf16 (TRAIN128_RUNS): the
+             reference's default widths (filters 128) with the flagship's
+             flags, --remat=True --remat_scope=stage --fused_step=False (3
+             steps and a resume to 4), then --remat_scope=block with the
+             fused step (2 steps), both at batch 16; the flagship's
+             widths (filters 64, batch 16) without remat and with it per
+             stage (2 steps each: the same step-0 losses to bf16 rounding,
+             the same K1/K2 launches, both peaks); StyleGAN2 at filters 128
+             with remat and without, StyleGAN-1 at batch 8 (2 steps each).
+             Each run's checks as above (K1 8 and K2 6 launches a step in
+             the BigGAN runs, at c = 64 in G and c = 128 in D), its steady
+             vol/s and peak memory; the trained G and D of the first run,
+             of the StyleGAN2 runs and of StyleGAN-1 on the card against
+             the CPU at batch 1 (StyleGAN2: sg2_model_check);
    inloop_fid — the flagship with in-loop FID: the random stand-in
              (--fid_in_loop=True, 4 steps, a log and a checkpoint every 2),
              a random-init Inception-V3 weights file the script writes in
@@ -149,7 +166,8 @@ Phases, each printing its own line:
              device time by variants (the launch alone, + the barrier
              init, + the copies, the whole kernel) and under other plans;
 8. the kernels JSON line (K1 adds the tournament's launches to its
-   launches_by_path), then the result line.
+   launches_by_path, K1 and K2 the 128^3 BigGAN runs'), then the result
+   line.
 
 Any failure raises and the script exits non-zero without the result line.
 It needs no arguments and one card; it imports nothing of JAX.
@@ -171,6 +189,14 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T0 = time.time()
+# Before torch first touches the card: the 128^3 runs allocate and free
+# 8 GiB activations (16 x 128 channels x 128^3 in bf16), and the cache's
+# fixed-size segments fragment at that size (the per-block run at
+# filters 128 peaks at ~75 of the card's 85 GB and once failed an 8 GiB
+# request with 13 GiB reserved but free). Expandable segments grow one
+# mapping instead, so freed memory is reusable at any size.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 # Tolerances, as max |kernel - plain| / max |plain|. f32: both sides
 # accumulate in f32 in different orders over up to 32768 terms. bf16: both
@@ -188,15 +214,19 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SFU_OPS = 132 * 16 * 1.98e9
 # K1/K2 placements (name, L, M, c), N=16: the 64^3 BigGAN-Deep flagship's
 # G (32^3) and D (16^3) attention, then the 64^3 DCGAN's with --sagan, G at
-# 16^3 and D at 8^3.
+# 16^3 and D at 8^3, then the 128^3 BigGAN-Deep's at the reference's
+# filters 128: G at 32^3 on 512 channels (c = 64), D at 16^3 on 1024
+# (c = 128).
 PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32),
-              ("dcgan_G", 4096, 512, 16), ("dcgan_D", 512, 64, 32))
+              ("dcgan_G", 4096, 512, 16), ("dcgan_D", 512, 64, 32),
+              ("G128", 32768, 4096, 64), ("D128", 4096, 512, 128))
 # Kernel instances that must not spill (ptxas): every K3, K4 and K5 bf16
-# instance, the K1 and K2 bf16 kernels at the flagship's c = 16 and 32,
-# and the ladder's wide_fwd, box_copy (both modes) and im2col27.
+# instance, the K1 and K2 bf16 kernels at the flagship's c = 16 and 32 and
+# the 128^3 model's c = 64 and 128, and the ladder's wide_fwd, box_copy
+# (both modes) and im2col27.
 NO_SPILL = re.compile(r"wide_tc_kernel|dw_tc_kernel|toeplitz_tc_kernel|"
-                      r"(fwd|bwd_\w+)_tc_kernel<(16|32)>|wide_fwd_kernel|"
-                      r"box_copy_kernel|im2col27_kernel")
+                      r"(fwd|bwd_\w+)_tc_kernel<(16|32|64|128)>|"
+                      r"wide_fwd_kernel|box_copy_kernel|im2col27_kernel")
 # The kernels whose registers and spills the build phase reports: the
 # tensor-core kernels, the ladder's wide_fwd, box_copy and im2col27.
 REPORTED = (r"[a-z_]+_tc_kernel|wide_fwd_kernel|box_copy_kernel|"
@@ -204,7 +234,7 @@ REPORTED = (r"[a-z_]+_tc_kernel|wide_fwd_kernel|box_copy_kernel|"
 # Off the main path, checked but not timed: every template instance of c,
 # and ragged L and M tails (neither a multiple of any tile).
 EXTRA_SHAPES = ((2, 1000, 125, 8), (3, 300, 38, 16), (1, 4133, 517, 32),
-                (2, 777, 97, 64))
+                (2, 777, 97, 64), (1, 4133, 517, 128))
 N_FLAGSHIP = 16
 # The CLI's defaults otherwise (steps_per_log=10, steps_per_img_log=50).
 WIDTHS = ["--resolution=64", "--filterG=64", "--filterD=64", "--z_size=512",
@@ -260,6 +290,39 @@ TRAIN_RUNS = (
     ("stylegan_profiled", SG1 + ["--profile_dir={tmp}/sg1_trace"],
      ((10, 0),), (0, 0)),
 )
+# The 128^3 runs (z 512, iterD 2, bf16): (name, flags, ((niters, step it
+# resumes from), ...), (SelfAttention3d blocks in G, in D), held against
+# the CPU at batch 1). The reference's default widths (filters 128) with
+# the flagship's flags at batch 16, remat per stage and the split step (3
+# steps and a resume to 4), then per block with the fused step; the
+# flagship's widths
+# (filters 64) without remat and with it, for the memory remat saves and
+# the same step-0 losses; StyleGAN2 (a 1-channel block at 128^3) with
+# remat and without; StyleGAN-1 at batch 8 without remat, as the JAX
+# package trains it there. Each 2 steps unless said.
+W128 = ["--resolution=128", "--z_size=512", "--iterD=2"]
+REF128 = (["--biggan=True", "--hinge=True", "--filterG=128", "--filterD=128",
+           "--batch_size=16"] + W128)
+FLAG128 = (["--biggan=True", "--hinge=True", "--filterG=64", "--filterD=64",
+            "--batch_size=16"] + W128)
+SG2_128 = (["--stylegan2=True", "--filterG=128", "--filterD=128",
+            "--batch_size=16"] + W128)
+TRAIN128_RUNS = (
+    ("ref128", REF128 + ["--remat=True", "--remat_scope=stage",
+                         "--fused_step=False"], ((3, 0), (4, 3)), (1, 1),
+     True),
+    ("ref128_block", REF128 + ["--remat=True", "--remat_scope=block",
+                               "--fused_step=True"], ((2, 0),), (1, 1),
+     False),
+    ("flagship128", FLAG128 + ["--remat=False"], ((2, 0),), (1, 1), False),
+    ("flagship128_remat", FLAG128 + ["--remat=True", "--remat_scope=stage"],
+     ((2, 0),), (1, 1), False),
+    ("stylegan2_128_remat", SG2_128 + ["--remat=True"], ((2, 0),), (0, 0),
+     True),
+    ("stylegan2_128", SG2_128, ((2, 0),), (0, 0), True),
+    ("stylegan_128", ["--stylegan=True", "--filterG=128", "--filterD=128",
+                      "--batch_size=8"] + W128, ((2, 0),), (0, 0), True),
+)
 KNOB_RUN = "wide_conv+fast_dw"
 # The runs whose K3/K4 launches the kernels line lists by path (the first
 # part of each): the flagship's and StyleGAN-1's knob runs.
@@ -305,8 +368,10 @@ CKPT_KEYS = ["step", "modelG_state_dict", "modelD_state_dict",
 # runs, StyleGAN-1's profiled run.
 UNCHECKED_RUNS = ("fast_dw", PROFILED_RUN, "stylegan_profiled")
 # The paths whose K1/K2 launches the kernels line lists beside the knob
-# run's: each run's first part.
+# run's: each run's first part (the 128^3 runs' in ATTENTION128_PATHS).
 ATTENTION_PATHS = ("default", "dcgan_sagan", "hybrid")
+ATTENTION128_PATHS = ("ref128", "ref128_block", "flagship128",
+                      "flagship128_remat")
 # The attention kernels' device ops in the step's trace (sum_partials: the
 # bf16 dk/dv pass's fixed-order sum at D; no conv kernel runs in the
 # profiled default run).
@@ -372,7 +437,9 @@ LADDER_SITES = {
 
 
 def phase(name: str, **kw) -> None:
-    print(json.dumps({"phase": name, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": name, **kw,
+                      "t": round(time.time() - T0, 1)}), flush=True)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1100,7 +1167,8 @@ def ladder_breakdown(ml) -> dict:
     kernel ended at entry (the launch alone), after the barrier init, and
     with the copies landed but not written out, beside the whole kernel;
     then each bulk rung with its samples split over other numbers of
-    blocks (``parts`` 1, 2, 3 or 4, where they divide the box)."""
+    blocks (``parts`` 1, 2, 3 or 4, where they divide the box). An entry
+    is None where no trace held the kernel (``device_ms``)."""
     import torch
 
     inp = ml.inputs("cuda")
@@ -1110,8 +1178,10 @@ def ladder_breakdown(ml) -> dict:
         if plan.stop == 0 and not torch.equal(ml.box_copy_on(src, box, plan),
                                               want):
             raise AssertionError(f"box_copy on {plan} differs")
-        return device_ms(lambda: ml.box_copy_on(src, box, plan),
-                         "box_copy_kernel") * 1e3
+        ms = device_ms(lambda: ml.box_copy_on(src, box, plan),
+                       "box_copy_kernel")
+        # None: the profiler dropped the kernel from all three traces
+        return None if ms is None else ms * 1e3
 
     out = {}
     for name, (src, box, walk, slots, bulk) in ml.BOX_RUNGS.items():
@@ -1229,8 +1299,8 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
             "library_device_ms": main["library_device_ms"], "at": at,
             "cases": mine,
         })
-        by_path = (ATTENTION_PATHS if key in ("fwd_tc", "bwd_tc")
-                   else CONV_PATHS)
+        by_path = (ATTENTION_PATHS + ATTENTION128_PATHS
+                   if key in ("fwd_tc", "bwd_tc") else CONV_PATHS)
         out[-1]["launches_by_path"] = {p: paths[p][key] for p in by_path}
         if key == "fwd_tc":  # the tournament's no-grad forwards
             out[-1]["launches_by_path"]["tournament"] = \
@@ -1353,12 +1423,83 @@ def expected_conv_launches(start: int, niters: int, iter_d: int,
     return {"wide_tc": fwd + dx, "dw_tc": dw}
 
 
+def train_run(ca, cc, name: str, flags: list, base: list, niters: int,
+              start: int, attention: tuple, n_conv: tuple = (0, 0)) -> dict:
+    """One run of the train CLI (``base`` + ``--niters``), counters set to
+    0 just before it and read just after: the launches its steps imply,
+    its log lines, checkpoint (losses; StyleGAN's pl_mean); returns the
+    '...Done' numbers, the launches, the peak device memory allocated and
+    reserved, and the allocator's retries (a cudaMalloc that failed, the
+    cache freed and the call repeated: the run is at the card's
+    capacity)."""
+    import torch
+
+    wide, fast_dw = "--wide_conv=on" in flags, "--fast_dw=on" in flags
+    sg1, sg2 = "--stylegan=True" in flags, "--stylegan2=True" in flags
+    ca.reset_counters()
+    cc.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    out = run_cli(base + [f"--niters={niters}"])
+    got = _counters(ca, cc)
+    # bf16 runs: the f32 routes of K1-K4 launch nothing, and K5 is on no
+    # train path
+    want = {"fwd": 0, "bwd": 0, "wide": 0, "dw": 0, "toeplitz": 0,
+            "toeplitz_tc": 0,
+            **expected_launches(start, niters, 2, 50, attention),
+            **expected_conv_launches(start, niters, 2, 50, *n_conv, wide,
+                                     fast_dw)}
+    if got != want or (any(attention) and not (got["fwd_tc"]
+                                               and got["bwd_tc"])):
+        raise AssertionError(f"{name}: launches {got} != expected {want}")
+    if (wide or fast_dw) and not got["dw_tc"]:
+        raise AssertionError(f"{name}: the dW kernel never launched")
+    if wide and not got["wide_tc"]:
+        raise AssertionError(f"{name}: the wide kernel never launched")
+    if out.count(NO_WEIGHTS_LINE) != 1 or "\tFID nan" not in out:
+        raise AssertionError(f"{name}: not one '{NO_WEIGHTS_LINE}' line, or "
+                             "no FID logged as nan")
+    if start and f"starting from step {start}" not in out:
+        raise AssertionError(f"resume did not print 'starting from step "
+                             f"{start}'")
+    if f"[{niters - 1}|{niters}]\tD(x): " not in out:
+        raise AssertionError(f"no log line for step {niters - 1}")
+    log_dir = next(f.split("=", 1)[1] for f in base
+                   if f.startswith("--log_dir="))
+    ckpt = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
+                      map_location="cpu", weights_only=True)
+    vals = ckpt["lossG"] + [x for pair in ckpt["lossD"] for x in pair]
+    if (len(ckpt["lossG"]) != niters
+            or not all(math.isfinite(x) for x in vals)):
+        raise AssertionError(f"{len(ckpt['lossG'])} G losses for {niters} "
+                             "steps, or a non-finite loss")
+    pl_mean = float(ckpt["pl_mean"]) if sg2 or sg1 else None
+    if sg2 and not (math.isfinite(pl_mean) and pl_mean != 0.0):
+        raise AssertionError(f"{name}: pl_mean {pl_mean} after the lazy "
+                             "step 0")
+    if sg1 and pl_mean != 0.0:
+        raise AssertionError(f"{name}: StyleGAN-1's pl_mean {pl_mean}, "
+                             "not 0")
+    return {**_done(out), "launches": got,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved": torch.cuda.max_memory_reserved(),
+            "alloc_retries": torch.cuda.memory_stats().get(
+                "num_alloc_retries", 0) - retries,
+            "pl_mean": pl_mean, "loss_d0": ckpt["lossD"][0],
+            "loss_g0": ckpt["lossG"][0]}
+
+
+def check_outputs(name: str, log_dir: str, last: int) -> None:
+    for f in ("params.json", "models/checkpoint.pt", f"images/{last}.png"):
+        if not os.path.isfile(os.path.join(log_dir, f)):
+            raise AssertionError(f"{name}: missing {f}")
+
+
 def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
     """Every run of TRAIN_RUNS through the CLI, with its launch counts, and
     the model check after each run but UNCHECKED_RUNS; then the gradient
     penalty refused for a D with attention."""
     import numpy as np
-    import torch
 
     data = os.path.join(tmp, "train.npz")
     rng = np.random.default_rng(0)
@@ -1369,69 +1510,70 @@ def train_phase(ca, cc, tmp: str, shapes: dict) -> dict:
         log_dir = os.path.join(tmp, name)
         flags = [f.format(tmp=tmp) for f in flags]
         base = flags + [f"--data_path={data}", f"--log_dir={log_dir}"]
-        wide, fast_dw = "--wide_conv=on" in flags, "--fast_dw=on" in flags
-        sg1 = "--stylegan=True" in flags
         # eligible convs a G and a D forward: StyleGAN-1's D has none
-        n_g, n_d = ((len(shapes["SG1"]), 0) if sg1
-                    else (len(shapes["G"]), len(shapes["D"])))
+        n_conv = ((len(shapes["SG1"]), 0) if "--stylegan=True" in flags
+                  else (len(shapes["G"]), len(shapes["D"])))
         for niters, start in runs:
-            ca.reset_counters()
-            cc.reset_counters()
-            torch.cuda.reset_peak_memory_stats()
-            out = run_cli(base + [f"--niters={niters}"])
-            got = _counters(ca, cc)
-            # bf16 runs: the f32 routes of K1-K4 launch nothing, and K5
-            # is on no train path
-            want = {"fwd": 0, "bwd": 0, "wide": 0, "dw": 0, "toeplitz": 0,
-                    "toeplitz_tc": 0,
-                    **expected_launches(start, niters, 2, 50, attention),
-                    **expected_conv_launches(start, niters, 2, 50, n_g, n_d,
-                                             wide, fast_dw)}
-            if got != want or (any(attention) and not (got["fwd_tc"]
-                                                       and got["bwd_tc"])):
-                raise AssertionError(f"{name}: launches {got} != expected "
-                                     f"{want}")
-            if (wide or fast_dw) and not got["dw_tc"]:
-                raise AssertionError(f"{name}: the dW kernel never launched")
-            if wide and not got["wide_tc"]:
-                raise AssertionError(f"{name}: the wide kernel never "
-                                     "launched")
-            if out.count(NO_WEIGHTS_LINE) != 1 or "\tFID nan" not in out:
-                raise AssertionError(f"{name}: not one '{NO_WEIGHTS_LINE}' "
-                                     "line, or no FID logged as nan")
-            if start and f"starting from step {start}" not in out:
-                raise AssertionError(f"resume did not print 'starting from "
-                                     f"step {start}'")
-            if f"[{niters - 1}|{niters}]\tD(x): " not in out:
-                raise AssertionError(f"no log line for step {niters - 1}")
-            ckpt = torch.load(os.path.join(log_dir, "models",
-                                           "checkpoint.pt"),
-                              map_location="cpu", weights_only=True)
-            vals = ckpt["lossG"] + [x for pair in ckpt["lossD"] for x in pair]
-            if (len(ckpt["lossG"]) != niters
-                    or not all(math.isfinite(x) for x in vals)):
-                raise AssertionError(f"{len(ckpt['lossG'])} G losses for "
-                                     f"{niters} steps, or a non-finite loss")
-            sg2 = "--stylegan2=True" in flags
-            pl_mean = float(ckpt["pl_mean"]) if sg2 or sg1 else None
-            if sg2 and not (math.isfinite(pl_mean) and pl_mean != 0.0):
-                raise AssertionError(f"{name}: pl_mean {pl_mean} after the "
-                                     "lazy step 0")
-            if sg1 and pl_mean != 0.0:
-                raise AssertionError(f"{name}: StyleGAN-1's pl_mean "
-                                     f"{pl_mean}, not 0")
             key = f"{name}/run_{start}_{niters}"
-            results[key] = {
-                **_done(out), "launches": got, "max_memory_allocated":
-                    torch.cuda.max_memory_allocated(), "pl_mean": pl_mean}
+            results[key] = train_run(ca, cc, name, flags, base, niters,
+                                     start, attention, n_conv)
             phase("train_run", run=name, niters=niters, **results[key])
-        last = runs[-1][0] - 1
-        for f in ("params.json", "models/checkpoint.pt", f"images/{last}.png"):
-            if not os.path.isfile(os.path.join(log_dir, f)):
-                raise AssertionError(f"{name}: missing {f}")
+        check_outputs(name, log_dir, runs[-1][0] - 1)
         if name not in UNCHECKED_RUNS:
             phase("model_check", run=name, **model_check(log_dir, cc))
     phase("gp_refusal", **gp_refusal(data, tmp))
+    return results
+
+
+def train128_phase(ca, cc, tmp: str) -> dict:
+    """The 128^3 runs of TRAIN128_RUNS through the CLI (train_run's checks
+    and counts), each but one held against the CPU at batch 1; then the
+    reference widths' peak per stage against per block (a stage group
+    nests a group per block, so it must not need more), and the remat
+    run against the run without it at the flagship's widths (step-0
+    losses, K1/K2 launches) and both peaks."""
+    import numpy as np
+    import torch
+
+    torch.cuda.empty_cache()
+    data = os.path.join(tmp, "train128.npz")
+    rng = np.random.default_rng(0)
+    np.savez(data, X=np.tanh(rng.standard_normal((32, 128, 128, 128),
+                                                 np.float32)))
+    results = {}
+    for name, flags, runs, attention, check in TRAIN128_RUNS:
+        log_dir = os.path.join(tmp, name)
+        base = flags + [f"--data_path={data}", f"--log_dir={log_dir}"]
+        for niters, start in runs:
+            key = f"{name}/run_{start}_{niters}"
+            results[key] = train_run(ca, cc, name, flags, base, niters, start,
+                                     attention)
+            phase("train128_run", run=name, niters=niters, **results[key])
+        check_outputs(name, log_dir, runs[-1][0] - 1)
+        if check:
+            phase("model_check", run=name, **model_check(log_dir, cc, n=1))
+        torch.cuda.empty_cache()
+    stage = results["ref128/run_0_3"]["max_memory_allocated"]
+    block = results["ref128_block/run_0_2"]["max_memory_allocated"]
+    if stage > block:
+        raise AssertionError(f"remat per stage peaks at {stage} B, above "
+                             f"per block's {block} B")
+    phase("remat_scopes", peak_stage=stage, peak_block=block)
+    a = results["flagship128/run_0_2"]
+    b = results["flagship128_remat/run_0_2"]
+    # the same seed, weights and data: the forward math is unchanged, so
+    # step 0's losses agree to bf16 rounding (2^-7 of the larger |loss|,
+    # at least 2^-7: the gradients may take other cuDNN algorithms)
+    pairs = list(zip(a["loss_d0"] + [a["loss_g0"]],
+                     b["loss_d0"] + [b["loss_g0"]]))
+    err = max(abs(x - y) / max(1.0, abs(x)) for x, y in pairs)
+    if not err <= 2 ** -7 or a["launches"] != b["launches"]:
+        raise AssertionError(f"remat vs none at 128^3: step-0 losses "
+                             f"{pairs} (rel err {err:.3e}), launches "
+                             f"{a['launches']} vs {b['launches']}")
+    phase("remat_vs_none", losses_step0=pairs, rel_err=err, tol=2 ** -7,
+          launches_equal=True, peak_no_remat=a["max_memory_allocated"],
+          peak_remat=b["max_memory_allocated"])
     return results
 
 
@@ -1888,11 +2030,11 @@ def trace_phase(trace_dir: str, steps: int, kernels: dict) -> dict:
                          "share": v[0] / total} for n, v in top]}
 
 
-def model_check(log_dir: str, cc) -> dict:
-    """The trained G and D, in f32 and eval mode: on the card (kernels, the
-    run's conv routes) against the same weights on the CPU (plain
-    attention, F.conv3d); the msl D crops at the same fixed offsets on
-    both; StyleGAN2 by ``sg2_model_check``."""
+def model_check(log_dir: str, cc, n: int = 2) -> dict:
+    """The trained G and D, in f32 and eval mode, at batch ``n``: on the
+    card (kernels, the run's conv routes) against the same weights on the
+    CPU (plain attention, F.conv3d); the msl D crops at the same fixed
+    offsets on both; StyleGAN2 by ``sg2_model_check``."""
     import torch
 
     from gan3d_tpu_torch.config import Config
@@ -1910,7 +2052,7 @@ def model_check(log_dir: str, cc) -> dict:
     D.eval()
     if cfg.family() == "stylegan2":
         return sg2_model_check(G, D, cfg)
-    z = torch.randn((2, cfg.z_size), generator=torch.Generator().manual_seed(1))
+    z = torch.randn((n, cfg.z_size), generator=torch.Generator().manual_seed(1))
     crops = {}
     try:
         set_wide_conv_mode("off")
@@ -1933,7 +2075,7 @@ def model_check(log_dir: str, cc) -> dict:
         set_wide_conv_mode("auto")
         set_fast_dw_mode("auto")
     r = cfg.resolution
-    if x_gpu.shape != (2, 1, r, r, r) or not torch.isfinite(x_gpu).all():
+    if x_gpu.shape != (n, 1, r, r, r) or not torch.isfinite(x_gpu).all():
         raise AssertionError(f"bad sample {tuple(x_gpu.shape)}")
     # the card and the CPU sum in different orders; 1e-3 of the tanh range
     ex = (x_gpu.cpu() - x_cpu).abs().max().item()
@@ -1942,7 +2084,7 @@ def model_check(log_dir: str, cc) -> dict:
     if not (ex <= 1e-3 and ed <= 1e-3):
         raise AssertionError(f"card vs CPU: G max err {ex:.3e}, D rel err "
                              f"{ed:.3e} (tol 1e-3)")
-    return {"g_max_abs_err": ex, "d_rel_err": ed, "tol": 1e-3,
+    return {"g_max_abs_err": ex, "d_rel_err": ed, "tol": 1e-3, "batch": n,
             "wide_launches": cc.wide_launches}
 
 
@@ -2005,7 +2147,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     phase("device", kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda)
+          cuda=torch.version.cuda,
+          alloc_conf=os.environ.get("PYTORCH_CUDA_ALLOC_CONF"))
 
     from gan3d_tpu_torch.ops import cuda_attention as ca
     from gan3d_tpu_torch.ops import cuda_build
@@ -2044,6 +2187,7 @@ def main() -> int:
     phase("conv_extra", **conv_extra_checks(cc))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train = train_phase(ca, cc, tmp, shapes)
+        train128 = train128_phase(ca, cc, tmp)
         phase("inloop_fid", **inloop_fid_phase(
             ca, cc, tmp, train["default/run_0_12"]["steady_vol_per_s"]))
         phase("eval", **eval_phase(tmp, os.path.join(tmp, EVAL_RUN)))
@@ -2065,6 +2209,10 @@ def main() -> int:
                                              first[name][0])]["launches"]
              for name in CONV_PATHS + ATTENTION_PATHS}
     paths["tournament"] = tourn["default"]["launches"]
+    for name, _, runs, _, _ in TRAIN128_RUNS:
+        if name in ATTENTION128_PATHS:
+            paths[name] = train128["%s/run_%d_%d" % (
+                name, runs[0][1], runs[0][0])]["launches"]
     print(json.dumps(kernels_line(cases, conv_cases, paths, toeplitz_cases,
                                   ladder_cases)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -71,8 +71,15 @@ class Config:
     compute_dtype: str = "bfloat16"  # activations' dtype on the card; f32
                                      # params, BN stats and SN iterations
     param_dtype: str = "float32"     # anything else raises
-    remat: bool = False         # not ported: True raises
-    remat_scope: str = "block"  # read only with remat
+    remat: bool = False         # recompute activations in backward
+                                # (nn/remat.py; memory at 128^3), the BN
+                                # and SN state stepped once
+    remat_scope: str = "block"  # with remat, in the BigGAN family: "block"
+                                # = a group per deep block, "stage" = per
+                                # stage with G's out-head and D's input conv
+                                # folded in, a group per block nested in
+                                # its recompute (less memory than "block");
+                                # anything else raises
     steps_per_ckpt: int = 100   # reference checkpoints every 100 steps
     async_log: bool = False     # True: a log step's sync, FID and print
                                 # wait for the next log, image or checkpoint
@@ -87,8 +94,11 @@ class Config:
                                 # off
     inception_weights: str = ""  # pt_inception-2015-12-05 weights; "" =
                                  # that file name in the cwd, then log_dir
-    fused_step: bool = True     # iterD D updates + 1 G update per step; the
-                                # only step the port has: False raises
+    fused_step: bool = True     # JAX: one program for the step, or (False)
+                                # a D-step and a G-step program; run
+                                # eagerly, the step is iterD D-step calls
+                                # and one G-step call either way, so the
+                                # flag changes nothing
     adam_b1: float = 0.0        # reference: trainer.py:77-78 betas=(0., 0.9)
     adam_b2: float = 0.9
     mu_free_adam: bool = True   # b1=0 keeps no first-moment buffer (the

@@ -36,13 +36,17 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // Rows of NC 16-byte chunks (8 bf16 each): the chunk index XOR the row's
-// position within a 128-byte span, so the 8 rows an ldmatrix tile reads
-// (consecutive rows, same chunk) fall in 8 different bank groups. Returns
-// the 16-byte unit of (row, chunk).
+// position within a 128-byte span (rows of 128 bytes or more: the row
+// index mod 8), so the 8 rows an ldmatrix tile reads (consecutive rows,
+// same chunk) fall in 8 different bank groups. Returns the 16-byte unit of
+// (row, chunk).
 template <int NC>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  static_assert(NC == 2 || NC == 4 || NC == 8, "2, 4 or 8 chunks a row");
-  return row * NC + (chunk ^ ((row / (8 / NC)) % NC));
+  static_assert(NC == 2 || NC == 4 || NC == 8 || NC == 16,
+                "2, 4, 8 or 16 chunks a row");
+  constexpr int kSpan = NC < 8 ? 8 / NC : 1;  // rows a 128-byte span
+  constexpr int kMod = NC < 8 ? NC : 8;
+  return row * NC + (chunk ^ ((row / kSpan) % kMod));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {

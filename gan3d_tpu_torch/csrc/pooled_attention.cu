@@ -44,9 +44,22 @@
 //
 // Inputs: f32 (pa_fwd, pa_bwd) or bf16 (pa_fwd_tc, pa_bwd_tc); every
 // accumulation is f32; outputs take the inputs' dtype.
-// C is one of 8, 16, 32, 64. Ragged L and M tails are masked. Each entry
-// point returns cudaGetLastError() after its launches, or
+// C is one of 8, 16, 32, 64, 128. Ragged L and M tails are masked. Each
+// entry point returns cudaGetLastError() after its launches, or
 // cudaErrorInvalidValue for a C or a size it does not take.
+//
+// C = 128 (the D attention of the 128^3 BigGAN-Deep at filters 128: 1024
+// channels at 16^3). A 64-row bf16 tile is then 16 KB, so the double-
+// buffered K/V (or Q/dO) tiles of a tc kernel take 64 KB: every tc kernel
+// stages its tiles in dynamic shared memory (up to 227 KB a block on
+// Hopper; cudaFuncSetAttribute lifts the 48 KB default where a kernel needs
+// more). Registers: the tc backward kernels walk each staged 64-row tile in
+// two 32-row halves at C = 128 (the s and dp fragments halve), and the
+// dk/dv kernel also splits the C columns of its dk and dv accumulators over
+// two blocks, each recomputing S^T and dP^T for its half (2 x 16 x 64 f32 a
+// warp would otherwise be 128 registers a thread for the sums alone). The
+// f32 route stages 32-row tiles at C = 128 (static shared memory stays
+// under 48 KB); its C-wide per-thread rows spill to local memory there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,11 +76,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kFwdThreads = 128;  // query rows per forward block
-constexpr int kKvTile = 64;       // keys per shared-memory tile
 constexpr int kChunk = 16;        // keys per online-softmax rescale
 constexpr int kDqThreads = 128;   // query rows per dq block
 constexpr int kDkvThreads = 64;   // key rows per dk/dv block
-constexpr int kQTile = 64;        // queries per shared-memory tile
+
+// Rows of a staged f32 tile (keys in the forward and dq, queries in dk/dv):
+// two [rows][C] f32 tiles stay within 48 KB of static shared memory.
+template <int C>
+__host__ __device__ constexpr int f32_tile() { return C > 64 ? 32 : 64; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -99,6 +115,7 @@ __global__ void __launch_bounds__(kFwdThreads)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
                float* __restrict__ lse, int L, int M) {
+  constexpr int kKvTile = f32_tile<C>();
   __shared__ __align__(16) float ks[kKvTile][C];
   __shared__ __align__(16) float vs[kKvTile][C];
   const int n = blockIdx.y;
@@ -170,6 +187,7 @@ __global__ void __launch_bounds__(kDqThreads)
                   const T* __restrict__ dout, const float* __restrict__ lse,
                   T* __restrict__ dq, float* __restrict__ delta, int L,
                   int M) {
+  constexpr int kKvTile = f32_tile<C>();
   __shared__ __align__(16) float ks[kKvTile][C];
   __shared__ __align__(16) float vs[kKvTile][C];
   const int n = blockIdx.y;
@@ -227,6 +245,7 @@ __global__ void __launch_bounds__(kDkvThreads)
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk,
                     T* __restrict__ dv, int L, int M) {
+  constexpr int kQTile = f32_tile<C>();
   __shared__ __align__(16) float qs[kQTile][C];
   __shared__ __align__(16) float dos[kQTile][C];
   __shared__ float lse2s[kQTile];
@@ -299,7 +318,25 @@ struct TcShape {
   static constexpr int NC = CK / 8;   // 16-byte chunks a row
   static constexpr int KS = CK / 16;  // k-steps over c
   static constexpr int NT = C / 8;    // n8 tiles over c
+  // the backward's registers at C = 128 (header): a staged tile is walked
+  // in halves of 16 NJ rows, and dk/dv's columns split over CS blocks of
+  // NTO n8 tiles each
+  static constexpr int NJ = C > 64 ? 2 : 4;
+  static constexpr int CS = C > 64 ? 2 : 1;
+  static constexpr int NTO = NT / CS;
+  // bytes of one staged [kTcTile][NC] tile
+  static constexpr int TILE_BYTES = kTcTile * NC * 16;
 };
+
+// Dynamic shared memory of a block: lift the 48 KB default for `kernel`
+// where it needs more.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
 
 // Request rows [row0, row0 + nrows) of a [rows, C] bf16 matrix into a
 // swizzled [kTcTile][NC] tile by cp.async; rows past nrows and columns past
@@ -338,46 +375,51 @@ __device__ __forceinline__ void load_a_frags(
     }
 }
 
-// s[8][4] += A (16 rows) x tile^T over c: the 64 rows of a staged tile as
-// the n index (8 n8 tiles), its columns as k.
-template <int C>
+// s[2 NJ][4] += A (16 rows) x tile^T over c: rows [row0, row0 + 16 NJ)
+// of a staged tile as the n index (2 NJ n8 tiles), its columns as k.
+template <int C, int NJ>
 __device__ __forceinline__ void rows_times_tile(float (*s)[4],
                                                 const uint32_t (*a)[4],
-                                                const uint4* tile, int lane) {
+                                                const uint4* tile, int lane,
+                                                int row0) {
   constexpr int NC = TcShape<C>::NC;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int kk = 0; kk < TcShape<C>::KS; ++kk) {
       uint32_t b[4];
-      tc::ldsm_x4(b, tile + tc::swz<NC>(j * 16 + (lane >> 4) * 8 + (lane & 7),
-                                        2 * kk + ((lane >> 3) & 1)));
+      tc::ldsm_x4(b, tile + tc::swz<NC>(
+                             row0 + j * 16 + (lane >> 4) * 8 + (lane & 7),
+                             2 * kk + ((lane >> 3) & 1)));
       tc::mma(s[2 * j], a[kk], b);
       tc::mma(s[2 * j + 1], a[kk], b + 2);
     }
 }
 
-// acc[NT][4] += X (16 rows x 64, as the C fragments x[8][4]) @ tile (64
-// rows as k, its C columns as n), with X rounded to bf16.
-template <int C>
+// acc[NTO][4] += X (16 rows x 16 NK, as the C fragments x[2 NK][4]) @ tile
+// (rows [row0, row0 + 16 NK) as k; the NTO n8 tiles of columns from 16 cp0
+// as n), with X rounded to bf16.
+template <int C, int NK, int NTO>
 __device__ __forceinline__ void frags_times_tile(float (*acc)[4],
                                                  const float (*x)[4],
-                                                 const uint4* tile, int lane) {
-  constexpr int NC = TcShape<C>::NC, NT = TcShape<C>::NT;
+                                                 const uint4* tile, int lane,
+                                                 int row0, int cp0) {
+  constexpr int NC = TcShape<C>::NC;
 #pragma unroll
-  for (int k2 = 0; k2 < 4; ++k2) {
+  for (int k2 = 0; k2 < NK; ++k2) {
     const uint32_t a[4] = {tc::pack(x[2 * k2][0], x[2 * k2][1]),
                            tc::pack(x[2 * k2][2], x[2 * k2][3]),
                            tc::pack(x[2 * k2 + 1][0], x[2 * k2 + 1][1]),
                            tc::pack(x[2 * k2 + 1][2], x[2 * k2 + 1][3])};
 #pragma unroll
-    for (int cp = 0; cp < NC / 2; ++cp) {
+    for (int cp = 0; cp < (NTO + 1) / 2; ++cp) {
       uint32_t b[4];
       tc::ldsm_x4_trans(
-          b, tile + tc::swz<NC>(k2 * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                2 * cp + (lane >> 4)));
+          b, tile + tc::swz<NC>(
+                        row0 + k2 * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                        2 * (cp0 + cp) + (lane >> 4)));
       tc::mma(acc[2 * cp], a, b);
-      if (2 * cp + 1 < NT) tc::mma(acc[2 * cp + 1], a, b + 2);
+      if (2 * cp + 1 < NTO) tc::mma(acc[2 * cp + 1], a, b + 2);
     }
   }
 }
@@ -414,8 +456,11 @@ __global__ void __launch_bounds__(kFwdTcThreads)
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   int L, int M) {
   using S = TcShape<C>;
-  __shared__ uint4 ks[2][kTcTile * S::NC];
-  __shared__ uint4 vs[2][kTcTile * S::NC];
+  // stage st of K at ks + st kT, of V at vs + st kT
+  constexpr int kT = kTcTile * S::NC;
+  extern __shared__ uint4 smem[];
+  uint4* const ks = smem;
+  uint4* const vs = smem + 2 * kT;
   const int n = blockIdx.y;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane >> 2, qd = lane & 3;
@@ -438,8 +483,8 @@ __global__ void __launch_bounds__(kFwdTcThreads)
 
   // two stages: tile j + 1 is in flight while tile j's products run
   auto request = [&](int j0, int st) {
-    load_tile_tc<C>(ks[st], kn, j0, min(kTcTile, M - j0));
-    load_tile_tc<C>(vs[st], vn, j0, min(kTcTile, M - j0));
+    load_tile_tc<C>(ks + st * kT, kn, j0, min(kTcTile, M - j0));
+    load_tile_tc<C>(vs + st * kT, vn, j0, min(kTcTile, M - j0));
     tc::cp_async_commit();
   };
   request(0, 0);
@@ -457,7 +502,7 @@ __global__ void __launch_bounds__(kFwdTcThreads)
     for (int t = 0; t < 8; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
-    rows_times_tile<C>(s, qa, ks[st], lane);
+    rows_times_tile<C, 4>(s, qa, ks + st * kT, lane, 0);
     if (nt < kTcTile) {  // the ragged last tile: keys past M
 #pragma unroll
       for (int t = 0; t < 8; ++t)
@@ -494,7 +539,7 @@ __global__ void __launch_bounds__(kFwdTcThreads)
         den[e >> 1] += p;
         s[t][e] = p;
       }
-    frags_times_tile<C>(acc, s, vs[st], lane);
+    frags_times_tile<C, 4, S::NT>(acc, s, vs + st * kT, lane, 0, 0);
     __syncthreads();  // stage st is refilled two tiles on
   }
 #pragma unroll
@@ -520,10 +565,10 @@ __global__ void __launch_bounds__(kFwdTcThreads)
 
 // dq: grid (ceil(L / 64), N), 4 warps of 16 query rows. The prologue
 // writes delta_i = sum_c dO_i O_i (4 lanes a row, fixed order). Per 64-key
-// tile: S = Q K^T and dP = dO V^T on mma; P = 2^(S log2e - lse log2e) in
-// f32 registers; dS = P (dP - delta); dQ += dS K, dS packed to bf16 from
-// the C fragments straight into A fragments, K's B fragments by
-// ldmatrix.trans.
+// tile (in 32-key halves at C = 128): S = Q K^T and dP = dO V^T on mma;
+// P = 2^(S log2e - lse log2e) in f32 registers; dS = P (dP - delta); dQ +=
+// dS K, dS packed to bf16 from the C fragments straight into A fragments,
+// K's B fragments by ldmatrix.trans.
 template <int C>
 __global__ void __launch_bounds__(kTcThreads)
     bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -535,8 +580,11 @@ __global__ void __launch_bounds__(kTcThreads)
                      __nv_bfloat16* __restrict__ dq,
                      float* __restrict__ delta, int L, int M) {
   using S = TcShape<C>;
-  __shared__ uint4 ks[2][kTcTile * S::NC];
-  __shared__ uint4 vs[2][kTcTile * S::NC];
+  // stage st of K at ks + st kT, of V at vs + st kT
+  constexpr int kT = kTcTile * S::NC;
+  extern __shared__ uint4 smem[];
+  uint4* const ks = smem;
+  uint4* const vs = smem + 2 * kT;
   const int n = blockIdx.y;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane >> 2, qd = lane & 3;
@@ -575,8 +623,8 @@ __global__ void __launch_bounds__(kTcThreads)
 
   // two stages: tile j + 1 is in flight while tile j's products run
   auto request = [&](int j0, int st) {
-    load_tile_tc<C>(ks[st], kn, j0, min(kTcTile, M - j0));
-    load_tile_tc<C>(vs[st], vn, j0, min(kTcTile, M - j0));
+    load_tile_tc<C>(ks + st * kT, kn, j0, min(kTcTile, M - j0));
+    load_tile_tc<C>(vs + st * kT, vn, j0, min(kTcTile, M - j0));
     tc::cp_async_commit();
   };
   request(0, 0);
@@ -589,22 +637,26 @@ __global__ void __launch_bounds__(kTcThreads)
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    float s[8][4], dp[8][4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
+    for (int row0 = 0; row0 < kTcTile; row0 += 16 * S::NJ) {
+      float s[2 * S::NJ][4], dp[2 * S::NJ][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-    rows_times_tile<C>(s, qa, ks[st], lane);
-    rows_times_tile<C>(dp, da, vs[st], lane);
+      for (int t = 0; t < 2 * S::NJ; ++t)
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+      rows_times_tile<C, S::NJ>(s, qa, ks + st * kT, lane, row0);
+      rows_times_tile<C, S::NJ>(dp, da, vs + st * kT, lane, row0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pv = tc::exp2_approx(fmaf(s[t][e], kLog2e, -l2[e >> 1]));
-        if (t * 8 + 2 * qd + (e & 1) >= nt) pv = 0.f;  // keys past M
-        s[t][e] = pv * (dp[t][e] - dl[e >> 1]);         // dS
-      }
-    frags_times_tile<C>(acc, s, ks[st], lane);
+      for (int t = 0; t < 2 * S::NJ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pv = tc::exp2_approx(fmaf(s[t][e], kLog2e, -l2[e >> 1]));
+          if (row0 + t * 8 + 2 * qd + (e & 1) >= nt) pv = 0.f;  // past M
+          s[t][e] = pv * (dp[t][e] - dl[e >> 1]);              // dS
+        }
+      frags_times_tile<C, S::NJ, S::NT>(acc, s, ks + st * kT, lane, row0,
+                                        0);
+    }
     __syncthreads();  // stage st is refilled two tiles on
   }
 #pragma unroll
@@ -619,11 +671,13 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
-// dk/dv: grid (ceil(M / 64), N, P), 4 warps of 16 key rows; part p walks
-// query tiles [T p / P, T (p + 1) / P) of the T = ceil(L / 64). Per tile:
-// S^T = K Q^T and dP^T = V dO^T on mma; P^T from the stored lse; dV +=
-// P^T dO and dK += dS^T Q with dS^T = P^T (dP^T - delta), both packed to
-// bf16 from the C fragments. P = 1 writes bf16 dk/dv; P > 1 writes f32
+// dk/dv: grid (ceil(M / 64), N, P CS), 4 warps of 16 key rows; z = p CS +
+// h: part p walks query tiles [T p / P, T (p + 1) / P) of the T = ceil(L /
+// 64), and writes columns [h C / CS, (h + 1) C / CS) of dk and dv (CS = 2
+// at C = 128, else 1). Per tile (in 32-query halves at C = 128): S^T = K
+// Q^T and dP^T = V dO^T on mma over all of C; P^T from the stored lse; dV
+// += P^T dO and dK += dS^T Q with dS^T = P^T (dP^T - delta), both packed
+// to bf16 from the C fragments. P = 1 writes bf16 dk/dv; P > 1 writes f32
 // partials [P, N, M, C], summed in order by tc::sum_partials.
 template <int C>
 __global__ void __launch_bounds__(kTcThreads)
@@ -637,11 +691,15 @@ __global__ void __launch_bounds__(kTcThreads)
                        __nv_bfloat16* __restrict__ dv, float* __restrict__ dkp,
                        float* __restrict__ dvp, int L, int M, int P) {
   using S = TcShape<C>;
-  __shared__ uint4 qs[2][kTcTile * S::NC];
-  __shared__ uint4 dos[2][kTcTile * S::NC];
-  __shared__ float lses[2][kTcTile];
-  __shared__ float dls[2][kTcTile];
-  const int n = blockIdx.y, p = blockIdx.z;
+  // qs [2][kTcTile * NC], dos [2][kTcTile * NC], lses [2][kTcTile], dls
+  // (stage st at qs + st kT, ..., lses + st kTcTile, ...)
+  constexpr int kT = kTcTile * S::NC;
+  extern __shared__ uint4 smem[];
+  uint4* const qs = smem;
+  uint4* const dos = smem + 2 * kT;
+  float* const lses = reinterpret_cast<float*>(smem + 4 * kT);
+  float* const dls = lses + 2 * kTcTile;
+  const int n = blockIdx.y, p = blockIdx.z / S::CS, h = blockIdx.z % S::CS;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane >> 2, qd = lane & 3;
   const int r0 = blockIdx.x * kTcRows + warp * 16 + g, r1 = r0 + 8;
@@ -652,9 +710,9 @@ __global__ void __launch_bounds__(kTcThreads)
   load_a_frags<C>(ka, k + nm * C, r0, ok0, ok1, qd);
   load_a_frags<C>(va, v + nm * C, r0, ok0, ok1, qd);
 
-  float dka[S::NT][4], dva[S::NT][4];
+  float dka[S::NTO][4], dva[S::NTO][4];
 #pragma unroll
-  for (int t = 0; t < S::NT; ++t)
+  for (int t = 0; t < S::NTO; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[t][e] = dva[t][e] = 0.f;
 
@@ -663,12 +721,13 @@ __global__ void __launch_bounds__(kTcThreads)
   // dP^T are 0, so their dS^T is 0 and their dO adds nothing to dV.
   auto request = [&](int i0, int st) {
     const int nt = min(kTcTile, L - i0);
-    load_tile_tc<C>(qs[st], q + nl * C, i0, nt);
-    load_tile_tc<C>(dos[st], dout + nl * C, i0, nt);
+    load_tile_tc<C>(qs + st * kT, q + nl * C, i0, nt);
+    load_tile_tc<C>(dos + st * kT, dout + nl * C, i0, nt);
     for (int r = threadIdx.x; r < kTcTile; r += blockDim.x) {
       const bool ok = r < nt;
-      tc::cp_async4(&lses[st][r], lse + nl + (ok ? i0 + r : 0), ok ? 4 : 0);
-      tc::cp_async4(&dls[st][r], delta + nl + (ok ? i0 + r : 0), ok ? 4 : 0);
+      const size_t at = nl + (ok ? i0 + r : 0);
+      tc::cp_async4(lses + st * kTcTile + r, lse + at, ok ? 4 : 0);
+      tc::cp_async4(dls + st * kTcTile + r, delta + at, ok ? 4 : 0);
     }
     tc::cp_async_commit();
   };
@@ -684,45 +743,51 @@ __global__ void __launch_bounds__(kTcThreads)
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    float s[8][4], dp[8][4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
+    for (int row0 = 0; row0 < kTcTile; row0 += 16 * S::NJ) {
+      float s[2 * S::NJ][4], dp[2 * S::NJ][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-    rows_times_tile<C>(s, ka, qs[st], lane);
-    rows_times_tile<C>(dp, va, dos[st], lane);
+      for (int t = 0; t < 2 * S::NJ; ++t)
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+      rows_times_tile<C, S::NJ>(s, ka, qs + st * kT, lane, row0);
+      rows_times_tile<C, S::NJ>(dp, va, dos + st * kT, lane, row0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = t * 8 + 2 * qd + (e & 1);
-        const float pv =
-            tc::exp2_approx((s[t][e] - lses[st][col]) * kLog2e);
-        s[t][e] = pv;                                // P^T
-        dp[t][e] = pv * (dp[t][e] - dls[st][col]);   // dS^T
-      }
-    frags_times_tile<C>(dva, s, dos[st], lane);
-    frags_times_tile<C>(dka, dp, qs[st], lane);
+      for (int t = 0; t < 2 * S::NJ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = row0 + t * 8 + 2 * qd + (e & 1);
+          const int at = st * kTcTile + col;
+          const float pv = tc::exp2_approx((s[t][e] - lses[at]) * kLog2e);
+          s[t][e] = pv;                             // P^T
+          dp[t][e] = pv * (dp[t][e] - dls[at]);     // dS^T
+        }
+      const int cp0 = h * S::NTO / 2;
+      frags_times_tile<C, S::NJ, S::NTO>(dva, s, dos + st * kT, lane, row0,
+                                         cp0);
+      frags_times_tile<C, S::NJ, S::NTO>(dka, dp, qs + st * kT, lane, row0,
+                                         cp0);
+    }
     __syncthreads();  // stage st is refilled two tiles on
   }
 #pragma unroll
-  for (int t = 0; t < S::NT; ++t) {
-    const int col = t * 8 + 2 * qd;
+  for (int t = 0; t < S::NTO; ++t) {
+    const int col = h * 8 * S::NTO + t * 8 + 2 * qd;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (!(h ? ok1 : ok0)) continue;
-      const size_t at = (nm + (h ? r1 : r0)) * C + col;
+    for (int r = 0; r < 2; ++r) {
+      if (!(r ? ok1 : ok0)) continue;
+      const size_t at = (nm + (r ? r1 : r0)) * C + col;
       if (P == 1) {
         *reinterpret_cast<uint32_t*>(dk + at) =
-            tc::pack(dka[t][2 * h], dka[t][2 * h + 1]);
+            tc::pack(dka[t][2 * r], dka[t][2 * r + 1]);
         *reinterpret_cast<uint32_t*>(dv + at) =
-            tc::pack(dva[t][2 * h], dva[t][2 * h + 1]);
+            tc::pack(dva[t][2 * r], dva[t][2 * r + 1]);
       } else {
         const size_t pat = (size_t)p * gridDim.y * M * C + at;
         *reinterpret_cast<float2*>(dkp + pat) =
-            make_float2(dka[t][2 * h], dka[t][2 * h + 1]);
+            make_float2(dka[t][2 * r], dka[t][2 * r + 1]);
         *reinterpret_cast<float2*>(dvp + pat) =
-            make_float2(dva[t][2 * h], dva[t][2 * h + 1]);
+            make_float2(dva[t][2 * r], dva[t][2 * r + 1]);
       }
     }
   }
@@ -735,14 +800,21 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
                           void* dvp, int N, int L, int M, int P,
                           cudaStream_t st) {
   using B = __nv_bfloat16;
+  using S = TcShape<C>;
+  const int dq_smem = 4 * S::TILE_BYTES;
+  const int dkdv_smem = 4 * S::TILE_BYTES + 4 * kTcTile * (int)sizeof(float);
+  cudaError_t err = allow_smem(bwd_dq_tc_kernel<C>, dq_smem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(bwd_dkdv_tc_kernel<C>, dkdv_smem);
+  if (err != cudaSuccess) return err;
   dim3 gq((L + kTcRows - 1) / kTcRows, N);
-  bwd_dq_tc_kernel<C><<<gq, kTcThreads, 0, st>>>(
+  bwd_dq_tc_kernel<C><<<gq, kTcThreads, dq_smem, st>>>(
       (const B*)q, (const B*)k, (const B*)v, (const B*)o, (const B*)dout,
       (const float*)lse, (B*)dq, (float*)delta, L, M);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 gk((M + kTcRows - 1) / kTcRows, N, P);
-  bwd_dkdv_tc_kernel<C><<<gk, kTcThreads, 0, st>>>(
+  dim3 gk((M + kTcRows - 1) / kTcRows, N, P * S::CS);
+  bwd_dkdv_tc_kernel<C><<<gk, kTcThreads, dkdv_smem, st>>>(
       (const B*)q, (const B*)k, (const B*)v, (const B*)dout,
       (const float*)lse, (const float*)delta, (B*)dk, (B*)dv, (float*)dkp,
       (float*)dvp, L, M, P);
@@ -764,12 +836,17 @@ void launch_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int C>
-void launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int N, int L, int M, cudaStream_t st) {
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
+                          void* o, void* lse, int N, int L, int M,
+                          cudaStream_t st) {
   using B = __nv_bfloat16;
+  const int smem = 4 * TcShape<C>::TILE_BYTES;
+  const cudaError_t err = allow_smem(fwd_tc_kernel<C>, smem);
+  if (err != cudaSuccess) return err;
   dim3 grid((L + kFwdTcRows - 1) / kFwdTcRows, N);
-  fwd_tc_kernel<C><<<grid, kFwdTcThreads, 0, st>>>(
+  fwd_tc_kernel<C><<<grid, kFwdTcThreads, smem, st>>>(
       (const B*)q, (const B*)k, (const B*)v, (B*)o, (float*)lse, L, M);
+  return cudaGetLastError();
 }
 
 template <typename T, int C>
@@ -794,6 +871,7 @@ bool dispatch_c(int C, F&& f) {
     case 16: f(std::integral_constant<int, 16>()); return true;
     case 32: f(std::integral_constant<int, 32>()); return true;
     case 64: f(std::integral_constant<int, 64>()); return true;
+    case 128: f(std::integral_constant<int, 128>()); return true;
     default: return false;
   }
 }
@@ -819,11 +897,11 @@ int pa_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
               int N, int L, int M, int C, void* stream) {
   if (N < 1 || L < 1 || M < 1 || N > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!dispatch_c(C, [&](auto c) {
-        launch_fwd_tc<decltype(c)::value>(q, k, v, o, lse, N, L, M, st);
-      }))
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+  dispatch_c(C, [&](auto c) {
+    err = launch_fwd_tc<decltype(c)::value>(q, k, v, o, lse, N, L, M, st);
+  });
+  return (int)err;
 }
 
 // The f32 route of the backward (all f32): dq, dk, dv from the forward's
@@ -844,12 +922,13 @@ int pa_bwd(const void* q, const void* k, const void* v, const void* o,
 // The bf16 route of the backward (all of q, k, v, o, dO bf16; lse f32).
 // delta [N, L] f32 is scratch; with P > 1 the dk/dv kernel splits L into
 // P parts and dkp / dvp [P, N, M, C] f32 are scratch (ignored for P = 1).
+// At C = 128 the dk/dv grid is P x 2 deep in z (its column halves).
 int pa_bwd_tc(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* dq, void* dk, void* dv,
               void* delta, void* dkp, void* dvp, int N, int L, int M, int C,
               int P, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (N < 1 || L < 1 || M < 1 || N > 65535 || P < 1 || P > 65535 ||
+  if (N < 1 || L < 1 || M < 1 || N > 65535 || P < 1 || P > 32767 ||
       P > (L + kTcTile - 1) / kTcTile)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;

@@ -16,6 +16,19 @@ JAX weights and reference checkpoints load with ``strict=True``.
 
 Activations run in ``cfg.compute_dtype``; parameters, BN statistics and
 the spectral-norm power iteration stay f32.
+
+``cfg.remat`` (gan3d_tpu/models/biggan.py:65-186) recomputes activations
+in backward through ``nn/remat.py``, which steps the BN and SN state once:
+``remat_scope="block"`` makes each deep block a group; ``"stage"`` each
+stage (G: its one or two deep blocks, plus the out-head BN + ReLU + conv +
+tanh at the last stage unless an attention block sits between them, else
+the head alone; D: its deep blocks, plus the input conv at the first
+stage), whose recompute checkpoints each block, the head and the input
+conv again (``remat.nested``: backward holds one stage's block
+boundaries at a time, so a stage group fits at least the batch a block
+group does). ``SelfAttention3d`` stays outside every group, so the attention
+kernels launch as often as without remat. Groups are formed in
+``forward``: the module tree and its state_dict keys stay the same.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gan3d_tpu_torch.config import Config
+from gan3d_tpu_torch.nn import remat
 from gan3d_tpu_torch.nn.attention import SelfAttention3d
 from gan3d_tpu_torch.nn.blocks import DBlockDeep, GBlockDeep
 from gan3d_tpu_torch.nn.layers import SNConv3d, SNLinear
@@ -46,12 +60,21 @@ def _has_attention(cfg: Config, arch, idx: int) -> bool:
                 and arch["attention"][arch["resolution"][idx]])
 
 
+def _split(mods) -> tuple:
+    """(the deep blocks, the attention block or None) of a stage."""
+    attn = [m for m in mods if isinstance(m, SelfAttention3d)]
+    return ([m for m in mods if not isinstance(m, SelfAttention3d)],
+            attn[0] if attn else None)
+
+
 class Generator(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         arch = cfg.biggan_g_arch()
         plain = cfg.sngan
         self.dtype = compute_dtype(cfg)
+        self.remat = remat.scope(cfg.remat, cfg.remat_scope)
+        self.per_stage = 2 if cfg.biggan else 1  # entries of self.blocks
         self.ch0 = arch["in_channels"][0]
         self.linear = SNLinear(cfg.z_size, self.ch0 * 64, plain=plain,
                                orthogonal=True)
@@ -74,10 +97,24 @@ class Generator(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         z = z.reshape(z.shape[0], -1).to(self.dtype)
         h = self.linear(z).reshape(z.shape[0], self.ch0, 4, 4, 4)
-        for stage in self.blocks:
-            for mod in stage:
-                h = mod(h)
-        return torch.tanh(self.output_layer(h))
+        head = [self.output_layer, torch.tanh]
+        n_stages = len(self.blocks) // self.per_stage
+        for idx in range(n_stages):
+            entries = self.blocks[idx * self.per_stage:
+                                  (idx + 1) * self.per_stage]
+            deep, attn = _split([m for stage in entries for m in stage])
+            if self.remat == "stage":
+                fold = idx == n_stages - 1 and attn is None
+                h = remat.nested([[b] for b in deep]
+                                 + ([head] if fold else []), h)
+                if fold:
+                    return h
+            else:
+                for blk in deep:
+                    h = remat.sequential([blk], h, self.remat == "block")
+            if attn is not None:
+                h = attn(h)
+        return remat.sequential(head, h, self.remat == "stage")
 
 
 class Discriminator(nn.Module):
@@ -85,6 +122,7 @@ class Discriminator(nn.Module):
         super().__init__()
         arch = cfg.biggan_d_arch()
         self.dtype = compute_dtype(cfg)
+        self.remat = remat.scope(cfg.remat, cfg.remat_scope)
         self.input_conv = SNConv3d(1, arch["in_channels"][0], 3, padding=1,
                                    plain=cfg.sngan, orthogonal=True)
         kw = dict(channel_ratio=cfg.channel_ratio)
@@ -103,8 +141,17 @@ class Discriminator(nn.Module):
                                orthogonal=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.input_conv(x.to(self.dtype))
-        for stage in self.blocks:
-            for mod in stage:
-                h = mod(h)
+        h = x.to(self.dtype)
+        for idx, stage in enumerate(self.blocks):
+            deep, attn = _split(stage)
+            first = [self.input_conv] if idx == 0 else []
+            if self.remat == "stage":
+                h = remat.nested([[f] for f in first + deep], h)
+            else:
+                for f in first:
+                    h = f(h)
+                for blk in deep:
+                    h = remat.sequential([blk], h, self.remat == "block")
+            if attn is not None:
+                h = attn(h)
         return self.linear(global_sum_pool(F.relu(h)))

@@ -4,6 +4,12 @@ Precedence, as gan3d_tpu/models/registry.py: hybrid (BigGAN G + DCGAN D)
 > dcgan > stylegan2 > stylegan > BigGAN (the sngan / sagan / biggan
 variants). StyleGAN-1 pairs its AdaIN G with StyleGAN2's D
 (gan3d_tpu/models/registry.py:51-55).
+
+``cfg.remat`` recomputes activations in backward (nn/remat.py) in the
+BigGAN G and D (the hybrid's G too), StyleGAN2's synthesis blocks and the
+StyleGAN D's blocks, where the JAX package does; the DCGAN G and D and
+StyleGAN-1's G have none there (gan3d_tpu/models/dcgan.py never reads
+``cfg.remat``), so the flag changes nothing for them.
 """
 
 from __future__ import annotations
@@ -23,11 +29,10 @@ def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
     every run with that seed and leaves the global RNG untouched.
     """
     fam = cfg.family()
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is not ported yet: torch.utils.checkpoint would step the "
-            "spectral-norm and BN state twice (ROADMAP.md queue A)")
     from gan3d_tpu_torch.models import biggan, dcgan, stylegan
+    from gan3d_tpu_torch.nn import remat
+
+    remat.scope(cfg.remat, cfg.remat_scope)  # raises on an unknown scope
 
     if fam == "stylegan2":
         g_cls, d_cls = stylegan.Generator, stylegan.Discriminator

@@ -12,7 +12,9 @@ epilogue flattens NCDHW as the reference does (the JAX package flattens
 NDHWC and its exporter permutes that FC's weight to this order).
 
 ``MinibatchStdLayer`` computes what the JAX package computes, which
-differs from the reference: see its docstring.
+differs from the reference: see its docstring. ``cfg.remat`` makes each
+block a group recomputed in backward (nn/remat.py;
+gan3d_tpu/models/stylegan/discriminator.py:139); StyleGAN-1 uses this D.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from gan3d_tpu_torch.models.biggan import compute_dtype
 from gan3d_tpu_torch.models.stylegan.generator import synthesis_channels
 from gan3d_tpu_torch.models.stylegan.layers import (Conv3dLayer,
                                                     FullyConnectedLayer)
+from gan3d_tpu_torch.nn import remat
 
 SQRT_HALF = float(np.sqrt(0.5))
 
@@ -108,6 +111,7 @@ class Discriminator(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         dtype = compute_dtype(cfg)
+        self.remat = cfg.remat
         res = cfg.resolution
         chans = synthesis_channels(cfg.filterD, res)
         self.block_resolutions = [2 ** i
@@ -121,5 +125,5 @@ class Discriminator(nn.Module):
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = img
         for r in self.block_resolutions:
-            x = getattr(self, f"b{r}")(x)
+            x = remat.sequential([getattr(self, f"b{r}")], x, self.remat)
         return self.b4(x)

@@ -13,9 +13,12 @@ reference's: a block reads num_conv + num_torgb ws and advances by num_conv
 ``Generator`` = mapping + synthesis, returning (img, ws); ``map_ws`` and
 ``synthesize`` run the halves (the loss's style mixing and path-length
 penalty). Noise: ``noise`` is a list of standard-normal draws, one per
-SynthesisLayer in ``noise_shapes`` order, else each layer draws from
-``generator``. The mapping is f32; the synthesis runs in cfg.compute_dtype,
-its image in f32.
+SynthesisLayer in ``noise_shapes`` order, else the synthesis draws them
+all from ``generator`` in that order before its first block (the values
+each layer would draw in turn). The mapping is f32; the synthesis runs in
+cfg.compute_dtype, its image in f32. ``cfg.remat`` makes each synthesis
+block a group recomputed in backward (nn/remat.py;
+gan3d_tpu/models/stylegan/generator.py:140); the noise is its input.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from gan3d_tpu_torch.models.biggan import compute_dtype
 from gan3d_tpu_torch.models.stylegan.layers import OutBlock, SynthesisLayer
 from gan3d_tpu_torch.models.stylegan.mapping import MappingNetwork
 from gan3d_tpu_torch.models.stylegan.resample import setup_filter, upfirdn3d
+from gan3d_tpu_torch.nn import remat
 
 Noise = Optional[Sequence[torch.Tensor]]
 CHANNEL_MAX = 512
@@ -99,8 +103,9 @@ class SynthesisBlock(nn.Module):
 class SynthesisNetwork(nn.Module):
     def __init__(self, w_dim: int = 512, img_resolution: int = 128,
                  channel_base: int = 4096,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
+        self.remat = remat
         chans = synthesis_channels(channel_base, img_resolution)
         self.block_resolutions = [
             2 ** i for i in range(2, int(np.log2(img_resolution)) + 1)]
@@ -125,14 +130,24 @@ class SynthesisNetwork(nn.Module):
                 noise_mode: str = "random",
                 fused_modconv: bool = False) -> torch.Tensor:
         ws = ws.float()
+        if noise is None and noise_mode == "random":
+            # drawn here, never inside a remat group, whose recompute would
+            # draw again
+            if generator is None:
+                raise ValueError("noise_mode='random' needs the noise or a "
+                                 "generator to draw it from")
+            noise = [torch.randn(s, generator=generator, device=ws.device)
+                     for s in self.noise_shapes(ws.shape[0])]
         x = img = None
         w_idx = n_idx = 0
         for block in self.blocks():
             take = block.num_conv + 1
             k = len(block.layers())
-            x, img = block(x, ws[:, w_idx:w_idx + take], img,
-                           None if noise is None else noise[n_idx:n_idx + k],
-                           generator, noise_mode, fused_modconv)
+            args = (x, ws[:, w_idx:w_idx + take], img,
+                    None if noise is None else noise[n_idx:n_idx + k],
+                    generator, noise_mode, fused_modconv)
+            x, img = (remat.checkpoint(block, [block], *args) if self.remat
+                      else block(*args))
             w_idx += block.num_conv
             n_idx += k
         return torch.tanh(img)
@@ -146,7 +161,7 @@ class Generator(nn.Module):
         self.dtype = compute_dtype(cfg)
         self.synthesis = SynthesisNetwork(
             w_dim=w_dim, img_resolution=cfg.resolution,
-            channel_base=cfg.filterG, dtype=self.dtype)
+            channel_base=cfg.filterG, dtype=self.dtype, remat=cfg.remat)
         self.mapping = MappingNetwork(z_dim=cfg.z_size, w_dim=w_dim,
                                       num_ws=self.synthesis.num_ws)
 

@@ -1,8 +1,11 @@
-"""StyleGAN2 and StyleGAN-1 loss and fused train step.
+"""StyleGAN2 and StyleGAN-1 loss and train step.
 
 Counterpart of gan3d_tpu/models/stylegan/loss.py (reference stylegan.py
 :6-99, trainer.py:214-220, 262-269), in its order: iterD D updates, then
-one G update, then the EMA fold-back.
+one G update, then the EMA fold-back. ``d_step`` is one D update and
+``g_step`` the G update with the EMA (the halves of the JAX split steps,
+loss.py:269); ``train_step`` is iterD calls of the one and one of the
+other, with one ``Draws``, whatever ``cfg.fused_step`` says.
 
 - non-saturating softplus losses in f32: D minimizes softplus(D(fake)) +
   softplus(-D(real)), G softplus(-D(fake));
@@ -144,6 +147,69 @@ def path_length_penalty(G: torch.nn.Module, z: torch.Tensor,
     return pen, new_mean.detach()
 
 
+def _flags(cfg: Config, step: int) -> Tuple[bool, bool, bool]:
+    """(StyleGAN2, R1 on this step, PL on this step): StyleGAN2's lazy
+    branch on step % 16 == 0, StyleGAN-1's R1 on every step."""
+    v2 = cfg.family() == "stylegan2"
+    lazy = step % LAZY_INTERVAL == 0
+    r1, pl = (lazy, lazy) if v2 else (True, False)
+    return v2, r1, pl
+
+
+def _generate(G: torch.nn.Module, z: torch.Tensor, draws: Draws,
+              v2: bool) -> torch.Tensor:
+    return run_generator(G, z, draws) if v2 else G(z, draws=draws)
+
+
+def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
+           d_opt: Adam, real: torch.Tensor, step: int, draws: Draws
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One D update on ``real`` [B, 1, R, R, R] at ``step``; returns
+    (err_real, err_fake), detached."""
+    v2, r1, _ = _flags(cfg, step)
+    reg_grads = cfg.sg2_reg_grads
+    z = draws.normal((real.shape[0], cfg.z_size))
+    with torch.no_grad():
+        fake = _generate(G, z, draws, v2).to(real.dtype)
+    err_fake = F.softplus(D(fake).float()).mean()
+    if r1:
+        real_logits, pen = r1_penalty(D, real, reg_grads)
+        if not reg_grads:
+            pen = pen.detach()
+        err_real = torch.mean(F.softplus(-real_logits) + pen)
+    else:
+        err_real = F.softplus(-D(real).float()).mean()
+    d_opt.step(torch.autograd.grad(err_fake + err_real, d_opt.params))
+    return err_real.detach(), err_fake.detach()
+
+
+def g_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
+           g_opt: Adam, b: int, step: int, ema: List[torch.Tensor],
+           pl_mean: torch.Tensor, draws: Draws
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The G update at batch ``b`` and ``step``, then StyleGAN2's EMA
+    fold-back (``ema`` updated in place); returns (err_g and the image,
+    detached, and the new pl_mean)."""
+    v2, _, pl = _flags(cfg, step)
+    reg_grads = cfg.sg2_reg_grads
+    z = draws.normal((b, cfg.z_size))
+    with frozen(D):
+        img = _generate(G, z, draws, v2)
+        err_g = F.softplus(-D(img).float()).mean()
+        if pl:
+            pen, pl_mean = path_length_penalty(
+                G, z[:b // PL_BATCH_SHRINK], pl_mean, draws, reg_grads)
+            err_g = err_g + (pen if reg_grads else pen.detach())
+        g_opt.step(torch.autograd.grad(err_g, g_opt.params))
+    if v2:
+        d = cfg.ema_decay
+        with torch.no_grad():
+            for p, e in zip(g_opt.params, ema):
+                e.copy_(d * e + (1 - d) * p)
+                p.copy_(e)
+    return err_g.detach(), img.detach(), pl_mean
+
+
 def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
                g_opt: Adam, d_opt: Adam, reals: torch.Tensor, step: int,
                ema: List[torch.Tensor], pl_mean: torch.Tensor,
@@ -160,47 +226,11 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
     image, detached, and the new pl_mean). StyleGAN-1 (``cfg.family()`` ==
     "stylegan") takes an empty ``ema``.
     """
-    b = reals.shape[1]
     draws = draws or Draws(reals.device, generator)
-    v2 = cfg.family() == "stylegan2"
-    lazy = step % LAZY_INTERVAL == 0
-    r1, pl = (lazy, lazy) if v2 else (True, False)
-    reg_grads = cfg.sg2_reg_grads
-
-    def generate(z: torch.Tensor) -> torch.Tensor:
-        return run_generator(G, z, draws) if v2 else G(z, draws=draws)
-
     err_real = err_fake = torch.zeros((), device=reals.device)
     for i in range(cfg.iterD):
-        real = reals[i]
-        z = draws.normal((b, cfg.z_size))
-        with torch.no_grad():
-            fake = generate(z).to(real.dtype)
-        err_fake = F.softplus(D(fake).float()).mean()
-        if r1:
-            real_logits, pen = r1_penalty(D, real, reg_grads)
-            if not reg_grads:
-                pen = pen.detach()
-            err_real = torch.mean(F.softplus(-real_logits) + pen)
-        else:
-            err_real = F.softplus(-D(real).float()).mean()
-        d_opt.step(torch.autograd.grad(err_fake + err_real, d_opt.params))
-        err_real, err_fake = err_real.detach(), err_fake.detach()
-
-    z = draws.normal((b, cfg.z_size))
-    with frozen(D):
-        img = generate(z)
-        err_g = F.softplus(-D(img).float()).mean()
-        if pl:
-            pen, pl_mean = path_length_penalty(
-                G, z[:b // PL_BATCH_SHRINK], pl_mean, draws, reg_grads)
-            err_g = err_g + (pen if reg_grads else pen.detach())
-        g_opt.step(torch.autograd.grad(err_g, g_opt.params))
-    if v2:
-        d = cfg.ema_decay
-        with torch.no_grad():
-            for p, e in zip(g_opt.params, ema):
-                e.copy_(d * e + (1 - d) * p)
-                p.copy_(e)
-    return ({"d_real": err_real, "d_fake": err_fake,
-             "g_loss": err_g.detach()}, img.detach(), pl_mean)
+        err_real, err_fake = d_step(cfg, G, D, d_opt, reals[i], step, draws)
+    err_g, img, pl_mean = g_step(cfg, G, D, g_opt, reals.shape[1], step, ema,
+                                 pl_mean, draws)
+    return ({"d_real": err_real, "d_fake": err_fake, "g_loss": err_g}, img,
+            pl_mean)

@@ -32,9 +32,11 @@ from torch.autograd.function import once_differentiable
 from gan3d_tpu_torch.ops import cuda_build
 from gan3d_tpu_torch.ops.cuda_build import SMS
 
-SUPPORTED_C = (8, 16, 32, 64)
+SUPPORTED_C = (8, 16, 32, 64, 128)
 TC_ROWS = 64       # bf16 backward: key rows per dk/dv block (csrc kTcRows)
 TC_TILE = 64       # bf16 backward: queries per staged tile (csrc kTcTile)
+WIDE_C = 64        # above it the dk/dv pass splits c over two blocks
+                   # (csrc TcShape::CS)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 fwd_launches = 0
@@ -54,12 +56,12 @@ def reset_counters() -> None:
     bwd_tc_launches = 0
 
 
-def dkdv_split(n: int, L: int, m: int) -> int:
+def dkdv_split(n: int, L: int, m: int, c: int = WIDE_C) -> int:
     """Parts P of the bf16 dk/dv pass: 1 where the N x ceil(M/64) key
-    blocks already cover the card twice; else L's 64-query tiles are split
-    into P parts (f32 partials summed in a fixed order) so that the grid
-    covers it about twice."""
-    blocks = n * -(-m // TC_ROWS)
+    blocks (x 2 column halves for c > 64) already cover the card twice;
+    else L's 64-query tiles are split into P parts (f32 partials [P, N, M,
+    c], summed in a fixed order) so that the grid covers it about twice."""
+    blocks = n * -(-m // TC_ROWS) * (2 if c > WIDE_C else 1)
     if blocks >= 2 * SMS:
         return 1
     return min(-(-L // TC_TILE), -(-2 * SMS // blocks))
@@ -177,7 +179,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((n, L), dtype=torch.float32, device=q.device)
     lib = _load()
     if q.dtype == torch.bfloat16:
-        parts = dkdv_split(n, L, m)
+        parts = dkdv_split(n, L, m, c)
         dkp, dvp = ((torch.empty((parts, n, m, c), dtype=torch.float32,
                                  device=q.device) for _ in range(2))
                     if parts > 1 else (dk, dv))

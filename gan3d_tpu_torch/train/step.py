@@ -1,6 +1,10 @@
-"""The fused train step: iterD D-updates + 1 G-update per call.
+"""The train step: iterD D-updates + 1 G-update.
 
-Counterpart of gan3d_tpu/train/step.py:47-142, in the same order:
+Counterpart of gan3d_tpu/train/step.py:47-167. ``d_step`` is one D update
+and ``g_step`` the G update (the JAX ``d_update`` / ``g_phase``, which
+its split steps, ``build_split_steps``, run as separate programs);
+``train_step`` is iterD calls of the one and one of the other, whatever
+``cfg.fused_step`` says. The order, as in the JAX step:
 
 for each of the iterD D iterations:
   1. fresh noise;
@@ -16,7 +20,8 @@ backward computes no weight gradient for D: the custom autograd Functions
 of the conv kernels would otherwise run their dW kernel for nothing.
 
 Noise comes from ``noises`` when given (iterD + 1 tensors [B, z], so a test
-can inject the JAX package's draws), else from ``generator``.
+can inject the JAX package's draws; ``noise`` of one update), else from
+``generator``.
 
 The msl DCGAN D crops its input at random offsets (nn/msl.py). As in the
 JAX step (step.py:57, 67-69, 81, 105), each D forward draws its own
@@ -29,8 +34,8 @@ D applied from the spectral-norm state the D update started from (so it
 steps the power iteration as D(real) did and sees D(real)'s sigma),
 with what it writes to that state discarded: D's SN vectors step twice
 per D update with or without the penalty. Its interpolation weights come
-from ``alphas`` when given (iterD tensors [B, 1, 1, 1, 1]), else from
-``generator``.
+from ``alphas`` when given (iterD tensors [B, 1, 1, 1, 1]; ``alpha`` of
+one update), else from ``generator``.
 """
 
 from __future__ import annotations
@@ -59,6 +64,78 @@ def frozen(net: torch.nn.Module) -> Iterator[None]:
             p.requires_grad_(True)
 
 
+def _noise(cfg: Config, b: int, dev: torch.device,
+           generator: Optional[torch.Generator],
+           noise: Optional[torch.Tensor]) -> torch.Tensor:
+    if noise is not None:
+        return noise.to(dev, torch.float32)
+    return torch.randn((b, cfg.z_size), generator=generator, device=dev)
+
+
+def _d_out(D: torch.nn.Module, x: torch.Tensor,
+           generator: Optional[torch.Generator],
+           offsets: Optional[torch.Tensor] = None,
+           state: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """D(x) in f32; the msl D crops at ``offsets``, else at offsets drawn
+    from ``generator``. With ``state`` D runs on those tensors as its SN
+    vectors, so the power iteration writes there and D's own buffers are
+    not touched."""
+    args = (x,)
+    if getattr(D, "msl", False):
+        args += (D.draw_offsets(x, generator) if offsets is None
+                 else offsets,)
+    if state is None:
+        return D(*args).float()
+    return functional_call(D, state, args).float()
+
+
+def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
+           d_opt: Adam, real: torch.Tensor,
+           generator: Optional[torch.Generator] = None,
+           noise: Optional[torch.Tensor] = None,
+           alpha: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One D update on ``real`` [B, 1, R, R, R]; returns (err_real,
+    err_fake), detached."""
+    with torch.no_grad():
+        fake = G(_noise(cfg, real.shape[0], real.device, generator,
+                        noise)).to(real.dtype)
+    # D's spectral-norm vectors as the update found them, for the
+    # penalty's forward
+    start = ({name: buf.clone() for name, buf in D.named_buffers()
+              if name.endswith(("._u", "._v"))} if cfg.gp_weight > 0 else {})
+    crops = (D.draw_offsets(real, generator) if getattr(D, "msl", False)
+             else None)
+    d_real = _d_out(D, real, generator, crops)
+    d_fake = _d_out(D, fake, generator)
+    if cfg.hinge:
+        err_real, err_fake = losses.d_hinge(d_real, d_fake)
+        err = err_real + err_fake
+    else:
+        err_real, err_fake = losses.d_wgan(d_real, d_fake)
+        err = err_fake - err_real
+        if cfg.gp_weight > 0:
+            err = err + losses.gradient_penalty(
+                lambda x: _d_out(D, x, generator, crops, start), real, fake,
+                cfg.gp_weight, generator=generator, alpha=alpha)
+    d_opt.step(torch.autograd.grad(err, d_opt.params))
+    return err_real.detach(), err_fake.detach()
+
+
+def g_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
+           g_opt: Adam, b: int, device: torch.device,
+           generator: Optional[torch.Generator] = None,
+           noise: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The G update at batch ``b``; returns (err_g, the fake batch), both
+    detached."""
+    fake = G(_noise(cfg, b, device, generator, noise))
+    with frozen(D):
+        err_g = losses.g_adversarial(_d_out(D, fake, generator))
+        g_opt.step(torch.autograd.grad(err_g, g_opt.params))
+    return err_g.detach(), fake.detach()
+
+
 def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
                g_opt: Adam, d_opt: Adam, reals: torch.Tensor,
                generator: Optional[torch.Generator] = None,
@@ -70,61 +147,13 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
     Returns ({"d_real", "d_fake", "g_loss"} as 0-d tensors, the G-step's
     fake batch, detached).
     """
-    b = reals.shape[1]
-    dev = reals.device
-
-    def noise(i: int) -> torch.Tensor:
-        if noises is not None:
-            return noises[i].to(dev, torch.float32)
-        return torch.randn((b, cfg.z_size), generator=generator, device=dev)
-
-    msl = getattr(D, "msl", False)
-
-    def d_out(x: torch.Tensor, offsets: Optional[torch.Tensor] = None,
-              state: Optional[Dict[str, torch.Tensor]] = None
-              ) -> torch.Tensor:
-        """D(x) in f32; the msl D crops at ``offsets``, else at offsets
-        drawn from ``generator``. With ``state`` D runs on those tensors as
-        its SN vectors, so the power iteration writes there and D's own
-        buffers are not touched."""
-        args = (x,)
-        if msl:
-            args += (D.draw_offsets(x, generator) if offsets is None
-                     else offsets,)
-        if state is None:
-            return D(*args).float()
-        return functional_call(D, state, args).float()
-
-    # D's spectral-norm vectors, for the penalty's forward
-    sn = ({name: buf for name, buf in D.named_buffers()
-           if name.endswith(("._u", "._v"))} if cfg.gp_weight > 0 else {})
-
-    err_real = err_fake = torch.zeros((), device=dev)
+    err_real = err_fake = torch.zeros((), device=reals.device)
     for i in range(cfg.iterD):
-        real = reals[i]
-        with torch.no_grad():
-            fake = G(noise(i)).to(real.dtype)
-        start = {name: buf.clone() for name, buf in sn.items()}
-        crops = D.draw_offsets(real, generator) if msl else None
-        d_real = d_out(real, crops)
-        d_fake = d_out(fake)
-        if cfg.hinge:
-            err_real, err_fake = losses.d_hinge(d_real, d_fake)
-            err = err_real + err_fake
-        else:
-            err_real, err_fake = losses.d_wgan(d_real, d_fake)
-            err = err_fake - err_real
-            if cfg.gp_weight > 0:
-                err = err + losses.gradient_penalty(
-                    lambda x: d_out(x, crops, start), real, fake,
-                    cfg.gp_weight, generator=generator,
-                    alpha=None if alphas is None else alphas[i])
-        d_opt.step(torch.autograd.grad(err, d_opt.params))
-        err_real, err_fake = err_real.detach(), err_fake.detach()
-
-    fake = G(noise(cfg.iterD))
-    with frozen(D):
-        err_g = losses.g_adversarial(d_out(fake))
-        g_opt.step(torch.autograd.grad(err_g, g_opt.params))
-    return ({"d_real": err_real, "d_fake": err_fake,
-             "g_loss": err_g.detach()}, fake.detach())
+        err_real, err_fake = d_step(
+            cfg, G, D, d_opt, reals[i], generator,
+            None if noises is None else noises[i],
+            None if alphas is None else alphas[i])
+    err_g, fake = g_step(cfg, G, D, g_opt, reals.shape[1], reals.device,
+                         generator,
+                         None if noises is None else noises[cfg.iterD])
+    return {"d_real": err_real, "d_fake": err_fake, "g_loss": err_g}, fake

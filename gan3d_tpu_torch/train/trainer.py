@@ -3,8 +3,11 @@
 Reference: trainer.py:28-313 (Trainer). One device; the step is the fused
 D/G step of train/step.py, or for StyleGAN2 and StyleGAN-1 that of
 models/stylegan/loss.py (StyleGAN2's lazy R1/PL step chosen on the host
-by step % 16; StyleGAN-1's R1 on every step), run eagerly. Kept from the
-JAX trainer:
+by step % 16; StyleGAN-1's R1 on every step), run eagerly. Either step is
+iterD D-step calls and one G-step call, which is what the JAX trainer's
+split mode (``fused_step=False``, gan3d_tpu/train/trainer.py:284-324)
+runs as separate programs; run eagerly there is no program to split, so
+the flag is accepted and changes nothing. Kept from the JAX trainer:
 - config persisted as ``params.json`` (``load_params`` reads it back);
 - Adam(lr, betas=(0, 0.9)) per network, in the JAX op order;
 - the log line ``[i|niters]\\tD(x): ..\\tD(G(z)): ..|..\\tFID ..`` every
@@ -24,6 +27,8 @@ JAX trainer:
   EMA on resume (the reference's trainer.py:133-134; the EMA equals G's
   parameters after every G update);
 - the closing ``...Done (...)`` line with the steady rate in vol/s;
+- the hint printed for a BigGAN-family run at 128^3 or more without
+  remat (``hint_128``);
 - with ``profile_dir`` set, a ``torch.profiler`` trace of steps 5-9
   (utils/profiling.py) written there.
 
@@ -63,12 +68,21 @@ def _reject_unported(cfg: Config) -> None:
         later.append("multi-device runs (ROADMAP.md queue A, slice 8)")
     if cfg.track_energy:
         later.append("energy tracking (ROADMAP.md queue A, slice 8)")
-    if not cfg.fused_step:
-        later.append("the split D/G step (fused_step=False)")
     if cfg.param_dtype != "float32":
         later.append(f"param_dtype={cfg.param_dtype!r}")
     if later:
         raise NotImplementedError("not ported yet: " + "; ".join(later))
+
+
+def hint_128(cfg: Config) -> Optional[str]:
+    """The JAX trainer's hint for 128^3 runs, on its condition
+    (gan3d_tpu/train/trainer.py:121-128); None where it prints none."""
+    if (cfg.resolution >= 128 and not cfg.remat
+            and cfg.family() not in ("stylegan", "stylegan2")):
+        return ("hint: at 128^3+, --remat=True --fused_step=False is "
+                "usually required to fit HBM / the compiler; add "
+                "--remat_scope=stage for larger batches (docs/PERF.md)")
+    return None
 
 
 # the pytorch-fid Inception weights the in-loop FID looks for in the cwd,
@@ -97,6 +111,9 @@ class Trainer:
         # gan3d_tpu/train/trainer.py:103-104); a mode outside MODES raises
         set_wide_conv_mode(cfg.wide_conv)
         set_fast_dw_mode(cfg.fast_dw)
+        hint = hint_128(cfg)
+        if hint:
+            print(hint, flush=True)
         self.device = resolve_device(cfg.platform)
         configure_precision(self.device)
         os.makedirs(self.models_dir, exist_ok=True)

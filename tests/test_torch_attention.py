@@ -164,7 +164,7 @@ def emulate_fwd_tc(q, k, v, tile=64):
     return (acc / den).bfloat16(), ((mx + torch.log2(den)) * LN2)[..., 0]
 
 
-@pytest.mark.parametrize("c", [16, 32])
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
 def test_bf16_forward_emulation_matches_pallas_interpret(c):
     """The bf16 forward's arithmetic (emulate_fwd_tc) against the Pallas
     forward (interpret mode) at N=2, L=512, M=72 (a second, masked key
@@ -231,7 +231,7 @@ def emulate_bwd_tc(q, k, v, o, lse, do, parts, tile=64):
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
-@pytest.mark.parametrize("c", [16, 32])
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
 def test_bf16_backward_emulation_matches_pallas_interpret(c):
     """The bf16 backward's arithmetic (emulate_bwd_tc, with split-L
     partials: dkdv_split gives 8 parts here) against jax.vjp through the

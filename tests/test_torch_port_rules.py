@@ -115,11 +115,8 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
         Trainer(open_dataset(_dataset(tmp_path)), cfg)
 
 
-@pytest.mark.parametrize("kw", [dict(stylegan=True, remat=True),
-                                dict(stylegan2=True, remat=True),
-                                dict(remat=True), dict(track_energy=True),
+@pytest.mark.parametrize("kw", [dict(track_energy=True),
                                 dict(spatial_devices=2), dict(model_devices=2),
-                                dict(fused_step=False),
                                 dict(param_dtype="bfloat16")])
 def test_unported_options_raise(tmp_path, kw):
     from gan3d_tpu_torch.data import open_dataset

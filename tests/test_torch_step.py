@@ -41,7 +41,7 @@ import jax.numpy as jnp
 from gan3d_tpu.config import Config as JConfig
 from gan3d_tpu.models import build_models as jbuild
 from gan3d_tpu.train.state import TrainState, make_optimizer
-from gan3d_tpu.train.step import build_train_step
+from gan3d_tpu.train.step import build_split_steps, build_train_step
 from gan3d_tpu.utils.prng import fold_step
 from gan3d_tpu_torch import convert
 from gan3d_tpu_torch.config import Config
@@ -106,11 +106,12 @@ def jax_alphas(cfg, base_key, step=0):
 _JAX_WORKER = ThreadPoolExecutor(max_workers=1)
 
 
-def jax_step(cfg_kw, seed=0):
-    """One JAX fused step from random weights: returns (gv, dv, reals,
-    noises, penalty alphas, pending) as numpy, for ``port_step_matches``;
-    ``pending`` is the future of the step's (new state, metrics), run in a
-    worker thread."""
+def jax_step(cfg_kw, seed=0, split=False):
+    """One JAX fused step from random weights (``split``: the split steps,
+    ``build_split_steps``: iterD d_step calls and a g_step call): returns
+    (gv, dv, reals, noises, penalty alphas, pending) as numpy, for
+    ``port_step_matches``; ``pending`` is the future of the step's (new
+    state, metrics), run in a worker thread."""
     jcfg = JConfig(**cfg_kw)
     R = jcfg.resolution
     G_j, D_j = jbuild(jcfg)
@@ -133,8 +134,18 @@ def jax_step(cfg_kw, seed=0):
                        g_opt=g_tx.init(gp), d_params=dp, d_state=ds,
                        d_opt=d_tx.init(dp))
     base_key = jax.random.key(5)
-    step = jax.jit(build_train_step(jcfg, G_j, D_j, g_tx, d_tx))
     reals_j = jnp.asarray(np.moveaxis(reals, 2, -1))
+    if split:
+        d_fn, g_fn = (jax.jit(f) for f in build_split_steps(
+            jcfg, G_j, D_j, g_tx, d_tx))
+
+        def step(s, reals_j, key):
+            for i in range(jcfg.iterD):
+                s, d_metrics = d_fn(s, reals_j[i], key, jnp.int32(i))
+            s, g_metrics, fake = g_fn(s, key)
+            return s, {**d_metrics, **g_metrics}, fake
+    else:
+        step = jax.jit(build_train_step(jcfg, G_j, D_j, g_tx, d_tx))
 
     def run():
         new, metrics, _ = step(state, reals_j, base_key)
@@ -145,10 +156,11 @@ def jax_step(cfg_kw, seed=0):
             jax_alphas(jcfg, base_key), pending)
 
 
-def port_step_matches(cfg, ref, stateful=("g", "d")):
-    """Run the port's step on ``jax_step``'s weights, reals and noise and
-    hold it against the JAX step (tolerances: module docstring); the
-    networks named in ``stateful`` must have BN or SN state."""
+def port_step_matches(cfg, ref, stateful=("g", "d"), step=train_step):
+    """Run the port's step (``step``, with ``train_step``'s signature) on
+    ``jax_step``'s weights, reals and noise and hold it against the JAX
+    step (tolerances: module docstring); the networks named in
+    ``stateful`` must have BN or SN state."""
     gv, dv, reals, noise, alphas, pending = ref
     R = cfg.resolution
     G, D = build_models(cfg)
@@ -157,9 +169,9 @@ def port_step_matches(cfg, ref, stateful=("g", "d")):
     g_opt = Adam(G.parameters(), cfg.lrG, 0.0, 0.9)
     d_opt = Adam(D.parameters(), cfg.lrD, 0.0, 0.9)
     noises = [torch.from_numpy(n) for n in noise]
-    got, fake = train_step(cfg, G.train(), D.train(), g_opt, d_opt,
-                           torch.from_numpy(reals), noises=noises,
-                           alphas=[torch.from_numpy(a) for a in alphas])
+    got, fake = step(cfg, G.train(), D.train(), g_opt, d_opt,
+                     torch.from_numpy(reals), noises=noises,
+                     alphas=[torch.from_numpy(a) for a in alphas])
     assert fake.shape == (cfg.batch_size, 1, R, R, R)
     new, metrics = pending.result()
 

@@ -29,9 +29,11 @@ Phases, each printing its own line:
              (a yardstick the port never calls) with CUDA events, and the
              kernel's and the yardstick's device time in a profiler trace;
              then
-             checks every c and ragged L/M tails at small shapes, that a
-             repeated forward and backward are bit-identical and that a
-             double backward through the kernels raises;
+             checks every c and ragged L/M tails at small shapes, the
+             flagship's G and D shapes at a data-parallel rank's rows (N =
+             8 and 4: 16 // world at 2 and 4 ranks), that a repeated
+             forward and backward are bit-identical and that a double
+             backward through the kernels raises;
 4. conv    — finds the eligible k3 convs of the flagship's G and D and of
              the StyleGAN-1 G (512 -> 32 channels at 4^3-64^3) with forward
              hooks on the port's models, and at each distinct shape (N=16,
@@ -98,22 +100,40 @@ Phases, each printing its own line:
              vol/s and peak memory; the trained G and D of the first run,
              of the StyleGAN2 runs and of StyleGAN-1 on the card against
              the CPU at batch 1 (StyleGAN2: sg2_model_check);
+   dp      — data parallelism (slice 8): the flagship through the train
+             CLI's data-parallel entry point (cli.train.train_rank): world
+             1 over NCCL against the one-process run (6 steps each:
+             step-0 losses bit-equal with cuDNN deterministic, the
+             outputs, K1 8 / K2 6 launches a step, vol/s); two ranks
+             sharing the card over a gloo group the script makes, f32,
+             against one process on the global batch (2 steps: step-0
+             losses 1e-4, step 0's all-reduced gradients before Adam 5e-4
+             of each update's largest, beside the floor of a one-process
+             run with BN's statistics in another order, G and D outputs,
+             the replica check, each rank's K1/K2 launches, energy.json
+             with 2 chips and the card's power limit), then
+             --sync_bn=False (1 step;
+             the running stats against the mean of the two halves'), then
+             a control with a planted fault (the gradients summed over
+             ranks, not averaged), which the gradient check must catch;
+             NCCL across 2 or 4 cards where there are several (else a
+             line says it was not run);
    inloop_fid — the flagship with in-loop FID: the random stand-in
              (--fid_in_loop=True, 4 steps, a log and a checkpoint every 2),
              a random-init Inception-V3 weights file the script writes in
              the pt_inception layout (--inception_weights, 2 steps, a log
              every step), the stand-in with --async_log=True, and the
              stand-in and the weights at the default steps_per_log=10 over
-             20 steps; each run's log lines and finite FIDs, the
+             10 steps; each run's log lines and finite FIDs, the
              checkpoint's FID history, K1/K2 launches as in training; the
              steady vol/s of each beside the default run's; each in-loop
              FID's seconds, split into the host's Fréchet distance and
              the card's feature pass;
-   eval    — on the --stylegan run's directory: the generate CLI (32
+   eval    — on the --stylegan run's directory: the generate CLI (16
              volumes), then the eval CLI with --n_seeds=1 on a synthetic
-             test set (32 volumes tanh(N(0, 1)) at 64^3, seed 0; batch
-             16) with random-init extractors; checks the stats file's
-             keys and finite values, ms_ssim_3d(x, x) = 1, and the 3D-FID
+             test set (16 volumes tanh(N(0, 1)) at 64^3, seed 0; batch
+             16: one batch) with random-init extractors; checks the
+             stats file's keys and finite values, ms_ssim_3d(x, x) = 1, and the 3D-FID
              and slice-FID features on the card against the CPU on the
              same 4 volumes (f32, 1e-3 of the largest value); prints the
              seconds a batch of each metric;
@@ -330,7 +350,9 @@ CONV_PATHS = (KNOB_RUN, "stylegan_knobs")
 # The run the eval phase reads, and its synthetic test set: volumes, batch
 # and seed (the eval CLI's --seed default).
 EVAL_RUN = "stylegan"
-EVAL_N, EVAL_BATCH, EVAL_SEED = 32, 16, 0
+# (one batch: each batch costs the host four sqrtm's; the dp phase needs
+# the time)
+EVAL_N, EVAL_BATCH, EVAL_SEED = 16, 16, 0
 # Volumes of the eval phase's card-against-CPU feature check.
 EVAL_CHECK_N = 4
 PROFILED_RUN = "profiled"
@@ -342,18 +364,43 @@ NO_WEIGHTS_LINE = "in-loop FID: no Inception weights found"
 # every 2 steps; (b) a random-init Inception-V3 weights file written in
 # the pt_inception layout ({weights}), a log every step; (c) (a) with
 # async_log; then the stand-in and the weights at the default
-# steps_per_log=10 over 20 steps, for the steady rate (steps 1-19 hold
-# the log of step 10 and the final one).
+# steps_per_log=10 over 10 steps, for the steady rate (steps 1-9 hold
+# the final log; one log in the window, whose host sqrtm's the dp phase
+# needs the time of).
 INLOOP_RUNS = (
     ("stand_in", ["--fid_in_loop=True", "--steps_per_log=2",
                   "--steps_per_ckpt=2"], 4),
     ("weights", ["--inception_weights={weights}", "--steps_per_log=1"], 2),
     ("async", ["--fid_in_loop=True", "--steps_per_log=2",
                "--steps_per_ckpt=2", "--async_log=True"], 4),
-    ("stand_in_rate", ["--fid_in_loop=True"], 20),
-    ("weights_rate", ["--inception_weights={weights}"], 20),
+    ("stand_in_rate", ["--fid_in_loop=True"], 10),
+    ("weights_rate", ["--inception_weights={weights}"], 10),
 )
 INCEPTION_SEED = 0
+# The dp phase (slice 8): the flagship at 64^3 through the train CLI's
+# data-parallel entry point (cli.train.train_rank), DP_STEPS steps a run
+# on the train phase's data, each against a one-process run of the same
+# flags. BN's running stats under --sync_bn=False are held against the
+# two halves of DP_HALVES_N noise vectors drawn from DP_Z_SEED.
+DP_STEPS = 2
+DP_RATE_STEPS = 6  # the bf16 runs at world 1 and one process: 5 steady
+DP_OUT_N = 4       # noise vectors / volumes of the output comparison
+DP_TOL = 1e-3      # the f32 runs' comparison (module docstring's dp)
+DP_G_TOL = 1e-2    # G's eval-mode outputs (_dp_compare)
+# step 0's all-reduced gradients against the one-process run's
+# (grad_check): each update's largest error as a share of its largest
+# gradient. 3x the floor: two one-process runs that differ only in BN's
+# reduction order (bn_formula) differ by 1.6e-4 on the G update, whose
+# gradient crosses G's 33 BNs (an error of 1.8e-2 of some tensors' own
+# largest); a tensor below DP_GRAD_ZERO of its update's largest is zero
+# up to rounding
+DP_GRAD_TOL = 5e-4
+DP_GRAD_ZERO = 1e-6
+# K1/K2's rows a rank under data parallelism: 16 // world at worlds 2 and 4
+DP_KERNEL_ROWS = (8, 4)
+DP_MAX_CARDS = 4
+DP_HALVES_N = 16
+DP_Z_SEED = 7
 # The tournament phase's runs (each read as name + "0"): the flagship,
 # the DCGAN with --sagan, the hybrid.
 TOURNAMENT_RUNS = ("default", "dcgan_sagan", "hybrid")
@@ -629,15 +676,20 @@ def kernel_phase(ca, attention_plain) -> list:
 
 
 def extra_checks(ca, attention_plain) -> dict:
-    """The kernels against the plain version at EXTRA_SHAPES, a repeated
-    forward and backward bit-identical, and the backward refusing a second
-    differentiation."""
+    """The kernels against the plain version at EXTRA_SHAPES and at the
+    flagship's G and D placements with a data-parallel rank's rows
+    (DP_KERNEL_ROWS), a repeated forward and backward bit-identical, and
+    the backward refusing a second differentiation."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    worst = {}
-    for n, L, m, c in EXTRA_SHAPES:
+    worst, dp_rows = {}, {}
+    # then the flagship's G and D placements at a data-parallel rank's rows
+    shapes = [(None, s) for s in EXTRA_SHAPES] + [
+        (f"{place} N={n}", (n, L, m, c)) for place, L, m, c in PLACEMENTS[:2]
+        for n in DP_KERNEL_ROWS]
+    for rows, (n, L, m, c) in shapes:
         for dname, dt in (("float32", torch.float32),
                           ("bfloat16", torch.bfloat16)):
             q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
@@ -657,7 +709,8 @@ def extra_checks(ca, attention_plain) -> dict:
             for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
                 rel = rel_err(a, b)[1]
                 key = f"{dname}/{name}"
-                worst[key] = max(worst.get(key, 0.0), rel)
+                into = worst if rows is None else dp_rows.setdefault(rows, {})
+                into[key] = max(into.get(key, 0.0), rel)
                 if not rel <= TOL[dname]:
                     raise AssertionError(f"{(n, L, m, c)} {dname} {name}: "
                                          f"relative error {rel:.3e}")
@@ -673,6 +726,7 @@ def extra_checks(ca, attention_plain) -> dict:
         raise AssertionError("double backward through the kernels did not "
                              "raise")
     return {"shapes": EXTRA_SHAPES, "worst_rel_err": worst,
+            "dp_rank_rows_rel_err": dp_rows, "tol": TOL,
             "repeated_forward_backward": "bit-identical",
             "double_backward": "raises"}
 
@@ -1237,7 +1291,7 @@ def f32_fields(case: dict) -> dict:
 
 
 def kernels_line(cases: list, conv_cases: list, paths: dict,
-                 toeplitz_cases: list, ladder_cases: list) -> dict:
+                 toeplitz_cases: list, ladder_cases: list, dp: dict) -> dict:
     """One entry per kernel; the top-level numbers are the main path's
     case (attention: G placement, bf16, N=16; convs: 32ch@64^3, bf16,
     N=16, the forward for the wide conv and K5; the ladder: the rung named
@@ -1250,8 +1304,11 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
     their counts in the first part of each ATTENTION_PATHS run (the
     flagship's default, the DCGAN's --sagan, the hybrid), K3 and K4 their
     counts in the first part of each CONV_PATHS run (the flagship's and
-    StyleGAN-1's knob runs); each conv case lists the networks that run
-    its shape ("paths": G, D, SG1). K1-K5 and the
+    StyleGAN-1's knob runs), and K1 and K2 ``launches_per_rank``, each
+    rank's count in the dp phase's runs (``dp``: world 1 over NCCL, bf16;
+    two ranks on one card over gloo, f32; NCCL across cards where there
+    are several); each conv case lists the networks that run its shape
+    ("paths": G, D, SG1). K1-K5 and the
     ladder add ``device_ms`` and ``library_device_ms`` (device time per
     call, profiler), and K1-K5 the f32 route's (the FMA kernels') numbers
     at the same case: ``f32_ms``, ``f32_device_ms``, ``f32_library_ms``
@@ -1305,6 +1362,12 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
         if key == "fwd_tc":  # the tournament's no-grad forwards
             out[-1]["launches_by_path"]["tournament"] = \
                 paths["tournament"][key]
+        if key in ("fwd_tc", "bwd_tc"):
+            k = "K1" if key == "fwd_tc" else "K2"
+            out[-1]["launches_per_rank"] = {
+                run: {r: v[k] for r, v in got["per_rank"].items()}
+                for run, got in dp.items() if isinstance(got, dict)
+                and "per_rank" in got}
         # the same case's f32 route (FMA kernels) beside it
         f32 = next(c for c in mine if c["dtype"] == "float32" and all(
             c[k] == main[k] for k in main
@@ -1348,9 +1411,13 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
 
 
 def run_cli(argv: list) -> str:
-    """Run the train CLI in-process; returns its stdout (also echoed)."""
+    """Run the train CLI in-process, on one card unless ``argv`` sets
+    --num_devices (the CLI's default 0 takes every card); returns its
+    stdout (also echoed)."""
     from gan3d_tpu_torch.cli import train as cli_train
 
+    if not any(a.startswith("--num_devices=") for a in argv):
+        argv = argv + ["--num_devices=1"]
     return tee(cli_train.main, argv)[1]
 
 
@@ -2030,6 +2097,539 @@ def trace_phase(trace_dir: str, steps: int, kernels: dict) -> dict:
                          "share": v[0] / total} for n, v in top]}
 
 
+# ---------------------------------------------------------------------------
+# the dp phase: data parallelism (slice 8)
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def recorded_grads(updates: int, world: int = 1, fault: bool = False):
+    """Adam.step keeps, on the CPU, the gradients it is given (all-reduced,
+    as it applies them) in its first ``updates`` calls: step 0's iterD D
+    updates and its G update. With ``fault``, the planted fault of the
+    control: Adam gets the gradients summed over the ``world`` ranks, not
+    their mean. Yields the list of kept updates."""
+    from gan3d_tpu_torch.train.state import Adam
+
+    seen, step = [], Adam.step
+
+    def recording(self, grads):
+        if fault:
+            grads = [g * world for g in grads]
+        if len(seen) < updates:
+            seen.append([g.detach().float().cpu() for g in grads])
+        return step(self, grads)
+
+    Adam.step = recording
+    try:
+        yield seen
+    finally:
+        Adam.step = step
+
+
+def dp_rank(rp, runs: list, out_dir: str, tag: str, halves: int = -1,
+            record: tuple = (), fault: int = -1) -> None:
+    """One rank of a dp run: ``cli.train.train_rank`` for each argv of
+    ``runs`` (cuDNN deterministic, so that two runs of the same flags may
+    be compared bit for bit), the launch counters set to 0 before each and
+    read after it; then the BN halves check's G forward in the config of
+    run ``halves`` (if one is given: an index of ``runs``). Writes
+    ``{tag}_rank{r}.json`` in ``out_dir``: each run's counters, stdout and
+    peak memory; for the runs whose index is in ``record``, rank 0 writes
+    step 0's gradients (``recorded_grads``) to ``{tag}_grads{i}.pt``. Run
+    ``fault`` has the control's planted fault."""
+    import torch
+
+    from gan3d_tpu_torch.cli import train as cli_train
+    from gan3d_tpu_torch.config import config_from_args
+    from gan3d_tpu_torch.ops import cuda_attention as ca
+    from gan3d_tpu_torch.ops import cuda_conv as cc
+
+    torch.backends.cudnn.deterministic = True
+    res = {"rank": rp.rank, "world": rp.world, "device": str(rp.device),
+           "runs": []}
+    for i, argv in enumerate(runs):
+        cfg = config_from_args(argv)
+        ca.reset_counters()
+        cc.reset_counters()
+        torch.cuda.reset_peak_memory_stats(rp.device)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), recorded_grads(
+                cfg.iterD + 1 if i in record else 0, rp.world,
+                i == fault) as seen:
+            cli_train.train_rank(rp, cfg)
+        torch.cuda.synchronize(rp.device)
+        res["runs"].append({
+            "launches": _counters(ca, cc), "stdout": buf.getvalue(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(
+                rp.device)})
+        if seen and rp.rank == 0:
+            torch.save(seen, os.path.join(out_dir, f"{tag}_grads{i}.pt"))
+    if halves >= 0:
+        res["bn_halves"] = bn_stats(runs[halves], *rp.span(DP_HALVES_N), rp)
+    with open(os.path.join(out_dir, f"{tag}_rank{rp.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def bn_stats(argv: list, lo: int, hi: int, replicas=None) -> dict:
+    """G's BN running stats after one train-mode forward, from the seed's
+    weights in ``argv``'s config (f32), of rows [lo, hi) of DP_HALVES_N
+    noise vectors (seed DP_Z_SEED): on a rank of ``replicas``, or in one
+    process. Each BN module's (mean, var) as lists."""
+    import torch
+
+    from gan3d_tpu_torch.config import config_from_args
+    from gan3d_tpu_torch.models import build_models
+    from gan3d_tpu_torch.nn.norm import BatchNorm3d
+
+    cfg = config_from_args(argv).replace(compute_dtype="float32")
+    G, _ = build_models(cfg, replicas)
+    G = G.to(replicas.device if replicas else "cuda").train()
+    z = torch.randn((DP_HALVES_N, cfg.z_size),
+                    generator=torch.Generator().manual_seed(DP_Z_SEED))
+    with torch.no_grad():
+        G(z[lo:hi].to(replicas.device if replicas else "cuda"))
+    return {name: [m.running_mean.cpu().tolist(), m.running_var.cpu().tolist()]
+            for name, m in G.named_modules() if isinstance(m, BatchNorm3d)}
+
+
+def dp_gloo_rank(local_rank: int, world: int, init_file: str, runs: list,
+                 out_dir: str, tag: str, halves: int, record: tuple,
+                 fault: int) -> None:
+    """A rank of ``world`` sharing card 0 through a gloo group this script
+    makes (NCCL refuses two ranks on one card), passed to the trainer as
+    its replicas; ``dp_rank``'s runs."""
+    import torch
+    import torch.distributed as tdist
+
+    from gan3d_tpu_torch.parallel import dist
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    tdist.init_process_group("gloo", init_method="file://" + init_file,
+                             rank=local_rank, world_size=world,
+                             timeout=dist.TIMEOUT)
+    rp = dist.Replicas(rank=local_rank, world=world, local_rank=local_rank,
+                       local_world=world, device=device,
+                       group=tdist.group.WORLD)
+    try:
+        dp_rank(rp, runs, out_dir, tag, halves=halves, record=record,
+                fault=fault)
+        rp.barrier()
+    finally:
+        tdist.destroy_process_group()
+
+
+def _dp_read(out_dir: str, tag: str, world: int) -> list:
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{tag}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _ckpt_losses(log_dir: str, step: int = 0) -> list:
+    import torch
+
+    ckpt = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
+                      map_location="cpu", weights_only=True)
+    return [*ckpt["lossD"][step], ckpt["lossG"][step]]
+
+
+def _rel(a: list, b: list) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def dp_outputs(log_dir: str) -> tuple:
+    """The trained G's and D's outputs (f32, eval mode, on the card) on
+    fixed inputs: G(z) for DP_OUT_N noise vectors, D of DP_OUT_N fixed
+    volumes."""
+    import torch
+
+    from gan3d_tpu_torch.config import Config
+    from gan3d_tpu_torch.models import build_models
+
+    cfg = Config.load(log_dir).replace(compute_dtype="float32")
+    payload = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
+                         map_location="cpu", weights_only=True)
+    G, D = build_models(cfg)
+    G.load_state_dict(payload["modelG_state_dict"])
+    D.load_state_dict(payload["modelD_state_dict"])
+    G, D = G.cuda().eval(), D.cuda().eval()
+    r = cfg.resolution
+    z = torch.randn((DP_OUT_N, cfg.z_size),
+                    generator=torch.Generator().manual_seed(1)).cuda()
+    x = torch.tanh(torch.randn((DP_OUT_N, 1, r, r, r),
+                               generator=torch.Generator().manual_seed(2)))
+    with torch.no_grad():
+        return G(z).float().cpu(), D(x.cuda()).float().cpu()
+
+
+def _dp_compare(a: str, b: str) -> dict:
+    """The run in log dir ``a`` against the one in ``b`` after the same
+    steps (f32): D's outputs on fixed volumes relative to their largest
+    (within DP_TOL), G's outputs on fixed noise, max error in the tanh
+    range (within DP_G_TOL). G's tolerance is wider: its conv biases that
+    feed a BN have a gradient that is zero but for rounding (1e-10-1e-8
+    of G's largest in both runs), so Adam's b1 = 0 update moves each by
+    +-lr at random, and in eval mode that shift meets the running means
+    (2.6e-3 measured between two ranks and one process after 2 steps;
+    in train mode BN cancels it, but a channel whose batch variance is
+    near zero amplifies any rounding by up to 1 / sqrt(eps))."""
+    ga, da = dp_outputs(a)
+    gb, db = dp_outputs(b)
+    return {"g_max_abs_err": (ga - gb).abs().max().item(),
+            "d_rel_err": ((da - db).abs().max()
+                          / db.abs().max().clamp_min(1e-30)).item()}
+
+
+def _dp_within(cmp: dict) -> bool:
+    return cmp["d_rel_err"] <= DP_TOL and cmp["g_max_abs_err"] <= DP_G_TOL
+
+
+def _dp_one_process(ca, cc, argv: list, tag: str, record: int = 0
+                    ) -> dict:
+    """A one-process run of ``argv`` (cuDNN deterministic): its launches,
+    rates, step-0 losses and peak memory, and the gradients of its first
+    ``record`` updates (``recorded_grads``)."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    ca.reset_counters()
+    cc.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with recorded_grads(record) as grads:
+            out = run_cli(argv)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log_dir = next(f.split("=", 1)[1] for f in argv
+                   if f.startswith("--log_dir="))
+    return {"launches": _counters(ca, cc), **_done(out),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "losses_step0": _ckpt_losses(log_dir), "log_dir": log_dir,
+            "tag": tag, "grads": grads}
+
+
+def param_names(argv: list) -> dict:
+    """G's and D's parameter names in their optimizers' order ("G.x",
+    "D.y"), keyed by how many there are."""
+    import torch
+
+    from gan3d_tpu_torch.config import config_from_args
+    from gan3d_tpu_torch.models import build_models
+
+    with torch.device("meta"):
+        nets = build_models(config_from_args(argv))
+    return {len(ns): ns for ns in (
+        [f"{tag}.{n}" for n, _ in net.named_parameters()]
+        for tag, net in zip("GD", nets))}
+
+
+def grad_check(got, want: list, names: dict) -> dict:
+    """Step 0's gradients ``got`` (a list, or the path where a rank wrote
+    it) against the one-process run's ``want``, update by update. The
+    checked reading (``grad_err``): each update's largest error as a share
+    of its largest gradient. Beside it, each tensor's error of its own
+    largest entry (``grad_own_err``), over the tensors above DP_GRAD_ZERO
+    of their update's largest, and the largest entry of those below it
+    (zero up to rounding in the one-process run: the conv biases that
+    feed a BN), of that update's largest. ``per_update`` names each
+    update's worst tensors (``names``: ``param_names``)."""
+    import torch
+
+    if isinstance(got, str):
+        got = torch.load(got, weights_only=True)
+    if [len(u) for u in got] != [len(u) for u in want]:
+        raise AssertionError(f"{len(got)} updates of {[len(u) for u in got]}"
+                             f" tensors, one process {[len(u) for u in want]}")
+    zero_worst, n_zero, per_update = 0.0, 0, []
+    for u, (gs, ws) in enumerate(zip(got, want)):
+        largest = max(w.abs().max().item() for w in ws)
+        row = {"update": u, "largest": largest, "of_largest": 0.0,
+               "own": 0.0, "own_over_1e-4": 0, "own_over_1e-3": 0}
+        for name, g, w in zip(names[len(ws)], gs, ws):
+            top = w.abs().max().item()
+            diff = (g - w).abs().max().item()
+            if diff / largest >= row["of_largest"]:
+                row.update(of_largest=diff / largest, of_largest_at=name)
+            if top <= DP_GRAD_ZERO * largest:
+                n_zero += 1
+                zero_worst = max(zero_worst, g.abs().max().item() / largest)
+                continue
+            row["own_over_1e-4"] += diff > 1e-4 * top
+            row["own_over_1e-3"] += diff > 1e-3 * top
+            if diff / top >= row["own"]:
+                row.update(own=diff / top, own_at=name,
+                           own_at_share=top / largest)
+        per_update.append(row)
+    return {"grad_err": max(r["of_largest"] for r in per_update),
+            "grad_tol": DP_GRAD_TOL,
+            "grad_own_err": max(r["own"] for r in per_update),
+            "grad_zero_tensors": n_zero,
+            "grad_zero_tensors_max": zero_worst, "per_update": per_update}
+
+
+def _grads_within(chk: dict) -> bool:
+    return (chk["grad_err"] <= DP_GRAD_TOL
+            and chk["grad_zero_tensors_max"] <= DP_GRAD_ZERO)
+
+
+@contextlib.contextmanager
+def bn_formula():
+    """BatchNorm3d's one-process train-mode statistics through the
+    explicit two-pass formula (its cross-replica path's, over one rank)
+    instead of cuDNN's kernel: the same function in another reduction
+    order, whose run is the gradient check's floor."""
+    import torch
+
+    from gan3d_tpu_torch.nn.norm import BatchNorm3d
+
+    forward = BatchNorm3d.forward
+
+    def formula(self, x):
+        if not self.training:
+            return forward(self, x)
+        sdt = torch.promote_types(x.dtype, torch.float32)
+        n, c = x.shape[:2]
+        xc = x.to(sdt).reshape(n, c, -1)
+        cnt = n * xc.shape[-1]
+        mean = xc.mean(dim=(0, 2))
+        var = (xc - mean[:, None]).square().sum(dim=(0, 2)) / cnt
+        y = (xc - mean[:, None]) * torch.rsqrt(var + self.eps)[:, None]
+        y = y * self.weight.to(sdt)[:, None] + self.bias.to(sdt)[:, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean * m)
+            self.running_var.mul_(1 - m).add_(var * (cnt / (cnt - 1)) * m)
+            self.num_batches_tracked.add_(1)
+        return y.reshape(x.shape).to(x.dtype)
+
+    BatchNorm3d.forward = formula
+    try:
+        yield
+    finally:
+        BatchNorm3d.forward = forward
+
+
+def _dp_rank_checks(name: str, ranks: list, route: str, steps: int,
+                    log_dir: str) -> dict:
+    """Each rank's K1/K2 launches (``route``: "_tc" for bf16, "" for f32)
+    as the step implies on its rows, rank 0 alone printing, the replica
+    check passed; returns the per-rank numbers."""
+    want = expected_launches(0, steps, 2, 50, (1, 1))
+    per_rank = {}
+    for r in ranks:
+        got = r["runs"][0]["launches"]
+        if (got[f"fwd{route}"], got[f"bwd{route}"]) != (want["fwd_tc"],
+                                                        want["bwd_tc"]):
+            raise AssertionError(f"{name} rank {r['rank']}: K1/K2 launches "
+                                 f"{got} != {want} a rank")
+        per_rank[f"rank{r['rank']}"] = {
+            "K1": got[f"fwd{route}"], "K2": got[f"bwd{route}"],
+            "max_memory_allocated": r["runs"][0]["max_memory_allocated"]}
+    out0 = ranks[0]["runs"][0]["stdout"]
+    world = len(ranks)
+    if world > 1 and f"on all {world} ranks" not in out0:
+        raise AssertionError(f"{name}: no passed replica check in rank 0's "
+                             "output")
+    if any(r["runs"][0]["stdout"] for r in ranks[1:]):
+        raise AssertionError(f"{name}: a rank other than 0 printed")
+    return {"per_rank": per_rank, **_done(out0),
+            "losses_step0": _ckpt_losses(log_dir)}
+
+
+def dp_phase(ca, cc, tmp: str, data: str, power_limit_w: float) -> dict:
+    """The flagship (64^3, filters 64, batch 16, iterD 2, hinge) through
+    the train CLI's data-parallel entry point, DP_STEPS steps a run:
+
+    1. world 1 over NCCL (``parallel.launch``, one spawned process) against
+       the one-process run, DP_RATE_STEPS steps each: step-0 losses, the
+       outputs, gradient magnitudes and parameters after the steps
+       bit-equal, K1 8 and K2 6 launches a step, vol/s;
+    2. two ranks sharing the card over a gloo group, f32, against one
+       process on the global batch 16 (f32): step-0 losses within 1e-4
+       relative, step 1's within DP_TOL, step 0's all-reduced gradients
+       by ``grad_check`` (beside them its floor: a second one-process run
+       with ``bn_formula``), the networks after the steps by
+       ``_dp_compare``, the replica check on both ranks,
+       K1/K2 on each rank as the step implies, with --track_energy
+       (energy.json: 2 chips, the card's power limit); then, in the same
+       processes, one step with --sync_bn=False (the replica check: the
+       running stats identical on both ranks) and G's BN running stats
+       after a forward of each rank's half against the mean of the two
+       halves' (1e-5 of the largest); then the control: 2 steps with the
+       gradients summed over the ranks (``recorded_grads``' planted
+       fault), which ``grad_check`` must fail, with the readings of the
+       other limits beside it;
+    3. NCCL over 4 cards where there are 4 or more, else 2 where there
+       are 2 or 3 (a world that divides the batch), with item 2's checks
+       (f32, the gradients too) and vol/s; on one card noted as not run.
+    """
+    import torch
+    import torch.multiprocessing as mp
+
+    from gan3d_tpu_torch.parallel import dist
+
+    t0 = time.time()
+    out_dir = os.path.join(tmp, "dp")
+    os.makedirs(out_dir, exist_ok=True)
+    base = FLAGSHIP + [f"--data_path={data}", f"--niters={DP_STEPS}"]
+    res = {}
+
+    # 1. world 1 over NCCL against one process, bf16
+    rate = base + [f"--niters={DP_RATE_STEPS}"]
+    one = _dp_one_process(ca, cc, rate + [f"--log_dir={tmp}/dp_one"], "one")
+    argv1 = rate + [f"--log_dir={tmp}/dp_nccl1", "--num_devices=1"]
+    dist.launch(dp_rank, ([argv1], out_dir, "nccl1"),
+                dist.Plan(world=1, local=1, first=0, device="cuda"))
+    w1 = _dp_rank_checks("nccl1", _dp_read(out_dir, "nccl1", 1), "_tc",
+                         DP_RATE_STEPS, f"{tmp}/dp_nccl1")
+    if w1["losses_step0"] != one["losses_step0"]:
+        raise AssertionError(f"world 1 step-0 losses {w1['losses_step0']} "
+                             f"!= one process {one['losses_step0']}")
+    cmp1 = _dp_compare(one["log_dir"], f"{tmp}/dp_nccl1")
+    if any(v != 0 for v in cmp1.values()):
+        raise AssertionError(f"world 1 vs one process after "
+                             f"{DP_RATE_STEPS} steps: {cmp1} (bit-equal "
+                             "expected)")
+    res["nccl_world1"] = {**w1, **cmp1, "losses_bit_equal": True,
+                          "one_process_vol_per_s": one["steady_vol_per_s"],
+                          "one_process_max_memory_allocated":
+                              one["max_memory_allocated"]}
+    phase("dp_world1", **res["nccl_world1"])
+
+    # 2. two ranks on one card over gloo, f32
+    f32 = base + ["--compute_dtype=float32"]
+    iter_d = int(next(f for f in WIDTHS if f.startswith("--iterD="))[8:])
+    one32 = _dp_one_process(ca, cc, f32 + [f"--log_dir={tmp}/dp_one32"],
+                            "one32", record=iter_d + 1)
+    # the floor: one process again, BN's statistics in another order
+    with bn_formula():
+        floor32 = _dp_one_process(
+            ca, cc, f32 + [f"--log_dir={tmp}/dp_floor32"], "floor32",
+            record=iter_d + 1)
+    names = param_names(f32)
+    floor = {**grad_check(floor32.pop("grads"), one32["grads"], names),
+             **_dp_compare(one32["log_dir"], floor32["log_dir"]),
+             "losses_step1_rel_err": _rel(
+                 _ckpt_losses(floor32["log_dir"], 1),
+                 _ckpt_losses(one32["log_dir"], 1))}
+    runs = [f32 + [f"--log_dir={tmp}/dp_gloo2", "--num_devices=2",
+                   "--track_energy=True"],
+            f32 + [f"--log_dir={tmp}/dp_gloo2_local_bn", "--num_devices=2",
+                   "--sync_bn=False", "--niters=1"],
+            f32 + [f"--log_dir={tmp}/dp_gloo2_fault", "--num_devices=2"]]
+    init_file = os.path.join(out_dir, "gloo_rendezvous")
+    mp.start_processes(dp_gloo_rank, args=(2, init_file, runs, out_dir,
+                                           "gloo2", 1, (0, 2), 2),
+                       nprocs=2, join=True, start_method="spawn")
+    ranks = _dp_read(out_dir, "gloo2", 2)
+    w2 = _dp_rank_checks("gloo2", ranks, "", DP_STEPS, f"{tmp}/dp_gloo2")
+    rel = _rel(w2["losses_step0"], one32["losses_step0"])
+    rel1 = _rel(_ckpt_losses(f"{tmp}/dp_gloo2", 1),
+                _ckpt_losses(one32["log_dir"], 1))
+    cmp2 = _dp_compare(one32["log_dir"], f"{tmp}/dp_gloo2")
+    grads2 = grad_check(os.path.join(out_dir, "gloo2_grads0.pt"),
+                        one32["grads"], names)
+    if not (rel <= 1e-4 and rel1 <= DP_TOL and _dp_within(cmp2)
+            and _grads_within(grads2)):
+        raise AssertionError(f"2 ranks vs one process (f32): step-0 loss rel "
+                             f"err {rel:.3e} (tol 1e-4), step 1 {rel1:.3e} "
+                             f"(tol {DP_TOL}), {cmp2} (tols: _dp_compare), "
+                             f"{grads2}")
+    # the control: the same run with the gradients summed over the ranks;
+    # the gradient check must fail it, the other limits are read beside it
+    fault = {**grad_check(os.path.join(out_dir, "gloo2_grads2.pt"),
+                          one32["grads"], names),
+             **_dp_compare(one32["log_dir"], f"{tmp}/dp_gloo2_fault"),
+             "losses_step0_rel_err": _rel(
+                 _ckpt_losses(f"{tmp}/dp_gloo2_fault"),
+                 one32["losses_step0"]),
+             "losses_step1_rel_err": _rel(
+                 _ckpt_losses(f"{tmp}/dp_gloo2_fault", 1),
+                 _ckpt_losses(one32["log_dir"], 1))}
+    fault["caught_by"] = [name for name, bad in (
+        ("gradients", not _grads_within(fault)),
+        ("losses_step0", fault["losses_step0_rel_err"] > 1e-4),
+        ("losses_step1", fault["losses_step1_rel_err"] > DP_TOL),
+        ("outputs", not _dp_within(fault))) if bad]
+    if "gradients" not in fault["caught_by"]:
+        raise AssertionError(f"the gradient check passed the control's "
+                             f"planted fault (gradients summed over ranks): "
+                             f"{fault}")
+    with open(os.path.join(tmp, "dp_gloo2", "energy.json")) as f:
+        energy = json.load(f)
+    if energy["chips"] != 2 or energy["watts_per_chip_estimate"] != \
+            power_limit_w:
+        raise AssertionError(f"energy.json {energy}: not 2 chips at the "
+                             f"card's {power_limit_w} W")
+    local = [r["runs"][1]["stdout"] for r in ranks]
+    if "on all 2 ranks" not in local[0] or local[1]:
+        raise AssertionError("--sync_bn=False at 2 ranks: no passed replica "
+                             "check, or rank 1 printed")
+    # the mean of what each half of the batch gives (one process a half)
+    want = {}
+    for lo in (0, DP_HALVES_N // 2):
+        got = bn_stats(runs[1], lo, lo + DP_HALVES_N // 2)
+        for k, (m, v) in got.items():
+            wm, wv = want.get(k, ([0.0] * len(m), [0.0] * len(v)))
+            want[k] = ([a + b / 2 for a, b in zip(wm, m)],
+                       [a + b / 2 for a, b in zip(wv, v)])
+    err = 0.0
+    for r in ranks:
+        if r["bn_halves"] != ranks[0]["bn_halves"]:
+            raise AssertionError("--sync_bn=False: ranks' BN running stats "
+                                 "differ")
+    for k, (m, v) in want.items():
+        gm, gv = ranks[0]["bn_halves"][k]
+        scale = max(max(map(abs, m + v)), 1e-30)
+        err = max(err, max(abs(a - b) for a, b in zip(gm + gv, m + v))
+                  / scale)
+    if not err <= 1e-5:
+        raise AssertionError(f"--sync_bn=False: running stats vs the mean of "
+                             f"the halves' rel err {err:.3e} (tol 1e-5)")
+    res["gloo_world2_f32"] = {
+        **w2, **cmp2, **grads2, "losses_step0_rel_err": rel, "tol": 1e-4,
+        "losses_step1_rel_err": rel1, "grad_floor": floor,
+        "planted_fault_control": fault,
+        "one_process_f32_vol_per_s": one32["steady_vol_per_s"],
+        "one_process_f32_max_memory_allocated":
+            one32["max_memory_allocated"],
+        "one_process_f32_launches": {"K1": one32["launches"]["fwd"],
+                                     "K2": one32["launches"]["bwd"]},
+        "energy": energy, "local_bn_rel_err": err,
+        "local_bn_modules": len(want)}
+    phase("dp_gloo2", **res["gloo_world2_f32"])
+
+    # 3. NCCL across cards
+    # a world that divides the batch of 16
+    n = max([w for w in (2, 4) if w <= min(torch.cuda.device_count(),
+                                           DP_MAX_CARDS)], default=1)
+    if n >= 2:
+        argvn = f32 + [f"--log_dir={tmp}/dp_nccl{n}", f"--num_devices={n}"]
+        dist.launch(dp_rank, ([argvn], out_dir, f"nccl{n}", -1, (0,)),
+                    dist.Plan(world=n, local=n, first=0, device="cuda"))
+        wn = _dp_rank_checks(f"nccl{n}", _dp_read(out_dir, f"nccl{n}", n),
+                             "", DP_STEPS, f"{tmp}/dp_nccl{n}")
+        rel = _rel(wn["losses_step0"], one32["losses_step0"])
+        cmpn = _dp_compare(one32["log_dir"], f"{tmp}/dp_nccl{n}")
+        gradsn = grad_check(os.path.join(out_dir, f"nccl{n}_grads0.pt"),
+                            one32["grads"], names)
+        if not (rel <= 1e-4 and _dp_within(cmpn) and _grads_within(gradsn)):
+            raise AssertionError(f"{n} cards vs one process (f32): step-0 "
+                                 f"loss rel err {rel:.3e} (tol 1e-4), {cmpn} "
+                                 f"(tols: _dp_compare), {gradsn}")
+        res[f"nccl_world{n}_f32"] = {
+            **wn, **cmpn, **gradsn, "losses_step0_rel_err": rel,
+            "one_process_f32_vol_per_s": one32["steady_vol_per_s"]}
+        phase(f"dp_nccl{n}", **res[f"nccl_world{n}_f32"])
+    else:
+        res["nccl_multi_card"] = (f"not run: {torch.cuda.device_count()} "
+                                  "card(s) visible")
+        phase("dp_nccl_multi_card", not_run=res["nccl_multi_card"])
+    res["seconds"] = time.time() - t0
+    return res
+
+
 def model_check(log_dir: str, cc, n: int = 2) -> dict:
     """The trained G and D, in f32 and eval mode, at batch ``n``: on the
     card (kernels, the run's conv routes) against the same weights on the
@@ -2144,7 +2744,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    power_limit_w = float(card.rsplit(",", 1)[1].split()[0])
     phase("device", kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda,
@@ -2187,6 +2789,8 @@ def main() -> int:
     phase("conv_extra", **conv_extra_checks(cc))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train = train_phase(ca, cc, tmp, shapes)
+        dp = dp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"),
+                      power_limit_w)
         train128 = train128_phase(ca, cc, tmp)
         phase("inloop_fid", **inloop_fid_phase(
             ca, cc, tmp, train["default/run_0_12"]["steady_vol_per_s"]))
@@ -2214,7 +2818,7 @@ def main() -> int:
             paths[name] = train128["%s/run_%d_%d" % (
                 name, runs[0][1], runs[0][0])]["launches"]
     print(json.dumps(kernels_line(cases, conv_cases, paths, toeplitz_cases,
-                                  ladder_cases)), flush=True)
+                                  ladder_cases, dp)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,7 +17,11 @@ reproduces the reference.
 All noise comes from ``_noise``, drawing from one ``torch.Generator(seed)``
 on the device, where the JAX CLI splits ``jax.random.key(seed)``: the
 draws, and so the win rates, differ between the packages. Runs on the CUDA
-card unless ``--platform=cpu``.
+card unless ``--platform=cpu``. ``--num_devices`` N > 1 (0 = every card)
+samples and judges data-parallel, one process a card (eval/load.py): every
+rank makes the same draws and runs its rows, the results are gathered,
+and rank 0 prints. A batch (the last test batch too) must split over the
+ranks.
 
 Usage:
     python -m gan3d_tpu_torch.cli.tournament -l log/BigGAN -l log/DCGAN \
@@ -34,9 +38,10 @@ import torch
 
 from gan3d_tpu_torch.data.datasets import open_dataset
 from gan3d_tpu_torch.data.loader import Loader
-from gan3d_tpu_torch.eval.load import (check_devices, load_run,
-                                       make_discriminator_fn, make_sampler)
+from gan3d_tpu_torch.eval.load import (load_run, make_discriminator_fn,
+                                       make_sampler)
 from gan3d_tpu_torch.eval.metrics import to_numpy
+from gan3d_tpu_torch.parallel import dist
 from gan3d_tpu_torch.utils.platform import configure_precision, resolve_device
 
 
@@ -71,9 +76,10 @@ def play_round(score, sample, z_size: int, bound: float, batch_size: int,
     return wins / (batch_size * rounds)
 
 
-def tournament(loader, params) -> Dict[str, float]:
-    check_devices(params.num_devices)
-    device = resolve_device(params.platform)
+def tournament(loader, params, replicas: dist.Replicas = dist.ONE
+               ) -> Dict[str, float]:
+    device = (resolve_device(params.platform) if replicas.group is None
+              else replicas.device)
     configure_precision(device)
     names = params.model_log
     res: Dict[str, List[float]] = {n: [] for n in names}
@@ -81,26 +87,31 @@ def tournament(loader, params) -> Dict[str, float]:
     gen.manual_seed(params.seed)
     for name_d in names:
         for k in range(params.n_seeds):
-            cfg_d, G_d, D_d = load_run(name_d + f"{k}", device=device)
-            score = make_discriminator_fn(cfg_d, D_d)
-            bound = get_decision_bound(score, make_sampler(cfg_d, G_d),
+            cfg_d, G_d, D_d = load_run(name_d + f"{k}", device=device,
+                                       replicas=replicas)
+            score = make_discriminator_fn(cfg_d, D_d, replicas)
+            bound = get_decision_bound(score,
+                                       make_sampler(cfg_d, G_d, replicas),
                                        cfg_d.z_size, loader, gen,
                                        params.compat_last_batch)
             for name_g in names:
                 if name_d == name_g:
                     continue
                 for m in range(params.n_seeds):
-                    cfg_g, G_g, _ = load_run(name_g + f"{m}", device=device)
-                    wr = play_round(score, make_sampler(cfg_g, G_g),
+                    cfg_g, G_g, _ = load_run(name_g + f"{m}", device=device,
+                                             replicas=replicas)
+                    wr = play_round(score,
+                                    make_sampler(cfg_g, G_g, replicas),
                                     cfg_g.z_size, bound, params.batch_size,
                                     gen)
                     res[name_g].append(wr)
 
-    print("------------- Tournament Results -------------")
-    means = {}
-    for n in names:
-        means[n] = float(np.mean(res[n])) if res[n] else float("nan")
-        print(f"G of {n} with Mean Win Rate of {means[n]:.2f}")
+    means = {n: float(np.mean(res[n])) if res[n] else float("nan")
+             for n in names}
+    if replicas.main:
+        print("------------- Tournament Results -------------")
+        for n in names:
+            print(f"G of {n} with Mean Win Rate of {means[n]:.2f}")
     return means
 
 
@@ -112,8 +123,8 @@ def main(argv=None) -> Dict[str, float]:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n_seeds", type=int, default=3)
     p.add_argument("--num_devices", type=int, default=1,
-                   help="evaluation devices (one; 0 = all, which must be "
-                        "one)")
+                   help="data-parallel ranks, one a card (0 = all cards; "
+                        "on the CPU gloo processes)")
     p.add_argument("--compat_last_batch", action="store_true",
                    help="reproduce the reference's last-batch-only bound")
     p.add_argument("-l", "--model_log", action="append", type=str,
@@ -121,12 +132,20 @@ def main(argv=None) -> Dict[str, float]:
     p.add_argument("--platform", type=str, default="",
                    help="'' = the CUDA card (raises without one), 'cpu'")
     params = p.parse_args(argv)
+    plan = dist.plan(params.num_devices, params.platform)
+    if plan.parallel:
+        return dist.launch(run, (params,), plan)
+    return run(dist.ONE, params)
 
+
+def run(replicas: dist.Replicas, params) -> Dict[str, float]:
+    """The tournament over ``params.data_path``'s test set."""
     dataset = open_dataset(params.data_path)
-    print(len(dataset))
+    if replicas.main:
+        print(len(dataset))
     loader = Loader(dataset, params.batch_size, seed=params.seed,
                     drop_last=False)
-    return tournament(loader, params)
+    return tournament(loader, params, replicas)
 
 
 if __name__ == "__main__":

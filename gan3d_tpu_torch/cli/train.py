@@ -14,15 +14,31 @@ At 128^3 (the reference's defaults, ``--resolution=128 --filterG=128
 caller set ``PYTORCH_CUDA_ALLOC_CONF``, ``main`` turns on the CUDA
 cache's expandable segments before the card is first used, so freed
 memory is reusable at any size instead of fragmenting fixed segments.
+
+Data parallelism (parallel/dist.py): ``--num_devices=N`` trains on N
+cards, one spawned process each (0, the default, = every visible card;
+more than are visible raises), the global ``--batch_size`` split over
+them; with ``--platform=cpu`` N gloo processes. Across hosts, each host
+runs the same command with ``--distributed=True --num_processes=H
+--process_id=h --coordinator_address=HOST:PORT`` (the address of host 0,
+which holds the rendezvous) and starts its own ranks; rank = h x the
+host's ranks + the local rank. ``train_rank`` is one rank's work, for a
+caller that starts the processes itself.
 """
 
 from __future__ import annotations
 
 import os
 
-from gan3d_tpu_torch.config import config_from_args
+from gan3d_tpu_torch.config import Config, config_from_args
 from gan3d_tpu_torch.data.datasets import open_dataset
+from gan3d_tpu_torch.parallel import dist
 from gan3d_tpu_torch.train.trainer import Trainer
+
+
+def train_rank(replicas: dist.Replicas, cfg: Config) -> None:
+    """One rank of a data-parallel run."""
+    Trainer(open_dataset(cfg.data_path), cfg, replicas).train()
 
 
 def main(argv=None) -> None:
@@ -30,7 +46,11 @@ def main(argv=None) -> None:
                           "expandable_segments:True")
     cfg = config_from_args(argv)
     print(cfg, flush=True)
-    Trainer(open_dataset(cfg.data_path), cfg).train()
+    p = dist.plan_for(cfg)
+    if p.parallel:
+        dist.launch(train_rank, (cfg,), p)
+    else:
+        Trainer(open_dataset(cfg.data_path), cfg).train()
 
 
 if __name__ == "__main__":

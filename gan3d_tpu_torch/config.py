@@ -63,11 +63,14 @@ class Config:
     # ---- Extras of the JAX package (no reference equivalent) ----
     resolution: int = 128       # output volume side; reference hardcodes 128
     seed: int = 0               # seeds the init and every step's noise
-    # Multi-device runs are not ported: any value above 1 raises.
-    num_devices: int = 0
-    spatial_devices: int = 1
-    model_devices: int = 1
-    sync_bn: bool = True        # one device: BN statistics are the batch's
+    num_devices: int = 0        # data-parallel ranks, one process a card
+                                # (0 = every visible card; on the CPU
+                                # that many gloo processes, 0 = one);
+                                # more cards than visible raises
+    spatial_devices: int = 1    # not ported: above 1 raises
+    model_devices: int = 1      # not ported: above 1 raises
+    sync_bn: bool = True        # BN statistics of the global batch; False
+                                # = each rank's own (parallel runs)
     compute_dtype: str = "bfloat16"  # activations' dtype on the card; f32
                                      # params, BN stats and SN iterations
     param_dtype: str = "float32"     # anything else raises
@@ -116,7 +119,8 @@ class Config:
     sg2_reg_grads: bool = False  # stylegan2: True lets R1 and PL add
                                  # gradients (double backward); False, the
                                  # reference, logs their values only
-    track_energy: bool = False   # energy tracking is not ported: True raises
+    track_energy: bool = False   # True: log_dir/energy.json, the steps'
+                                 # time x chips x a card's power limit
     channel_ratio: int = 4       # BigGAN-deep bottleneck shrink factor
                                  # (reference utils.py:48 fixes 4)
     # The k3/s1/p1 convs with Ci, Co >= 8 (ops/conv3d.py), each
@@ -141,7 +145,7 @@ class Config:
     fast_pix: str = "auto"
     xla_vmem_limit_kib: int = -1
     wire_dtype: str = "auto"     # real batches are uploaded in f32
-    # Multi-host runs are not ported: distributed=True raises.
+    # Multi-host runs: every host starts its ranks; all three are needed.
     distributed: bool = False
     coordinator_address: str = ""
     process_id: int = -1

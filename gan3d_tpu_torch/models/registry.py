@@ -5,6 +5,14 @@ Precedence, as gan3d_tpu/models/registry.py: hybrid (BigGAN G + DCGAN D)
 variants). StyleGAN-1 pairs its AdaIN G with StyleGAN2's D
 (gan3d_tpu/models/registry.py:51-55).
 
+In a data-parallel run (``replicas``, parallel/dist.py) every module that
+sees the batch as a whole learns its rank's place: BatchNorm takes the
+global batch's statistics (``cfg.sync_bn``), or with ``sync_bn=False``
+each rank's own, the per-replica statistics the JAX package expresses as
+batch groups (gan3d_tpu/models/registry.py:20-28), with the running-stat
+updates averaged over ranks; the minibatch-std layer, StyleGAN-1's
+mixing, the synthesis noise and the msl crops span the global batch.
+
 ``cfg.remat`` recomputes activations in backward (nn/remat.py) in the
 BigGAN G and D (the hybrid's G too), StyleGAN2's synthesis blocks and the
 StyleGAN D's blocks, where the JAX package does; the DCGAN G and D and
@@ -14,15 +22,18 @@ StyleGAN-1's G have none there (gan3d_tpu/models/dcgan.py never reads
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from gan3d_tpu_torch.config import Config
+from gan3d_tpu_torch.parallel.dist import Replicas, attach
 
 
-def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
-    """(generator, discriminator) on the CPU, initialized from ``cfg.seed``.
+def build_models(cfg: Config, replicas: Optional[Replicas] = None
+                 ) -> Tuple[torch.nn.Module, torch.nn.Module]:
+    """(generator, discriminator) on the CPU, initialized from ``cfg.seed``
+    (the same on every rank), with ``replicas`` attached when given.
 
     Initialization (weights and the spectral-norm warm start) draws from a
     generator forked from and seeded by ``cfg.seed``, so it is the same for
@@ -44,4 +55,13 @@ def build_models(cfg: Config) -> Tuple[torch.nn.Module, torch.nn.Module]:
                  else dcgan.Discriminator)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        return g_cls(cfg), d_cls(cfg)
+        G, D = g_cls(cfg), d_cls(cfg)
+    if replicas is not None:
+        from gan3d_tpu_torch.nn.norm import BatchNorm3d
+
+        for net in (G, D):
+            attach(net, replicas)
+            for m in net.modules():
+                if isinstance(m, BatchNorm3d):
+                    m.sync = cfg.sync_bn
+    return G, D

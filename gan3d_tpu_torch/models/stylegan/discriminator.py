@@ -70,22 +70,33 @@ class MinibatchStdLayer(nn.Module):
     reference's torch layer (stylegan.py:814-835) tiles them instead
     (``y.repeat(G, 1, D, H, W)``), so there each sample gets its own
     group's. This layer keeps the JAX package's assignment (ROADMAP C).
+
+    The groups span the global batch: in a data-parallel run (``replicas``)
+    every rank's rows are gathered (differentiably: the backward sums the
+    gradient over ranks), the statistics computed on the whole, and each
+    rank keeps its rows of the result.
     """
 
     def __init__(self, group_size: int = 4, num_channels: int = 1):
         super().__init__()
         self.group_size, self.num_channels = group_size, num_channels
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, c, d, h, w = x.shape
+        rp = self.replicas
+        xs = x if rp is None else rp.all_gather(x)
+        n, c, d, h, w = xs.shape
         g = min(self.group_size, n)
         f = self.num_channels
-        y = x.float().reshape(g, n // g, f, c // f, d, h, w)
+        y = xs.float().reshape(g, n // g, f, c // f, d, h, w)
         y = y - y.mean(dim=0, keepdim=True)
         y = torch.sqrt((y * y).mean(dim=0) + 1e-8)
         y = y.mean(dim=(2, 3, 4, 5))                    # [n // g, F]
-        y = y.repeat_interleave(g, dim=0).reshape(n, f, 1, 1, 1)
-        y = y.expand(n, f, d, h, w).to(x.dtype)
+        y = y.repeat_interleave(g, dim=0)               # [n, F]
+        if rp is not None:
+            y = rp.rows(y)
+        y = y.reshape(x.shape[0], f, 1, 1, 1)
+        y = y.expand(x.shape[0], f, d, h, w).to(x.dtype)
         return torch.cat([x, y], dim=1)
 
 

@@ -106,6 +106,7 @@ class SynthesisNetwork(nn.Module):
                  dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.remat = remat
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
         chans = synthesis_channels(channel_base, img_resolution)
         self.block_resolutions = [
             2 ** i for i in range(2, int(np.log2(img_resolution)) + 1)]
@@ -136,8 +137,14 @@ class SynthesisNetwork(nn.Module):
             if generator is None:
                 raise ValueError("noise_mode='random' needs the noise or a "
                                  "generator to draw it from")
+            # in a data-parallel run, this rank's rows of the global
+            # batch's draws
+            rp = self.replicas
+            n = ws.shape[0] * (1 if rp is None else rp.world)
             noise = [torch.randn(s, generator=generator, device=ws.device)
-                     for s in self.noise_shapes(ws.shape[0])]
+                     for s in self.noise_shapes(n)]
+            if rp is not None:
+                noise = [rp.rows(t) for t in noise]
         x = img = None
         w_idx = n_idx = 0
         for block in self.blocks():

@@ -36,6 +36,17 @@ runs the same losses with R1 on every D update, no path-length penalty and
 no EMA; ``pl_mean`` passes through unchanged. Its G forward draws only its
 own mixing (a swap point, then a permutation: models/stylegan/
 stylegan1.py), so each update draws z, the swap point and the permutation.
+
+Data parallelism (``replicas``, parallel/dist.py; gan3d_tpu/models/
+stylegan/loss.py:150-175 under SPMD): every rank makes the same draws,
+each of the global batch's shape, and keeps its rows; the mixing cutoff
+is one for the global batch. The path-length pass takes the global rows
+[0, B // 2), wherever they lie (at 2 ranks all on rank 0), and
+``pl_mean`` moves by the global mean of their lengths; its gradient
+(``sg2_reg_grads``) is the global penalty's, through a per-rank surrogate
+whose derivative is that penalty's, so no collective runs in backward.
+Gradients are mean-all-reduced before Adam and the logged losses are the
+global batch's, as in train/step.py.
 """
 
 from __future__ import annotations
@@ -47,8 +58,9 @@ import torch
 import torch.nn.functional as F
 
 from gan3d_tpu_torch.config import Config
+from gan3d_tpu_torch.parallel.dist import ONE, Replicas
 from gan3d_tpu_torch.train.state import Adam
-from gan3d_tpu_torch.train.step import frozen
+from gan3d_tpu_torch.train.step import frozen, global_metrics
 
 STYLE_MIXING_PROB = 0.9
 R1_GAMMA = 10.0
@@ -99,17 +111,20 @@ class Draws:
         return torch.randperm(n, generator=self.generator, device=self.device)
 
 
-def run_generator(G: torch.nn.Module, z: torch.Tensor,
-                  draws: Draws) -> torch.Tensor:
-    """G forward with style mixing; the image in f32."""
+def run_generator(G: torch.nn.Module, z: torch.Tensor, draws: Draws,
+                  replicas: Replicas = ONE) -> torch.Tensor:
+    """G forward with style mixing on ``z`` (the rank's rows); the image
+    in f32."""
     ws = G.map_ws(z)
     num_ws = ws.shape[1]
     cutoff = draws.randint(1, num_ws)
     cutoff = torch.where(draws.uniform() < STYLE_MIXING_PROB, cutoff, num_ws)
-    ws2 = G.map_ws(draws.normal(z.shape))
+    n = z.shape[0] * replicas.world
+    ws2 = G.map_ws(replicas.rows(draws.normal((n,) + tuple(z.shape[1:]))))
     idx = torch.arange(num_ws, device=ws.device)[None, :, None]
     ws = torch.where(idx >= cutoff, ws2, ws)
-    noise = [draws.normal(s) for s in G.synthesis.noise_shapes(z.shape[0])]
+    noise = [replicas.rows(draws.normal(s))
+             for s in G.synthesis.noise_shapes(n)]
     return G.synthesize(ws, noise)
 
 
@@ -128,22 +143,45 @@ def r1_penalty(D: torch.nn.Module, real: torch.Tensor, create_graph: bool
 
 def path_length_penalty(G: torch.nn.Module, z: torch.Tensor,
                         pl_mean: torch.Tensor, draws: Draws,
-                        create_graph: bool
+                        create_graph: bool, replicas: Replicas = ONE,
+                        n: Optional[int] = None, first: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(the PL penalty, the new pl_mean, detached)."""
-    ws = G.map_ws(z)
-    if not create_graph:
-        ws = ws.detach().requires_grad_(True)
-    noise = [draws.normal(s) for s in G.synthesis.noise_shapes(z.shape[0])]
-    img = G.synthesize(ws, noise)
-    pl_noise = draws.normal(img.shape) / math.sqrt(img.shape[2]
-                                                   * img.shape[3])
-    (grad,) = torch.autograd.grad((img.float() * pl_noise).sum(), ws,
-                                  create_graph=create_graph)
-    g = grad.float()
-    lengths = torch.sqrt((g * g).sum(dim=2).mean(dim=1))
-    new_mean = pl_mean + PL_DECAY * (lengths.mean() - pl_mean)
-    pen = torch.mean((lengths - new_mean) ** 2) * PL_WEIGHT
+    """(the PL penalty, the new pl_mean, detached) of rows [first, first +
+    len(z)) of the global PL batch of ``n`` (default len(z)). Every rank
+    draws the global PL batch's noise; a rank that holds none of its rows
+    runs no pass. With S the global sum of the lengths, m = pl_mean + d
+    (S / n - pl_mean) and J = w / n * sum (len - m)^2, the value is J on
+    every rank; with ``create_graph`` the rank adds a term whose gradient
+    is world times its rows' share of J's: dJ/dlen_i = 2w/n (len_i - m) +
+    c, c = dJ/dm d / n with dJ/dm = -2w/n (S - n m), a number that all
+    ranks hold."""
+    k = z.shape[0]
+    n = k if n is None else n
+    r = G.synthesis.block_resolutions[-1]
+    noise = [t[first:first + k] for t in
+             (draws.normal(s) for s in G.synthesis.noise_shapes(n))]
+    pl_noise = draws.normal((n, 1, r, r, r))[first:first + k] / math.sqrt(
+        r * r)
+    lengths = torch.zeros((0,), device=pl_mean.device)
+    if k:
+        ws = G.map_ws(z)
+        if not create_graph:
+            ws = ws.detach().requires_grad_(True)
+        img = G.synthesize(ws, noise)
+        (grad,) = torch.autograd.grad((img.float() * pl_noise).sum(), ws,
+                                      create_graph=create_graph)
+        g = grad.float()
+        lengths = torch.sqrt((g * g).sum(dim=2).mean(dim=1))
+    total = replicas.sum(lengths.detach().sum().reshape(1))[0]
+    new_mean = pl_mean + PL_DECAY * (total / n - pl_mean)
+    dev = lengths - new_mean
+    sq = replicas.sum((dev.detach() ** 2).sum().reshape(1))[0]
+    pen = sq / n * PL_WEIGHT
+    if create_graph and k:
+        c = -2 * PL_WEIGHT / n * (total - n * new_mean) * PL_DECAY / n
+        part = replicas.world * (PL_WEIGHT / n * (dev ** 2).sum()
+                                 + c * lengths.sum())
+        pen = pen + (part - part.detach())
     return pen, new_mean.detach()
 
 
@@ -157,20 +195,22 @@ def _flags(cfg: Config, step: int) -> Tuple[bool, bool, bool]:
 
 
 def _generate(G: torch.nn.Module, z: torch.Tensor, draws: Draws,
-              v2: bool) -> torch.Tensor:
-    return run_generator(G, z, draws) if v2 else G(z, draws=draws)
+              v2: bool, replicas: Replicas = ONE) -> torch.Tensor:
+    return (run_generator(G, z, draws, replicas) if v2
+            else G(z, draws=draws))
 
 
 def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
-           d_opt: Adam, real: torch.Tensor, step: int, draws: Draws
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One D update on ``real`` [B, 1, R, R, R] at ``step``; returns
-    (err_real, err_fake), detached."""
+           d_opt: Adam, real: torch.Tensor, step: int, draws: Draws,
+           replicas: Replicas = ONE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One D update on ``real`` [B, 1, R, R, R] (the rank's rows) at
+    ``step``; returns (err_real, err_fake) of those rows, detached."""
     v2, r1, _ = _flags(cfg, step)
     reg_grads = cfg.sg2_reg_grads
-    z = draws.normal((real.shape[0], cfg.z_size))
+    z = replicas.rows(draws.normal((real.shape[0] * replicas.world,
+                                    cfg.z_size)))
     with torch.no_grad():
-        fake = _generate(G, z, draws, v2).to(real.dtype)
+        fake = _generate(G, z, draws, v2, replicas).to(real.dtype)
     err_fake = F.softplus(D(fake).float()).mean()
     if r1:
         real_logits, pen = r1_penalty(D, real, reg_grads)
@@ -179,28 +219,34 @@ def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
         err_real = torch.mean(F.softplus(-real_logits) + pen)
     else:
         err_real = F.softplus(-D(real).float()).mean()
-    d_opt.step(torch.autograd.grad(err_fake + err_real, d_opt.params))
+    d_opt.step(replicas.mean(torch.autograd.grad(err_fake + err_real,
+                                                 d_opt.params)))
     return err_real.detach(), err_fake.detach()
 
 
 def g_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
            g_opt: Adam, b: int, step: int, ema: List[torch.Tensor],
-           pl_mean: torch.Tensor, draws: Draws
+           pl_mean: torch.Tensor, draws: Draws, replicas: Replicas = ONE
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The G update at batch ``b`` and ``step``, then StyleGAN2's EMA
-    fold-back (``ema`` updated in place); returns (err_g and the image,
-    detached, and the new pl_mean)."""
+    """The G update at batch ``b`` (a rank's rows) and ``step``, then
+    StyleGAN2's EMA fold-back (``ema`` updated in place); returns (err_g
+    and the image rows, detached, and the new pl_mean)."""
     v2, _, pl = _flags(cfg, step)
     reg_grads = cfg.sg2_reg_grads
-    z = draws.normal((b, cfg.z_size))
+    n = b * replicas.world
+    z = replicas.rows(draws.normal((n, cfg.z_size)))
     with frozen(D):
-        img = _generate(G, z, draws, v2)
+        img = _generate(G, z, draws, v2, replicas)
         err_g = F.softplus(-D(img).float()).mean()
         if pl:
+            # the global rows [0, n // 2): this rank's share of them
+            n_pl = n // PL_BATCH_SHRINK
+            first = replicas.span(n)[0]
+            k = min(max(n_pl - first, 0), b)
             pen, pl_mean = path_length_penalty(
-                G, z[:b // PL_BATCH_SHRINK], pl_mean, draws, reg_grads)
+                G, z[:k], pl_mean, draws, reg_grads, replicas, n_pl, first)
             err_g = err_g + (pen if reg_grads else pen.detach())
-        g_opt.step(torch.autograd.grad(err_g, g_opt.params))
+        g_opt.step(replicas.mean(torch.autograd.grad(err_g, g_opt.params)))
     if v2:
         d = cfg.ema_decay
         with torch.no_grad():
@@ -214,7 +260,7 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
                g_opt: Adam, d_opt: Adam, reals: torch.Tensor, step: int,
                ema: List[torch.Tensor], pl_mean: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               draws: Optional[Draws] = None
+               draws: Optional[Draws] = None, replicas: Replicas = ONE
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                           torch.Tensor]:
     """One fused StyleGAN2 or StyleGAN-1 step at ``step``. ``reals`` is
@@ -222,15 +268,16 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
     updated in place. Draws come from ``draws`` when given, else from
     ``generator``.
 
-    Returns ({"d_real", "d_fake", "g_loss"} as 0-d tensors, the G update's
-    image, detached, and the new pl_mean). StyleGAN-1 (``cfg.family()`` ==
-    "stylegan") takes an empty ``ema``.
+    Returns ({"d_real", "d_fake", "g_loss"} as 0-d tensors, the global
+    batch's, the G update's image rows, detached, and the new pl_mean).
+    StyleGAN-1 (``cfg.family()`` == "stylegan") takes an empty ``ema``.
     """
     draws = draws or Draws(reals.device, generator)
     err_real = err_fake = torch.zeros((), device=reals.device)
     for i in range(cfg.iterD):
-        err_real, err_fake = d_step(cfg, G, D, d_opt, reals[i], step, draws)
+        err_real, err_fake = d_step(cfg, G, D, d_opt, reals[i], step, draws,
+                                    replicas)
     err_g, img, pl_mean = g_step(cfg, G, D, g_opt, reals.shape[1], step, ema,
-                                 pl_mean, draws)
-    return ({"d_real": err_real, "d_fake": err_fake, "g_loss": err_g}, img,
+                                 pl_mean, draws, replicas)
+    return (global_metrics(replicas, err_real, err_fake, err_g), img,
             pl_mean)

@@ -23,7 +23,10 @@ stylegan.py:931-1148):
   randint(0, 6) and one permutation of the batch per forward; w is
   replaced by w[perm] at the mixing site whose counter equals the swap
   point. A network with k stages has k sites (0 .. k-1: 5 at 64^3), so a
-  swap point of k or more never mixes, as in the JAX package.
+  swap point of k or more never mixes, as in the JAX package. In a
+  data-parallel run (``replicas``) the permutation is of the global batch
+  (stylegan1.py:132-144): every rank draws the same one, gathers w
+  (differentiably) and keeps its rows of w[perm].
 
 State_dict keys are the reference's (gan3d_tpu/eval/export.py:342-357):
 ``latentMapping.{0,2,..,14}``, ``A{i}``, ``C{i}.0``, ``C_out.0``.
@@ -88,6 +91,7 @@ class StyleGAN1Generator(nn.Module):
         nz = cfg.z_size
         self.dtype = compute_dtype(cfg)
         self.style_mixing = style_mixing
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
         mapping = []
         for _ in range(MAPPING_LAYERS):
             mapping += [_lecun(Linear(nz, nz)), nn.LeakyReLU(0.2)]
@@ -124,18 +128,23 @@ class StyleGAN1Generator(nn.Module):
         ``generator``."""
         z = z.reshape(z.shape[0], -1)
         n = z.shape[0]
+        rp = self.replicas
         w = self.latentMapping(z.float())
         mix = None
         if self.style_mixing and self.training:
             draws = draws or Draws(z.device, generator)
-            mix = (draws.randint(0, MIX_POINTS), draws.permutation(n))
+            # a permutation of the global batch (every rank draws the same)
+            mix = (draws.randint(0, MIX_POINTS),
+                   draws.permutation(n * (1 if rp is None else rp.world)))
         site = 0
 
         def maybe_mix(w: torch.Tensor) -> torch.Tensor:
             nonlocal site
             if mix is None:
                 return w
-            out = torch.where(mix[0] == site, w[mix[1]], w)
+            shuffled = (w[mix[1]] if rp is None
+                        else rp.rows(rp.all_gather(w)[mix[1]]))
+            out = torch.where(mix[0] == site, shuffled, w)
             site += 1
             return out
 

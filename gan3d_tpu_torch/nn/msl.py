@@ -26,16 +26,21 @@ class RandomCrop3D(nn.Module):
     def __init__(self, n_crops: int = 128):
         super().__init__()
         self.n_crops = n_crops
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def draw_offsets(self, shape, generator: Optional[torch.Generator],
                      device=None) -> torch.Tensor:
         """[N, n_crops, 3] offsets for an input of ``shape`` [N, 1, D, H, W],
-        each uniform in [0, side - side // 2]."""
-        n = shape[0]
-        return torch.stack(
+        each uniform in [0, side - side // 2]. In a data-parallel run
+        (``replicas``) every rank draws the global batch's offsets and
+        keeps its rows."""
+        rp = self.replicas
+        n = shape[0] * (1 if rp is None else rp.world)
+        off = torch.stack(
             [torch.randint(0, s - s // 2 + 1, (n, self.n_crops),
                            generator=generator, device=device)
              for s in shape[2:]], dim=-1)
+        return off if rp is None else rp.rows(off)
 
     def forward(self, x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
         n, c, d, h, w = x.shape

@@ -7,8 +7,28 @@
   and running stats are f32; a bf16 input is normalized with f32
   statistics (CUDA's batch norm accumulates in f32) and comes back in
   bf16. ``std`` draws the scale from N(1, std) (the DCGAN's init,
-  gan3d_tpu/models/dcgan.py:39-40). The grouped and cross-replica scopes
-  (norm.py:73-92) are not ported.
+  gan3d_tpu/models/dcgan.py:39-40). Its statistics scopes (norm.py
+  :40-110), in train mode:
+  - one process, ``num_groups`` 1: the whole batch, torch's own kernel;
+  - ``num_groups`` G > 1 (norm.py:73-92): statistics per contiguous group
+    of N/G samples (a batch that G does not divide takes the whole batch,
+    as in the JAX package); the running stats move by the mean over the
+    groups of each group's mean and unbiased variance;
+  - ``replicas`` of world > 1 with ``sync`` (cross-replica, norm.py
+    :93-110): the statistics of the global batch (``n`` the global
+    count). Each rank's per-channel mean and centred sum of squares, in
+    f32, go through one differentiable all-gather a call (the scheme of
+    torch.nn.SyncBatchNorm) and combine as Chan et al.'s parallel
+    variance, where the JAX package's pmean of E[x] and E[x^2] would lose
+    ~1e-5 of a BN scale's gradient to cancellation in f32; at world 1 the
+    one-process path runs, as torch.nn.SyncBatchNorm does;
+  - ``replicas`` of world > 1 without ``sync`` (``cfg.sync_bn=False``):
+    each rank's batch is its group, and the running-stat updates are
+    averaged over ranks, so every replica keeps the same buffers; that
+    is the grouped scope with a group a rank.
+  Every scope normalizes with the biased variance (two-pass: the mean,
+  then the centred squares) and updates the running stats with the
+  unbiased one, momentum 0.1.
 - LayerNormVolume (norm.py:121-144): torch's LayerNorm over [C, D, H, W]
   of an NCDHW input, per sample, eps 1e-5, with a full-shape affine
   [C, D, H, W] (the JAX scale and bias are (D, H, W, C): the transpose
@@ -27,10 +47,51 @@ import torch.nn.functional as F
 
 
 class BatchNorm3d(nn.BatchNorm3d):
-    def __init__(self, num_features: int, std: Optional[float] = None):
+    def __init__(self, num_features: int, std: Optional[float] = None,
+                 num_groups: int = 1):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         if std is not None:
             nn.init.normal_(self.weight, 1.0, std)
+        self.num_groups = num_groups
+        self.sync = True        # cross-replica statistics under ``replicas``
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rp = self.replicas
+        world = 1 if rp is None else rp.world
+        g = self.num_groups if x.shape[0] % self.num_groups == 0 else 1
+        if not self.training or (g == 1 and world == 1):
+            return super().forward(x)
+        sdt = torch.promote_types(x.dtype, torch.float32)
+        n, c = x.shape[:2]
+        xg = x.to(sdt).reshape(g, n // g, c, -1)
+        cnt = (n // g) * xg.shape[-1]
+        mean = xg.mean(dim=(1, 3))                                # [g, c]
+        m2 = (xg - mean[:, None, :, None]).square().sum(dim=(1, 3))
+        across = world > 1 and self.sync
+        if across:
+            # every rank's (mean, m2) of the same count
+            means, m2s = rp.all_gather(torch.stack([mean, m2])[None]
+                                       ).unbind(1)            # [world, g, c]
+            mean = means.mean(dim=0)
+            m2 = m2s.sum(dim=0) + cnt * (means - mean).square().sum(dim=0)
+            cnt *= world
+        var = m2 / cnt
+        y = ((xg - mean[:, None, :, None])
+             * torch.rsqrt(var + self.eps)[:, None, :, None]).reshape(x.shape)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        y = y * self.weight.to(sdt).reshape(shape) \
+            + self.bias.to(sdt).reshape(shape)
+        with torch.no_grad():
+            upd = [mean.mean(dim=0),
+                   (var * (cnt / max(cnt - 1, 1))).mean(dim=0)]
+            if world > 1 and not across:
+                upd = rp.mean(upd)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(upd[0] * m)
+            self.running_var.mul_(1 - m).add_(upd[1] * m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class LayerNormVolume(nn.LayerNorm):

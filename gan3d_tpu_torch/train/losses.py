@@ -12,7 +12,7 @@
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,16 +35,11 @@ def g_adversarial(d_fake: torch.Tensor) -> torch.Tensor:
 
 
 def gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
-                     real: torch.Tensor, fake: torch.Tensor,
-                     weight: float = 10.0,
-                     generator: Optional[torch.Generator] = None,
-                     alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     real: torch.Tensor, fake: torch.Tensor, weight: float,
+                     alpha: torch.Tensor) -> torch.Tensor:
     """WGAN-GP: ((||grad_x D(x_interp)|| - 1)^2).mean() * weight, x_interp
-    = alpha real + (1 - alpha) fake with alpha [B, 1, 1, 1, 1] given or
-    uniform from ``generator``."""
-    if alpha is None:
-        alpha = torch.rand((real.shape[0], 1, 1, 1, 1), dtype=real.dtype,
-                           device=real.device, generator=generator)
+    = alpha real + (1 - alpha) fake with alpha [B, 1, 1, 1, 1] (the train
+    step draws it)."""
     alpha = alpha.to(real.device, real.dtype)
     interp = (alpha * real + (1.0 - alpha) * fake).requires_grad_(True)
     (grads,) = torch.autograd.grad(d_apply(interp).sum(), interp,

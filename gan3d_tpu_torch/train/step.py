@@ -36,6 +36,15 @@ with what it writes to that state discarded: D's SN vectors step twice
 per D update with or without the penalty. Its interpolation weights come
 from ``alphas`` when given (iterD tensors [B, 1, 1, 1, 1]; ``alpha`` of
 one update), else from ``generator``.
+
+Data parallelism (``replicas``, parallel/dist.py; the JAX step's SPMD
+gradient psum, gan3d_tpu/train/step.py:7): ``real`` is the rank's rows of
+the global batch. Every rank draws the global batch's noise, penalty
+weights and crop offsets from the same generator and keeps its rows
+(given ``noises`` and ``alphas`` are global too), each update's gradients
+are mean-all-reduced (one flat buffer a network) before Adam, and the
+logged losses are the global batch's. The one-process run (``ONE``) is
+the step above, unchanged.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import torch
 from torch.func import functional_call
 
 from gan3d_tpu_torch.config import Config
+from gan3d_tpu_torch.parallel.dist import ONE, Replicas
 from gan3d_tpu_torch.train import losses
 from gan3d_tpu_torch.train.state import Adam
 
@@ -66,10 +76,13 @@ def frozen(net: torch.nn.Module) -> Iterator[None]:
 
 def _noise(cfg: Config, b: int, dev: torch.device,
            generator: Optional[torch.Generator],
-           noise: Optional[torch.Tensor]) -> torch.Tensor:
-    if noise is not None:
-        return noise.to(dev, torch.float32)
-    return torch.randn((b, cfg.z_size), generator=generator, device=dev)
+           noise: Optional[torch.Tensor],
+           replicas: Replicas = ONE) -> torch.Tensor:
+    """The rank's rows of the global batch's noise (``b`` rows a rank)."""
+    if noise is None:
+        noise = torch.randn((b * replicas.world, cfg.z_size),
+                            generator=generator, device=dev)
+    return replicas.rows(noise.to(dev, torch.float32))
 
 
 def _d_out(D: torch.nn.Module, x: torch.Tensor,
@@ -93,13 +106,13 @@ def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
            d_opt: Adam, real: torch.Tensor,
            generator: Optional[torch.Generator] = None,
            noise: Optional[torch.Tensor] = None,
-           alpha: Optional[torch.Tensor] = None
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One D update on ``real`` [B, 1, R, R, R]; returns (err_real,
-    err_fake), detached."""
+           alpha: Optional[torch.Tensor] = None,
+           replicas: Replicas = ONE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One D update on ``real`` [B, 1, R, R, R] (the rank's rows); returns
+    (err_real, err_fake) of those rows, detached."""
     with torch.no_grad():
         fake = G(_noise(cfg, real.shape[0], real.device, generator,
-                        noise)).to(real.dtype)
+                        noise, replicas)).to(real.dtype)
     # D's spectral-norm vectors as the update found them, for the
     # penalty's forward
     start = ({name: buf.clone() for name, buf in D.named_buffers()
@@ -115,24 +128,28 @@ def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
         err_real, err_fake = losses.d_wgan(d_real, d_fake)
         err = err_fake - err_real
         if cfg.gp_weight > 0:
+            if alpha is None:  # the global batch's
+                alpha = torch.rand((real.shape[0] * replicas.world, 1, 1, 1,
+                                    1), dtype=real.dtype, device=real.device,
+                                   generator=generator)
             err = err + losses.gradient_penalty(
                 lambda x: _d_out(D, x, generator, crops, start), real, fake,
-                cfg.gp_weight, generator=generator, alpha=alpha)
-    d_opt.step(torch.autograd.grad(err, d_opt.params))
+                cfg.gp_weight, alpha=replicas.rows(alpha.to(real.device)))
+    d_opt.step(replicas.mean(torch.autograd.grad(err, d_opt.params)))
     return err_real.detach(), err_fake.detach()
 
 
 def g_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
            g_opt: Adam, b: int, device: torch.device,
            generator: Optional[torch.Generator] = None,
-           noise: Optional[torch.Tensor] = None
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The G update at batch ``b``; returns (err_g, the fake batch), both
-    detached."""
-    fake = G(_noise(cfg, b, device, generator, noise))
+           noise: Optional[torch.Tensor] = None,
+           replicas: Replicas = ONE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The G update at batch ``b`` (a rank's rows); returns (err_g, the
+    fake rows), both detached."""
+    fake = G(_noise(cfg, b, device, generator, noise, replicas))
     with frozen(D):
         err_g = losses.g_adversarial(_d_out(D, fake, generator))
-        g_opt.step(torch.autograd.grad(err_g, g_opt.params))
+        g_opt.step(replicas.mean(torch.autograd.grad(err_g, g_opt.params)))
     return err_g.detach(), fake.detach()
 
 
@@ -140,20 +157,34 @@ def train_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
                g_opt: Adam, d_opt: Adam, reals: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                noises: Optional[Sequence[torch.Tensor]] = None,
-               alphas: Optional[Sequence[torch.Tensor]] = None
+               alphas: Optional[Sequence[torch.Tensor]] = None,
+               replicas: Replicas = ONE
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """One fused step. ``reals`` is [iterD, B, 1, R, R, R] on the device.
+    """One fused step. ``reals`` is [iterD, B, 1, R, R, R] on the device
+    (the rank's rows of the global batch).
 
-    Returns ({"d_real", "d_fake", "g_loss"} as 0-d tensors, the G-step's
-    fake batch, detached).
+    Returns ({"d_real", "d_fake", "g_loss"} as 0-d tensors, the global
+    batch's, and the G-step's fake rows, detached).
     """
     err_real = err_fake = torch.zeros((), device=reals.device)
     for i in range(cfg.iterD):
         err_real, err_fake = d_step(
             cfg, G, D, d_opt, reals[i], generator,
             None if noises is None else noises[i],
-            None if alphas is None else alphas[i])
+            None if alphas is None else alphas[i], replicas)
     err_g, fake = g_step(cfg, G, D, g_opt, reals.shape[1], reals.device,
                          generator,
-                         None if noises is None else noises[cfg.iterD])
-    return {"d_real": err_real, "d_fake": err_fake, "g_loss": err_g}, fake
+                         None if noises is None else noises[cfg.iterD],
+                         replicas)
+    return global_metrics(replicas, err_real, err_fake, err_g), fake
+
+
+def global_metrics(replicas: Replicas, err_real: torch.Tensor,
+                   err_fake: torch.Tensor, err_g: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """The step's logged losses, each a mean over the rank's rows, as the
+    global batch's (their mean over ranks, in one all-reduce)."""
+    vals = replicas.mean([err_real.reshape(1), err_fake.reshape(1),
+                          err_g.reshape(1)])
+    return {"d_real": vals[0].reshape(()), "d_fake": vals[1].reshape(()),
+            "g_loss": vals[2].reshape(())}

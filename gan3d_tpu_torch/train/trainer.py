@@ -1,7 +1,7 @@
 """Host-side training loop (counterpart of gan3d_tpu/train/trainer.py).
 
-Reference: trainer.py:28-313 (Trainer). One device; the step is the fused
-D/G step of train/step.py, or for StyleGAN2 and StyleGAN-1 that of
+Reference: trainer.py:28-313 (Trainer). One process a card; the step is
+the fused D/G step of train/step.py, or for StyleGAN2 and StyleGAN-1 that of
 models/stylegan/loss.py (StyleGAN2's lazy R1/PL step chosen on the host
 by step % 16; StyleGAN-1's R1 on every step), run eagerly. Either step is
 iterD D-step calls and one G-step call, which is what the JAX trainer's
@@ -34,6 +34,26 @@ the flag is accepted and changes nothing. Kept from the JAX trainer:
 
 Noise is reproducible per (seed, step), like the JAX package's key folding:
 every step draws from a generator seeded by (cfg.seed, step).
+
+Data parallelism (gan3d_tpu/train/trainer.py:130-151, 347-350, 427,
+461-469, 528-534): with ``replicas`` (parallel/dist.py, one process a
+card; ``cli/train.py`` starts them) the trainer is one rank of
+``cfg.num_devices`` (0 = every card). ``batch_size`` is the global batch
+and must split over the ranks. Each rank runs its host's loader (seed
+``cfg.seed`` + host, the host's batch ``B / hosts``) and takes its rows,
+so one host's ranks see exactly the one-process run's batches; the step
+draws the global batch's noise on every rank and all-reduces the
+gradients (train/step.py). Rank 0 prints, writes the config, the PNGs,
+the checkpoint (then a barrier; every rank resumes from it, at any world
+size), the profiler trace and ``energy.json``, and computes the in-loop
+FID on the gathered global fake and real. The samples of the PNG grid are
+gathered too. After the last step the replica check (every parameter and
+buffer bit-equal to rank 0's) runs and is printed. On the card the local
+rank 0 builds the kernels the run needs before the others load them.
+Without ``replicas`` a config that asks for more than one rank raises.
+
+``track_energy`` writes ``energy.json`` (utils/energy.py): the steps'
+time, synchronized on the card, x the world size x a card's power limit.
 """
 
 from __future__ import annotations
@@ -52,9 +72,11 @@ from gan3d_tpu_torch.models.registry import build_models
 from gan3d_tpu_torch.models.stylegan import loss as sg_loss
 from gan3d_tpu_torch.nn.attention import SelfAttention3d
 from gan3d_tpu_torch.ops.conv3d import set_fast_dw_mode, set_wide_conv_mode
+from gan3d_tpu_torch.parallel.dist import ONE, Replicas, plan_for
 from gan3d_tpu_torch.train.checkpoint import CheckpointManager
 from gan3d_tpu_torch.train.state import Adam
 from gan3d_tpu_torch.train.step import train_step
+from gan3d_tpu_torch.utils.energy import EnergyTracker, device_watts
 from gan3d_tpu_torch.utils.platform import configure_precision, resolve_device
 from gan3d_tpu_torch.utils.png import save_volume_grid
 from gan3d_tpu_torch.utils.profiling import StepProfiler
@@ -63,11 +85,10 @@ from gan3d_tpu_torch.utils.profiling import StepProfiler
 def _reject_unported(cfg: Config) -> None:
     """Raise on options whose code paths the port does not have yet."""
     later = []
-    if cfg.num_devices > 1 or cfg.spatial_devices > 1 \
-            or cfg.model_devices > 1 or cfg.distributed:
-        later.append("multi-device runs (ROADMAP.md queue A, slice 8)")
-    if cfg.track_energy:
-        later.append("energy tracking (ROADMAP.md queue A, slice 8)")
+    if cfg.spatial_devices > 1:
+        later.append("spatial_devices > 1 (ROADMAP.md queue A)")
+    if cfg.model_devices > 1:
+        later.append("model_devices > 1 (ROADMAP.md queue A)")
     if cfg.param_dtype != "float32":
         later.append(f"param_dtype={cfg.param_dtype!r}")
     if later:
@@ -99,30 +120,73 @@ def _seed(*words: int) -> int:
         1, np.uint64)[0])
 
 
+def _world(cfg: Config, replicas: Optional[Replicas],
+           device: torch.device) -> Replicas:
+    """The run's ranks: ``replicas`` when given (its world must be the one
+    ``num_devices`` asks for, 0 = any), else the one-process run on
+    ``device``, which ``num_devices`` must allow (0 = every card: one card
+    only)."""
+    if replicas is None:
+        p = plan_for(cfg, device.type)
+        if p.parallel:
+            raise ValueError(
+                f"num_devices={cfg.num_devices} takes {p.world} ranks "
+                f"({p.local} on this host): start the run with "
+                "gan3d_tpu_torch.cli.train, which launches one process a "
+                "card")
+        return ONE
+    if cfg.num_devices not in (0, replicas.world):
+        raise ValueError(f"num_devices={cfg.num_devices} but the process "
+                         f"group has {replicas.world} ranks")
+    if replicas.device.type != device.type:
+        raise ValueError(f"platform {cfg.platform!r} but the rank runs on "
+                         f"{replicas.device}")
+    return replicas
+
+
+def _kernel_libraries(cfg: Config, G, D) -> List[str]:
+    """The CUDA libraries a run launches (ops/cuda_build.py)."""
+    libs = []
+    if any(isinstance(m, SelfAttention3d) for net in (G, D)
+           for m in net.modules()):
+        libs.append("pooled_attention")
+    if "on" in (cfg.wide_conv, cfg.fast_dw):
+        libs.append("conv3d_k3")
+    return libs
+
+
 class Trainer:
-    def __init__(self, dataset, cfg: Config):
+    def __init__(self, dataset, cfg: Config,
+                 replicas: Optional[Replicas] = None):
         self.log_dir = cfg.log_dir
         self.models_dir = os.path.join(self.log_dir, "models")
         self.images_dir = os.path.join(self.log_dir, "images")
         if cfg.load_params:
             cfg = Config.load(cfg.log_dir).replace(log_dir=cfg.log_dir)
         _reject_unported(cfg)
+        device = resolve_device(cfg.platform)
+        rp = self.replicas = _world(cfg, replicas, device)
+        self.main = rp.main
+        if cfg.batch_size % rp.world:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                             f"{rp.world} data-parallel ranks")
         # the conv routes, before the models exist (as
         # gan3d_tpu/train/trainer.py:103-104); a mode outside MODES raises
         set_wide_conv_mode(cfg.wide_conv)
         set_fast_dw_mode(cfg.fast_dw)
         hint = hint_128(cfg)
-        if hint:
+        if hint and self.main:
             print(hint, flush=True)
-        self.device = resolve_device(cfg.platform)
+        self.device = device if replicas is None else rp.device
         configure_precision(self.device)
-        os.makedirs(self.models_dir, exist_ok=True)
-        os.makedirs(self.images_dir, exist_ok=True)
-        if not cfg.load_params:
-            cfg.save()
+        if self.main:
+            os.makedirs(self.models_dir, exist_ok=True)
+            os.makedirs(self.images_dir, exist_ok=True)
+            if not cfg.load_params:
+                cfg.save()
         self.cfg = cfg
 
-        G, D = build_models(cfg)
+        G, D = build_models(cfg, rp if replicas is not None else None)
         if cfg.gp_weight > 0 and self.device.type == "cuda" and any(
                 isinstance(m, SelfAttention3d) for m in D.modules()):
             raise NotImplementedError(
@@ -130,6 +194,13 @@ class Trainer:
                 "pooled-attention kernels' backward (K2, ops/cuda_attention"
                 ".py) is first-order: on the card gp_weight > 0 takes a D "
                 "without attention (ROADMAP.md queue A)")
+        if self.device.type == "cuda" and rp.world > 1:
+            # the host's first rank builds the kernels, the others load them
+            if rp.local_rank == 0:
+                from gan3d_tpu_torch.ops import cuda_build
+
+                cuda_build.build(*_kernel_libraries(cfg, G, D))
+            rp.barrier()
         self.G = G.to(self.device).train()
         self.D = D.to(self.device).train()
         self.stylegan2 = cfg.family() == "stylegan2"
@@ -144,9 +215,13 @@ class Trainer:
         self.d_opt = Adam(self.D.parameters(), cfg.lrD, cfg.adam_b1,
                           cfg.adam_b2, mu_free=cfg.mu_free_adam)
         self.step = 0
-        self.loader = Loader(dataset, cfg.batch_size, seed=cfg.seed,
+        # the host's loader (gan3d_tpu/train/trainer.py:347-350): its
+        # share of the global batch, its own seed; a rank takes its rows
+        hosts = rp.world // rp.local_world
+        self.loader = Loader(dataset, cfg.batch_size // hosts,
+                             seed=cfg.seed + rp.host,
                              num_workers=cfg.data_loader_workers)
-        self.ckpt = CheckpointManager(self.models_dir)
+        self.ckpt = CheckpointManager(self.models_dir, rp)
         self.fixed_test_noise: Optional[torch.Tensor] = None
         self.G_losses: List[float] = []
         self.D_losses: List[List[float]] = []
@@ -156,9 +231,18 @@ class Trainer:
         # async_log: a log step's (step, metrics, fake, real), printed at
         # the next flush point
         self._deferred: Optional[tuple] = None
-        self._fid_fn = self._make_inloop_fid()
-        self.profiler = StepProfiler(cfg.profile_dir,
+        if self.main:
+            self._fid_fn = self._make_inloop_fid()
+        else:
+            self._fid_fn, self._fid_active = _nan_fid, False
+        self._fid_active = rp.agree(self._fid_active)
+        self.profiler = StepProfiler(cfg.profile_dir if self.main else "",
                                      cuda=self.device.type == "cuda")
+        self.energy = EnergyTracker(
+            enabled=cfg.track_energy and self.main, n_chips=rp.world,
+            watts_per_chip=(device_watts(self.device) if cfg.track_energy
+                            and self.main else 0.0),
+            device=self.device)
 
     # ------------------------------------------------------------------
     def _make_inloop_fid(self) -> Callable[..., float]:
@@ -225,10 +309,21 @@ class Trainer:
         f32) against ``real`` (the last D sub-batch, f32 on the host) and
         print the log line: ``metrics``' values when given (a deferred
         line), else the latest step's. No fake (a resumed run with no step
-        left) logs nan."""
-        self.fid.append(float("nan") if fake is None
-                        else self._fid_fn(fake, real))
+        left) logs nan. In a data-parallel run every rank calls it: the FID
+        takes the global fake and real (gathered), on rank 0, which alone
+        prints."""
+        if fake is None:
+            self.fid.append(float("nan"))
+        elif self._fid_active and self.replicas.world > 1:
+            fake = self.replicas.all_gather(fake)
+            real = self.replicas.all_gather(real.to(self.device)).cpu()
+            self.fid.append(self._fid_fn(fake, real) if self.main
+                            else float("nan"))
+        else:
+            self.fid.append(self._fid_fn(fake, real))
         self._flush_pending()
+        if not self.main:
+            return
         if metrics is not None:
             d_real, d_fake = float(metrics["d_real"]), float(metrics["d_fake"])
             g_loss = float(metrics["g_loss"])
@@ -247,10 +342,12 @@ class Trainer:
             self.log_train(step, fake, real, metrics=metrics)
 
     def log_interpolation(self, step: int) -> None:
+        """The sample grid of the fixed noise (the rank's rows of it; the
+        samples gathered, rank 0 writes the PNG)."""
         if self.fixed_test_noise is None:
-            self.fixed_test_noise = torch.randn(
+            self.fixed_test_noise = self.replicas.rows(torch.randn(
                 (self.cfg.batch_size, self.cfg.z_size),
-                generator=self._generator(2), device=self.device)
+                generator=self._generator(2), device=self.device))
         with torch.no_grad():
             if self.stylegan2:
                 fake = self.G(self.fixed_test_noise,
@@ -261,8 +358,10 @@ class Trainer:
                               generator=self._generator(3, step))
             else:
                 fake = self.G(self.fixed_test_noise)
-        save_volume_grid(os.path.join(self.images_dir, f"{step}.png"),
-                         fake.float().cpu().numpy()[:, 0])
+            fake = self.replicas.all_gather(fake)
+        if self.main:
+            save_volume_grid(os.path.join(self.images_dir, f"{step}.png"),
+                             fake.float().cpu().numpy()[:, 0])
 
     def log(self, step: int, fake: torch.Tensor, real: torch.Tensor,
             metrics: Dict[str, torch.Tensor]) -> None:
@@ -308,37 +407,58 @@ class Trainer:
         self.D_losses = [list(x) for x in payload["lossD"]]
         self.fid_epoch = list(payload["fid"])
         self.step = int(payload["step"])
-        print(f"starting from step {self.step}", flush=True)
+        if self.main:
+            print(f"starting from step {self.step}", flush=True)
         return self.step
 
     def _reals(self, batches) -> tuple:
         """([iterD, B, 1, R, R, R] f32 on the device, the last D sub-batch
-        [B, R, R, R] f32 on the host: a view of the same host array)."""
+        [B, R, R, R] f32 on the host: a view of the same host array), B
+        the rank's rows of its host's batch."""
         host = torch.from_numpy(np.stack([next(batches)
                                           for _ in range(self.cfg.iterD)]))
+        rp = self.replicas
+        if rp.local_world > 1:
+            b = host.shape[1] // rp.local_world
+            host = host[:, rp.local_rank * b:(rp.local_rank + 1) * b]
         return host.to(self.device).unsqueeze(2), host[-1]
+
+    def replica_tensors(self) -> List[torch.Tensor]:
+        """Everything every rank must hold alike: both networks'
+        parameters and buffers, both optimizers' moments, StyleGAN2's EMA
+        and the path-length mean."""
+        out = [t for net in (self.G, self.D)
+               for t in (*net.parameters(), *net.buffers())]
+        for opt in (self.g_opt, self.d_opt):
+            out += opt.nu + (opt.mu or [])
+        return out + self.ema + [self.pl_mean.reshape(1)]
 
     # ------------------------------------------------------------------
     def train(self) -> None:
         cfg = self.cfg
         step_done = self.start_from_checkpoint()
         batches = self.loader.infinite()
-        print("Starting Training...", flush=True)
+        if self.main:
+            print("Starting Training...", flush=True)
         t0 = t_first = time.time()
         fake = real = None
+        rp = self.replicas
         try:
             for i in range(step_done, cfg.niters):
                 self.profiler.step(i)
                 reals, real = self._reals(batches)
                 gen = self._generator(1, i)
+                self.energy.epoch_start()
                 if self.stylegan:
                     metrics, fake, self.pl_mean = sg_loss.train_step(
                         cfg, self.G, self.D, self.g_opt, self.d_opt, reals,
-                        i, self.ema, self.pl_mean, generator=gen)
+                        i, self.ema, self.pl_mean, generator=gen,
+                        replicas=rp)
                 else:
                     metrics, fake = train_step(cfg, self.G, self.D,
                                                self.g_opt, self.d_opt, reals,
-                                               generator=gen)
+                                               generator=gen, replicas=rp)
+                self.energy.epoch_end()
                 self.step = i + 1
                 self._pending.append(metrics)
                 self.log(i, fake, real, metrics)
@@ -359,6 +479,8 @@ class Trainer:
             batches.close()
             self.loader.close()
         self.profiler.close()
+        if self.main:
+            self.energy.write(self.log_dir)
         i = cfg.niters - 1
         self._flush_deferred()
         self.log_train(i, fake, real)
@@ -367,8 +489,13 @@ class Trainer:
         self.log_interpolation(i)
         self.save_checkpoint()
         dt = time.time() - t0
+        if rp.world > 1:
+            n = rp.check(self.replica_tensors())
+            if self.main:
+                print(f"replica check: {n} tensors bit-equal to rank 0's on "
+                      f"all {rp.world} ranks", flush=True)
         n_steps = cfg.niters - step_done
-        if n_steps > 0:
+        if n_steps > 0 and self.main:
             msg = (f"...Done ({n_steps} steps in {dt:.1f}s, "
                    f"{n_steps / dt:.2f} steps/s")
             if n_steps > 1:

@@ -4,7 +4,10 @@ GBlockDeep with and without upsample and channel drop; DBlockDeep with and
 without downsample and the concatenated shortcut. One train-mode forward:
 output, every BN running stat and SN vector afterwards, and the gradient of
 sum(y^2) with respect to the input. Weights are carried across with
-gan3d_tpu_torch.convert; inputs are numpy arrays from a seed. Tolerance:
+gan3d_tpu_torch.convert; inputs are numpy arrays from a seed. The JAX
+variables are random trees of the blocks' own structure (``jax.eval_shape``
+of the init and a numpy fill: N(0, 0.1) weights, unit SN vectors), as
+test_torch_step.py builds them: an eager init compiles every op. Tolerance:
 atol 1e-5 / rtol 1e-4 for outputs and state, atol 1e-4 / rtol 1e-3 for the
 input gradient (f32, different summation orders).
 """
@@ -34,6 +37,19 @@ def to_np(tree):
 
 def ndhwc(x):
     return np.moveaxis(np.asarray(x), 1, -1)
+
+
+def random_variables(jmod, x, key, rng):
+    """A random variable tree of ``jmod``'s structure for input ``x``."""
+    def fill(path, leaf):
+        names = [getattr(p, "key", "") for p in path]
+        v = rng.normal(size=leaf.shape)
+        if names[0] == "spectral":
+            return (v / np.linalg.norm(v)).astype(np.float32)
+        return (v * 0.1).astype(np.float32)
+
+    shapes = jax.eval_shape(jmod.init, key, jnp.asarray(ndhwc(x)))
+    return to_np(jax.tree_util.tree_map_with_path(fill, shapes))
 
 
 def randomize_bn(variables, rng):
@@ -83,7 +99,7 @@ def test_gblockdeep(cin, cout, up):
     rng = np.random.default_rng(cin + cout + up)
     x = rng.normal(size=(2, cin, 4, 4, 4)).astype(np.float32)
     jmod = JGBlockDeep(cin, cout, upsample=up)
-    variables = to_np(jmod.init(jax.random.key(0), jnp.asarray(ndhwc(x))))
+    variables = random_variables(jmod, x, jax.random.key(0), rng)
     randomize_bn(variables, rng)
     sd = {}
     convert.deep_block_state(sd, "", variables["params"],
@@ -104,7 +120,7 @@ def test_dblockdeep(cin, cout, down):
     rng = np.random.default_rng(cin + cout + down)
     x = rng.normal(size=(2, cin, 8, 8, 8)).astype(np.float32)
     jmod = JDBlockDeep(cin, cout, downsample=down)
-    variables = to_np(jmod.init(jax.random.key(1), jnp.asarray(ndhwc(x))))
+    variables = random_variables(jmod, x, jax.random.key(1), rng)
     sd = {}
     convert.deep_block_state(sd, "", variables["params"], None,
                              variables["spectral"])

@@ -246,7 +246,7 @@ def test_load_run_and_sampler_match_jax(runs, fam):
     assert score.shape == (n, 1) and torch.isfinite(score).all()
 
 
-def test_generate_cli_on_cpu(runs, tmp_path, capsys):
+def test_generate_cli_on_cpu(runs, tmp_path, capsys, monkeypatch):
     from gan3d_tpu_torch.cli import generate
 
     out = str(tmp_path / "fakes.npz")
@@ -262,18 +262,29 @@ def test_generate_cli_on_cpu(runs, tmp_path, capsys):
     assert x.shape == (4, 1, 8, 8, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate.main(["-l", runs["biggan"], "--out", out])
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        generate.main(["-l", runs["biggan"], "--num_devices=2",
-                       "--platform=cpu"])
+    # more cards than are visible (a stubbed one-card host) raise before
+    # anything runs; data-parallel generation: test_torch_dp_eval.py
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="1 are visible"):
+        generate.main(["-l", runs["biggan"], "--num_devices=2"])
 
 
-def test_eval_cli_on_cpu(runs, tmp_path, capsys):
+def test_eval_cli_on_cpu(runs, tmp_path, capsys, monkeypatch):
+    """One batch of the eval CLI. The three slice FIDs' Fréchet distance
+    is stubbed (each a scipy sqrtm of a 2048^2 matrix: seconds on a
+    CPU, five times that on a loaded host); the 3D-FID's runs for real.
+    test_frechet_distance_matches_jax and
+    test_axial_fid_matches_jax_with_the_stand_in_weights
+    (test_torch_inloop_fid.py) hold the real one against the JAX
+    package's."""
     from gan3d_tpu_torch.cli import eval as cli_eval
+    from gan3d_tpu_torch.eval import slice_fid
 
+    monkeypatch.setattr(slice_fid, "frechet_distance", lambda a, b: 0.0)
     log_dir = str(tmp_path / "stats")
     model = runs["stylegan"][:-1]
-    # one batch: each costs a scipy sqrtm of a 2048^2 matrix (~20 s on a
-    # CPU), so the 4th batch's volume dump is not reached
+    # one batch: the 4th batch's volume dump is not reached
     times = cli_eval.main([
         "-l", model, "--data_path", runs["data_stylegan"], "--batch_size=16",
         "--n_seeds=1", f"--log_dir={log_dir}", "--platform=cpu",

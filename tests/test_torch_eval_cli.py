@@ -220,7 +220,7 @@ def test_play_round_matches_jax(runs, jax_judge, monkeypatch, numpy_draws):
     assert 0.0 <= got <= 1.0
 
 
-def test_tournament_cli_on_cpu(runs, capsys):
+def test_tournament_cli_on_cpu(runs, capsys, monkeypatch):
     from gan3d_tpu_torch.cli import tournament
 
     means = tournament.main(["--data_path", runs["data"], "--batch_size=4",
@@ -234,9 +234,13 @@ def test_tournament_cli_on_cpu(runs, capsys):
     assert all(0.0 <= v <= 1.0 for v in means.values())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tournament.main(["--data_path", runs["data"], "-l", runs["biggan"]])
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    # more cards than are visible (a stubbed one-card host) raise before
+    # anything runs; the data-parallel tournament: test_torch_dp_eval.py
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="1 are visible"):
         tournament.main(["--data_path", runs["data"], "-l", runs["biggan"],
-                         "--num_devices=2", "--platform=cpu"])
+                         "--num_devices=2"])
 
 
 # ---------------------------------------------------------------------------

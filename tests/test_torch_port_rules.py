@@ -115,7 +115,7 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
         Trainer(open_dataset(_dataset(tmp_path)), cfg)
 
 
-@pytest.mark.parametrize("kw", [dict(track_energy=True),
+@pytest.mark.parametrize("kw", [dict(param_dtype="float16"),
                                 dict(spatial_devices=2), dict(model_devices=2),
                                 dict(param_dtype="bfloat16")])
 def test_unported_options_raise(tmp_path, kw):

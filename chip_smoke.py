@@ -118,10 +118,30 @@ Phases, each printing its own line:
              ranks, not averaged), which the gradient check must catch;
              NCCL across 2 or 4 cards where there are several (else a
              line says it was not run);
+   tp      — tensor parallelism (slice 11): the flagship through the same
+             entry point with --model_devices=2: two ranks sharing the
+             card over a gloo group the script makes (data 1 x model 2),
+             f32 at batch TP_GLOO_BATCH, against one process on the same
+             batch (2 steps: step-0 losses 1e-4, step 1's DP_TOL or 3x
+             the floor's, step 0's gradients before Adam gathered whole
+             within 5e-4 of each update's largest beside the floor of a
+             one-process run with BN's statistics by the sharded BN's
+             formula, and bit-equal on both ranks; G and D outputs, the
+             replica check, K1 8 / K2 6 launches a step on each rank,
+             energy.json with 2 chips, each rank's peak memory beside one
+             process's, vol/s; a memory probe at batch 8: one G update's
+             forward and backward, the bytes alive after the forward and
+             the peak on each rank beside one process), then a control
+             with a planted fault (a
+             sharded spectral norm's sigma on the rank's slice, not summed
+             over the model group; 1 step), which the checks must catch;
+             NCCL in bf16 at batch 16 over 2 cards (model 2) and 4 (data
+             2 x model 2) where there are that many (else a line says it
+             was not run);
    inloop_fid — the flagship with in-loop FID: the random stand-in
              (--fid_in_loop=True, 4 steps, a log and a checkpoint every 2),
              a random-init Inception-V3 weights file the script writes in
-             the pt_inception layout (--inception_weights, 2 steps, a log
+             the pt_inception layout (--inception_weights, 1 step, a log
              every step), the stand-in with --async_log=True, and the
              stand-in and the weights at the default steps_per_log=10 over
              10 steps; each run's log lines and finite FIDs, the
@@ -362,7 +382,8 @@ NO_WEIGHTS_LINE = "in-loop FID: no Inception weights found"
 # The inloop_fid phase's runs of the flagship (name, flags, niters):
 # (a) the random stand-in (fid_in_loop=True) with a log and a checkpoint
 # every 2 steps; (b) a random-init Inception-V3 weights file written in
-# the pt_inception layout ({weights}), a log every step; (c) (a) with
+# the pt_inception layout ({weights}), a log every step (1 step, 2
+# logs: the step's and the final one); (c) (a) with
 # async_log; then the stand-in and the weights at the default
 # steps_per_log=10 over 10 steps, for the steady rate (steps 1-9 hold
 # the final log; one log in the window, whose host sqrtm's the dp phase
@@ -370,7 +391,7 @@ NO_WEIGHTS_LINE = "in-loop FID: no Inception weights found"
 INLOOP_RUNS = (
     ("stand_in", ["--fid_in_loop=True", "--steps_per_log=2",
                   "--steps_per_ckpt=2"], 4),
-    ("weights", ["--inception_weights={weights}", "--steps_per_log=1"], 2),
+    ("weights", ["--inception_weights={weights}", "--steps_per_log=1"], 1),
     ("async", ["--fid_in_loop=True", "--steps_per_log=2",
                "--steps_per_ckpt=2", "--async_log=True"], 4),
     ("stand_in_rate", ["--fid_in_loop=True"], 10),
@@ -401,6 +422,19 @@ DP_KERNEL_ROWS = (8, 4)
 DP_MAX_CARDS = 4
 DP_HALVES_N = 16
 DP_Z_SEED = 7
+# The tp phase (slice 11): the flagship through the train CLI's entry
+# point with --model_devices=2, TP_STEPS steps a run, against the dp
+# phase's one-process f32 run (same batch, same steps); NCCL across cards
+# in bf16 where there are several.
+TP_STEPS = 2
+TP_MODEL = 2
+# The gloo run's batch: a step took ~140 s at 16 and ~40 s at 4 (every
+# gather and input-gradient sum staged through the host; PERF.md, PR 14)
+TP_GLOO_BATCH = 2
+# The memory probe's batch (``tp_memory_probe``): activations dominate a
+# one-process f32 G update there as at 16, where the two gloo ranks took
+# 45 s of the script's time (PERF.md, PR 14)
+TP_PROBE_BATCH = 8
 # The tournament phase's runs (each read as name + "0"): the flagship,
 # the DCGAN with --sagan, the hybrid.
 TOURNAMENT_RUNS = ("default", "dcgan_sagan", "hybrid")
@@ -1305,9 +1339,10 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
     flagship's default, the DCGAN's --sagan, the hybrid), K3 and K4 their
     counts in the first part of each CONV_PATHS run (the flagship's and
     StyleGAN-1's knob runs), and K1 and K2 ``launches_per_rank``, each
-    rank's count in the dp phase's runs (``dp``: world 1 over NCCL, bf16;
-    two ranks on one card over gloo, f32; NCCL across cards where there
-    are several); each conv case lists the networks that run its shape
+    rank's count in the dp and tp phases' runs (``dp``: world 1 over NCCL,
+    bf16; two ranks on one card over gloo, f32, data-parallel and, as
+    ``tp_gloo_model2_f32``, model 2; NCCL across cards where there are
+    several); each conv case lists the networks that run its shape
     ("paths": G, D, SG1). K1-K5 and the
     ladder add ``device_ms`` and ``library_device_ms`` (device time per
     call, profiler), and K1-K5 the f32 route's (the FMA kernels') numbers
@@ -2368,8 +2403,8 @@ def grad_check(got, want: list, names: dict) -> dict:
             "grad_zero_tensors_max": zero_worst, "per_update": per_update}
 
 
-def _grads_within(chk: dict) -> bool:
-    return (chk["grad_err"] <= DP_GRAD_TOL
+def _grads_within(chk: dict, tol: float = DP_GRAD_TOL) -> bool:
+    return (chk["grad_err"] <= tol
             and chk["grad_zero_tensors_max"] <= DP_GRAD_ZERO)
 
 
@@ -2627,6 +2662,348 @@ def dp_phase(ca, cc, tmp: str, data: str, power_limit_w: float) -> dict:
                                   "card(s) visible")
         phase("dp_nccl_multi_card", not_run=res["nccl_multi_card"])
     res["seconds"] = time.time() - t0
+    # the one-process bf16 run the tp phase's NCCL runs are read beside
+    res["_one"] = one
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the tp phase: tensor parallelism (slice 11)
+# ---------------------------------------------------------------------------
+def _sigma_on_the_slice(u_rows, w, v, rp):
+    """The control's planted fault: a sharded spectral norm's sigma taken
+    on this rank's rows alone, with no sum over the model group."""
+    import torch
+
+    return torch.vdot(u_rows, torch.mv(w, v))
+
+
+@contextlib.contextmanager
+def recorded_full_grads(updates: int, rp):
+    """Adam.step keeps, on the CPU, the gradients it is given in its first
+    ``updates`` calls, each shard gathered whole over the model group
+    (every rank calls it in the same order). Yields the list."""
+    from gan3d_tpu_torch.parallel import tp
+    from gan3d_tpu_torch.train.state import Adam
+
+    seen, step = [], Adam.step
+
+    def recording(self, grads):
+        if len(seen) < updates:
+            seen.append([g.detach().float().cpu() for g in
+                         tp.full_moments(self.params, grads, rp)])
+        return step(self, grads)
+
+    Adam.step = recording
+    try:
+        yield seen
+    finally:
+        Adam.step = step
+
+
+def tp_rank(rp, runs: list, out_dir: str, tag: str, record: tuple = (),
+            fault: int = -1) -> None:
+    """One rank of a tp run: ``cli.train.train_rank`` for each argv of
+    ``runs`` (cuDNN deterministic), the launch counters set to 0 before
+    each and read after it; every rank writes step 0's gradients, gathered
+    whole, of the runs whose index is in ``record`` to
+    ``{tag}_grads{i}_rank{r}.pt``; run ``fault`` has the planted fault
+    (``_sigma_on_the_slice``). Writes ``{tag}_rank{r}.json``: each run's
+    counters, stdout and peak memory."""
+    import torch
+
+    from gan3d_tpu_torch.cli import train as cli_train
+    from gan3d_tpu_torch.config import config_from_args
+    from gan3d_tpu_torch.ops import cuda_attention as ca
+    from gan3d_tpu_torch.ops import cuda_conv as cc
+    from gan3d_tpu_torch.parallel import tp
+
+    torch.backends.cudnn.deterministic = True
+    res = {"rank": rp.rank, "world": rp.world, "model": rp.model,
+           "device": str(rp.device), "runs": []}
+    sigma = tp.sigma
+    for i, argv in enumerate(runs):
+        cfg = config_from_args(argv)
+        ca.reset_counters()
+        cc.reset_counters()
+        torch.cuda.reset_peak_memory_stats(rp.device)
+        buf = io.StringIO()
+        if i == fault:
+            tp.sigma = _sigma_on_the_slice
+        try:
+            with contextlib.redirect_stdout(buf), recorded_full_grads(
+                    cfg.iterD + 1 if i in record else 0, rp) as seen:
+                cli_train.train_rank(rp, cfg)
+        finally:
+            tp.sigma = sigma
+        torch.cuda.synchronize(rp.device)
+        res["runs"].append({
+            "launches": _counters(ca, cc), "stdout": buf.getvalue(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(
+                rp.device)})
+        if seen:
+            torch.save(seen, os.path.join(
+                out_dir, f"{tag}_grads{i}_rank{rp.rank}.pt"))
+    with open(os.path.join(out_dir, f"{tag}_rank{rp.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def tp_memory_probe(rp=None) -> dict:
+    """One G update's forward and backward (G, then D, the G loss; G's
+    gradients) of the flagship at TP_PROBE_BATCH, f32, on a rank of
+    ``rp`` or in one process: the bytes the networks hold, the bytes
+    alive after the forward (what autograd saved), and the peak over
+    both passes, each above what the networks held before."""
+    import torch
+
+    from gan3d_tpu_torch.config import config_from_args
+    from gan3d_tpu_torch.models import build_models
+    from gan3d_tpu_torch.train import losses
+
+    dev = rp.device if rp is not None else torch.device("cuda", 0)
+    argv = FLAGSHIP + ["--compute_dtype=float32",
+                       f"--batch_size={TP_PROBE_BATCH}"]
+    if rp is not None:
+        argv += [f"--model_devices={rp.model}", f"--num_devices={rp.world}"]
+    cfg = config_from_args(argv)
+    G, D = build_models(cfg, rp)
+    G, D = G.to(dev).train(), D.to(dev).train()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    z = torch.randn((TP_PROBE_BATCH, cfg.z_size),
+                    generator=torch.Generator().manual_seed(DP_Z_SEED))
+    t0 = time.time()
+    loss = losses.g_adversarial(D(G(z.to(dev))).float())
+    torch.cuda.synchronize(dev)
+    alive = torch.cuda.memory_allocated(dev) - base
+    torch.autograd.grad(loss, list(G.parameters()))
+    torch.cuda.synchronize(dev)
+    return {"batch": TP_PROBE_BATCH, "networks_bytes": base,
+            "after_forward_bytes": alive,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+            "seconds": time.time() - t0, "loss": loss.item()}
+
+
+def tp_gloo_rank(local_rank: int, world: int, init_file: str, runs: list,
+                 out_dir: str, tag: str, record: tuple, fault: int) -> None:
+    """A rank of ``world`` sharing card 0 through a gloo group this script
+    makes, on a data x model grid of model TP_MODEL (parallel/dist.py
+    ``grid``); ``tp_rank``'s runs, then ``tp_memory_probe``, written to
+    ``{tag}_probe_rank{r}.json``."""
+    import torch
+    import torch.distributed as tdist
+
+    from gan3d_tpu_torch.parallel import dist
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    tdist.init_process_group("gloo", init_method="file://" + init_file,
+                             rank=local_rank, world_size=world,
+                             timeout=dist.TIMEOUT)
+    rp = dist.grid(local_rank, world, local_rank, world, device, TP_MODEL)
+    try:
+        tp_rank(rp, runs, out_dir, tag, record=record, fault=fault)
+        probe = tp_memory_probe(rp)
+        with open(os.path.join(out_dir, f"{tag}_probe_rank{rp.rank}.json"),
+                  "w") as f:
+            json.dump(probe, f)
+        rp.barrier()
+    finally:
+        tdist.destroy_process_group()
+
+
+def _tp_grads(out_dir: str, tag: str, i: int, world: int) -> tuple:
+    """(rank 0's gathered gradients of run ``i``, whether every rank's are
+    bit-equal to them: the replicated leaves' made alike over the model
+    group, the shards gathered)."""
+    import torch
+
+    got = [torch.load(os.path.join(out_dir, f"{tag}_grads{i}_rank{r}.pt"),
+                      weights_only=True) for r in range(world)]
+    equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for other in got[1:] for ua, ub in zip(got[0], other)
+                for a, b in zip(ua, ub))
+    return got[0], equal
+
+
+def _tp_memory(ranks: list, one_peak: int) -> dict:
+    """Each rank's peak memory beside one process's."""
+    peaks = {f"rank{r['rank']}": r["runs"][0]["max_memory_allocated"]
+             for r in ranks}
+    return {"per_rank_max_memory_allocated": peaks,
+            "one_process_max_memory_allocated": one_peak,
+            "per_rank_over_one_process": {k: v / one_peak
+                                          for k, v in peaks.items()}}
+
+
+def tp_phase(ca, cc, tmp: str, data: str, dp: dict) -> dict:
+    """The flagship (64^3, filters 64, iterD 2, hinge) through the train
+    CLI's entry point with --model_devices=2, TP_STEPS steps a run:
+
+    1. two ranks sharing the card over a gloo group the script makes
+       (NCCL refuses two ranks on one card), f32, data 1 x model 2, at
+       batch TP_GLOO_BATCH (gloo stages every gather through the host),
+       against the one-process f32 run on the same batch: step-0 losses
+       within 1e-4 relative, step 1's within DP_TOL or 3x the floor's,
+       step 0's gradients before Adam gathered whole by ``grad_check``
+       (each update's largest error within 5e-4 of its largest gradient
+       or 3x the floor's: one process again with BN's statistics by the
+       formula the sharded BN runs, ``bn_formula``; the dp phase's 5e-4
+       is 3x that floor at batch 16) and bit-equal on both ranks, G's
+       and D's outputs after the steps (``_dp_compare``), the replica
+       check, K1 8 / K2 6 launches a step on each rank, energy.json with
+       2 chips, each rank's peak memory beside one process's, vol/s;
+       ``tp_memory_probe`` at batch TP_PROBE_BATCH (one G update's
+       forward and backward: the bytes alive after the forward and the
+       peak, each rank beside one process; G's loss 1e-4); then the
+       control:
+       a sharded spectral norm's sigma taken on the rank's slice
+       (``_sigma_on_the_slice``; iterD 1, one step), whose first D
+       update's gradients the gradient check must fail;
+    2. NCCL across cards in bf16 at batch 16 where there are several:
+       model 2 over 2 cards, and data 2 x model 2 over 4 where there are
+       4; K1/K2 launches a step on each rank, the replica check, each
+       rank's peak memory, vol/s and the step-0 losses beside the
+       one-process bf16 run's (the dp phase's); on one card a line says
+       it was not run.
+    """
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.time()
+    out_dir = os.path.join(tmp, "tp")
+    os.makedirs(out_dir, exist_ok=True)
+    base = FLAGSHIP + [f"--data_path={data}", f"--niters={TP_STEPS}"]
+    tp_flags = [f"--model_devices={TP_MODEL}"]
+    res = {}
+
+    # 1. two ranks on one card over gloo, f32, against one process
+    f32 = base + ["--compute_dtype=float32", f"--batch_size={TP_GLOO_BATCH}"]
+    iter_d = int(next(f for f in WIDTHS if f.startswith("--iterD="))[8:])
+    one32 = _dp_one_process(ca, cc, f32 + [f"--log_dir={tmp}/tp_one32"],
+                            "tp_one32", record=iter_d + 1)
+    with bn_formula():
+        floor32 = _dp_one_process(
+            ca, cc, f32 + [f"--log_dir={tmp}/tp_floor32"], "tp_floor32",
+            record=iter_d + 1)
+    names = param_names(f32)
+    floor = {**grad_check(floor32.pop("grads"), one32["grads"], names),
+             **_dp_compare(one32["log_dir"], floor32["log_dir"]),
+             "losses_step1_rel_err": _rel(
+                 _ckpt_losses(floor32["log_dir"], 1),
+                 _ckpt_losses(one32["log_dir"], 1))}
+    # DP_GRAD_TOL is 3x the floor at batch 16; at a smaller batch the
+    # floor is higher (G's BN backward cancels more), and the same 3x holds
+    grad_tol = max(DP_GRAD_TOL, 3 * floor["grad_err"])
+    one_probe = tp_memory_probe()
+    torch.cuda.empty_cache()  # the ranks' processes share the card
+    tp_argv = f32 + tp_flags + [f"--num_devices={TP_MODEL}"]
+    runs = [tp_argv + [f"--log_dir={tmp}/tp_gloo2", "--track_energy=True"],
+            tp_argv + [f"--log_dir={tmp}/tp_gloo2_fault", "--niters=1",
+                       "--iterD=1"]]
+    init_file = os.path.join(out_dir, "gloo_rendezvous")
+    mp.start_processes(tp_gloo_rank, args=(TP_MODEL, init_file, runs,
+                                           out_dir, "gloo2", (0, 1), 1),
+                       nprocs=TP_MODEL, join=True, start_method="spawn")
+    ranks = _dp_read(out_dir, "gloo2", TP_MODEL)
+    w2 = _dp_rank_checks("tp_gloo2", ranks, "", TP_STEPS,
+                         f"{tmp}/tp_gloo2")
+    rel = _rel(w2["losses_step0"], one32["losses_step0"])
+    rel1 = _rel(_ckpt_losses(f"{tmp}/tp_gloo2", 1),
+                _ckpt_losses(one32["log_dir"], 1))
+    tol1 = max(DP_TOL, 3 * floor["losses_step1_rel_err"])
+    cmp2 = _dp_compare(one32["log_dir"], f"{tmp}/tp_gloo2")
+    got, equal = _tp_grads(out_dir, "gloo2", 0, TP_MODEL)
+    grads2 = grad_check(got, one32["grads"], names)
+    if not (rel <= 1e-4 and rel1 <= tol1 and _dp_within(cmp2)
+            and _grads_within(grads2, grad_tol) and equal):
+        raise AssertionError(f"model 2 vs one process (f32): step-0 loss rel "
+                             f"err {rel:.3e} (tol 1e-4), step 1 {rel1:.3e} "
+                             f"(tol {tol1:.3e}), {cmp2} (tols: _dp_compare), "
+                             f"gradients bit-equal on the ranks: {equal}, "
+                             f"{grads2} (tol {grad_tol:.3e}); the floor: "
+                             f"{floor}")
+    with open(os.path.join(tmp, "tp_gloo2", "energy.json")) as f:
+        energy = json.load(f)
+    if energy["chips"] != TP_MODEL:
+        raise AssertionError(f"energy.json {energy}: not {TP_MODEL} chips")
+    # the control: sigma on the slice, one D update and the G update; its
+    # first D update's gradients against one process's, which the
+    # gradient check must fail
+    fault_got, _ = _tp_grads(out_dir, "gloo2", 1, TP_MODEL)
+    fault = grad_check(fault_got[:1], one32["grads"][:1], names)
+    fault["caught_by"] = ["gradients"] if not _grads_within(
+        fault, grad_tol) else []
+    if not fault["caught_by"]:
+        raise AssertionError(f"the checks passed the control's planted "
+                             f"fault (sigma on the slice): {fault}")
+    probes = []
+    for r in range(TP_MODEL):
+        with open(os.path.join(out_dir, f"gloo2_probe_rank{r}.json")) as f:
+            probes.append(json.load(f))
+    memory = {"one_process": one_probe,
+              **{f"rank{r}": p for r, p in enumerate(probes)},
+              "after_forward_over_one_process": [
+                  p["after_forward_bytes"] / one_probe["after_forward_bytes"]
+                  for p in probes],
+              "peak_over_one_process": [
+                  p["peak_bytes"] / one_probe["peak_bytes"] for p in probes],
+              "loss_rel_err": max(abs(p["loss"] - one_probe["loss"])
+                                  / abs(one_probe["loss"]) for p in probes)}
+    if not memory["loss_rel_err"] <= 1e-4:
+        raise AssertionError(f"memory probe: G loss at model 2 vs one "
+                             f"process {memory['loss_rel_err']:.3e} (tol "
+                             "1e-4)")
+    res["gloo_model2_f32"] = {
+        **w2, **cmp2, **grads2, "grad_tol": grad_tol,
+        "batch": TP_GLOO_BATCH,
+        "losses_step0_rel_err": rel, "tol": 1e-4,
+        "losses_step1_rel_err": rel1, "losses_step1_tol": tol1,
+        "grad_floor": floor, "grads_bit_equal_on_ranks": equal,
+        "planted_fault_control": fault, "energy": energy,
+        **_tp_memory(ranks, one32["max_memory_allocated"]),
+        "one_process_f32_vol_per_s": one32["steady_vol_per_s"],
+        "memory_probe": memory, "seconds": time.time() - t0}
+    phase("tp_gloo2", **res["gloo_model2_f32"])
+    res.update(tp_nccl(tmp, data, dp["_one"]))
+    res["seconds"] = time.time() - t0
+    return res
+
+
+def tp_nccl(tmp: str, data: str, one: dict) -> dict:
+    """The tp phase's NCCL part (``tp_phase`` item 2), beside ``one``, the
+    dp phase's one-process bf16 run at batch 16."""
+    import torch
+
+    from gan3d_tpu_torch.parallel import dist
+
+    out_dir = os.path.join(tmp, "tp")
+    os.makedirs(out_dir, exist_ok=True)
+    base = FLAGSHIP + [f"--data_path={data}", f"--niters={TP_STEPS}",
+                       f"--model_devices={TP_MODEL}"]
+    res = {}
+    worlds = [w for w in (2, 4) if w <= min(torch.cuda.device_count(),
+                                            DP_MAX_CARDS)]
+    for n in worlds:
+        argvn = base + [f"--log_dir={tmp}/tp_nccl{n}", f"--num_devices={n}"]
+        dist.launch(tp_rank, ([argvn], out_dir, f"nccl{n}"),
+                    dist.Plan(world=n, local=n, first=0, device="cuda",
+                              model=TP_MODEL))
+        ranks = _dp_read(out_dir, f"nccl{n}", n)
+        wn = _dp_rank_checks(f"tp_nccl{n}", ranks, "_tc", TP_STEPS,
+                             f"{tmp}/tp_nccl{n}")
+        res[f"nccl_world{n}_bf16"] = {
+            **wn, "data": n // TP_MODEL, "model": TP_MODEL,
+            "losses_step0_rel_err_vs_one_process_bf16": _rel(
+                wn["losses_step0"], one["losses_step0"]),
+            **_tp_memory(ranks, one["max_memory_allocated"]),
+            "one_process_bf16_vol_per_s": one["steady_vol_per_s"]}
+        phase(f"tp_nccl{n}", **res[f"nccl_world{n}_bf16"])
+    if not worlds:
+        res["nccl_multi_card"] = (f"not run: {torch.cuda.device_count()} "
+                                  "card(s) visible")
+        phase("tp_nccl_multi_card", not_run=res["nccl_multi_card"])
     return res
 
 
@@ -2791,6 +3168,7 @@ def main() -> int:
         train = train_phase(ca, cc, tmp, shapes)
         dp = dp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"),
                       power_limit_w)
+        tp = tp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"), dp)
         train128 = train128_phase(ca, cc, tmp)
         phase("inloop_fid", **inloop_fid_phase(
             ca, cc, tmp, train["default/run_0_12"]["steady_vol_per_s"]))
@@ -2817,8 +3195,10 @@ def main() -> int:
         if name in ATTENTION128_PATHS:
             paths[name] = train128["%s/run_%d_%d" % (
                 name, runs[0][1], runs[0][0])]["launches"]
+    per_rank_runs = {**{k: v for k, v in dp.items() if not k.startswith("_")},
+                     **{f"tp_{k}": v for k, v in tp.items()}}
     print(json.dumps(kernels_line(cases, conv_cases, paths, toeplitz_cases,
-                                  ladder_cases, dp)), flush=True)
+                                  ladder_cases, per_rank_runs)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

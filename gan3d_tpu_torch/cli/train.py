@@ -24,6 +24,12 @@ runs the same command with ``--distributed=True --num_processes=H
 which holds the rendezvous) and starts its own ranks; rank = h x the
 host's ranks + the local rank. ``train_rank`` is one rank's work, for a
 caller that starts the processes itself.
+
+Tensor parallelism (parallel/tp.py): ``--model_devices=M`` makes the
+ranks a data x model grid, M adjacent ranks (on one host) sharing each
+row set and holding a slice each of the wide layers' channels; e.g.
+``--num_devices=4 --model_devices=2`` trains on 2 data x 2 model ranks
+(``--platform=cpu``: 4 gloo processes).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from gan3d_tpu_torch.train.trainer import Trainer
 
 
 def train_rank(replicas: dist.Replicas, cfg: Config) -> None:
-    """One rank of a data-parallel run."""
+    """One rank of a data- or tensor-parallel run."""
     Trainer(open_dataset(cfg.data_path), cfg, replicas).train()
 
 

@@ -68,12 +68,15 @@ class Config:
                                 # that many gloo processes, 0 = one);
                                 # more cards than visible raises
     spatial_devices: int = 1    # not ported: above 1 raises
-    model_devices: int = 1      # not ported: above 1 raises
+    model_devices: int = 1      # >1: a data x model rank grid, the wide
+                                # layers' channels sharded over the model
+                                # groups (parallel/tp.py)
     sync_bn: bool = True        # BN statistics of the global batch; False
                                 # = each rank's own (parallel runs)
     compute_dtype: str = "bfloat16"  # activations' dtype on the card; f32
                                      # params, BN stats and SN iterations
-    param_dtype: str = "float32"     # anything else raises
+    param_dtype: str = "float32"     # accepted; the parameters stay f32,
+                                     # as in the JAX package
     remat: bool = False         # recompute activations in backward
                                 # (nn/remat.py; memory at 128^3), the BN
                                 # and SN state stepped once

@@ -7,7 +7,10 @@ Semantics match the reference data layer (reference: data_handler.py:7-33):
 - ``NpzDirDataset``: a directory of per-sample ``{index}.npz`` files, lazily
   loaded. The reference sets ``len = max(int(filename))`` — NOT the file
   count (an off-by-one quirk, SURVEY §2.3); the port counts max + 1, and
-  ``compat_len=True`` reproduces the reference;
+  ``compat_len=True`` reproduces the reference. With ``native=True`` (the
+  JAX package's default, gan3d_tpu/data/datasets.py:44-69) a batch is
+  decoded by the C++ thread pool of data/native.py, or by numpy, with a
+  printed line, where that library cannot be built;
 - ``make_dir_dataset``: split a single archive into per-index compressed
   files (reference: make_dir_dataset.py:5-9).
 """
@@ -39,16 +42,28 @@ class NpzDataset:
 
 
 class NpzDirDataset:
-    """Directory-of-files dataset (reference: data_handler.py DATA_DIR),
-    decoded with numpy."""
+    """Directory-of-files dataset (reference: data_handler.py DATA_DIR)."""
 
-    def __init__(self, path: str, compat_len: bool = False):
+    def __init__(self, path: str, compat_len: bool = False,
+                 native: bool = True, native_threads: int = 4):
         self.dir = path
         nums = [int(x[:-4]) for x in os.listdir(path) if x.endswith(".npz")]
         if not nums:
             raise FileNotFoundError(f"no .npz files in {path}")
         # Files are 0-indexed, so a dense range holds max+1 of them.
         self.len = max(nums) if compat_len else max(nums) + 1
+        self._pool = None
+        self._shape = None
+        if native:
+            from gan3d_tpu_torch.data.native import NativeNpzPool, available
+
+            try:
+                if available():
+                    self._pool = NativeNpzPool(native_threads)
+                    self._shape = self[min(nums)].shape
+            except Exception as e:  # noqa: BLE001 — numpy decodes instead
+                print(f"native npz loader disabled: {e}", flush=True)
+                self._pool = None
 
     def __getitem__(self, index: int) -> np.ndarray:
         x = np.load(os.path.join(self.dir, f"{index}.npz"))["X"]
@@ -58,6 +73,9 @@ class NpzDirDataset:
         return self.len
 
     def batch(self, indices: Sequence[int]) -> np.ndarray:
+        if self._pool is not None:
+            paths = [os.path.join(self.dir, f"{int(i)}.npz") for i in indices]
+            return self._pool.decode_batch(paths, self._shape)
         return np.stack([self[int(i)] for i in indices])
 
 

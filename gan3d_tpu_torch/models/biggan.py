@@ -29,6 +29,11 @@ boundaries at a time, so a stage group fits at least the batch a block
 group does). ``SelfAttention3d`` stays outside every group, so the attention
 kernels launch as often as without remat. Groups are formed in
 ``forward``: the module tree and its state_dict keys stay the same.
+
+Under a model axis (``model_devices``, parallel/tp.py) the activations
+stay channel-sharded between layers (``tp_local_activations``): G's first
+linear writes its slice of the channel-major features, which is its
+slice of the 4^3 grid's channels.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from gan3d_tpu_torch.nn.blocks import DBlockDeep, GBlockDeep
 from gan3d_tpu_torch.nn.layers import SNConv3d, SNLinear
 from gan3d_tpu_torch.nn.norm import BatchNorm3d
 from gan3d_tpu_torch.ops.conv3d import global_sum_pool
+from gan3d_tpu_torch.parallel import tp
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -68,6 +74,8 @@ def _split(mods) -> tuple:
 
 
 class Generator(nn.Module):
+    tp_local_activations = True
+
     def __init__(self, cfg: Config):
         super().__init__()
         arch = cfg.biggan_g_arch()
@@ -93,10 +101,15 @@ class Generator(nn.Module):
         self.output_layer = nn.Sequential(
             BatchNorm3d(cl), nn.ReLU(),
             SNConv3d(cl, 1, 3, padding=1, plain=plain, orthogonal=True))
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         z = z.reshape(z.shape[0], -1).to(self.dtype)
-        h = self.linear(z).reshape(z.shape[0], self.ch0, 4, 4, 4)
+        h = self.linear(z)
+        rp = self.replicas
+        if tp.on(rp) and self.ch0 % rp.model:
+            h = tp.layout(h, self.ch0 * 64, False, rp)
+        h = h.reshape(z.shape[0], -1, 4, 4, 4)
         head = [self.output_layer, torch.tanh]
         n_stages = len(self.blocks) // self.per_stage
         for idx in range(n_stages):
@@ -118,6 +131,8 @@ class Generator(nn.Module):
 
 
 class Discriminator(nn.Module):
+    tp_local_activations = True
+
     def __init__(self, cfg: Config):
         super().__init__()
         arch = cfg.biggan_d_arch()

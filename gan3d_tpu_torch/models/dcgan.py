@@ -26,6 +26,12 @@ LeakyReLU, Tanh and RandomCrop3D slots included, so converted JAX weights
 and reference checkpoints load with ``strict=True``. Activations run in
 ``cfg.compute_dtype``; parameters, BN statistics and the spectral-norm
 power iteration stay f32.
+
+Under a model axis (``model_devices``, parallel/tp.py) the activations
+stay channel-sharded between layers (``tp_local_activations``), and the
+attention's projections are sharded by the rule as the JAX package's are:
+its DCGAN names the block ``SelfAttention3d_0``, outside the rule's
+"attn" match (``tp_replicated`` False).
 """
 
 from __future__ import annotations
@@ -46,7 +52,15 @@ STD = 0.02        # conv weights N(0, 0.02), BN scales N(1, 0.02)
 N_CROPS = 128     # the msl D's crops (gan3d_tpu/models/dcgan.py:104)
 
 
+def _attention(ch: int) -> SelfAttention3d:
+    attn = SelfAttention3d(ch)
+    attn.tp_replicated = False
+    return attn
+
+
 class Generator(nn.Module):
+    tp_local_activations = True
+
     def __init__(self, cfg: Config):
         super().__init__()
         self.dtype = compute_dtype(cfg)
@@ -59,7 +73,7 @@ class Generator(nn.Module):
             layers += [ConvTranspose3d(cin, cout, 4, 2, 1, std=STD),
                        BatchNorm3d(cout, std=STD), nn.ReLU()]
             if cfg.sagan and res == cfg.resolution // 4:
-                layers.append(SelfAttention3d(cout))
+                layers.append(_attention(cout))
         layers += [ConvTranspose3d(chans[-1], 1, 4, 2, 1, std=STD), nn.Tanh()]
         self.main = nn.Sequential(*layers)
 
@@ -69,6 +83,8 @@ class Generator(nn.Module):
 
 
 class Discriminator(nn.Module):
+    tp_local_activations = True
+
     def __init__(self, cfg: Config):
         super().__init__()
         self.dtype = compute_dtype(cfg)
@@ -90,7 +106,7 @@ class Discriminator(nn.Module):
                 layers += [SNConv3d(cin, ch, 4, 2, 1, **sn),
                            nn.LeakyReLU(0.1)]
                 if cfg.sagan and res == 8:
-                    layers.append(SelfAttention3d(ch))
+                    layers.append(_attention(ch))
                 cin = ch
             layers.append(SNConv3d(cin, 1, 4, 1, 0, **sn))
         else:

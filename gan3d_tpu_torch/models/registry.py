@@ -18,6 +18,10 @@ BigGAN G and D (the hybrid's G too), StyleGAN2's synthesis blocks and the
 StyleGAN D's blocks, where the JAX package does; the DCGAN G and D and
 StyleGAN-1's G have none there (gan3d_tpu/models/dcgan.py never reads
 ``cfg.remat``), so the flag changes nothing for them.
+
+Under a model axis (``replicas.model`` > 1) each network, built whole
+from the seed, keeps this rank's slices of the parameters the rule
+shards (parallel/tp.py ``shard``).
 """
 
 from __future__ import annotations
@@ -64,4 +68,9 @@ def build_models(cfg: Config, replicas: Optional[Replicas] = None
             for m in net.modules():
                 if isinstance(m, BatchNorm3d):
                     m.sync = cfg.sync_bn
+        if replicas.model > 1:
+            from gan3d_tpu_torch.parallel import tp
+
+            tp.shard(G, replicas)
+            tp.shard(D, replicas)
     return G, D

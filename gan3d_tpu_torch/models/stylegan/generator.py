@@ -35,6 +35,7 @@ from gan3d_tpu_torch.models.stylegan.layers import OutBlock, SynthesisLayer
 from gan3d_tpu_torch.models.stylegan.mapping import MappingNetwork
 from gan3d_tpu_torch.models.stylegan.resample import setup_filter, upfirdn3d
 from gan3d_tpu_torch.nn import remat
+from gan3d_tpu_torch.parallel import tp
 
 Noise = Optional[Sequence[torch.Tensor]]
 CHANNEL_MAX = 512
@@ -73,6 +74,7 @@ class SynthesisBlock(nn.Module):
         self.torgb = OutBlock(out_channels, 1, w_dim)
         self.register_buffer("resample_filter", setup_filter(),
                              persistent=False)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def layers(self) -> List[SynthesisLayer]:
         return [self.conv1] if self.in_channels == 0 else [self.conv0,
@@ -84,7 +86,10 @@ class SynthesisBlock(nn.Module):
                 noise_mode: str = "random", fused_modconv: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.in_channels == 0:
-            x = self.const[None].expand(ws.shape[0], *self.const.shape)
+            const = self.const
+            if getattr(self, "tp_span", None) is not None:  # sharded
+                const = tp.gather(const, self.replicas, dim=0)
+            x = const[None].expand(ws.shape[0], *const.shape)
         x = x.to(self.dtype)
         for j, layer in enumerate(self.layers()):
             x = layer(x, ws[:, j], None if noise is None else noise[j],
@@ -140,7 +145,7 @@ class SynthesisNetwork(nn.Module):
             # in a data-parallel run, this rank's rows of the global
             # batch's draws
             rp = self.replicas
-            n = ws.shape[0] * (1 if rp is None else rp.world)
+            n = ws.shape[0] * (1 if rp is None else rp.data_world)
             noise = [torch.randn(s, generator=generator, device=ws.device)
                      for s in self.noise_shapes(n)]
             if rp is not None:

@@ -14,6 +14,12 @@ The JAX ``c1act`` knob (a TPU layout rewrite, ROADMAP A8) has no
 counterpart: the plain elementwise op runs. The layers take only the
 settings the StyleGAN2 networks use (lrelu or linear activations, the
 [1, 3, 3, 1] FIR, 3^3 synthesis convs with noise, 1^3 toRGB).
+
+Under a model axis (parallel/tp.py) a layer whose weight the rule shards
+computes its output channels' slice from its whole inputs (each through
+``tp.copy``) and gathers it at once: the StyleGAN families keep sharded
+parameters and Adam state, and whole activations (``tp_local_activations``
+unset). Bias, noise and activation follow the gather.
 """
 
 from __future__ import annotations
@@ -27,6 +33,14 @@ import torch.nn.functional as F
 
 from gan3d_tpu_torch.models.stylegan.resample import (conv3d_resample,
                                                       setup_filter)
+from gan3d_tpu_torch.parallel import tp
+
+
+def _sharded(layer: nn.Module):
+    """The layer's Replicas when its weight is sharded, else None."""
+    rp = layer.replicas
+    return (rp if tp.on(rp) and getattr(layer, "tp_span", None) is not None
+            else None)
 
 
 def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -62,9 +76,15 @@ class FullyConnectedLayer(nn.Module):
         self.bias = nn.Parameter(torch.full((out_features,),
                                             float(bias_init)))
         self.weight_gain = lr_multiplier / np.sqrt(in_features)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, (self.weight * self.weight_gain).to(x.dtype))
+        rp = _sharded(self)
+        w = (self.weight * self.weight_gain).to(x.dtype)
+        if rp is None:
+            y = F.linear(x, w)
+        else:
+            y = tp.gather(F.linear(tp.copy(x, rp), w), rp)
         b = self.bias
         if self.lr_multiplier != 1:
             b = b * self.lr_multiplier
@@ -140,11 +160,16 @@ class Conv3dLayer(nn.Module):
         self.weight_gain = 1.0 / np.sqrt(in_channels * k ** 3)
         self.register_buffer("resample_filter", setup_filter(),
                              persistent=False)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
-        y = conv3d_resample(x, (self.weight * self.weight_gain).to(x.dtype),
+        rp = _sharded(self)
+        y = conv3d_resample(x if rp is None else tp.copy(x, rp),
+                            (self.weight * self.weight_gain).to(x.dtype),
                             f=self.resample_filter, down=self.down,
                             padding=self.padding)
+        if rp is not None:
+            y = tp.gather(y, rp)
         y = bias_act(y, self.bias, self.activation)
         if gain != 1.0:
             y = y * gain
@@ -176,6 +201,7 @@ class SynthesisLayer(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.register_buffer("resample_filter", setup_filter(),
                              persistent=False)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def noise_shape(self, n: int):
         r = self.resolution
@@ -200,11 +226,19 @@ class SynthesisLayer(nn.Module):
             noise = torch.randn(self.noise_shape(x.shape[0]),
                                 generator=generator, device=x.device)
         styles = self.affine(w.float())
-        y = modulated_conv3d(x, self.weight, styles,
-                             noise=noise.float() * self.noise_strength,
-                             up=self.up, padding=1,
-                             resample_filter=self.resample_filter,
-                             fused=fused_modconv)
+        noise = noise.float() * self.noise_strength
+        rp = _sharded(self)
+        if rp is None:
+            y = modulated_conv3d(x, self.weight, styles, noise=noise,
+                                 up=self.up, padding=1,
+                                 resample_filter=self.resample_filter,
+                                 fused=fused_modconv)
+        else:  # the noise meets the gathered channels (one sum, exact)
+            y = tp.gather(modulated_conv3d(
+                tp.copy(x, rp), self.weight, tp.copy(styles, rp), up=self.up,
+                padding=1, resample_filter=self.resample_filter,
+                fused=fused_modconv), rp)
+            y = y + noise.to(y.dtype)
         return bias_act(y, self.bias, "lrelu")
 
 

@@ -46,7 +46,8 @@ is one for the global batch. The path-length pass takes the global rows
 (``sg2_reg_grads``) is the global penalty's, through a per-rank surrogate
 whose derivative is that penalty's, so no collective runs in backward.
 Gradients are mean-all-reduced before Adam and the logged losses are the
-global batch's, as in train/step.py.
+global batch's, as in train/step.py; under a model axis the rows, draws
+and path-length rows are a data rank's, shared by its model group.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from gan3d_tpu_torch.config import Config
+from gan3d_tpu_torch.parallel import tp
 from gan3d_tpu_torch.parallel.dist import ONE, Replicas
 from gan3d_tpu_torch.train.state import Adam
 from gan3d_tpu_torch.train.step import frozen, global_metrics
@@ -119,7 +121,7 @@ def run_generator(G: torch.nn.Module, z: torch.Tensor, draws: Draws,
     num_ws = ws.shape[1]
     cutoff = draws.randint(1, num_ws)
     cutoff = torch.where(draws.uniform() < STYLE_MIXING_PROB, cutoff, num_ws)
-    n = z.shape[0] * replicas.world
+    n = z.shape[0] * replicas.data_world
     ws2 = G.map_ws(replicas.rows(draws.normal((n,) + tuple(z.shape[1:]))))
     idx = torch.arange(num_ws, device=ws.device)[None, :, None]
     ws = torch.where(idx >= cutoff, ws2, ws)
@@ -179,7 +181,7 @@ def path_length_penalty(G: torch.nn.Module, z: torch.Tensor,
     pen = sq / n * PL_WEIGHT
     if create_graph and k:
         c = -2 * PL_WEIGHT / n * (total - n * new_mean) * PL_DECAY / n
-        part = replicas.world * (PL_WEIGHT / n * (dev ** 2).sum()
+        part = replicas.data_world * (PL_WEIGHT / n * (dev ** 2).sum()
                                  + c * lengths.sum())
         pen = pen + (part - part.detach())
     return pen, new_mean.detach()
@@ -207,7 +209,7 @@ def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
     ``step``; returns (err_real, err_fake) of those rows, detached."""
     v2, r1, _ = _flags(cfg, step)
     reg_grads = cfg.sg2_reg_grads
-    z = replicas.rows(draws.normal((real.shape[0] * replicas.world,
+    z = replicas.rows(draws.normal((real.shape[0] * replicas.data_world,
                                     cfg.z_size)))
     with torch.no_grad():
         fake = _generate(G, z, draws, v2, replicas).to(real.dtype)
@@ -219,8 +221,8 @@ def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
         err_real = torch.mean(F.softplus(-real_logits) + pen)
     else:
         err_real = F.softplus(-D(real).float()).mean()
-    d_opt.step(replicas.mean(torch.autograd.grad(err_fake + err_real,
-                                                 d_opt.params)))
+    d_opt.step(tp.reduce_grads(replicas, d_opt.params, torch.autograd.grad(
+        err_fake + err_real, d_opt.params)))
     return err_real.detach(), err_fake.detach()
 
 
@@ -233,7 +235,7 @@ def g_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
     and the image rows, detached, and the new pl_mean)."""
     v2, _, pl = _flags(cfg, step)
     reg_grads = cfg.sg2_reg_grads
-    n = b * replicas.world
+    n = b * replicas.data_world
     z = replicas.rows(draws.normal((n, cfg.z_size)))
     with frozen(D):
         img = _generate(G, z, draws, v2, replicas)
@@ -246,7 +248,8 @@ def g_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
             pen, pl_mean = path_length_penalty(
                 G, z[:k], pl_mean, draws, reg_grads, replicas, n_pl, first)
             err_g = err_g + (pen if reg_grads else pen.detach())
-        g_opt.step(replicas.mean(torch.autograd.grad(err_g, g_opt.params)))
+        g_opt.step(tp.reduce_grads(replicas, g_opt.params,
+                                   torch.autograd.grad(err_g, g_opt.params)))
     if v2:
         d = cfg.ema_decay
         with torch.no_grad():

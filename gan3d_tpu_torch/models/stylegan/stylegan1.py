@@ -135,7 +135,7 @@ class StyleGAN1Generator(nn.Module):
             draws = draws or Draws(z.device, generator)
             # a permutation of the global batch (every rank draws the same)
             mix = (draws.randint(0, MIX_POINTS),
-                   draws.permutation(n * (1 if rp is None else rp.world)))
+                   draws.permutation(n * (1 if rp is None else rp.data_world)))
         site = 0
 
         def maybe_mix(w: torch.Tensor) -> torch.Tensor:

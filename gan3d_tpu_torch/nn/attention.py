@@ -5,9 +5,17 @@ spectrally-normalized convs f/g/h to ch//8 with no bias, g and h max-pooled
 2x so the key length is DHW/8, unscaled softmax(f g^T), output conv v back
 to ch, and a learned scalar gamma initialized to 0 (so a fresh block is the
 identity). Voxels are flattened in (d, h, w) order, as in the JAX module.
+
+Under a model axis (parallel/tp.py) the block takes its input whole
+(gathered, and saved as this rank's slice), gathers q, k and v where a
+sharded projection wrote a slice, runs the kernels on every rank, and
+gives its output in its input's form. ``tp_replicated`` (True) keeps its
+parameters whole; the DCGAN family clears it (parallel/tp.py).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -15,6 +23,7 @@ import torch.nn as nn
 from gan3d_tpu_torch.nn.layers import SNConv3d
 from gan3d_tpu_torch.ops.attention import pooled_attention
 from gan3d_tpu_torch.ops.conv3d import max_pool3d
+from gan3d_tpu_torch.parallel import tp
 
 
 class SelfAttention3d(nn.Module):
@@ -23,17 +32,37 @@ class SelfAttention3d(nn.Module):
 
     def __init__(self, ch: int):
         super().__init__()
-        c = ch // 8
+        c = self.c = ch // 8
         self.f = SNConv3d(ch, c, 1, padding=0, bias=False)
         self.g = SNConv3d(ch, c, 1, padding=0, bias=False)
         self.h = SNConv3d(ch, c, 1, padding=0, bias=False)
         self.v = SNConv3d(c, ch, 1, padding=0, bias=False)
         self.gamma = nn.Parameter(torch.zeros(()))
+        self.ch = ch
+        self.tp_replicated = True
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rp = self.replicas
+        if not tp.on(rp):
+            return self._branch(x) + x
+        local = tp.is_local(x, self.ch)
+        full = tp.gather(x, rp) if local else x
+        with (tp.regathered(full, x, rp) if local
+              else contextlib.nullcontext()):
+            y = self._branch(full, rp)
+        return tp.layout(y, self.ch, local, rp) + x
+
+    def _branch(self, x: torch.Tensor, rp=None) -> torch.Tensor:
+        """gamma * v(attention) of the whole input ``x``; under a model
+        axis q, k, v and v's output are gathered where a sharded
+        projection wrote a slice (gamma then meets every channel, as its
+        gradient needs)."""
         n, _, d, h, w = x.shape
 
         def tokens(t: torch.Tensor) -> torch.Tensor:  # [N,c,...] -> [N,T,c]
+            if rp is not None:
+                t = tp.layout(t, self.c, False, rp)
             return t.reshape(n, t.shape[1], -1).transpose(1, 2)
 
         q = tokens(self.f(x))
@@ -41,4 +70,7 @@ class SelfAttention3d(nn.Module):
         v = tokens(max_pool3d(self.h(x), 2))
         o = pooled_attention(q, k, v).to(q.dtype)          # [N, L, c]
         o = o.transpose(1, 2).reshape(n, -1, d, h, w)
-        return self.gamma.to(x.dtype) * self.v(o) + x
+        y = self.v(o)
+        if rp is not None:
+            y = tp.layout(y, self.ch, False, rp)
+        return self.gamma.to(x.dtype) * y

@@ -8,6 +8,10 @@ in their plain composed form. Faithful quirks:
   for the extra channels (blocks.py:108-122);
 - DBlockDeep is always spectrally normalized (blocks.py:88); GBlockDeep
   follows the ``plain`` (sngan) flag.
+
+Under a model axis (parallel/tp.py) the shortcut meets conv4's output in
+its form: the G shortcut's channel slice and D's concatenation take the
+whole input (gathered), then the slice of conv4's rank.
 """
 
 from __future__ import annotations
@@ -19,6 +23,13 @@ import torch.nn.functional as F
 from gan3d_tpu_torch.nn.layers import SNConv3d
 from gan3d_tpu_torch.nn.norm import BatchNorm3d
 from gan3d_tpu_torch.ops.conv3d import avg_pool3d, upsample_nearest3d
+from gan3d_tpu_torch.parallel import tp
+
+
+def _conv4_local(block: nn.Module) -> bool:
+    """Whether conv4 writes its rank's slice of the output channels."""
+    return (getattr(block.conv4, "tp_span", None) is not None
+            and not block.conv4.tp_gather_out)
 
 
 class GBlockDeep(nn.Module):
@@ -27,7 +38,7 @@ class GBlockDeep(nn.Module):
                  channel_ratio: int = 4):
         super().__init__()
         hid = in_channels // channel_ratio
-        self.out_channels = out_channels
+        self.in_channels, self.out_channels = in_channels, out_channels
         self.upsample = upsample
         self.bn1 = BatchNorm3d(in_channels)
         self.conv1 = SNConv3d(in_channels, hid, 1, padding=0, plain=plain)
@@ -37,11 +48,23 @@ class GBlockDeep(nn.Module):
         self.conv3 = SNConv3d(hid, hid, 3, padding=1, plain=plain)
         self.bn4 = BatchNorm3d(hid)
         self.conv4 = SNConv3d(hid, out_channels, 1, padding=0, plain=plain)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
+
+    def _shortcut(self, x: torch.Tensor) -> torch.Tensor:
+        """x[:, :out_channels] in conv4's output form."""
+        rp, cin, out = self.replicas, self.in_channels, self.out_channels
+        if not tp.on(rp):
+            return x[:, :out]
+        local = _conv4_local(self)
+        if cin == out:
+            return tp.layout(x, out, local, rp)
+        return tp.layout(tp.layout(x, cin, False, rp)[:, :out], out, local,
+                         rp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(F.relu(self.bn1(x)))
         h = F.relu(self.bn2(h))
-        x = x[:, :self.out_channels]
+        x = self._shortcut(x)
         if self.upsample:
             x = upsample_nearest3d(x, 2)
             h = upsample_nearest3d(h, 2)
@@ -63,6 +86,8 @@ class DBlockDeep(nn.Module):
         self.conv_sc = (SNConv3d(in_channels, out_channels - in_channels, 1,
                                  padding=0)
                         if in_channels != out_channels else None)
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # every caller pre-activates (gan3d_tpu/nn/blocks.py:80, 90)
@@ -75,6 +100,14 @@ class DBlockDeep(nn.Module):
             h = avg_pool3d(h, 2)
             sc = avg_pool3d(sc, 2)
         h = self.conv4(h)
+        rp = self.replicas
+        if not tp.on(rp):
+            if self.conv_sc is not None:
+                sc = torch.cat([sc, self.conv_sc(sc)], dim=1)
+            return h + sc
+        cin, out = self.in_channels, self.out_channels
         if self.conv_sc is not None:
-            sc = torch.cat([sc, self.conv_sc(sc)], dim=1)
-        return h + sc
+            sc = torch.cat([tp.layout(sc, cin, False, rp),
+                            tp.layout(self.conv_sc(sc), out - cin, False,
+                                      rp)], dim=1)
+        return h + tp.layout(sc, out, _conv4_local(self), rp)

@@ -21,6 +21,12 @@ Convs go through ``ops/conv3d.conv3d``, which picks the route the
 ``wide_conv`` / ``fast_dw`` modes select; the gradient reaches the
 original weight through the route's weight input.
 
+Under a model axis (``replicas`` with ``model`` > 1, parallel/tp.py) a
+layer whose weight the rule shards holds its output channels' slice and
+computes only those (``tp.run``: its input gathered when it arrives
+sharded, its input gradient summed over the model group); a replicated
+layer computes alike on every rank.
+
 ``plain=True`` skips spectral norm: the reference's inverted ``sngan=True``
 flag (utils.py:9-11). ``std`` draws the weight from N(0, std) before the
 spectral norm's warm start (the DCGAN's init, gan3d_tpu/models/dcgan.py:61).
@@ -43,6 +49,12 @@ import torch.nn.functional as F
 from torch.nn.utils.parametrizations import spectral_norm
 
 from gan3d_tpu_torch.ops.conv3d import conv3d
+from gan3d_tpu_torch.parallel import tp
+
+
+def _cast(b: Optional[torch.Tensor], x: torch.Tensor
+          ) -> Optional[torch.Tensor]:
+    return None if b is None else b.to(x.dtype)
 
 
 class Conv3d(nn.Conv3d):
@@ -58,11 +70,17 @@ class Conv3d(nn.Conv3d):
             nn.init.orthogonal_(self.weight)
         if std is not None:
             nn.init.normal_(self.weight, 0.0, std)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
+
+    def _op(self, x: torch.Tensor, b: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+        return conv3d(x, self.weight.to(x.dtype), _cast(b, x), self.stride,
+                      self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return conv3d(x, w, b, self.stride, self.padding)
+        if tp.on(self.replicas):
+            return tp.run(self, x, self._op)
+        return self._op(x, self.bias)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
@@ -76,11 +94,17 @@ class ConvTranspose3d(nn.ConvTranspose3d):
                          padding, bias=bias)
         if std is not None:
             nn.init.normal_(self.weight, 0.0, std)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
+
+    def _op(self, x: torch.Tensor, b: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+        return F.conv_transpose3d(x, self.weight.to(x.dtype), _cast(b, x),
+                                  self.stride, self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose3d(x, w, b, self.stride, self.padding)
+        if tp.on(self.replicas):
+            return tp.run(self, x, self._op)
+        return self._op(x, self.bias)
 
 
 class Linear(nn.Linear):
@@ -91,11 +115,16 @@ class Linear(nn.Linear):
         super().__init__(in_features, out_features, bias=bias)
         if orthogonal:
             nn.init.orthogonal_(self.weight)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
+
+    def _op(self, x: torch.Tensor, b: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(b, x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, w, b)
+        if tp.on(self.replicas):
+            return tp.run(self, x, self._op)
+        return self._op(x, self.bias)
 
 
 class SNConv3d(Conv3d):

@@ -35,7 +35,7 @@ class RandomCrop3D(nn.Module):
         (``replicas``) every rank draws the global batch's offsets and
         keeps its rows."""
         rp = self.replicas
-        n = shape[0] * (1 if rp is None else rp.world)
+        n = shape[0] * (1 if rp is None else rp.data_world)
         off = torch.stack(
             [torch.randint(0, s - s // 2 + 1, (n, self.n_crops),
                            generator=generator, device=device)

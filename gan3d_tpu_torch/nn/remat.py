@@ -30,6 +30,9 @@ pass noise in. Under ``torch.no_grad`` a group runs as it is. Remat never
 wraps a module: models apply it in ``forward``, so state_dict keys do not
 change.
 
+Under a model axis (parallel/tp.py) a group's recompute gathers the
+channels again, in the same order on every rank of the model group.
+
 ``nested`` is the port's stage group: one checkpoint over a stage whose
 recompute checkpoints each block again, so backward holds one stage's
 block boundaries and one block's activations at a time, never a whole
@@ -47,6 +50,8 @@ import torch
 import torch.nn as nn
 from torch.nn.utils.parametrizations import _SpectralNorm
 from torch.utils.checkpoint import checkpoint as _checkpoint
+
+from gan3d_tpu_torch.parallel import tp
 
 SCOPES = ("block", "stage")
 # the modules whose train-mode forward writes their buffers
@@ -95,11 +100,13 @@ def checkpoint(fn: Callable, modules: Sequence[nn.Module], *args):
     first = [True]
 
     def run(*a):
-        if first[0]:
-            first[0] = False
-            return fn(*a)
-        with swapped(state):
-            return fn(*a)
+        # the group's saved tensors are the checkpoint's (parallel/tp.py)
+        with tp.in_remat():
+            if first[0]:
+                first[0] = False
+                return fn(*a)
+            with swapped(state):
+                return fn(*a)
 
     return _checkpoint(run, *args, use_reentrant=False,
                        preserve_rng_state=False)

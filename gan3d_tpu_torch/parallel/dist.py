@@ -1,5 +1,5 @@
-"""Data parallelism over processes: one rank a card, or N gloo ranks on the
-CPU.
+"""Data and tensor parallelism over processes: one rank a card, or N gloo
+ranks on the CPU.
 
 Counterpart of gan3d_tpu/parallel/mesh.py:22-93 for its 1-D ``data`` mesh
 (``make_mesh``, ``init_distributed``, ``put_global_batch``). The JAX
@@ -21,8 +21,18 @@ collectives itself:
   of a global batch, the differentiable sum and gather that BatchNorm's
   cross-replica statistics and the minibatch-std layer use, the mean of a
   list of tensors in one flat buffer (the step's gradients, its logged
-  losses), and the replica check (every parameter and buffer bit-equal to
-  rank 0's).
+  losses), and the replica check (every replicated parameter and buffer
+  bit-equal to rank 0's, every shard to its data group's first rank's).
+
+The rank grid (``model_devices``, the JAX ``make_mesh``'s model axis,
+gan3d_tpu/parallel/mesh.py:16-45): world = data x model ranks, adjacent
+ranks sharing a model group, rank = d * model + m. The ranks of a model
+group take the same rows and hold their slices of the wide layers
+(parallel/tp.py); the ranks of a data group hold the same slices of
+different rows. Rows, BatchNorm's statistics, the minibatch-std gather and
+the gradient mean run over the data group (``data_world`` ranks, this one
+``data_rank``), the channel gathers and sums of parallel/tp.py over the
+model group; ``rank`` and ``world`` count every rank.
 
 NCCL runs the collectives on the card and gloo on the CPU. A rank of
 ``world == 1`` with a group still all-reduces its gradients (a mean over
@@ -98,6 +108,9 @@ class Replicas:
     local_world: int = 1
     device: torch.device = torch.device("cpu")
     group: Any = None
+    model: int = 1          # ranks of a model group
+    data_group: Any = None  # with model > 1: the ranks of this one's slices
+    model_group: Any = None  # with model > 1: the ranks of this one's rows
 
     def __deepcopy__(self, memo):  # models carry it; a copy shares it
         return self
@@ -111,45 +124,66 @@ class Replicas:
     def host(self) -> int:
         return self.rank // self.local_world
 
+    @property
+    def data_world(self) -> int:
+        """The ranks that split the batch."""
+        return self.world // self.model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's place in its model group: which slice it holds."""
+        return self.rank % self.model
+
+    @property
+    def dgroup(self) -> Any:
+        """The process group of the data group (None: no collective)."""
+        return self.group if self.model == 1 else self.data_group
+
     def span(self, n: int) -> Tuple[int, int]:
         """[start, stop) of this rank's rows of a global batch of ``n``."""
-        if n % self.world:
+        if n % self.data_world:
             raise ValueError(f"a batch of {n} does not split over "
-                             f"{self.world} ranks")
-        b = n // self.world
-        return self.rank * b, (self.rank + 1) * b
+                             f"{self.data_world} ranks")
+        b = n // self.data_world
+        return self.data_rank * b, (self.data_rank + 1) * b
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of the global batch ``x``."""
-        if self.world == 1:
+        if self.data_world == 1:
             return x
         lo, hi = self.span(x.shape[0])
         return x[lo:hi]
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over ranks, differentiable."""
-        if self.world == 1:
+        """The sum of ``x`` over the data group, differentiable."""
+        if self.data_world == 1:
             return x
-        return _AllReduceSum.apply(self.group, x)
+        return _AllReduceSum.apply(self.dgroup, x)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows in rank order, differentiable."""
-        if self.world == 1:
+        """Every data rank's rows in rank order, differentiable."""
+        if self.data_world == 1:
             return x
-        return _AllGather.apply(self.group, self.world, self.rank, x)
+        return _AllGather.apply(self.dgroup, self.data_world,
+                                self.data_rank, x)
 
     def mean(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """The mean over ranks of each of ``tensors`` (one dtype), through
-        one all-reduce of a flat buffer; not differentiable. The
-        one-process run returns them as they are."""
-        if self.group is None:
+        """The mean over the data group of each of ``tensors`` (one
+        dtype), through one all-reduce of a flat buffer; not
+        differentiable. The one-process run, and a data group of one
+        rank beside a model axis, return them as they are."""
+        if self.dgroup is None:
             return list(tensors)
         if len({t.dtype for t in tensors}) > 1:
             raise ValueError("Replicas.mean takes tensors of one dtype")
         with torch.no_grad():
             flat = torch.cat([t.reshape(-1) for t in tensors])
-            dist.all_reduce(flat, group=self.group)
-            flat.div_(self.world)
+            dist.all_reduce(flat, group=self.dgroup)
+            flat.div_(self.data_world)
             out, at = [], 0
             for t in tensors:
                 out.append(flat[at:at + t.numel()].view_as(t))
@@ -168,24 +202,18 @@ class Replicas:
         dist.broadcast(t, 0, group=self.group)
         return bool(t.item())
 
-    def check(self, tensors: Iterable[torch.Tensor]) -> int:
-        """The replica check: rank 0's ``tensors`` (a model's parameters
-        and buffers) broadcast, each rank's compared with them bit for
-        bit; raises on every rank when any rank differs. Returns the
-        number of tensors compared."""
+    def check(self, tensors: Iterable[torch.Tensor],
+              shards: Iterable[torch.Tensor] = ()) -> int:
+        """The replica check: rank 0's ``tensors`` (a model's replicated
+        parameters and buffers) broadcast, each rank's compared with them
+        bit for bit, and the same for ``shards`` (the sharded ones) within
+        each data group, against its first rank's; raises on every rank
+        when any rank differs. Returns the number of tensors compared."""
         tensors = [t.detach() for t in tensors]
-        bad = 0
-        # one order on every rank (a set's would follow the dtypes' ids)
-        for dtype in sorted({t.dtype for t in tensors}, key=str):
-            mine = [t for t in tensors if t.dtype == dtype]
-            ref = torch.cat([t.reshape(-1) for t in mine])
-            if self.group is not None:
-                dist.broadcast(ref, 0, group=self.group)
-            for t, r in zip(mine, ref.split([t.numel() for t in mine])):
-                # bit for bit (a nan equals its own bits, -0 is not +0)
-                bad += not torch.equal(
-                    r.contiguous().view(torch.uint8),
-                    t.reshape(-1).contiguous().view(torch.uint8))
+        shards = [t.detach() for t in shards]
+        bad = _differ(tensors, 0, self.group)
+        if shards:
+            bad += _differ(shards, self.model_rank, self.data_group)
         total = torch.tensor([float(bad)], device=self.device)
         if self.group is not None:
             dist.all_reduce(total, group=self.group)
@@ -193,7 +221,25 @@ class Replicas:
             raise RuntimeError(
                 f"replica check: {int(total.item())} tensors differ from "
                 f"rank 0's ({bad} on rank {self.rank})")
-        return len(tensors)
+        return len(tensors) + len(shards)
+
+
+def _differ(tensors: List[torch.Tensor], src: int, group: Any) -> int:
+    """How many of ``tensors`` differ, bit for bit, from global rank
+    ``src``'s, broadcast over ``group`` (None: nothing to compare)."""
+    bad = 0
+    # one order on every rank (a set's would follow the dtypes' ids)
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        mine = [t for t in tensors if t.dtype == dtype]
+        ref = torch.cat([t.reshape(-1) for t in mine])
+        if group is not None:
+            dist.broadcast(ref, src, group=group)
+        for t, r in zip(mine, ref.split([t.numel() for t in mine])):
+            # bit for bit (a nan equals its own bits, -0 is not +0)
+            bad += not torch.equal(
+                r.contiguous().view(torch.uint8),
+                t.reshape(-1).contiguous().view(torch.uint8))
+    return bad
 
 
 ONE = Replicas()
@@ -212,13 +258,15 @@ def attach(module: torch.nn.Module, replicas: Replicas) -> None:
 class Plan:
     """The ranks of a run: ``world`` in all, ``local`` started on this
     host, the first of them global rank ``first``, on ``device`` ("cuda"
-    or "cpu"); ``coordinator`` is host:port across hosts, else ""."""
+    or "cpu"); ``coordinator`` is host:port across hosts, else "";
+    ``model`` ranks a model group."""
 
     world: int
     local: int
     first: int
     device: str
     coordinator: str = ""
+    model: int = 1
 
     @property
     def parallel(self) -> bool:
@@ -229,14 +277,22 @@ class Plan:
 
 def plan(num_devices: int, platform: str = "", distributed: bool = False,
          coordinator_address: str = "", num_processes: int = 0,
-         process_id: int = -1, device: Optional[str] = None) -> Plan:
+         process_id: int = -1, device: Optional[str] = None,
+         model_devices: int = 1, spatial_devices: int = 1) -> Plan:
     """The ranks ``num_devices`` asks for (JAX: ``make_mesh``'s device
     count, 0 = every device) on ``platform`` (or the resolved ``device``
     type). On the card a rank is a card: 0 takes every visible card of
     each host, and more than a host shows raises. On the CPU
     ``num_devices`` gloo ranks run (0 = one a host). With ``distributed``
     the ranks spread evenly over ``num_processes`` hosts, this one
-    ``process_id``, meeting at ``coordinator_address``."""
+    ``process_id``, meeting at ``coordinator_address``. ``model_devices``
+    ranks form a model group (on one host); as ``make_mesh``, it raises
+    beside ``spatial_devices`` > 1 and on a world it does not divide."""
+    if spatial_devices > 1 and model_devices > 1:
+        raise ValueError("spatial and model parallelism cannot be combined "
+                         "yet — pick one of spatial_devices/model_devices")
+    if model_devices < 1:
+        raise ValueError(f"model_devices={model_devices} is below 1")
     if device is None:
         from gan3d_tpu_torch.utils.platform import resolve_device
 
@@ -264,23 +320,56 @@ def plan(num_devices: int, platform: str = "", distributed: bool = False,
         raise ValueError(
             f"num_devices={num_devices} asks {local} cards a host; "
             f"{torch.cuda.device_count()} are visible")
-    return Plan(world=local * hosts, local=local, first=host * local,
+    world = local * hosts
+    if world % model_devices or local % model_devices:
+        raise ValueError(
+            f"{world} devices not divisible by {model_devices}"
+            + ("" if world % model_devices else
+               f" on each host ({local} a host): a model group spans one "
+               "host"))
+    return Plan(world=world, local=local, first=host * local,
                 device=device,
-                coordinator=coordinator_address if distributed else "")
+                coordinator=coordinator_address if distributed else "",
+                model=model_devices)
 
 
 def plan_for(cfg, device: Optional[str] = None) -> Plan:
     """``plan`` of a training Config."""
     return plan(cfg.num_devices, cfg.platform, cfg.distributed,
                 cfg.coordinator_address, cfg.num_processes, cfg.process_id,
-                device)
+                device, cfg.model_devices, cfg.spatial_devices)
+
+
+def grid(rank: int, world: int, local_rank: int, local_world: int,
+         device: torch.device, model: int = 1) -> Replicas:
+    """This rank's ``Replicas`` in the joined default process group, with
+    its data and model groups when ``model`` > 1 (every rank makes every
+    group, in one order, as ``new_group`` requires)."""
+    if world % model:
+        raise ValueError(f"{world} devices not divisible by {model}")
+    data_group = model_group = None
+    if model > 1:
+        for m in range(model):  # ranks m, m + model, ...: one slice each
+            ranks = list(range(m, world, model))
+            g = dist.new_group(ranks) if len(ranks) > 1 else None
+            if rank % model == m:
+                data_group = g
+        for d in range(world // model):  # adjacent ranks: one row set
+            g = dist.new_group(list(range(d * model, (d + 1) * model)))
+            if rank // model == d:
+                model_group = g
+    return Replicas(rank=rank, world=world, local_rank=local_rank,
+                    local_world=local_world, device=device,
+                    group=dist.group.WORLD, model=model,
+                    data_group=data_group, model_group=model_group)
 
 
 def init(rank: int, world: int, init_method: str, local_rank: int,
          local_world: int, device: torch.device,
-         timeout: datetime.timedelta = TIMEOUT) -> Replicas:
+         timeout: datetime.timedelta = TIMEOUT, model: int = 1) -> Replicas:
     """Join the process group as ``rank`` of ``world``: NCCL with the rank
-    pinned to ``device`` on the card, gloo on the CPU."""
+    pinned to ``device`` on the card, gloo on the CPU; ``model`` ranks a
+    model group (``grid``)."""
     if device.type == "cuda":
         torch.cuda.set_device(device)
         dist.init_process_group("nccl", init_method=init_method, rank=rank,
@@ -289,9 +378,7 @@ def init(rank: int, world: int, init_method: str, local_rank: int,
     else:
         dist.init_process_group("gloo", init_method=init_method, rank=rank,
                                 world_size=world, timeout=timeout)
-    return Replicas(rank=rank, world=world, local_rank=local_rank,
-                    local_world=local_world, device=device,
-                    group=dist.group.WORLD)
+    return grid(rank, world, local_rank, local_world, device, model)
 
 
 def _entry(local_rank: int, fn: Callable, args: tuple, p: Plan,
@@ -304,7 +391,7 @@ def _entry(local_rank: int, fn: Callable, args: tuple, p: Plan,
     device = (torch.device("cuda", local_rank) if p.device == "cuda"
               else torch.device("cpu"))
     rp = init(p.first + local_rank, p.world, init_method, local_rank,
-              p.local, device)
+              p.local, device, model=p.model)
     try:
         result = fn(rp, *args)
         if rp.main:

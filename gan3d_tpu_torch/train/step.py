@@ -44,7 +44,11 @@ weights and crop offsets from the same generator and keeps its rows
 (given ``noises`` and ``alphas`` are global too), each update's gradients
 are mean-all-reduced (one flat buffer a network) before Adam, and the
 logged losses are the global batch's. The one-process run (``ONE``) is
-the step above, unchanged.
+the step above, unchanged. Under a model axis (``model_devices``,
+parallel/tp.py) the ranks of a model group take the same rows and draws;
+``tp.reduce_grads`` makes the replicated leaves' gradients whole and
+alike over the model group before the data group's mean, and Adam steps
+each rank's shards.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ import torch
 from torch.func import functional_call
 
 from gan3d_tpu_torch.config import Config
+from gan3d_tpu_torch.parallel import tp
 from gan3d_tpu_torch.parallel.dist import ONE, Replicas
 from gan3d_tpu_torch.train import losses
 from gan3d_tpu_torch.train.state import Adam
@@ -80,7 +85,7 @@ def _noise(cfg: Config, b: int, dev: torch.device,
            replicas: Replicas = ONE) -> torch.Tensor:
     """The rank's rows of the global batch's noise (``b`` rows a rank)."""
     if noise is None:
-        noise = torch.randn((b * replicas.world, cfg.z_size),
+        noise = torch.randn((b * replicas.data_world, cfg.z_size),
                             generator=generator, device=dev)
     return replicas.rows(noise.to(dev, torch.float32))
 
@@ -129,13 +134,14 @@ def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
         err = err_fake - err_real
         if cfg.gp_weight > 0:
             if alpha is None:  # the global batch's
-                alpha = torch.rand((real.shape[0] * replicas.world, 1, 1, 1,
-                                    1), dtype=real.dtype, device=real.device,
-                                   generator=generator)
+                alpha = torch.rand(
+                    (real.shape[0] * replicas.data_world, 1, 1, 1, 1),
+                    dtype=real.dtype, device=real.device, generator=generator)
             err = err + losses.gradient_penalty(
                 lambda x: _d_out(D, x, generator, crops, start), real, fake,
                 cfg.gp_weight, alpha=replicas.rows(alpha.to(real.device)))
-    d_opt.step(replicas.mean(torch.autograd.grad(err, d_opt.params)))
+    d_opt.step(tp.reduce_grads(replicas, d_opt.params,
+                               torch.autograd.grad(err, d_opt.params)))
     return err_real.detach(), err_fake.detach()
 
 
@@ -149,7 +155,8 @@ def g_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
     fake = G(_noise(cfg, b, device, generator, noise, replicas))
     with frozen(D):
         err_g = losses.g_adversarial(_d_out(D, fake, generator))
-        g_opt.step(replicas.mean(torch.autograd.grad(err_g, g_opt.params)))
+        g_opt.step(tp.reduce_grads(replicas, g_opt.params,
+                                   torch.autograd.grad(err_g, g_opt.params)))
     return err_g.detach(), fake.detach()
 
 

@@ -52,6 +52,20 @@ buffer bit-equal to rank 0's) runs and is printed. On the card the local
 rank 0 builds the kernels the run needs before the others load them.
 Without ``replicas`` a config that asks for more than one rank raises.
 
+Tensor parallelism (gan3d_tpu/train/trainer.py:131-148, 216-223):
+``model_devices`` > 1 makes the ranks a data x model grid (parallel/
+dist.py); every rank builds both networks whole from the seed and keeps
+its slices (parallel/tp.py), so Adam's moments and StyleGAN2's EMA are
+shards too. Checkpoints stay whole, in the reference's layout: every rank
+takes part in the gathers, rank 0 writes, and a resume slices, so a
+checkpoint moves between a one-process run and any grid. The samples and
+the in-loop FID run G on every rank (its forward is collective). The
+replica check holds the replicated tensors alike on every rank and each
+shard alike over its data group.
+
+``param_dtype`` is accepted and, as in the JAX package (whose modules fix
+``param_dtype=jnp.float32``), the parameters stay f32.
+
 ``track_energy`` writes ``energy.json`` (utils/energy.py): the steps'
 time, synchronized on the card, x the world size x a card's power limit.
 """
@@ -61,7 +75,7 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +86,7 @@ from gan3d_tpu_torch.models.registry import build_models
 from gan3d_tpu_torch.models.stylegan import loss as sg_loss
 from gan3d_tpu_torch.nn.attention import SelfAttention3d
 from gan3d_tpu_torch.ops.conv3d import set_fast_dw_mode, set_wide_conv_mode
+from gan3d_tpu_torch.parallel import tp
 from gan3d_tpu_torch.parallel.dist import ONE, Replicas, plan_for
 from gan3d_tpu_torch.train.checkpoint import CheckpointManager
 from gan3d_tpu_torch.train.state import Adam
@@ -83,16 +98,15 @@ from gan3d_tpu_torch.utils.profiling import StepProfiler
 
 
 def _reject_unported(cfg: Config) -> None:
-    """Raise on options whose code paths the port does not have yet."""
-    later = []
+    """Raise on options whose code paths the port does not have yet (and,
+    as the JAX package's ``make_mesh``, on spatial and model parallelism
+    together)."""
+    if cfg.spatial_devices > 1 and cfg.model_devices > 1:
+        raise ValueError("spatial and model parallelism cannot be combined "
+                         "yet — pick one of spatial_devices/model_devices")
     if cfg.spatial_devices > 1:
-        later.append("spatial_devices > 1 (ROADMAP.md queue A)")
-    if cfg.model_devices > 1:
-        later.append("model_devices > 1 (ROADMAP.md queue A)")
-    if cfg.param_dtype != "float32":
-        later.append(f"param_dtype={cfg.param_dtype!r}")
-    if later:
-        raise NotImplementedError("not ported yet: " + "; ".join(later))
+        raise NotImplementedError("not ported yet: spatial_devices > 1 "
+                                  "(ROADMAP.md queue A)")
 
 
 def hint_128(cfg: Config) -> Optional[str]:
@@ -138,6 +152,10 @@ def _world(cfg: Config, replicas: Optional[Replicas],
     if cfg.num_devices not in (0, replicas.world):
         raise ValueError(f"num_devices={cfg.num_devices} but the process "
                          f"group has {replicas.world} ranks")
+    if cfg.model_devices != replicas.model:
+        raise ValueError(f"model_devices={cfg.model_devices} but the "
+                         f"process group's model groups have "
+                         f"{replicas.model} ranks")
     if replicas.device.type != device.type:
         raise ValueError(f"platform {cfg.platform!r} but the rank runs on "
                          f"{replicas.device}")
@@ -167,9 +185,9 @@ class Trainer:
         device = resolve_device(cfg.platform)
         rp = self.replicas = _world(cfg, replicas, device)
         self.main = rp.main
-        if cfg.batch_size % rp.world:
+        if cfg.batch_size % rp.data_world:
             raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
-                             f"{rp.world} data-parallel ranks")
+                             f"{rp.data_world} data-parallel devices")
         # the conv routes, before the models exist (as
         # gan3d_tpu/train/trainer.py:103-104); a mode outside MODES raises
         set_wide_conv_mode(cfg.wide_conv)
@@ -203,6 +221,7 @@ class Trainer:
             rp.barrier()
         self.G = G.to(self.device).train()
         self.D = D.to(self.device).train()
+        self.tp = tp.on(rp)
         self.stylegan2 = cfg.family() == "stylegan2"
         self.stylegan = self.stylegan2 or cfg.family() == "stylegan"
         # StyleGAN2's EMA of G (a copy of G, gan3d_tpu/train/trainer.py
@@ -376,14 +395,29 @@ class Trainer:
             self.log_interpolation(step)
 
     # ------------------------------------------------------------------
+    def _state_dict(self, net: torch.nn.Module) -> dict:
+        """``net``'s state_dict, whole (under a model axis every rank takes
+        part in the gathers)."""
+        if self.tp:
+            return tp.full_state_dict(net, self.replicas)
+        return net.state_dict()
+
+    def _opt_state(self, opt: Adam) -> dict:
+        sd = opt.state_dict()
+        if self.tp:
+            for k in ("nu", "mu"):
+                if sd[k] is not None:
+                    sd[k] = tp.full_moments(opt.params, sd[k], self.replicas)
+        return sd
+
     def save_checkpoint(self) -> None:
         self._flush_pending()
         payload = {
             "step": self.step,
-            "modelG_state_dict": self.G.state_dict(),
-            "modelD_state_dict": self.D.state_dict(),
-            "optimizerG_state_dict": self.g_opt.state_dict(),
-            "optimizerD_state_dict": self.d_opt.state_dict(),
+            "modelG_state_dict": self._state_dict(self.G),
+            "modelD_state_dict": self._state_dict(self.D),
+            "optimizerG_state_dict": self._opt_state(self.g_opt),
+            "optimizerD_state_dict": self._opt_state(self.d_opt),
             "lossG": self.G_losses, "lossD": self.D_losses,
             "fid": self.fid_epoch,
         }
@@ -395,10 +429,19 @@ class Trainer:
         payload = self.ckpt.restore(self.device)
         if payload is None:
             return 0
-        self.G.load_state_dict(payload["modelG_state_dict"])
-        self.D.load_state_dict(payload["modelD_state_dict"])
-        self.g_opt.load_state_dict(payload["optimizerG_state_dict"])
-        self.d_opt.load_state_dict(payload["optimizerD_state_dict"])
+        for net, opt, tag in ((self.G, self.g_opt, "G"),
+                              (self.D, self.d_opt, "D")):
+            sd, osd = (payload[f"model{tag}_state_dict"],
+                       payload[f"optimizer{tag}_state_dict"])
+            if self.tp:  # a whole checkpoint: this rank's slices
+                tp.load_full_state_dict(net, sd, self.replicas)
+                osd = {**osd, **{k: tp.local_moments(opt.params, osd[k],
+                                                     self.replicas)
+                                 for k in ("nu", "mu")
+                                 if osd[k] is not None}}
+            else:
+                net.load_state_dict(sd)
+            opt.load_state_dict(osd)
         if self.stylegan:
             self.pl_mean = payload["pl_mean"].to(self.device)
         if self.stylegan2:
@@ -418,20 +461,34 @@ class Trainer:
         host = torch.from_numpy(np.stack([next(batches)
                                           for _ in range(self.cfg.iterD)]))
         rp = self.replicas
-        if rp.local_world > 1:
-            b = host.shape[1] // rp.local_world
-            host = host[:, rp.local_rank * b:(rp.local_rank + 1) * b]
+        # the host's data ranks (a model group lies on one host)
+        local = rp.local_world // rp.model
+        if local > 1:
+            b = host.shape[1] // local
+            i = rp.local_rank // rp.model
+            host = host[:, i * b:(i + 1) * b]
         return host.to(self.device).unsqueeze(2), host[-1]
 
-    def replica_tensors(self) -> List[torch.Tensor]:
-        """Everything every rank must hold alike: both networks'
-        parameters and buffers, both optimizers' moments, StyleGAN2's EMA
-        and the path-length mean."""
-        out = [t for net in (self.G, self.D)
-               for t in (*net.parameters(), *net.buffers())]
+    def replica_tensors(self) -> Tuple[List[torch.Tensor],
+                                       List[torch.Tensor]]:
+        """(what every rank must hold alike, what every rank of a data
+        group must: the shards): both networks' parameters and buffers
+        (the running stats synced over the model group first), both
+        optimizers' moments, StyleGAN2's EMA and the path-length mean."""
+        for net in (self.G, self.D):
+            tp.sync_buffers(net, self.replicas)
+        rep, shards = [], []
+        for net in (self.G, self.D):
+            for p in net.parameters():
+                (shards if tp.sharded(p) else rep).append(p)
+            rep += list(net.buffers())
         for opt in (self.g_opt, self.d_opt):
-            out += opt.nu + (opt.mu or [])
-        return out + self.ema + [self.pl_mean.reshape(1)]
+            for p, *moments in zip(opt.params, opt.nu, *(
+                    [opt.mu] if opt.mu is not None else [])):
+                (shards if tp.sharded(p) else rep).extend(moments)
+        for p, e in zip(self.g_opt.params, self.ema):
+            (shards if tp.sharded(p) else rep).append(e)
+        return rep + [self.pl_mean.reshape(1)], shards
 
     # ------------------------------------------------------------------
     def train(self) -> None:
@@ -490,7 +547,7 @@ class Trainer:
         self.save_checkpoint()
         dt = time.time() - t0
         if rp.world > 1:
-            n = rp.check(self.replica_tensors())
+            n = rp.check(*self.replica_tensors())
             if self.main:
                 print(f"replica check: {n} tensors bit-equal to rank 0's on "
                       f"all {rp.world} ranks", flush=True)

@@ -7,6 +7,8 @@
   there is no CUDA device; it never carries on on the CPU.
 - Options whose code paths are not ported raise instead of being ignored;
   on the card, so does the gradient penalty for a D with attention.
+  ``param_dtype`` is accepted with the parameters kept f32 in both
+  packages (held against the JAX init's leaves).
 - A 2-step CPU run of ``python -m gan3d_tpu_torch.cli.train`` at 16^3,
   filters 8 writes params.json, a checkpoint and a PNG, and a re-run with
   more steps resumes ("starting from step 2"), for the BigGAN flagship's
@@ -119,12 +121,61 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
                                 dict(spatial_devices=2), dict(model_devices=2),
                                 dict(param_dtype="bfloat16")])
 def test_unported_options_raise(tmp_path, kw):
+    """``spatial_devices`` > 1 is not ported and raises. ``param_dtype``
+    is accepted and the parameters stay f32, as in the JAX package.
+    ``model_devices=2`` in one process, with no process group, is refused
+    as any config of more than one rank is (its ranks start through the
+    train CLI)."""
     from gan3d_tpu_torch.data import open_dataset
 
     cfg = Config(resolution=16, filterG=8, filterD=8, z_size=8, batch_size=2,
                  platform="cpu", log_dir=str(tmp_path / "run"), **kw)
-    with pytest.raises(NotImplementedError):
-        Trainer(open_dataset(_dataset(tmp_path)), cfg)
+    if "spatial_devices" in kw:
+        with pytest.raises(NotImplementedError):
+            Trainer(open_dataset(_dataset(tmp_path)), cfg)
+    elif "model_devices" in kw:
+        with pytest.raises(ValueError, match="not divisible by 2"):
+            Trainer(open_dataset(_dataset(tmp_path)), cfg)
+        with pytest.raises(ValueError, match="start the run with"):
+            Trainer(open_dataset(_dataset(tmp_path)),
+                    cfg.replace(num_devices=2))
+    else:
+        t = Trainer(open_dataset(_dataset(tmp_path)), cfg)
+        dtypes = {p.dtype for net in (t.G, t.D) for p in net.parameters()}
+        assert dtypes == {torch.float32}
+        assert {m.dtype for m in t.g_opt.nu + t.d_opt.nu} == {torch.float32}
+
+
+@pytest.mark.parametrize("family", ["biggan", "stylegan2"])
+def test_param_dtype_keeps_f32_params_like_jax(family):
+    """Under ``param_dtype="bfloat16"`` both packages keep every parameter
+    (and every state leaf) in f32: the JAX modules fix
+    ``param_dtype=jnp.float32`` (gan3d_tpu/models/biggan.py:75,153), and
+    its init's leaves, read by ``jax.eval_shape``, are all f32."""
+    import jax
+    import jax.numpy as jnp
+    from gan3d_tpu.config import Config as JConfig
+    from gan3d_tpu.models import build_models as jbuild
+
+    flags = (dict(biggan=True, hinge=True, resolution=16, filterG=8,
+                  filterD=8) if family == "biggan"
+             else dict(stylegan2=True, resolution=8, filterG=16,
+                       filterD=16))
+    kw = dict(flags, z_size=8, batch_size=2, param_dtype="bfloat16")
+    G_j, D_j = jbuild(JConfig(**kw))
+    r = kw["resolution"]
+    g_rngs = {"params": jax.random.key(0), "noise": jax.random.key(1)}
+    shapes = [jax.eval_shape(G_j.init, g_rngs, jnp.zeros((2, 8))),
+              jax.eval_shape(D_j.init, {"params": jax.random.key(0)},
+                             jnp.zeros((2, r, r, r, 1)))]
+    jax_dtypes = {str(leaf.dtype) for tree in shapes
+                  for leaf in jax.tree_util.tree_leaves(tree)}
+    assert jax_dtypes == {"float32"}
+    G, D = build_models(Config(**kw))
+    port = {t.dtype for net in (G, D)
+            for t in (*net.parameters(), *net.buffers())
+            if t.is_floating_point()}
+    assert port == {torch.float32}
 
 
 @pytest.mark.parametrize("kw", [dict(dcgan=True, sagan=True),

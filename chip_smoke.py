@@ -20,7 +20,8 @@ Phases, each printing its own line:
              DCGAN with --sagan (G: L=4096, M=512, c=16; D: L=512, M=64,
              c=32) and the two of the 128^3 BigGAN-Deep at filters 128 (G:
              L=32768, M=4096, c=64; D: L=4096, M=512, c=128), N=16, in f32
-             and bf16
+             and bf16, and the flagship's two on a rank of a space group
+             of 2 and 4 (L / S queries against the whole M keys) in bf16
              (each pass has two routes: bf16 on the tensor-core kernels,
              f32 on the FMA kernels; the backward's check runs on the
              forward's o and lse),
@@ -88,8 +89,8 @@ Phases, each printing its own line:
              no Inception weights were found;
    train128 — 128^3, z 512, iterD 2, bf16 (TRAIN128_RUNS): the
              reference's default widths (filters 128) with the flagship's
-             flags, --remat=True --remat_scope=stage --fused_step=False (3
-             steps and a resume to 4), then --remat_scope=block with the
+             flags, --remat=True --remat_scope=stage --fused_step=False (2
+             steps and a resume to 3), then --remat_scope=block with the
              fused step (2 steps), both at batch 16; the flagship's
              widths (filters 64, batch 16) without remat and with it per
              stage (2 steps each: the same step-0 losses to bf16 rounding,
@@ -138,13 +139,32 @@ Phases, each printing its own line:
              NCCL in bf16 at batch 16 over 2 cards (model 2) and 4 (data
              2 x model 2) where there are that many (else a line says it
              was not run);
+   spatial — spatial parallelism (slice 12): the flagship through the
+             same entry point with --spatial_devices=2: two ranks sharing
+             the card over a gloo group the script makes (data 1 x space
+             2, each rank a depth slab), f32 at the tp phase's batch,
+             against the tp phase's one-process f32 run (2 steps: step-0
+             losses 1e-5, step 0's gradients before Adam within the tp
+             phase's limit and bit-equal on both ranks, G and D outputs,
+             the replica check, K1 8 / K2 6 launches a step on each rank,
+             energy.json with 2 chips, each rank's peak; step 1's losses
+             read; the checkpoint resumed for one more step at space 2
+             and in one process, losses 1e-5), a control with a planted
+             fault (every conv's halo taken as zeros; 1 step), which the
+             gradient check must catch, --dcgan and --msl (1 step each;
+             step-0 losses 1e-4 against one process), and a memory probe
+             at batch 16 (one G update's forward and backward: bytes alive
+             after the forward and the peak, each rank beside one
+             process); NCCL in bf16 at batch 16 over 2 cards (space 2) and
+             4 (data 2 x space 2) where there are that many (else a line
+             says it was not run);
    inloop_fid — the flagship with in-loop FID: the random stand-in
              (--fid_in_loop=True, 4 steps, a log and a checkpoint every 2),
              a random-init Inception-V3 weights file the script writes in
              the pt_inception layout (--inception_weights, 1 step, a log
              every step), the stand-in with --async_log=True, and the
-             stand-in and the weights at the default steps_per_log=10 over
-             10 steps; each run's log lines and finite FIDs, the
+             stand-in at the default steps_per_log=10 over 10 steps; each
+             run's log lines and finite FIDs, the
              checkpoint's FID history, K1/K2 launches as in training; the
              steady vol/s of each beside the default run's; each in-loop
              FID's seconds, split into the host's Fréchet distance and
@@ -223,6 +243,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -260,6 +281,12 @@ SFU_OPS = 132 * 16 * 1.98e9
 PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32),
               ("dcgan_G", 4096, 512, 16), ("dcgan_D", 512, 64, 32),
               ("G128", 32768, 4096, 64), ("D128", 4096, 512, 128))
+# The flagship's placements on a rank of a space group of S (slice 12):
+# the rank's L / S queries against the whole M keys, bf16 (the trainer's
+# route), S = 2 and 4.
+SPATIAL_PLACEMENTS = tuple(
+    (f"{place}_s{s}", L // s, m, c)
+    for s in (2, 4) for place, L, m, c in PLACEMENTS[:2])
 # Kernel instances that must not spill (ptxas): every K3, K4 and K5 bf16
 # instance, the K1 and K2 bf16 kernels at the flagship's c = 16 and 32 and
 # the 128^3 model's c = 64 and 128, and the ladder's wide_fwd, box_copy
@@ -333,13 +360,12 @@ TRAIN_RUNS = (
 # The 128^3 runs (z 512, iterD 2, bf16): (name, flags, ((niters, step it
 # resumes from), ...), (SelfAttention3d blocks in G, in D), held against
 # the CPU at batch 1). The reference's default widths (filters 128) with
-# the flagship's flags at batch 16, remat per stage and the split step (3
-# steps and a resume to 4), then per block with the fused step; the
-# flagship's widths
-# (filters 64) without remat and with it, for the memory remat saves and
-# the same step-0 losses; StyleGAN2 (a 1-channel block at 128^3) with
-# remat and without; StyleGAN-1 at batch 8 without remat, as the JAX
-# package trains it there. Each 2 steps unless said.
+# the flagship's flags at batch 16, remat per stage and the split step (2
+# steps and a resume to 3), then per block with the fused step; the
+# flagship's widths (filters 64) without remat and with it, for the
+# memory remat saves and the same step-0 losses; StyleGAN2 (a 1-channel
+# block at 128^3) with remat and without; StyleGAN-1 at batch 8 without
+# remat, as the JAX package trains it there. Each 2 steps unless said.
 W128 = ["--resolution=128", "--z_size=512", "--iterD=2"]
 REF128 = (["--biggan=True", "--hinge=True", "--filterG=128", "--filterD=128",
            "--batch_size=16"] + W128)
@@ -349,7 +375,7 @@ SG2_128 = (["--stylegan2=True", "--filterG=128", "--filterD=128",
             "--batch_size=16"] + W128)
 TRAIN128_RUNS = (
     ("ref128", REF128 + ["--remat=True", "--remat_scope=stage",
-                         "--fused_step=False"], ((3, 0), (4, 3)), (1, 1),
+                         "--fused_step=False"], ((2, 0), (3, 2)), (1, 1),
      True),
     ("ref128_block", REF128 + ["--remat=True", "--remat_scope=block",
                                "--fused_step=True"], ((2, 0),), (1, 1),
@@ -383,11 +409,11 @@ NO_WEIGHTS_LINE = "in-loop FID: no Inception weights found"
 # (a) the random stand-in (fid_in_loop=True) with a log and a checkpoint
 # every 2 steps; (b) a random-init Inception-V3 weights file written in
 # the pt_inception layout ({weights}), a log every step (1 step, 2
-# logs: the step's and the final one); (c) (a) with
-# async_log; then the stand-in and the weights at the default
-# steps_per_log=10 over 10 steps, for the steady rate (steps 1-9 hold
-# the final log; one log in the window, whose host sqrtm's the dp phase
-# needs the time of).
+# logs: the step's and the final one); (c) (a) with async_log; then the
+# stand-in at the default steps_per_log=10 over 10 steps, for the steady
+# rate (steps 1-9 hold the final log). The weights at steps_per_log=10
+# (0.24-0.26x the flagship's rate, PERF.md) no longer run: their two
+# host sqrtm's took ~57 s of the time the spatial phase needs.
 INLOOP_RUNS = (
     ("stand_in", ["--fid_in_loop=True", "--steps_per_log=2",
                   "--steps_per_ckpt=2"], 4),
@@ -395,7 +421,6 @@ INLOOP_RUNS = (
     ("async", ["--fid_in_loop=True", "--steps_per_log=2",
                "--steps_per_ckpt=2", "--async_log=True"], 4),
     ("stand_in_rate", ["--fid_in_loop=True"], 10),
-    ("weights_rate", ["--inception_weights={weights}"], 10),
 )
 INCEPTION_SEED = 0
 # The dp phase (slice 8): the flagship at 64^3 through the train CLI's
@@ -435,6 +460,22 @@ TP_GLOO_BATCH = 2
 # one-process f32 G update there as at 16, where the two gloo ranks took
 # 45 s of the script's time (PERF.md, PR 14)
 TP_PROBE_BATCH = 8
+# The spatial phase (slice 12): the flagship through the train CLI's entry
+# point with --spatial_devices=SP_SPACE on two ranks sharing the card over
+# gloo (data 1 x space 2), f32 at the tp phase's batch, against the tp
+# phase's one-process f32 run (the same flags, batch and steps); the DCGAN
+# --dcgan and --msl one step each; the memory probe at SP_PROBE_BATCH;
+# NCCL across cards in bf16 where there are several.
+SP_SPACE = 2
+SP_STEPS = TP_STEPS
+SP_LOSS_TOL = 1e-5  # step-0 losses against one process, relative
+# the DCGAN family's step-0 losses: the dp and tp phases' limit (the
+# logged D losses are the second D update's, after Adam's first update
+# has moved every noise-level gradient component of the WGAN-LN D's
+# LayerNorm affine by its full step; --dcgan read 4.9e-5, PERF.md)
+SP_FAMILY_TOL = 1e-4
+SP_PROBE_BATCH = 16
+SP_DCGAN_RUNS = (("dcgan", DCGAN), ("dcgan_msl", DCGAN + ["--msl=True"]))
 # The tournament phase's runs (each read as name + "0"): the flagship,
 # the DCGAN with --sagan, the hybrid.
 TOURNAMENT_RUNS = ("default", "dcgan_sagan", "hybrid")
@@ -637,9 +678,10 @@ def kernel_phase(ca, attention_plain) -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     cases = []
-    for place, L, m, c in PLACEMENTS:
-        for dname, dt in (("float32", torch.float32),
-                          ("bfloat16", torch.bfloat16)):
+    both = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    for place, L, m, c in PLACEMENTS + SPATIAL_PLACEMENTS:
+        for dname, dt in (both if (place, L, m, c) in PLACEMENTS
+                          else both[1:]):
             n = N_FLAGSHIP
             q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(dt)
                            for s in ((n, L, c), (n, m, c), (n, m, c),
@@ -1339,11 +1381,13 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
     flagship's default, the DCGAN's --sagan, the hybrid), K3 and K4 their
     counts in the first part of each CONV_PATHS run (the flagship's and
     StyleGAN-1's knob runs), and K1 and K2 ``launches_per_rank``, each
-    rank's count in the dp and tp phases' runs (``dp``: world 1 over NCCL,
-    bf16; two ranks on one card over gloo, f32, data-parallel and, as
-    ``tp_gloo_model2_f32``, model 2; NCCL across cards where there are
-    several); each conv case lists the networks that run its shape
-    ("paths": G, D, SG1). K1-K5 and the
+    rank's count in the dp, tp and spatial phases' runs (``dp``: world 1
+    over NCCL, bf16; two ranks on one card over gloo, f32, data-parallel,
+    as ``tp_gloo_model2_f32`` model 2 and as ``sp_gloo_space2_f32`` space
+    2; NCCL across cards where there are several); K1's and K2's cases
+    include the flagship's placements on a rank of a space group
+    (``G_s2``, ``D_s2``, ``G_s4``, ``D_s4``, bf16); each conv case lists
+    the networks that run its shape ("paths": G, D, SG1). K1-K5 and the
     ladder add ``device_ms`` and ``library_device_ms`` (device time per
     call, profiler), and K1-K5 the f32 route's (the FMA kernels') numbers
     at the same case: ``f32_ms``, ``f32_device_ms``, ``f32_library_ms``
@@ -1655,7 +1699,7 @@ def train128_phase(ca, cc, tmp: str) -> dict:
         if check:
             phase("model_check", run=name, **model_check(log_dir, cc, n=1))
         torch.cuda.empty_cache()
-    stage = results["ref128/run_0_3"]["max_memory_allocated"]
+    stage = results["ref128/run_0_2"]["max_memory_allocated"]
     block = results["ref128_block/run_0_2"]["max_memory_allocated"]
     if stage > block:
         raise AssertionError(f"remat per stage peaks at {stage} B, above "
@@ -2701,41 +2745,70 @@ def recorded_full_grads(updates: int, rp):
         Adam.step = step
 
 
+def _halo_of_zeros(x, before, after, rp):
+    """The spatial control's planted fault: a halo whose neighbours' planes
+    are zeros (no exchange)."""
+    import torch
+
+    if not before and not after:
+        return x
+    shape = list(x.shape)
+    shape[2] = before
+    head = x.new_zeros(shape)
+    shape[2] = after
+    return torch.cat([head, x, x.new_zeros(shape)], 2)
+
+
+# the planted faults of the tp and spatial controls: (module, attribute,
+# replacement)
+PLANTED = {"sigma": ("tp", "sigma", _sigma_on_the_slice),
+           "halo": ("sp", "halo", _halo_of_zeros)}
+
+
 def tp_rank(rp, runs: list, out_dir: str, tag: str, record: tuple = (),
-            fault: int = -1) -> None:
-    """One rank of a tp run: ``cli.train.train_rank`` for each argv of
-    ``runs`` (cuDNN deterministic), the launch counters set to 0 before
-    each and read after it; every rank writes step 0's gradients, gathered
-    whole, of the runs whose index is in ``record`` to
+            fault: int = -1, planted: str = "sigma",
+            copies: dict = None) -> None:
+    """One rank of a tp or spatial run: ``cli.train.train_rank`` for each
+    argv of ``runs`` (cuDNN deterministic), the launch counters set to 0
+    before each and read after it; every rank writes step 0's gradients,
+    gathered whole, of the runs whose index is in ``record`` to
     ``{tag}_grads{i}_rank{r}.pt``; run ``fault`` has the planted fault
-    (``_sigma_on_the_slice``). Writes ``{tag}_rank{r}.json``: each run's
-    counters, stdout and peak memory."""
+    ``PLANTED[planted]``; before run i, rank 0 copies the directory
+    ``copies[i][0]`` to ``copies[i][1]`` (a resume's start). Writes
+    ``{tag}_rank{r}.json``: each run's counters, stdout and peak
+    memory."""
     import torch
 
     from gan3d_tpu_torch.cli import train as cli_train
     from gan3d_tpu_torch.config import config_from_args
     from gan3d_tpu_torch.ops import cuda_attention as ca
     from gan3d_tpu_torch.ops import cuda_conv as cc
-    from gan3d_tpu_torch.parallel import tp
+    from gan3d_tpu_torch.parallel import sp, tp
 
     torch.backends.cudnn.deterministic = True
     res = {"rank": rp.rank, "world": rp.world, "model": rp.model,
-           "device": str(rp.device), "runs": []}
-    sigma = tp.sigma
+           "space": rp.space, "device": str(rp.device), "runs": []}
+    where, attr, bad = PLANTED[planted]
+    where = {"tp": tp, "sp": sp}[where]
+    good = getattr(where, attr)
     for i, argv in enumerate(runs):
+        if copies and i in copies:
+            if rp.main:
+                shutil.copytree(*copies[i])
+            rp.barrier()
         cfg = config_from_args(argv)
         ca.reset_counters()
         cc.reset_counters()
         torch.cuda.reset_peak_memory_stats(rp.device)
         buf = io.StringIO()
         if i == fault:
-            tp.sigma = _sigma_on_the_slice
+            setattr(where, attr, bad)
         try:
             with contextlib.redirect_stdout(buf), recorded_full_grads(
                     cfg.iterD + 1 if i in record else 0, rp) as seen:
                 cli_train.train_rank(rp, cfg)
         finally:
-            tp.sigma = sigma
+            setattr(where, attr, good)
         torch.cuda.synchronize(rp.device)
         res["runs"].append({
             "launches": _counters(ca, cc), "stdout": buf.getvalue(),
@@ -2748,12 +2821,12 @@ def tp_rank(rp, runs: list, out_dir: str, tag: str, record: tuple = (),
         json.dump(res, f)
 
 
-def tp_memory_probe(rp=None) -> dict:
+def tp_memory_probe(rp=None, batch: int = TP_PROBE_BATCH) -> dict:
     """One G update's forward and backward (G, then D, the G loss; G's
-    gradients) of the flagship at TP_PROBE_BATCH, f32, on a rank of
-    ``rp`` or in one process: the bytes the networks hold, the bytes
-    alive after the forward (what autograd saved), and the peak over
-    both passes, each above what the networks held before."""
+    gradients) of the flagship at ``batch``, f32, on a rank of ``rp`` (a
+    model or space grid) or in one process: the bytes the networks hold,
+    the bytes alive after the forward (what autograd saved), and the peak
+    over both passes, each above what the networks held before."""
     import torch
 
     from gan3d_tpu_torch.config import config_from_args
@@ -2761,17 +2834,17 @@ def tp_memory_probe(rp=None) -> dict:
     from gan3d_tpu_torch.train import losses
 
     dev = rp.device if rp is not None else torch.device("cuda", 0)
-    argv = FLAGSHIP + ["--compute_dtype=float32",
-                       f"--batch_size={TP_PROBE_BATCH}"]
+    argv = FLAGSHIP + ["--compute_dtype=float32", f"--batch_size={batch}"]
     if rp is not None:
-        argv += [f"--model_devices={rp.model}", f"--num_devices={rp.world}"]
+        argv += [f"--model_devices={rp.model}", f"--num_devices={rp.world}",
+                 f"--spatial_devices={rp.space}"]
     cfg = config_from_args(argv)
     G, D = build_models(cfg, rp)
     G, D = G.to(dev).train(), D.to(dev).train()
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    z = torch.randn((TP_PROBE_BATCH, cfg.z_size),
+    z = torch.randn((batch, cfg.z_size),
                     generator=torch.Generator().manual_seed(DP_Z_SEED))
     t0 = time.time()
     loss = losses.g_adversarial(D(G(z.to(dev))).float())
@@ -2779,18 +2852,21 @@ def tp_memory_probe(rp=None) -> dict:
     alive = torch.cuda.memory_allocated(dev) - base
     torch.autograd.grad(loss, list(G.parameters()))
     torch.cuda.synchronize(dev)
-    return {"batch": TP_PROBE_BATCH, "networks_bytes": base,
+    return {"batch": batch, "networks_bytes": base,
             "after_forward_bytes": alive,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
             "seconds": time.time() - t0, "loss": loss.item()}
 
 
 def tp_gloo_rank(local_rank: int, world: int, init_file: str, runs: list,
-                 out_dir: str, tag: str, record: tuple, fault: int) -> None:
+                 out_dir: str, tag: str, record: tuple, fault: int,
+                 model: int = TP_MODEL, space: int = 1,
+                 probe_batch: int = TP_PROBE_BATCH,
+                 planted: str = "sigma", copies: dict = None) -> None:
     """A rank of ``world`` sharing card 0 through a gloo group this script
-    makes, on a data x model grid of model TP_MODEL (parallel/dist.py
-    ``grid``); ``tp_rank``'s runs, then ``tp_memory_probe``, written to
-    ``{tag}_probe_rank{r}.json``."""
+    makes, on a data x model or data x space grid (parallel/dist.py
+    ``grid``); ``tp_rank``'s runs, then ``tp_memory_probe`` at
+    ``probe_batch``, written to ``{tag}_probe_rank{r}.json``."""
     import torch
     import torch.distributed as tdist
 
@@ -2801,10 +2877,12 @@ def tp_gloo_rank(local_rank: int, world: int, init_file: str, runs: list,
     tdist.init_process_group("gloo", init_method="file://" + init_file,
                              rank=local_rank, world_size=world,
                              timeout=dist.TIMEOUT)
-    rp = dist.grid(local_rank, world, local_rank, world, device, TP_MODEL)
+    rp = dist.grid(local_rank, world, local_rank, world, device, model,
+                   space)
     try:
-        tp_rank(rp, runs, out_dir, tag, record=record, fault=fault)
-        probe = tp_memory_probe(rp)
+        tp_rank(rp, runs, out_dir, tag, record=record, fault=fault,
+                planted=planted, copies=copies)
+        probe = tp_memory_probe(rp, probe_batch)
         with open(os.path.join(out_dir, f"{tag}_probe_rank{rp.rank}.json"),
                   "w") as f:
             json.dump(probe, f)
@@ -2966,6 +3044,9 @@ def tp_phase(ca, cc, tmp: str, data: str, dp: dict) -> dict:
         "one_process_f32_vol_per_s": one32["steady_vol_per_s"],
         "memory_probe": memory, "seconds": time.time() - t0}
     phase("tp_gloo2", **res["gloo_model2_f32"])
+    # the one-process f32 control, which the spatial phase reads beside
+    # its own ranks (same flags and batch)
+    res["_one32"] = one32
     res.update(tp_nccl(tmp, data, dp["_one"]))
     res["seconds"] = time.time() - t0
     return res
@@ -3004,6 +3085,207 @@ def tp_nccl(tmp: str, data: str, one: dict) -> dict:
         res["nccl_multi_card"] = (f"not run: {torch.cuda.device_count()} "
                                   "card(s) visible")
         phase("tp_nccl_multi_card", not_run=res["nccl_multi_card"])
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the spatial phase: depth slabs over a space axis (slice 12)
+# ---------------------------------------------------------------------------
+def sp_phase(ca, cc, tmp: str, data: str, dp: dict, tp_res: dict) -> dict:
+    """The flagship (64^3, filters 64, iterD 2, hinge) through the train
+    CLI's entry point with --spatial_devices=2:
+
+    1. two ranks sharing the card over a gloo group the script makes
+       (data 1 x space 2), f32 at batch TP_GLOO_BATCH, SP_STEPS steps,
+       against the tp phase's one-process f32 run of the same flags and
+       batch: step-0 losses within SP_LOSS_TOL relative, step 0's
+       gradients before Adam by ``grad_check`` within the tp phase's
+       limit (5e-4 of each update's largest or 3x its ``bn_formula``
+       floor) and bit-equal on both ranks, G's and D's outputs after the
+       steps (``_dp_compare``), the replica check, K1 8 / K2 6 launches a
+       step on each rank (each rank's queries are its slab), energy.json
+       with 2 chips, each rank's peak; step 1's losses are read beside
+       the tp floor's, not held to it: Adam's first update moves every
+       noise-level gradient component by its full step, so step 1
+       follows the rounding of step 0 (PERF.md); instead the run's
+       checkpoint after the steps is resumed for one more step at space 2
+       and in one process, whose losses must agree within SP_LOSS_TOL
+       (the second step from one state: Adam's moments, the SN vectors
+       and the running stats as trained); then the control: the halo of
+       every conv taken as zeros (``_halo_of_zeros``; iterD 1, one step),
+       whose first D update's gradients the gradient check must fail;
+       then --dcgan (LayerNorm D) and --msl, one step each, the step-0
+       losses against one process's within SP_FAMILY_TOL; then
+       ``tp_memory_probe`` at SP_PROBE_BATCH on each rank beside one
+       process;
+    2. NCCL across cards in bf16 at batch 16 where there are several: S =
+       2 over 2 cards and data 2 x space 2 over 4, beside the dp phase's
+       one-process bf16 run (step-0 losses, each rank's peak, vol/s); on
+       one card a line says it was not run. (The reference's 128^3 widths
+       without remat at S = 2 over 2 cards hung in a collective of the
+       backward: PERF.md.)
+    """
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.time()
+    out_dir = os.path.join(tmp, "sp")
+    os.makedirs(out_dir, exist_ok=True)
+    tpg = tp_res["gloo_model2_f32"]
+    one32 = tp_res["_one32"]
+    base = FLAGSHIP + [f"--data_path={data}", f"--niters={SP_STEPS}",
+                       "--compute_dtype=float32",
+                       f"--batch_size={TP_GLOO_BATCH}"]
+    names = param_names(base)
+    grad_tol = tpg["grad_tol"]
+    # the DCGAN family's one-process controls (one step, f32)
+    dcgan = {}
+    for name, flags in SP_DCGAN_RUNS:
+        argv = flags + [f"--data_path={data}", "--niters=1",
+                        "--compute_dtype=float32",
+                        f"--batch_size={TP_GLOO_BATCH}"]
+        dcgan[name] = (argv, _dp_one_process(
+            ca, cc, argv + [f"--log_dir={tmp}/sp_one_{name}"], name))
+    one_probe = tp_memory_probe(batch=SP_PROBE_BATCH)
+    torch.cuda.empty_cache()  # the ranks' processes share the card
+    sp_flags = [f"--spatial_devices={SP_SPACE}", f"--num_devices={SP_SPACE}"]
+    runs = ([base + sp_flags + [f"--log_dir={tmp}/sp_gloo2",
+                                "--track_energy=True"],
+             base + sp_flags + [f"--log_dir={tmp}/sp_gloo2_fault",
+                                "--niters=1", "--iterD=1"]]
+            + [argv + sp_flags + [f"--log_dir={tmp}/sp_gloo2_{name}"]
+               for name, (argv, _) in dcgan.items()]
+            + [base + sp_flags + [f"--log_dir={tmp}/sp_gloo2_resume",
+                                  f"--niters={SP_STEPS + 1}"]])
+    copies = {len(runs) - 1: (f"{tmp}/sp_gloo2", f"{tmp}/sp_gloo2_resume")}
+    init_file = os.path.join(out_dir, "gloo_rendezvous")
+    mp.start_processes(tp_gloo_rank, args=(SP_SPACE, init_file, runs,
+                                           out_dir, "gloo2", (0, 1), 1, 1,
+                                           SP_SPACE, SP_PROBE_BATCH, "halo",
+                                           copies),
+                       nprocs=SP_SPACE, join=True, start_method="spawn")
+    # the same resume in one process, from the same checkpoint
+    shutil.copytree(f"{tmp}/sp_gloo2", f"{tmp}/sp_one_resume")
+    _dp_one_process(ca, cc, base + [f"--log_dir={tmp}/sp_one_resume",
+                                    f"--niters={SP_STEPS + 1}"],
+                    "sp_one_resume")
+    resume = {"losses": _ckpt_losses(f"{tmp}/sp_gloo2_resume", SP_STEPS),
+              "one_process_losses": _ckpt_losses(f"{tmp}/sp_one_resume",
+                                                 SP_STEPS)}
+    resume["rel_err"] = _rel(resume["losses"], resume["one_process_losses"])
+    ranks = _dp_read(out_dir, "gloo2", SP_SPACE)
+    w2 = _dp_rank_checks("sp_gloo2", ranks, "", SP_STEPS, f"{tmp}/sp_gloo2")
+    rel = _rel(w2["losses_step0"], one32["losses_step0"])
+    rel1 = _rel(_ckpt_losses(f"{tmp}/sp_gloo2", 1),
+                _ckpt_losses(one32["log_dir"], 1))
+    cmp2 = _dp_compare(one32["log_dir"], f"{tmp}/sp_gloo2")
+    got, equal = _tp_grads(out_dir, "gloo2", 0, SP_SPACE)
+    grads2 = grad_check(got, one32["grads"], names)
+    if not (rel <= SP_LOSS_TOL and resume["rel_err"] <= SP_LOSS_TOL
+            and _dp_within(cmp2) and _grads_within(grads2, grad_tol)
+            and equal):
+        raise AssertionError(
+            f"space 2 vs one process (f32): step-0 loss rel err {rel:.3e} "
+            f"(tol {SP_LOSS_TOL}), the resumed step {resume} (tol "
+            f"{SP_LOSS_TOL}), {cmp2} (tols: _dp_compare), gradients "
+            f"bit-equal on the ranks: {equal}, {grads2} (tol "
+            f"{grad_tol:.3e}); step 1 (read, not held) {rel1:.3e}, the "
+            f"tp floor's {tpg['grad_floor']['losses_step1_rel_err']:.3e}")
+    with open(os.path.join(tmp, "sp_gloo2", "energy.json")) as f:
+        energy = json.load(f)
+    if energy["chips"] != SP_SPACE:
+        raise AssertionError(f"energy.json {energy}: not {SP_SPACE} chips")
+    # the control: every halo zeros, one D update and the G update; its
+    # first D update's gradients against one process's
+    fault_got, _ = _tp_grads(out_dir, "gloo2", 1, SP_SPACE)
+    fault = grad_check(fault_got[:1], one32["grads"][:1], names)
+    fault["caught_by"] = ["gradients"] if not _grads_within(
+        fault, grad_tol) else []
+    if not fault["caught_by"]:
+        raise AssertionError(f"the checks passed the control's planted "
+                             f"fault (halos of zeros): {fault}")
+    families = {}
+    for i, (name, (_, one)) in enumerate(dcgan.items(), start=2):
+        log_dir = f"{tmp}/sp_gloo2_{name}"
+        out0 = ranks[0]["runs"][i]["stdout"]
+        if f"on all {SP_SPACE} ranks" not in out0 or ranks[1]["runs"][i][
+                "stdout"]:
+            raise AssertionError(f"sp {name}: no passed replica check, or "
+                                 "rank 1 printed")
+        families[name] = {"losses_step0": _ckpt_losses(log_dir),
+                          "one_process_losses_step0": one["losses_step0"],
+                          "losses_step0_rel_err": _rel(
+                              _ckpt_losses(log_dir), one["losses_step0"]),
+                          "launches": ranks[0]["runs"][i]["launches"]}
+        if not families[name]["losses_step0_rel_err"] <= SP_FAMILY_TOL:
+            raise AssertionError(f"sp {name} vs one process (f32): "
+                                 f"{families[name]} (tol {SP_FAMILY_TOL})")
+    probes = []
+    for r in range(SP_SPACE):
+        with open(os.path.join(out_dir, f"gloo2_probe_rank{r}.json")) as f:
+            probes.append(json.load(f))
+    memory = {"one_process": one_probe,
+              **{f"rank{r}": p for r, p in enumerate(probes)},
+              "after_forward_over_one_process": [
+                  p["after_forward_bytes"] / one_probe["after_forward_bytes"]
+                  for p in probes],
+              "peak_over_one_process": [
+                  p["peak_bytes"] / one_probe["peak_bytes"] for p in probes],
+              "loss_rel_err": max(abs(p["loss"] - one_probe["loss"])
+                                  / abs(one_probe["loss"]) for p in probes)}
+    if not memory["loss_rel_err"] <= 1e-4:
+        raise AssertionError(f"memory probe: G loss at space 2 vs one "
+                             f"process {memory['loss_rel_err']:.3e} (tol "
+                             "1e-4)")
+    res = {"gloo_space2_f32": {
+        **w2, **cmp2, **grads2, "grad_tol": grad_tol,
+        "batch": TP_GLOO_BATCH, "losses_step0_rel_err": rel,
+        "tol": SP_LOSS_TOL, "losses_step1_rel_err": rel1,
+        "losses_step1": _ckpt_losses(f"{tmp}/sp_gloo2", 1),
+        "resumed_step": resume, "grads_bit_equal_on_ranks": equal,
+        "losses_step1_floor_rel_err": tpg["grad_floor"][
+            "losses_step1_rel_err"], "planted_fault_control": fault,
+        "energy": energy, "families": families,
+        **_tp_memory(ranks, one32["max_memory_allocated"]),
+        "one_process_f32_vol_per_s": one32["steady_vol_per_s"],
+        "memory_probe": memory, "seconds": time.time() - t0}}
+    phase("sp_gloo2", **res["gloo_space2_f32"])
+    res.update(sp_nccl(tmp, data, dp["_one"]))
+    res["seconds"] = time.time() - t0
+    return res
+
+
+def sp_nccl(tmp: str, data: str, one: dict) -> dict:
+    """The spatial phase's NCCL part (``sp_phase`` item 2), beside
+    ``one``, the dp phase's one-process bf16 run at batch 16."""
+    import torch
+
+    from gan3d_tpu_torch.parallel import dist
+
+    out_dir = os.path.join(tmp, "sp")
+    os.makedirs(out_dir, exist_ok=True)
+    cards = min(torch.cuda.device_count(), DP_MAX_CARDS)
+    res = {}
+    base = FLAGSHIP + [f"--data_path={data}", f"--niters={SP_STEPS}",
+                       f"--spatial_devices={SP_SPACE}"]
+    for n in [w for w in (2, 4) if w <= cards]:
+        argvn = base + [f"--log_dir={tmp}/sp_nccl{n}", f"--num_devices={n}"]
+        dist.launch(tp_rank, ([argvn], out_dir, f"nccl{n}"),
+                    dist.Plan(world=n, local=n, first=0, device="cuda",
+                              space=SP_SPACE))
+        ranks = _dp_read(out_dir, f"nccl{n}", n)
+        wn = _dp_rank_checks(f"sp_nccl{n}", ranks, "_tc", SP_STEPS,
+                             f"{tmp}/sp_nccl{n}")
+        res[f"nccl_world{n}_bf16"] = {
+            **wn, "data": n // SP_SPACE, "space": SP_SPACE,
+            "losses_step0_rel_err_vs_one_process_bf16": _rel(
+                wn["losses_step0"], one["losses_step0"]),
+            **_tp_memory(ranks, one["max_memory_allocated"]),
+            "one_process_bf16_vol_per_s": one["steady_vol_per_s"]}
+        phase(f"sp_nccl{n}", **res[f"nccl_world{n}_bf16"])
+    if cards < 2:
+        res["nccl_multi_card"] = f"not run: {cards} card(s) visible"
+        phase("sp_nccl_multi_card", not_run=res["nccl_multi_card"])
     return res
 
 
@@ -3169,6 +3451,8 @@ def main() -> int:
         dp = dp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"),
                       power_limit_w)
         tp = tp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"), dp)
+        spatial = sp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"), dp,
+                           tp)
         train128 = train128_phase(ca, cc, tmp)
         phase("inloop_fid", **inloop_fid_phase(
             ca, cc, tmp, train["default/run_0_12"]["steady_vol_per_s"]))
@@ -3196,7 +3480,10 @@ def main() -> int:
             paths[name] = train128["%s/run_%d_%d" % (
                 name, runs[0][1], runs[0][0])]["launches"]
     per_rank_runs = {**{k: v for k, v in dp.items() if not k.startswith("_")},
-                     **{f"tp_{k}": v for k, v in tp.items()}}
+                     **{f"tp_{k}": v for k, v in tp.items()
+                        if not k.startswith("_")},
+                     **{f"sp_{k}": v for k, v in spatial.items()
+                        if not k.startswith("_")}}
     print(json.dumps(kernels_line(cases, conv_cases, paths, toeplitz_cases,
                                   ladder_cases, per_rank_runs)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,14 @@ ranks a data x model grid, M adjacent ranks (on one host) sharing each
 row set and holding a slice each of the wide layers' channels; e.g.
 ``--num_devices=4 --model_devices=2`` trains on 2 data x 2 model ranks
 (``--platform=cpu``: 4 gloo processes).
+
+Spatial parallelism (parallel/sp.py): ``--spatial_devices=S`` makes the
+ranks a data x space grid, S adjacent ranks (on one host) sharing each
+row set and holding a slab of 1/S of the volume's depth each, with a halo
+exchange in every conv; e.g. ``--num_devices=2 --spatial_devices=2`` trains
+one row set on 2 space ranks, ``--num_devices=4 --spatial_devices=2`` on 2
+data x 2 space ranks. The resolution must divide by S; the BigGAN family,
+the DCGAN family and the hybrid take it, the StyleGAN families raise.
 """
 
 from __future__ import annotations

@@ -34,6 +34,13 @@ Under a model axis (``model_devices``, parallel/tp.py) the activations
 stay channel-sharded between layers (``tp_local_activations``): G's first
 linear writes its slice of the channel-major features, which is its
 slice of the 4^3 grid's channels.
+
+Under a space axis (``spatial_devices``, parallel/sp.py) the activations
+are depth slabs: G's first linear runs whole on every rank and the 4^3
+grid after the reshape keeps this rank's planes (``sp.cut``: the linear's
+gradient is then a partial, the slab's rows), G's output is the rank's
+slab of the volume, and D sums its pooled features over the space group
+before the linear (whose gradient is then alike on every rank).
 """
 
 from __future__ import annotations
@@ -48,8 +55,7 @@ from gan3d_tpu_torch.nn.attention import SelfAttention3d
 from gan3d_tpu_torch.nn.blocks import DBlockDeep, GBlockDeep
 from gan3d_tpu_torch.nn.layers import SNConv3d, SNLinear
 from gan3d_tpu_torch.nn.norm import BatchNorm3d
-from gan3d_tpu_torch.ops.conv3d import global_sum_pool
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp, tp
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -109,7 +115,7 @@ class Generator(nn.Module):
         rp = self.replicas
         if tp.on(rp) and self.ch0 % rp.model:
             h = tp.layout(h, self.ch0 * 64, False, rp)
-        h = h.reshape(z.shape[0], -1, 4, 4, 4)
+        h = sp.cut(h.reshape(z.shape[0], -1, 4, 4, 4), rp, self.linear)
         head = [self.output_layer, torch.tanh]
         n_stages = len(self.blocks) // self.per_stage
         for idx in range(n_stages):
@@ -154,6 +160,7 @@ class Discriminator(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.linear = SNLinear(arch["out_channels"][-1], 1, plain=cfg.sngan,
                                orthogonal=True)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x.to(self.dtype)
@@ -169,4 +176,4 @@ class Discriminator(nn.Module):
                     h = remat.sequential([blk], h, self.remat == "block")
             if attn is not None:
                 h = attn(h)
-        return self.linear(global_sum_pool(F.relu(h)))
+        return self.linear(sp.global_sum_pool(F.relu(h), self.replicas))

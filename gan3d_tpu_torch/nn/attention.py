@@ -11,6 +11,14 @@ Under a model axis (parallel/tp.py) the block takes its input whole
 sharded projection wrote a slice, runs the kernels on every rank, and
 gives its output in its input's form. ``tp_replicated`` (True) keeps its
 parameters whole; the DCGAN family clears it (parallel/tp.py).
+
+Under a space axis (parallel/sp.py) a block on a depth slab takes this
+rank's queries: L/S tokens, contiguous in (d, h, w) order since depth is
+outermost. g and h are max-pooled on the slab (an even number of planes)
+and gathered over space in depth order, the whole M = L/8 keys of one
+process, whose gradients (dk, dv over the local queries) the gather's
+backward sums over space. The kernels take [N, L/S, c] against [N, M,
+c]; v's projection and gamma act on the slab.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch.nn as nn
 from gan3d_tpu_torch.nn.layers import SNConv3d
 from gan3d_tpu_torch.ops.attention import pooled_attention
 from gan3d_tpu_torch.ops.conv3d import max_pool3d
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp, tp
 
 
 class SelfAttention3d(nn.Module):
@@ -44,6 +52,9 @@ class SelfAttention3d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rp = self.replicas
+        if sp.on(rp) and sp.is_sharded(x):
+            sp.mark(self.gamma)  # the projections mark themselves
+            return self._branch(x, space=rp) + x
         if not tp.on(rp):
             return self._branch(x) + x
         local = tp.is_local(x, self.ch)
@@ -53,11 +64,12 @@ class SelfAttention3d(nn.Module):
             y = self._branch(full, rp)
         return tp.layout(y, self.ch, local, rp) + x
 
-    def _branch(self, x: torch.Tensor, rp=None) -> torch.Tensor:
-        """gamma * v(attention) of the whole input ``x``; under a model
-        axis q, k, v and v's output are gathered where a sharded
-        projection wrote a slice (gamma then meets every channel, as its
-        gradient needs)."""
+    def _branch(self, x: torch.Tensor, rp=None, space=None
+                ) -> torch.Tensor:
+        """gamma * v(attention) of the whole input ``x``, or of its depth
+        slab under the space axis ``space``; under a model axis q, k, v
+        and v's output are gathered where a sharded projection wrote a
+        slice (gamma then meets every channel, as its gradient needs)."""
         n, _, d, h, w = x.shape
 
         def tokens(t: torch.Tensor) -> torch.Tensor:  # [N,c,...] -> [N,T,c]
@@ -65,9 +77,13 @@ class SelfAttention3d(nn.Module):
                 t = tp.layout(t, self.c, False, rp)
             return t.reshape(n, t.shape[1], -1).transpose(1, 2)
 
+        def pooled(t: torch.Tensor) -> torch.Tensor:
+            t = max_pool3d(t, 2)
+            return t if space is None else sp.gather_summed(t, space)
+
         q = tokens(self.f(x))
-        k = tokens(max_pool3d(self.g(x), 2))
-        v = tokens(max_pool3d(self.h(x), 2))
+        k = tokens(pooled(self.g(x)))
+        v = tokens(pooled(self.h(x)))
         o = pooled_attention(q, k, v).to(q.dtype)          # [N, L, c]
         o = o.transpose(1, 2).reshape(n, -1, d, h, w)
         y = self.v(o)

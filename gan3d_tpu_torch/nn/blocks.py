@@ -11,7 +11,12 @@ in their plain composed form. Faithful quirks:
 
 Under a model axis (parallel/tp.py) the shortcut meets conv4's output in
 its form: the G shortcut's channel slice and D's concatenation take the
-whole input (gathered), then the slice of conv4's rank.
+whole input (gathered), then the slice of conv4's rank. Under a space axis
+(parallel/sp.py) both run on depth slabs as they are (the G shortcut's
+channel slice and D's concatenation are per voxel; the 2-windows of the
+upsample and the pool align with a slab's even start), and each resampled
+tensor takes the form its new side has (``sp.form``: the 4^3 grid at S =
+4 is gathered after D's pool, split after G's upsample).
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch.nn.functional as F
 from gan3d_tpu_torch.nn.layers import SNConv3d
 from gan3d_tpu_torch.nn.norm import BatchNorm3d
 from gan3d_tpu_torch.ops.conv3d import avg_pool3d, upsample_nearest3d
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp, tp
 
 
 def _conv4_local(block: nn.Module) -> bool:
@@ -66,8 +71,8 @@ class GBlockDeep(nn.Module):
         h = F.relu(self.bn2(h))
         x = self._shortcut(x)
         if self.upsample:
-            x = upsample_nearest3d(x, 2)
-            h = upsample_nearest3d(h, 2)
+            x = sp.form(upsample_nearest3d(x, 2), self.replicas)
+            h = sp.form(upsample_nearest3d(h, 2), self.replicas)
         h = F.relu(self.bn3(self.conv2(h)))
         h = F.relu(self.bn4(self.conv3(h)))
         return self.conv4(h) + x
@@ -97,8 +102,8 @@ class DBlockDeep(nn.Module):
         h = F.relu(h)
         sc = x
         if self.downsample:
-            h = avg_pool3d(h, 2)
-            sc = avg_pool3d(sc, 2)
+            h = sp.form(avg_pool3d(h, 2), self.replicas)
+            sc = sp.form(avg_pool3d(sc, 2), self.replicas)
         h = self.conv4(h)
         rp = self.replicas
         if not tp.on(rp):

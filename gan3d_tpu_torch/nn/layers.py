@@ -25,7 +25,10 @@ Under a model axis (``replicas`` with ``model`` > 1, parallel/tp.py) a
 layer whose weight the rule shards holds its output channels' slice and
 computes only those (``tp.run``: its input gathered when it arrives
 sharded, its input gradient summed over the model group); a replicated
-layer computes alike on every rank.
+layer computes alike on every rank. Under a space axis (``replicas`` with
+``space`` > 1, parallel/sp.py) a conv on a depth slab takes its depth halo
+from the neighbouring slabs (``sp.conv3d``, ``sp.conv_transpose3d``); the
+weights stay whole.
 
 ``plain=True`` skips spectral norm: the reference's inverted ``sngan=True``
 flag (utils.py:9-11). ``std`` draws the weight from N(0, std) before the
@@ -49,7 +52,7 @@ import torch.nn.functional as F
 from torch.nn.utils.parametrizations import spectral_norm
 
 from gan3d_tpu_torch.ops.conv3d import conv3d
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp, tp
 
 
 def _cast(b: Optional[torch.Tensor], x: torch.Tensor
@@ -78,6 +81,8 @@ class Conv3d(nn.Conv3d):
                       self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if sp.on(self.replicas):
+            return sp.conv3d(self, x)
         if tp.on(self.replicas):
             return tp.run(self, x, self._op)
         return self._op(x, self.bias)
@@ -102,6 +107,8 @@ class ConvTranspose3d(nn.ConvTranspose3d):
                                   self.stride, self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if sp.on(self.replicas):
+            return sp.conv_transpose3d(self, x)
         if tp.on(self.replicas):
             return tp.run(self, x, self._op)
         return self._op(x, self.bias)

@@ -23,9 +23,13 @@
     ~1e-5 of a BN scale's gradient to cancellation in f32; at world 1 the
     one-process path runs, as torch.nn.SyncBatchNorm does;
   - ``replicas`` of world > 1 without ``sync`` (``cfg.sync_bn=False``):
-    each rank's batch is its group, and the running-stat updates are
-    averaged over ranks, so every replica keeps the same buffers; that
-    is the grouped scope with a group a rank.
+    as the JAX package's ``_bn_groups`` (gan3d_tpu/models/registry.py
+    :20-27), a group of batch / world samples a device of the run,
+    every device counted (a model or space group's too): a rank's rows
+    hold world / data_world groups (one under data parallelism alone),
+    and the running-stat updates are averaged over the data group, so
+    every replica keeps the same buffers; a global batch the world does
+    not divide takes the whole batch's statistics, as in JAX.
   Every scope normalizes with the biased variance (two-pass: the mean,
   then the centred squares) and updates the running stats with the
   unbiased one, momentum 0.1. The ranks of a scope are the data group
@@ -33,7 +37,16 @@
   slice of the channels (parallel/tp.py) is normalized with the affine's
   and the running stats' slice (``tp_span``), which alone it updates;
   without a scope across ranks or groups that is torch's own kernel on
-  the slice.
+  the slice. Under a space axis (parallel/sp.py) an input that holds this
+  rank's depth slab takes its statistics over the space group too (and
+  over every rank with ``sync``), through ``_SlabBatchNorm``: its forward
+  combines each rank's per-channel mean and centred sum of squares as
+  above, and it saves the input alone, as torch's kernel does (the
+  explicit formula's autograd would save three full-size f32 tensors);
+  its backward all-reduces the two per-channel sums of the gradient over
+  the same ranks (torch.nn.SyncBatchNorm's scheme) and is first-order, as
+  no loss of these families differentiates G twice. Its affine then has
+  a partial gradient (``sp.mark``).
 - LayerNormVolume (norm.py:121-144): torch's LayerNorm over [C, D, H, W]
   of an NCDHW input, per sample, eps 1e-5, with a full-shape affine
   [C, D, H, W] (the JAX scale and bias are (D, H, W, C): the transpose
@@ -41,7 +54,8 @@
   does). Statistics in at least f32 (``_stat_dtype``, norm.py:31-34); the
   output in the input's dtype. The WGAN DCGAN discriminator's norm. On
   a slice of the channels (the affine sharded with them) the per-sample
-  mean and centred sum of squares are summed over the model group.
+  mean and centred sum of squares are summed over the model group; on a
+  depth slab, over the space group, with the affine's depth slice.
 """
 
 from __future__ import annotations
@@ -49,10 +63,63 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp, tp
+
+
+class _SlabBatchNorm(torch.autograd.Function):
+    """BatchNorm's train-mode forward on ``x`` [N, C, ...] in ``groups``
+    groups of rows, each group's statistics combined over the ``n`` ranks
+    of ``group`` (this one ``rank``), which hold the same count; returns
+    (y, the combined mean [groups, C], the biased variance, the count)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, groups, group, n, rank, eps):
+        sdt = torch.promote_types(x.dtype, torch.float32)
+        rows, c = x.shape[:2]
+        xf = x.reshape(groups, rows // groups, c, -1).to(sdt)
+        cnt = (rows // groups) * xf.shape[-1]
+        mean = xf.mean(dim=(1, 3))                               # [g, c]
+        m2 = (xf - mean[:, None, :, None]).square().sum(dim=(1, 3))
+        every = x.new_zeros((n, 2) + tuple(mean.shape), dtype=sdt)
+        every[rank] = torch.stack([mean, m2])
+        dist.all_reduce(every, group=group)
+        means, m2s = every.unbind(1)                          # [n, g, c]
+        mean = means.mean(dim=0)
+        m2 = m2s.sum(dim=0) + cnt * (means - mean).square().sum(dim=0)
+        cnt *= n
+        var = m2 / cnt
+        invstd = torch.rsqrt(var + eps)
+        y = ((xf - mean[:, None, :, None]) * invstd[:, None, :, None]
+             * w.to(sdt)[:, None] + b.to(sdt)[:, None]).reshape(x.shape)
+        ctx.save_for_backward(x, mean, invstd, w)
+        ctx.groups, ctx.cnt, ctx.group = groups, cnt, group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var, cnt
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, _mean, _var, _cnt):
+        x, mean, invstd, w = ctx.saved_tensors
+        sdt = mean.dtype
+        rows, c = x.shape[:2]
+        shape = (ctx.groups, rows // ctx.groups, c, -1)
+        xhat = ((x.reshape(shape).to(sdt) - mean[:, None, :, None])
+                * invstd[:, None, :, None])
+        g = gy.reshape(shape).to(sdt)
+        sums = torch.stack([g.sum(dim=(1, 3)),
+                            (g * xhat).sum(dim=(1, 3))])       # [2, g, c]
+        dw, db = sums[1].sum(dim=0), sums[0].sum(dim=0)   # this rank's part
+        dist.all_reduce(sums, group=ctx.group)
+        dx = ((g - (sums[0] / ctx.cnt)[:, None, :, None]
+               - xhat * (sums[1] / ctx.cnt)[:, None, :, None])
+              * (w.to(sdt)[:, None] * invstd[:, None, :, None]))
+        return (dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype),
+                db.to(w.dtype), None, None, None, None, None)
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -65,10 +132,24 @@ class BatchNorm3d(nn.BatchNorm3d):
         self.sync = True        # cross-replica statistics under ``replicas``
         self.replicas = None    # parallel.Replicas, set by parallel.attach
 
+    def _scope(self, x: torch.Tensor) -> tuple:
+        """(groups of this rank's rows, whether the statistics span the
+        data group): the JAX rule's groups a device without ``sync``."""
+        rp = self.replicas
+        if rp is not None and rp.world > 1 and not self.sync:
+            per = rp.world // rp.data_world
+            if x.shape[0] % per == 0:
+                return per, False
+            return 1, True  # the JAX groups: a batch they do not divide
+        g = self.num_groups if x.shape[0] % self.num_groups == 0 else 1
+        return g, self.sync
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rp = self.replicas
         world = 1 if rp is None else rp.data_world
-        g = self.num_groups if x.shape[0] % self.num_groups == 0 else 1
+        g, sync = self._scope(x)
+        if self.training and sp.on(rp) and sp.is_sharded(x):
+            return self._slab(x, g, sync)
         lo, hi = 0, self.num_features
         w, b = self.weight, self.bias
         local = tp.on(rp) and tp.is_local(x, self.num_features)
@@ -90,7 +171,7 @@ class BatchNorm3d(nn.BatchNorm3d):
         cnt = (n // g) * xg.shape[-1]
         mean = xg.mean(dim=(1, 3))                                # [g, c]
         m2 = (xg - mean[:, None, :, None]).square().sum(dim=(1, 3))
-        across = world > 1 and self.sync
+        across = world > 1 and sync
         if across:
             # every rank's (mean, m2) of the same count
             means, m2s = rp.all_gather(torch.stack([mean, m2])[None]
@@ -114,6 +195,26 @@ class BatchNorm3d(nn.BatchNorm3d):
             self.num_batches_tracked.add_(1)
         return y.to(x.dtype)
 
+    def _slab(self, x: torch.Tensor, g: int, sync: bool) -> torch.Tensor:
+        """Train mode on this rank's depth slab: the statistics over the
+        space group, and with ``sync`` over every rank."""
+        rp = self.replicas
+        scope = ((rp.group, rp.world, rp.rank) if sync
+                 else (rp.space_group, rp.space, rp.space_rank))
+        sp.mark(self)
+        y, mean, var, cnt = _SlabBatchNorm.apply(x, self.weight, self.bias,
+                                                 g, *scope, self.eps)
+        with torch.no_grad():
+            upd = [mean.mean(dim=0),
+                   (var * (cnt / max(cnt - 1, 1))).mean(dim=0)]
+            if not sync:
+                upd = rp.mean(upd)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(upd[0] * m)
+            self.running_var.mul_(1 - m).add_(upd[1] * m)
+            self.num_batches_tracked.add_(1)
+        return y
+
 
 class LayerNormVolume(nn.LayerNorm):
     def __init__(self, shape: Sequence[int]):
@@ -124,6 +225,8 @@ class LayerNormVolume(nn.LayerNorm):
         sdt = torch.promote_types(x.dtype, torch.float32)
         c = self.normalized_shape[0]
         rp = self.replicas
+        if sp.on(rp) and sp.is_sharded(x):
+            return self._slab(x, sdt, rp)
         if tp.on(rp) and tp.is_local(x, c):
             return self._local(x, sdt, rp)
         return F.layer_norm(x.to(sdt), self.normalized_shape,
@@ -145,4 +248,20 @@ class LayerNormVolume(nn.LayerNorm):
         if w.shape[0] != x.shape[1]:  # the affine replicated: its slice
             lo, hi = tp.span(rp, w.shape[0])
             w, b = tp.sliced(w, lo, hi), tp.sliced(b, lo, hi)
+        return (y * w.to(sdt) + b.to(sdt)).to(x.dtype)
+
+    def _slab(self, x: torch.Tensor, sdt: torch.dtype, rp) -> torch.Tensor:
+        """This rank's depth slab of the whole input's LayerNorm."""
+        xs = x.to(sdt)
+        dims = tuple(range(1, x.dim()))
+        shape = (-1,) + (1,) * len(dims)
+        cnt = xs[0].numel() * rp.space
+        # whole per-sample statistics that meet this rank's slab only
+        mean = sp.allsum(xs.sum(dim=dims), rp) / cnt
+        d = xs - mean.reshape(shape)
+        var = sp.allsum(d.square().sum(dim=dims), rp) / cnt
+        y = d * torch.rsqrt(var + self.eps).reshape(shape)
+        lo, hi = sp.span(self.normalized_shape[1], rp)
+        sp.mark(self)
+        w, b = self.weight[:, lo:hi], self.bias[:, lo:hi]
         return (y * w.to(sdt) + b.to(sdt)).to(x.dtype)

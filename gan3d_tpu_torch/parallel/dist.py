@@ -1,5 +1,5 @@
-"""Data and tensor parallelism over processes: one rank a card, or N gloo
-ranks on the CPU.
+"""Data, tensor and spatial parallelism over processes: one rank a card, or
+N gloo ranks on the CPU.
 
 Counterpart of gan3d_tpu/parallel/mesh.py:22-93 for its 1-D ``data`` mesh
 (``make_mesh``, ``init_distributed``, ``put_global_batch``). The JAX
@@ -24,15 +24,20 @@ collectives itself:
   losses), and the replica check (every replicated parameter and buffer
   bit-equal to rank 0's, every shard to its data group's first rank's).
 
-The rank grid (``model_devices``, the JAX ``make_mesh``'s model axis,
-gan3d_tpu/parallel/mesh.py:16-45): world = data x model ranks, adjacent
-ranks sharing a model group, rank = d * model + m. The ranks of a model
-group take the same rows and hold their slices of the wide layers
-(parallel/tp.py); the ranks of a data group hold the same slices of
-different rows. Rows, BatchNorm's statistics, the minibatch-std gather and
-the gradient mean run over the data group (``data_world`` ranks, this one
+The rank grid (``model_devices`` or ``spatial_devices``, the JAX
+``make_mesh``'s model or space axis, gan3d_tpu/parallel/mesh.py:16-45):
+world = data x inner ranks, adjacent ranks sharing an inner group, rank =
+d * inner + i, where the inner axis is the model axis (``model`` ranks,
+``model_rank``) or the space axis (``space`` ranks, ``space_rank``), never
+both. The ranks of an inner group take the same rows: a model group holds
+slices of the wide layers' channels (parallel/tp.py), a space group slabs
+of the volume's depth (parallel/sp.py); the ranks of a data group hold the
+same slices of different rows. Rows, the minibatch-std gather and the
+gradient mean run over the data group (``data_world`` ranks, this one
 ``data_rank``), the channel gathers and sums of parallel/tp.py over the
-model group; ``rank`` and ``world`` count every rank.
+model group, the halo exchanges and depth gathers of parallel/sp.py over
+the space group (``Axis``: a group, its size, this rank's place in it);
+``rank`` and ``world`` count every rank.
 
 NCCL runs the collectives on the card and gloo on the CPU. A rank of
 ``world == 1`` with a group still all-reduces its gradients (a mean over
@@ -97,6 +102,17 @@ class _AllGather(torch.autograd.Function):
 
 
 @dataclass(frozen=True)
+class Axis:
+    """An inner axis of the grid as its collectives see it: the process
+    group of this rank's model or space group, its ``size`` and this
+    rank's place in it."""
+
+    group: Any
+    size: int
+    rank: int
+
+
+@dataclass(frozen=True)
 class Replicas:
     """Rank ``rank`` of ``world``, the ``local_rank``-th of the
     ``local_world`` ranks of its host, on ``device``; ``group`` is None in
@@ -109,8 +125,10 @@ class Replicas:
     device: torch.device = torch.device("cpu")
     group: Any = None
     model: int = 1          # ranks of a model group
-    data_group: Any = None  # with model > 1: the ranks of this one's slices
+    data_group: Any = None  # with an inner axis: this one's slice's ranks
     model_group: Any = None  # with model > 1: the ranks of this one's rows
+    space: int = 1          # ranks of a space group
+    space_group: Any = None  # with space > 1: the ranks of this one's rows
 
     def __deepcopy__(self, memo):  # models carry it; a copy shares it
         return self
@@ -125,13 +143,18 @@ class Replicas:
         return self.rank // self.local_world
 
     @property
+    def inner(self) -> int:
+        """The ranks that share a row set: a model or a space group."""
+        return self.model * self.space
+
+    @property
     def data_world(self) -> int:
         """The ranks that split the batch."""
-        return self.world // self.model
+        return self.world // self.inner
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.model
+        return self.rank // self.inner
 
     @property
     def model_rank(self) -> int:
@@ -139,9 +162,23 @@ class Replicas:
         return self.rank % self.model
 
     @property
+    def space_rank(self) -> int:
+        """This rank's place in its space group: which depth slab it
+        holds."""
+        return self.rank % self.space
+
+    @property
+    def model_axis(self) -> Axis:
+        return Axis(self.model_group, self.model, self.model_rank)
+
+    @property
+    def space_axis(self) -> Axis:
+        return Axis(self.space_group, self.space, self.space_rank)
+
+    @property
     def dgroup(self) -> Any:
         """The process group of the data group (None: no collective)."""
-        return self.group if self.model == 1 else self.data_group
+        return self.group if self.inner == 1 else self.data_group
 
     def span(self, n: int) -> Tuple[int, int]:
         """[start, stop) of this rank's rows of a global batch of ``n``."""
@@ -259,7 +296,7 @@ class Plan:
     """The ranks of a run: ``world`` in all, ``local`` started on this
     host, the first of them global rank ``first``, on ``device`` ("cuda"
     or "cpu"); ``coordinator`` is host:port across hosts, else "";
-    ``model`` ranks a model group."""
+    ``model`` ranks a model group, ``space`` ranks a space group."""
 
     world: int
     local: int
@@ -267,6 +304,7 @@ class Plan:
     device: str
     coordinator: str = ""
     model: int = 1
+    space: int = 1
 
     @property
     def parallel(self) -> bool:
@@ -286,13 +324,16 @@ def plan(num_devices: int, platform: str = "", distributed: bool = False,
     ``num_devices`` gloo ranks run (0 = one a host). With ``distributed``
     the ranks spread evenly over ``num_processes`` hosts, this one
     ``process_id``, meeting at ``coordinator_address``. ``model_devices``
-    ranks form a model group (on one host); as ``make_mesh``, it raises
-    beside ``spatial_devices`` > 1 and on a world it does not divide."""
+    ranks form a model group, ``spatial_devices`` ranks a space group
+    (either on one host); as ``make_mesh``, the two together raise, and
+    so does a world the group does not divide."""
     if spatial_devices > 1 and model_devices > 1:
         raise ValueError("spatial and model parallelism cannot be combined "
                          "yet — pick one of spatial_devices/model_devices")
-    if model_devices < 1:
-        raise ValueError(f"model_devices={model_devices} is below 1")
+    if model_devices < 1 or spatial_devices < 1:
+        raise ValueError(f"model_devices={model_devices} or spatial_devices"
+                         f"={spatial_devices} is below 1")
+    inner = model_devices * spatial_devices
     if device is None:
         from gan3d_tpu_torch.utils.platform import resolve_device
 
@@ -321,55 +362,71 @@ def plan(num_devices: int, platform: str = "", distributed: bool = False,
             f"num_devices={num_devices} asks {local} cards a host; "
             f"{torch.cuda.device_count()} are visible")
     world = local * hosts
-    if world % model_devices or local % model_devices:
+    if world % inner or local % inner:
+        kind = "model" if model_devices > 1 else "space"
         raise ValueError(
-            f"{world} devices not divisible by {model_devices}"
-            + ("" if world % model_devices else
-               f" on each host ({local} a host): a model group spans one "
+            f"{world} devices not divisible by {inner}"
+            + ("" if world % inner else
+               f" on each host ({local} a host): a {kind} group spans one "
                "host"))
     return Plan(world=world, local=local, first=host * local,
                 device=device,
                 coordinator=coordinator_address if distributed else "",
-                model=model_devices)
+                model=model_devices, space=spatial_devices)
 
 
 def plan_for(cfg, device: Optional[str] = None) -> Plan:
-    """``plan`` of a training Config."""
+    """``plan`` of a training Config; as the JAX trainer
+    (gan3d_tpu/train/trainer.py:140-143), a resolution that
+    ``spatial_devices`` does not divide raises."""
+    if cfg.spatial_devices > 1 and cfg.resolution % cfg.spatial_devices:
+        raise ValueError(
+            f"resolution {cfg.resolution} not divisible by "
+            f"spatial_devices {cfg.spatial_devices}")
     return plan(cfg.num_devices, cfg.platform, cfg.distributed,
                 cfg.coordinator_address, cfg.num_processes, cfg.process_id,
                 device, cfg.model_devices, cfg.spatial_devices)
 
 
 def grid(rank: int, world: int, local_rank: int, local_world: int,
-         device: torch.device, model: int = 1) -> Replicas:
+         device: torch.device, model: int = 1, space: int = 1) -> Replicas:
     """This rank's ``Replicas`` in the joined default process group, with
-    its data and model groups when ``model`` > 1 (every rank makes every
-    group, in one order, as ``new_group`` requires)."""
-    if world % model:
-        raise ValueError(f"{world} devices not divisible by {model}")
-    data_group = model_group = None
-    if model > 1:
-        for m in range(model):  # ranks m, m + model, ...: one slice each
-            ranks = list(range(m, world, model))
+    its data group and its model group (``model`` > 1) or space group
+    (``space`` > 1); every rank makes every group, in one order, as
+    ``new_group`` requires."""
+    if model > 1 and space > 1:
+        raise ValueError("spatial and model parallelism cannot be combined "
+                         "yet — pick one of spatial_devices/model_devices")
+    inner = model * space
+    if world % inner:
+        raise ValueError(f"{world} devices not divisible by {inner}")
+    data_group = inner_group = None
+    if inner > 1:
+        for i in range(inner):  # ranks i, i + inner, ...: one slice each
+            ranks = list(range(i, world, inner))
             g = dist.new_group(ranks) if len(ranks) > 1 else None
-            if rank % model == m:
+            if rank % inner == i:
                 data_group = g
-        for d in range(world // model):  # adjacent ranks: one row set
-            g = dist.new_group(list(range(d * model, (d + 1) * model)))
-            if rank // model == d:
-                model_group = g
+        for d in range(world // inner):  # adjacent ranks: one row set
+            g = dist.new_group(list(range(d * inner, (d + 1) * inner)))
+            if rank // inner == d:
+                inner_group = g
     return Replicas(rank=rank, world=world, local_rank=local_rank,
                     local_world=local_world, device=device,
                     group=dist.group.WORLD, model=model,
-                    data_group=data_group, model_group=model_group)
+                    data_group=data_group,
+                    model_group=inner_group if model > 1 else None,
+                    space=space,
+                    space_group=inner_group if space > 1 else None)
 
 
 def init(rank: int, world: int, init_method: str, local_rank: int,
          local_world: int, device: torch.device,
-         timeout: datetime.timedelta = TIMEOUT, model: int = 1) -> Replicas:
+         timeout: datetime.timedelta = TIMEOUT, model: int = 1,
+         space: int = 1) -> Replicas:
     """Join the process group as ``rank`` of ``world``: NCCL with the rank
     pinned to ``device`` on the card, gloo on the CPU; ``model`` ranks a
-    model group (``grid``)."""
+    model group, ``space`` ranks a space group (``grid``)."""
     if device.type == "cuda":
         torch.cuda.set_device(device)
         dist.init_process_group("nccl", init_method=init_method, rank=rank,
@@ -378,7 +435,7 @@ def init(rank: int, world: int, init_method: str, local_rank: int,
     else:
         dist.init_process_group("gloo", init_method=init_method, rank=rank,
                                 world_size=world, timeout=timeout)
-    return grid(rank, world, local_rank, local_world, device, model)
+    return grid(rank, world, local_rank, local_world, device, model, space)
 
 
 def _entry(local_rank: int, fn: Callable, args: tuple, p: Plan,
@@ -391,7 +448,7 @@ def _entry(local_rank: int, fn: Callable, args: tuple, p: Plan,
     device = (torch.device("cuda", local_rank) if p.device == "cuda"
               else torch.device("cpu"))
     rp = init(p.first + local_rank, p.world, init_method, local_rank,
-              p.local, device, model=p.model)
+              p.local, device, model=p.model, space=p.space)
     try:
         result = fn(rp, *args)
         if rp.main:

@@ -81,6 +81,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.nn.utils.parametrizations import _SpectralNorm
 
+from gan3d_tpu_torch.parallel.dist import Axis
+
 MIN_SHARD = 8
 
 
@@ -96,94 +98,100 @@ def span(rp, c: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# collectives over the model group
+# collectives over an inner axis of the grid (the model group here, the
+# space group in parallel/sp.py): ``rp`` is a Replicas (its model axis)
+# or a dist.Axis
 # ---------------------------------------------------------------------------
+def _axis(rp) -> Axis:
+    return rp if isinstance(rp, Axis) else rp.model_axis
+
+
 def _nccl(group) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
 def all_gather(x: torch.Tensor, dim: int, rp) -> torch.Tensor:
-    """Every model rank's ``x`` concatenated along ``dim`` in rank order
-    (not differentiable)."""
-    group = rp.model_group
+    """Every rank's ``x`` of the axis concatenated along ``dim`` in rank
+    order (not differentiable)."""
+    ax = _axis(rp)
     x = x.contiguous()
-    if _nccl(group):
-        buf = x.new_empty((rp.model,) + tuple(x.shape))
-        dist.all_gather_into_tensor(buf, x, group=group)
+    if _nccl(ax.group):
+        buf = x.new_empty((ax.size,) + tuple(x.shape))
+        dist.all_gather_into_tensor(buf, x, group=ax.group)
         return torch.cat(buf.unbind(0), dim=dim)
     # gloo gathers host tensors (it would stage a CUDA one there anyway)
     host = x.cpu()
-    parts = [torch.empty_like(host) for _ in range(rp.model)]
-    dist.all_gather(parts, host, group=group)
+    parts = [torch.empty_like(host) for _ in range(ax.size)]
+    dist.all_gather(parts, host, group=ax.group)
     return torch.cat(parts, dim=dim).to(x.device)
 
 
 def all_sum(x: torch.Tensor, rp) -> torch.Tensor:
-    """The sum of ``x`` over the model group (not differentiable)."""
+    """The sum of ``x`` over the axis (not differentiable)."""
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, group=rp.model_group)
+    dist.all_reduce(y, group=_axis(rp).group)
     return y
 
 
 class _Copy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rp, x):
-        ctx.rp = rp
+    def forward(ctx, ax, x):
+        ctx.ax = ax
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return None, _Reduce.apply(ctx.rp, g)
+        return None, _Reduce.apply(ctx.ax, g)
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rp, x):
-        ctx.rp = rp
-        return all_sum(x, rp)
+    def forward(ctx, ax, x):
+        ctx.ax = ax
+        return all_sum(x, ax)
 
     @staticmethod
     def backward(ctx, g):
-        return None, _Copy.apply(ctx.rp, g)
+        return None, _Copy.apply(ctx.ax, g)
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rp, x, dim):
-        ctx.rp, ctx.dim = rp, dim
-        return all_gather(x, dim, rp)
+    def forward(ctx, ax, x, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return all_gather(x, dim, ax)
 
     @staticmethod
     def backward(ctx, g):
-        return None, _Split.apply(ctx.rp, g, ctx.dim), None
+        return None, _Split.apply(ctx.ax, g, ctx.dim), None
 
 
 class _Split(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rp, x, dim):
-        ctx.rp, ctx.dim = rp, dim
-        k = x.shape[dim] // rp.model
-        return x.narrow(dim, rp.model_rank * k, k).contiguous()
+    def forward(ctx, ax, x, dim):
+        ctx.ax, ctx.dim = ax, dim
+        k = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.rank * k, k).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return None, _Gather.apply(ctx.rp, g, ctx.dim), None
+        return None, _Gather.apply(ctx.ax, g, ctx.dim), None
 
 
 def copy(x: torch.Tensor, rp) -> torch.Tensor:
-    return _Copy.apply(rp, x)
+    return _Copy.apply(_axis(rp), x)
 
 
 def reduce(x: torch.Tensor, rp) -> torch.Tensor:
-    return _Reduce.apply(rp, x)
+    return _Reduce.apply(_axis(rp), x)
 
 
 def gather(x: torch.Tensor, rp, dim: int = 1) -> torch.Tensor:
-    return _Gather.apply(rp, x, dim)
+    return _Gather.apply(_axis(rp), x, dim)
 
 
 def split(x: torch.Tensor, rp, dim: int = 1) -> torch.Tensor:
-    return _Split.apply(rp, x, dim)
+    return _Split.apply(_axis(rp), x, dim)
 
 
 def layout(x: torch.Tensor, c: int, local: bool, rp) -> torch.Tensor:

@@ -48,7 +48,13 @@ the step above, unchanged. Under a model axis (``model_devices``,
 parallel/tp.py) the ranks of a model group take the same rows and draws;
 ``tp.reduce_grads`` makes the replicated leaves' gradients whole and
 alike over the model group before the data group's mean, and Adam steps
-each rank's shards.
+each rank's shards. Under a space axis (``spatial_devices``,
+parallel/sp.py) ``real`` is the rank's rows and its depth slab ([B, 1,
+R/S, R, R]), G writes the same slab of its fake, D's outputs and so the
+losses are computed alike on the ranks of a space group, the gradient
+penalty's per-sample norm sums its squares over space, and
+``sp.reduce_grads`` makes the gradients whole and alike over the space
+group before the data group's mean.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ import torch
 from torch.func import functional_call
 
 from gan3d_tpu_torch.config import Config
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp, tp
 from gan3d_tpu_torch.parallel.dist import ONE, Replicas
 from gan3d_tpu_torch.train import losses
 from gan3d_tpu_torch.train.state import Adam
@@ -107,6 +113,15 @@ def _d_out(D: torch.nn.Module, x: torch.Tensor,
     return functional_call(D, state, args).float()
 
 
+def reduce_grads(replicas: Replicas, params: Sequence[torch.Tensor],
+                 grads: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+    """The gradients Adam applies: made whole over the space group
+    (``sp.reduce_grads``) or the model group, then averaged over the data
+    group (``tp.reduce_grads``)."""
+    return tp.reduce_grads(replicas, params,
+                           sp.reduce_grads(replicas, params, grads))
+
+
 def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
            d_opt: Adam, real: torch.Tensor,
            generator: Optional[torch.Generator] = None,
@@ -139,9 +154,10 @@ def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
                     dtype=real.dtype, device=real.device, generator=generator)
             err = err + losses.gradient_penalty(
                 lambda x: _d_out(D, x, generator, crops, start), real, fake,
-                cfg.gp_weight, alpha=replicas.rows(alpha.to(real.device)))
-    d_opt.step(tp.reduce_grads(replicas, d_opt.params,
-                               torch.autograd.grad(err, d_opt.params)))
+                cfg.gp_weight, alpha=replicas.rows(alpha.to(real.device)),
+                replicas=replicas)
+    d_opt.step(reduce_grads(replicas, d_opt.params,
+                            torch.autograd.grad(err, d_opt.params)))
     return err_real.detach(), err_fake.detach()
 
 
@@ -155,8 +171,8 @@ def g_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
     fake = G(_noise(cfg, b, device, generator, noise, replicas))
     with frozen(D):
         err_g = losses.g_adversarial(_d_out(D, fake, generator))
-        g_opt.step(tp.reduce_grads(replicas, g_opt.params,
-                                   torch.autograd.grad(err_g, g_opt.params)))
+        g_opt.step(reduce_grads(replicas, g_opt.params,
+                                torch.autograd.grad(err_g, g_opt.params)))
     return err_g.detach(), fake.detach()
 
 

@@ -63,6 +63,17 @@ the in-loop FID run G on every rank (its forward is collective). The
 replica check holds the replicated tensors alike on every rank and each
 shard alike over its data group.
 
+Spatial parallelism (gan3d_tpu/train/trainer.py:140-148, 207-213):
+``spatial_devices`` > 1 makes the ranks a data x space grid (parallel/
+dist.py); every rank holds both networks whole and its depth slab of every
+activation (parallel/sp.py). A rank's reals are its rows and its slab of
+their depth. The samples of the PNG grid, the in-loop FID's fake and
+``async_log``'s deferred fake are gathered over space before rank 0's
+output work; checkpoints are whole (a resume works under another S), and
+the replica check holds every tensor alike on every rank. The BigGAN
+family, the DCGAN family and the hybrid run under it; the StyleGAN
+families raise (ROADMAP.md A3).
+
 ``param_dtype`` is accepted and, as in the JAX package (whose modules fix
 ``param_dtype=jnp.float32``), the parameters stay f32.
 
@@ -86,7 +97,7 @@ from gan3d_tpu_torch.models.registry import build_models
 from gan3d_tpu_torch.models.stylegan import loss as sg_loss
 from gan3d_tpu_torch.nn.attention import SelfAttention3d
 from gan3d_tpu_torch.ops.conv3d import set_fast_dw_mode, set_wide_conv_mode
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp, tp
 from gan3d_tpu_torch.parallel.dist import ONE, Replicas, plan_for
 from gan3d_tpu_torch.train.checkpoint import CheckpointManager
 from gan3d_tpu_torch.train.state import Adam
@@ -99,14 +110,20 @@ from gan3d_tpu_torch.utils.profiling import StepProfiler
 
 def _reject_unported(cfg: Config) -> None:
     """Raise on options whose code paths the port does not have yet (and,
-    as the JAX package's ``make_mesh``, on spatial and model parallelism
-    together)."""
+    as the JAX package's ``make_mesh`` and trainer, on spatial and model
+    parallelism together and on a resolution ``spatial_devices`` does not
+    divide)."""
     if cfg.spatial_devices > 1 and cfg.model_devices > 1:
         raise ValueError("spatial and model parallelism cannot be combined "
                          "yet — pick one of spatial_devices/model_devices")
-    if cfg.spatial_devices > 1:
-        raise NotImplementedError("not ported yet: spatial_devices > 1 "
-                                  "(ROADMAP.md queue A)")
+    if cfg.spatial_devices > 1 and cfg.family() in ("stylegan",
+                                                    "stylegan2"):
+        raise NotImplementedError(
+            f"not ported yet: spatial_devices > 1 for the {cfg.family()} "
+            "family (ROADMAP.md queue A3)")
+    if cfg.spatial_devices > 1 and cfg.resolution % cfg.spatial_devices:
+        raise ValueError(f"resolution {cfg.resolution} not divisible by "
+                         f"spatial_devices {cfg.spatial_devices}")
 
 
 def hint_128(cfg: Config) -> Optional[str]:
@@ -156,6 +173,10 @@ def _world(cfg: Config, replicas: Optional[Replicas],
         raise ValueError(f"model_devices={cfg.model_devices} but the "
                          f"process group's model groups have "
                          f"{replicas.model} ranks")
+    if cfg.spatial_devices != replicas.space:
+        raise ValueError(f"spatial_devices={cfg.spatial_devices} but the "
+                         f"process group's space groups have "
+                         f"{replicas.space} ranks")
     if replicas.device.type != device.type:
         raise ValueError(f"platform {cfg.platform!r} but the rank runs on "
                          f"{replicas.device}")
@@ -222,6 +243,7 @@ class Trainer:
         self.G = G.to(self.device).train()
         self.D = D.to(self.device).train()
         self.tp = tp.on(rp)
+        self.sp = sp.on(rp)
         self.stylegan2 = cfg.family() == "stylegan2"
         self.stylegan = self.stylegan2 or cfg.family() == "stylegan"
         # StyleGAN2's EMA of G (a copy of G, gan3d_tpu/train/trainer.py
@@ -334,7 +356,7 @@ class Trainer:
         if fake is None:
             self.fid.append(float("nan"))
         elif self._fid_active and self.replicas.world > 1:
-            fake = self.replicas.all_gather(fake)
+            fake = self.replicas.all_gather(self._whole(fake))
             real = self.replicas.all_gather(real.to(self.device)).cpu()
             self.fid.append(self._fid_fn(fake, real) if self.main
                             else float("nan"))
@@ -353,6 +375,13 @@ class Trainer:
         print("[%d|%d]\tD(x): %.4f\tD(G(z)): %.4f|%.4f\tFID %.4f"
               % (step, self.cfg.niters, d_real, d_fake, g_loss,
                  self.fid[-1]), flush=True)
+
+    def _whole(self, fake: torch.Tensor) -> torch.Tensor:
+        """A G output with its depth whole (gathered over space, not
+        differentiable)."""
+        if self.sp and sp.is_sharded(fake):
+            return tp.all_gather(fake, 2, self.replicas.space_axis)
+        return fake
 
     def _flush_deferred(self) -> None:
         if self._deferred is not None:
@@ -377,7 +406,7 @@ class Trainer:
                               generator=self._generator(3, step))
             else:
                 fake = self.G(self.fixed_test_noise)
-            fake = self.replicas.all_gather(fake)
+            fake = self.replicas.all_gather(self._whole(fake))
         if self.main:
             save_volume_grid(os.path.join(self.images_dir, f"{step}.png"),
                              fake.float().cpu().numpy()[:, 0])
@@ -457,17 +486,22 @@ class Trainer:
     def _reals(self, batches) -> tuple:
         """([iterD, B, 1, R, R, R] f32 on the device, the last D sub-batch
         [B, R, R, R] f32 on the host: a view of the same host array), B
-        the rank's rows of its host's batch."""
+        the rank's rows of its host's batch; under a space axis the
+        device's reals are the rank's depth slab [iterD, B, 1, R/S, R, R]
+        and the host's sub-batch stays whole."""
         host = torch.from_numpy(np.stack([next(batches)
                                           for _ in range(self.cfg.iterD)]))
         rp = self.replicas
-        # the host's data ranks (a model group lies on one host)
-        local = rp.local_world // rp.model
+        # the host's data ranks (a model or space group lies on one host)
+        local = rp.local_world // rp.inner
         if local > 1:
             b = host.shape[1] // local
-            i = rp.local_rank // rp.model
+            i = rp.local_rank // rp.inner
             host = host[:, i * b:(i + 1) * b]
-        return host.to(self.device).unsqueeze(2), host[-1]
+        dev = host
+        if self.sp and sp.shards(host.shape[2], rp):
+            dev = host[:, :, slice(*sp.span(host.shape[2], rp))]
+        return dev.to(self.device).unsqueeze(2), host[-1]
 
     def replica_tensors(self) -> Tuple[List[torch.Tensor],
                                        List[torch.Tensor]]:

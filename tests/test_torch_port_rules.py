@@ -121,24 +121,27 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
                                 dict(spatial_devices=2), dict(model_devices=2),
                                 dict(param_dtype="bfloat16")])
 def test_unported_options_raise(tmp_path, kw):
-    """``spatial_devices`` > 1 is not ported and raises. ``param_dtype``
-    is accepted and the parameters stay f32, as in the JAX package.
-    ``model_devices=2`` in one process, with no process group, is refused
-    as any config of more than one rank is (its ranks start through the
-    train CLI)."""
+    """``spatial_devices`` > 1 raises for the StyleGAN families, which are
+    not ported to it yet, and like ``model_devices=2`` is refused in one
+    process with no process group, as any config of more than one rank
+    is (its ranks start through the train CLI). ``param_dtype`` is
+    accepted and the parameters stay f32, as in the JAX package."""
     from gan3d_tpu_torch.data import open_dataset
 
     cfg = Config(resolution=16, filterG=8, filterD=8, z_size=8, batch_size=2,
                  platform="cpu", log_dir=str(tmp_path / "run"), **kw)
-    if "spatial_devices" in kw:
-        with pytest.raises(NotImplementedError):
-            Trainer(open_dataset(_dataset(tmp_path)), cfg)
-    elif "model_devices" in kw:
+    if "spatial_devices" in kw or "model_devices" in kw:
         with pytest.raises(ValueError, match="not divisible by 2"):
             Trainer(open_dataset(_dataset(tmp_path)), cfg)
         with pytest.raises(ValueError, match="start the run with"):
             Trainer(open_dataset(_dataset(tmp_path)),
                     cfg.replace(num_devices=2))
+        if "spatial_devices" in kw:
+            for family in ("stylegan2", "stylegan"):
+                with pytest.raises(NotImplementedError, match="A3"):
+                    Trainer(open_dataset(_dataset(tmp_path)),
+                            cfg.replace(num_devices=2, filterG=16,
+                                        filterD=16, **{family: True}))
     else:
         t = Trainer(open_dataset(_dataset(tmp_path)), cfg)
         dtypes = {p.dtype for net in (t.G, t.D) for p in net.parameters()}

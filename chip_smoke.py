@@ -90,7 +90,8 @@ Phases, each printing its own line:
    train128 — 128^3, z 512, iterD 2, bf16 (TRAIN128_RUNS): the
              reference's default widths (filters 128) with the flagship's
              flags, --remat=True --remat_scope=stage --fused_step=False (2
-             steps and a resume to 3), then --remat_scope=block with the
+             steps; its resume to 3 went in PR 16 for the spatial
+             phase's time), then --remat_scope=block with the
              fused step (2 steps), both at batch 16; the flagship's
              widths (filters 64, batch 16) without remat and with it per
              stage (2 steps each: the same step-0 losses to bf16 rounding,
@@ -152,12 +153,22 @@ Phases, each printing its own line:
              and in one process, losses 1e-5), a control with a planted
              fault (every conv's halo taken as zeros; 1 step), which the
              gradient check must catch, --dcgan and --msl (1 step each;
-             step-0 losses 1e-4 against one process), and a memory probe
-             at batch 16 (one G update's forward and backward: bytes alive
-             after the forward and the peak, each rank beside one
-             process); NCCL in bf16 at batch 16 over 2 cards (space 2) and
-             4 (data 2 x space 2) where there are that many (else a line
-             says it was not run);
+             step-0 losses 1e-4 against one process), StyleGAN2 and
+             StyleGAN-1 with --wide_conv=on --fast_dw=on at their widths
+             (slice 13; 1 step each against one-process f32 runs: step-0
+             losses 1e-4, step 0's gradients within the same limit and
+             bit-equal on both ranks, the replica check, K4 48 / K3 8
+             launches on each rank's halo'd slabs; then StyleGAN2 with
+             halos of zeros, which the gradient check must catch), and a
+             memory probe at batch 16 (one G update's forward and
+             backward: bytes alive after the forward and the peak, each
+             rank beside one process); after the train128 phase, NCCL in
+             bf16 at batch 16 over 2 cards (space 2: the flagship,
+             StyleGAN2, StyleGAN-1 and the reference's 128^3 widths
+             without remat, its step-0 losses to bf16 rounding of the
+             train128 phase's remat run) and 4 (data 2 x space 2, the
+             flagship) where there are that many (else a line says it was
+             not run);
    inloop_fid — the flagship with in-loop FID: the random stand-in
              (--fid_in_loop=True, 4 steps, a log and a checkpoint every 2),
              a random-init Inception-V3 weights file the script writes in
@@ -231,6 +242,14 @@ Phases, each printing its own line:
 
 Any failure raises and the script exits non-zero without the result line.
 It needs no arguments and one card; it imports nothing of JAX.
+
+On a machine with 4 cards, ``python3 chip_smoke.py --c4`` reads PERF.md's
+C4 (a hang of the 128^3 run at space 2 over 2 cards): that run with the
+slab BatchNorm's statistics on a second communicator, as it hung, under
+TORCH_DISTRIBUTED_DEBUG=DETAIL at filters 128 and 64 (two pairs of cards
+at once), then the spatial phase's multi-card runs beside short
+one-process controls; ``--c4-repeat`` runs the 128^3 run as it hung (no
+DETAIL) C4_TRIALS times with two communicators and as many with one.
 """
 
 from __future__ import annotations
@@ -361,9 +380,9 @@ TRAIN_RUNS = (
 # resumes from), ...), (SelfAttention3d blocks in G, in D), held against
 # the CPU at batch 1). The reference's default widths (filters 128) with
 # the flagship's flags at batch 16, remat per stage and the split step (2
-# steps and a resume to 3), then per block with the fused step; the
-# flagship's widths (filters 64) without remat and with it, for the
-# memory remat saves and the same step-0 losses; StyleGAN2 (a 1-channel
+# steps; the 64^3 runs hold the resume), then per block with the fused
+# step; the flagship's widths (filters 64) without remat and with it, for
+# the memory remat saves and the same step-0 losses; StyleGAN2 (a 1-channel
 # block at 128^3) with remat and without; StyleGAN-1 at batch 8 without
 # remat, as the JAX package trains it there. Each 2 steps unless said.
 W128 = ["--resolution=128", "--z_size=512", "--iterD=2"]
@@ -375,7 +394,7 @@ SG2_128 = (["--stylegan2=True", "--filterG=128", "--filterD=128",
             "--batch_size=16"] + W128)
 TRAIN128_RUNS = (
     ("ref128", REF128 + ["--remat=True", "--remat_scope=stage",
-                         "--fused_step=False"], ((2, 0), (3, 2)), (1, 1),
+                         "--fused_step=False"], ((2, 0),), (1, 1),
      True),
     ("ref128_block", REF128 + ["--remat=True", "--remat_scope=block",
                                "--fused_step=True"], ((2, 0),), (1, 1),
@@ -476,6 +495,27 @@ SP_LOSS_TOL = 1e-5  # step-0 losses against one process, relative
 SP_FAMILY_TOL = 1e-4
 SP_PROBE_BATCH = 16
 SP_DCGAN_RUNS = (("dcgan", DCGAN), ("dcgan_msl", DCGAN + ["--msl=True"]))
+# StyleGAN2 and StyleGAN-1 at space 2 (slice 13), one step each on the
+# gloo ranks at the tp phase's batch in f32, against one-process f32 runs
+# of the same flags: StyleGAN2's step 0 is the lazy R1 + PL step;
+# StyleGAN-1 runs the conv knobs, so K4 and K3 take every rank's halo'd
+# slabs on their f32 routes (its G's 8 eligible convs: 3 G forwards a
+# step, 2 sample forwards, ``expected_conv_launches``); then StyleGAN2
+# with every halo of zeros, the control the gradient check must fail.
+# Over NCCL on 2 cards both families run in bf16 at batch 16.
+SP_SG_RUNS = (("stylegan2", SG2),
+              ("stylegan_knobs", SG1 + ["--wide_conv=on", "--fast_dw=on"]))
+# C4 (PERF.md): the reference's 128^3 widths without remat at space 2
+# over 2 cards hung once in the backward. ``--c4`` reruns it with the
+# slab BatchNorm's statistics on a second communicator (the code as it
+# hung), at filters 128 and 64, under TORCH_DISTRIBUTED_DEBUG=DETAIL and
+# a collective timeout of C4_TIMEOUT_S, then the multi-card runs of the
+# spatial phase (the 128^3 one included) as the script runs them.
+C4_TIMEOUT_S = 120
+C4_WALL_S = 360
+# ``--c4-repeat``: the run as it hung (no DETAIL), this many times with two
+# communicators and as many with one, on two pairs of cards at once
+C4_TRIALS = 3
 # The tournament phase's runs (each read as name + "0"): the flagship,
 # the DCGAN with --sagan, the hybrid.
 TOURNAMENT_RUNS = ("default", "dcgan_sagan", "hybrid")
@@ -828,7 +868,9 @@ def conv_shapes() -> dict:
     """(Ci, Co, D, H, W) of every conv the port's rule admits, per network
     in call order, from forward pre-hooks on the flagship's G and D and on
     StyleGAN-1's G and D (on the card, N=1, the default route); checked
-    against CONV_G / CONV_D / CONV_SG1 (StyleGAN-1's D: none)."""
+    against CONV_G / CONV_D / CONV_SG1 (StyleGAN-1's D: none); and
+    StyleGAN-1's G on a rank of a space group of 2 ("SG1_s2": the K4 / K3
+    routes take the halo'd slab, half the depth and two planes)."""
     import torch
 
     from gan3d_tpu_torch.config import Config
@@ -868,6 +910,9 @@ def conv_shapes() -> dict:
             raise AssertionError(f"{name} eligible convs {seen[name]} != "
                                  f"{want}")
     del seen["SG1_D"]
+    # a StyleGAN-1 rank's at space 2: its slab and a halo plane each side
+    seen["SG1_s2"] = [(ci, co, d // SP_SPACE + 2, h, w)
+                      for ci, co, d, h, w in seen["SG1"]]
     return seen
 
 
@@ -888,7 +933,7 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
     shape of the flagship's G and D and StyleGAN-1's G, N=16, f32 and bf16:
     error against the plain version, and times of the kernel, the plain
     version and the PyTorch call. Each case names the networks that run
-    its shape ("paths": G, D, SG1)."""
+    its shape ("paths": G, D, SG1, SG1_s2)."""
     import torch
     import torch.nn.functional as F
 
@@ -1387,7 +1432,9 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
     2; NCCL across cards where there are several); K1's and K2's cases
     include the flagship's placements on a rank of a space group
     (``G_s2``, ``D_s2``, ``G_s4``, ``D_s4``, bf16); each conv case lists
-    the networks that run its shape ("paths": G, D, SG1). K1-K5 and the
+    the networks that run its shape ("paths": G, D, SG1, SG1_s2; K3 and
+    K4 add ``launches_per_rank`` of the spatial phase's StyleGAN-1 knob
+    run on the gloo ranks, f32 route). K1-K5 and the
     ladder add ``device_ms`` and ``library_device_ms`` (device time per
     call, profiler), and K1-K5 the f32 route's (the FMA kernels') numbers
     at the same case: ``f32_ms``, ``f32_device_ms``, ``f32_library_ms``
@@ -1441,12 +1488,13 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
         if key == "fwd_tc":  # the tournament's no-grad forwards
             out[-1]["launches_by_path"]["tournament"] = \
                 paths["tournament"][key]
-        if key in ("fwd_tc", "bwd_tc"):
-            k = "K1" if key == "fwd_tc" else "K2"
-            out[-1]["launches_per_rank"] = {
-                run: {r: v[k] for r, v in got["per_rank"].items()}
-                for run, got in dp.items() if isinstance(got, dict)
-                and "per_rank" in got}
+        k = {"fwd_tc": "K1", "bwd_tc": "K2", "wide_tc": "K4",
+             "dw_tc": "K3"}[key]
+        out[-1]["launches_per_rank"] = {
+            run: {r: v[k] for r, v in got["per_rank"].items()}
+            for run, got in dp.items() if isinstance(got, dict)
+            and "per_rank" in got
+            and all(k in v for v in got["per_rank"].values())}
         # the same case's f32 route (FMA kernels) beside it
         f32 = next(c for c in mine if c["dtype"] == "float32" and all(
             c[k] == main[k] for k in main
@@ -2490,27 +2538,29 @@ def bn_formula():
 
 
 def _dp_rank_checks(name: str, ranks: list, route: str, steps: int,
-                    log_dir: str) -> dict:
+                    log_dir: str, attention: tuple = (1, 1),
+                    run: int = 0) -> dict:
     """Each rank's K1/K2 launches (``route``: "_tc" for bf16, "" for f32)
-    as the step implies on its rows, rank 0 alone printing, the replica
+    in its run ``run`` as the step implies on its rows (``attention``:
+    the attention blocks in G and D), rank 0 alone printing, the replica
     check passed; returns the per-rank numbers."""
-    want = expected_launches(0, steps, 2, 50, (1, 1))
+    want = expected_launches(0, steps, 2, 50, attention)
     per_rank = {}
     for r in ranks:
-        got = r["runs"][0]["launches"]
+        got = r["runs"][run]["launches"]
         if (got[f"fwd{route}"], got[f"bwd{route}"]) != (want["fwd_tc"],
                                                         want["bwd_tc"]):
             raise AssertionError(f"{name} rank {r['rank']}: K1/K2 launches "
                                  f"{got} != {want} a rank")
         per_rank[f"rank{r['rank']}"] = {
             "K1": got[f"fwd{route}"], "K2": got[f"bwd{route}"],
-            "max_memory_allocated": r["runs"][0]["max_memory_allocated"]}
-    out0 = ranks[0]["runs"][0]["stdout"]
+            "max_memory_allocated": r["runs"][run]["max_memory_allocated"]}
+    out0 = ranks[0]["runs"][run]["stdout"]
     world = len(ranks)
     if world > 1 and f"on all {world} ranks" not in out0:
         raise AssertionError(f"{name}: no passed replica check in rank 0's "
                              "output")
-    if any(r["runs"][0]["stdout"] for r in ranks[1:]):
+    if any(r["runs"][run]["stdout"] for r in ranks[1:]):
         raise AssertionError(f"{name}: a rank other than 0 printed")
     return {"per_rank": per_rank, **_done(out0),
             "losses_step0": _ckpt_losses(log_dir)}
@@ -2766,13 +2816,14 @@ PLANTED = {"sigma": ("tp", "sigma", _sigma_on_the_slice),
 
 
 def tp_rank(rp, runs: list, out_dir: str, tag: str, record: tuple = (),
-            fault: int = -1, planted: str = "sigma",
+            fault=-1, planted: str = "sigma",
             copies: dict = None) -> None:
     """One rank of a tp or spatial run: ``cli.train.train_rank`` for each
     argv of ``runs`` (cuDNN deterministic), the launch counters set to 0
     before each and read after it; every rank writes step 0's gradients,
     gathered whole, of the runs whose index is in ``record`` to
-    ``{tag}_grads{i}_rank{r}.pt``; run ``fault`` has the planted fault
+    ``{tag}_grads{i}_rank{r}.pt``; run ``fault`` (an index, or a tuple
+    of them) has the planted fault
     ``PLANTED[planted]``; before run i, rank 0 copies the directory
     ``copies[i][0]`` to ``copies[i][1]`` (a resume's start). Writes
     ``{tag}_rank{r}.json``: each run's counters, stdout and peak
@@ -2791,6 +2842,7 @@ def tp_rank(rp, runs: list, out_dir: str, tag: str, record: tuple = (),
     where, attr, bad = PLANTED[planted]
     where = {"tp": tp, "sp": sp}[where]
     good = getattr(where, attr)
+    faults = fault if isinstance(fault, tuple) else (fault,)
     for i, argv in enumerate(runs):
         if copies and i in copies:
             if rp.main:
@@ -2801,7 +2853,7 @@ def tp_rank(rp, runs: list, out_dir: str, tag: str, record: tuple = (),
         cc.reset_counters()
         torch.cuda.reset_peak_memory_stats(rp.device)
         buf = io.StringIO()
-        if i == fault:
+        if i in faults:
             setattr(where, attr, bad)
         try:
             with contextlib.redirect_stdout(buf), recorded_full_grads(
@@ -2859,7 +2911,7 @@ def tp_memory_probe(rp=None, batch: int = TP_PROBE_BATCH) -> dict:
 
 
 def tp_gloo_rank(local_rank: int, world: int, init_file: str, runs: list,
-                 out_dir: str, tag: str, record: tuple, fault: int,
+                 out_dir: str, tag: str, record: tuple, fault,
                  model: int = TP_MODEL, space: int = 1,
                  probe_batch: int = TP_PROBE_BATCH,
                  planted: str = "sigma", copies: dict = None) -> None:
@@ -3115,15 +3167,17 @@ def sp_phase(ca, cc, tmp: str, data: str, dp: dict, tp_res: dict) -> dict:
        every conv taken as zeros (``_halo_of_zeros``; iterD 1, one step),
        whose first D update's gradients the gradient check must fail;
        then --dcgan (LayerNorm D) and --msl, one step each, the step-0
-       losses against one process's within SP_FAMILY_TOL; then
+       losses against one process's within SP_FAMILY_TOL; then StyleGAN2
+       and StyleGAN-1 with the conv knobs (SP_SG_RUNS, one step each at
+       their widths) against one-process f32 runs of the same flags:
+       step-0 losses within SP_FAMILY_TOL, step 0's gradients within the
+       same limit and bit-equal on both ranks, the replica check, and on
+       each rank K4 / K3 (f32 routes) launched as the StyleGAN-1 step
+       implies on its halo'd slabs; then StyleGAN2 with halos of zeros,
+       whose first D update the gradient check must fail; then
        ``tp_memory_probe`` at SP_PROBE_BATCH on each rank beside one
        process;
-    2. NCCL across cards in bf16 at batch 16 where there are several: S =
-       2 over 2 cards and data 2 x space 2 over 4, beside the dp phase's
-       one-process bf16 run (step-0 losses, each rank's peak, vol/s); on
-       one card a line says it was not run. (The reference's 128^3 widths
-       without remat at S = 2 over 2 cards hung in a collective of the
-       backward: PERF.md.)
+    2. NCCL across cards (``sp_nccl``, after the train128 phase).
     """
     import torch
     import torch.multiprocessing as mp
@@ -3138,6 +3192,7 @@ def sp_phase(ca, cc, tmp: str, data: str, dp: dict, tp_res: dict) -> dict:
                        f"--batch_size={TP_GLOO_BATCH}"]
     names = param_names(base)
     grad_tol = tpg["grad_tol"]
+    iter_d = int(next(f for f in WIDTHS if f.startswith("--iterD="))[8:])
     # the DCGAN family's one-process controls (one step, f32)
     dcgan = {}
     for name, flags in SP_DCGAN_RUNS:
@@ -3146,6 +3201,16 @@ def sp_phase(ca, cc, tmp: str, data: str, dp: dict, tp_res: dict) -> dict:
                         f"--batch_size={TP_GLOO_BATCH}"]
         dcgan[name] = (argv, _dp_one_process(
             ca, cc, argv + [f"--log_dir={tmp}/sp_one_{name}"], name))
+    # StyleGAN2 and StyleGAN-1's one-process controls (one step, f32),
+    # their step-0 gradients recorded
+    sg = {}
+    for name, flags in SP_SG_RUNS:
+        argv = flags + [f"--data_path={data}", "--niters=1",
+                        "--compute_dtype=float32",
+                        f"--batch_size={TP_GLOO_BATCH}"]
+        sg[name] = (argv, _dp_one_process(
+            ca, cc, argv + [f"--log_dir={tmp}/sp_one_{name}"], name,
+            record=iter_d + 1))
     one_probe = tp_memory_probe(batch=SP_PROBE_BATCH)
     torch.cuda.empty_cache()  # the ranks' processes share the card
     sp_flags = [f"--spatial_devices={SP_SPACE}", f"--num_devices={SP_SPACE}"]
@@ -3158,11 +3223,19 @@ def sp_phase(ca, cc, tmp: str, data: str, dp: dict, tp_res: dict) -> dict:
             + [base + sp_flags + [f"--log_dir={tmp}/sp_gloo2_resume",
                                   f"--niters={SP_STEPS + 1}"]])
     copies = {len(runs) - 1: (f"{tmp}/sp_gloo2", f"{tmp}/sp_gloo2_resume")}
+    first_sg = len(runs)
+    runs += [argv + sp_flags + [f"--log_dir={tmp}/sp_gloo2_{name}"]
+             for name, (argv, _) in sg.items()]
+    sg2_argv = sg["stylegan2"][0]
+    runs.append(sg2_argv + sp_flags + [f"--log_dir={tmp}/sp_gloo2_sg_fault",
+                                       "--iterD=1"])
+    sg_fault = len(runs) - 1
+    record = (0, 1) + tuple(range(first_sg, len(runs)))
     init_file = os.path.join(out_dir, "gloo_rendezvous")
     mp.start_processes(tp_gloo_rank, args=(SP_SPACE, init_file, runs,
-                                           out_dir, "gloo2", (0, 1), 1, 1,
-                                           SP_SPACE, SP_PROBE_BATCH, "halo",
-                                           copies),
+                                           out_dir, "gloo2", record,
+                                           (1, sg_fault), 1, SP_SPACE,
+                                           SP_PROBE_BATCH, "halo", copies),
                        nprocs=SP_SPACE, join=True, start_method="spawn")
     # the same resume in one process, from the same checkpoint
     shutil.copytree(f"{tmp}/sp_gloo2", f"{tmp}/sp_one_resume")
@@ -3220,6 +3293,8 @@ def sp_phase(ca, cc, tmp: str, data: str, dp: dict, tp_res: dict) -> dict:
         if not families[name]["losses_step0_rel_err"] <= SP_FAMILY_TOL:
             raise AssertionError(f"sp {name} vs one process (f32): "
                                  f"{families[name]} (tol {SP_FAMILY_TOL})")
+    stylegan = sp_stylegan_checks(ranks, sg, first_sg, sg_fault, out_dir,
+                                  grad_tol, tmp)
     probes = []
     for r in range(SP_SPACE):
         with open(os.path.join(out_dir, f"gloo2_probe_rank{r}.json")) as f:
@@ -3250,14 +3325,88 @@ def sp_phase(ca, cc, tmp: str, data: str, dp: dict, tp_res: dict) -> dict:
         "one_process_f32_vol_per_s": one32["steady_vol_per_s"],
         "memory_probe": memory, "seconds": time.time() - t0}}
     phase("sp_gloo2", **res["gloo_space2_f32"])
-    res.update(sp_nccl(tmp, data, dp["_one"]))
+    for name, got in stylegan.items():
+        res[f"gloo_space2_f32_{name}"] = got
+        phase(f"sp_gloo2_{name}", **got)
     res["seconds"] = time.time() - t0
     return res
 
 
-def sp_nccl(tmp: str, data: str, one: dict) -> dict:
-    """The spatial phase's NCCL part (``sp_phase`` item 2), beside
-    ``one``, the dp phase's one-process bf16 run at batch 16."""
+def sp_stylegan_checks(ranks: list, sg: dict, first: int, fault: int,
+                       out_dir: str, grad_tol: float, tmp: str) -> dict:
+    """The spatial phase's StyleGAN runs on the gloo ranks (runs
+    ``first``, ... in SP_SG_RUNS order, and the control ``fault``) against
+    their one-process controls ``sg``: the replica check and rank 0 alone
+    printing, step-0 losses within SP_FAMILY_TOL, step 0's gradients by
+    ``grad_check`` within ``grad_tol`` and bit-equal on both ranks, K4 /
+    K3 launches on each rank as the StyleGAN-1 knob step implies (f32
+    routes; none in StyleGAN2), and the control's first D update failing
+    the gradient check."""
+    out = {}
+    for i, (name, (argv, one)) in enumerate(sg.items(), start=first):
+        log_dir = f"{tmp}/sp_gloo2_{name}"
+        out0 = ranks[0]["runs"][i]["stdout"]
+        if f"on all {SP_SPACE} ranks" not in out0 or ranks[1]["runs"][i][
+                "stdout"]:
+            raise AssertionError(f"sp {name}: no passed replica check, or "
+                                 "rank 1 printed")
+        knobs = "--wide_conv=on" in argv
+        want = expected_conv_launches(0, 1, 2, 50, len(CONV_SG1) if knobs
+                                      else 0, 0, knobs, knobs)
+        per_rank = {}
+        for r in ranks:
+            got = r["runs"][i]["launches"]
+            if (got["wide"], got["dw"], got["wide_tc"], got["dw_tc"],
+                    got["fwd"], got["bwd"]) != (want["wide_tc"],
+                                                want["dw_tc"], 0, 0, 0, 0):
+                raise AssertionError(f"sp {name} rank {r['rank']}: launches "
+                                     f"{got}, want K4 {want['wide_tc']} and "
+                                     f"K3 {want['dw_tc']} (f32 routes)")
+            per_rank[f"rank{r['rank']}"] = {
+                "K4": got["wide"], "K3": got["dw"],
+                "max_memory_allocated": r["runs"][i]["max_memory_allocated"]}
+        got, equal = _tp_grads(out_dir, "gloo2", i, SP_SPACE)
+        grads = grad_check(got, one["grads"], param_names(argv))
+        losses = _ckpt_losses(log_dir)
+        rel = _rel(losses, one["losses_step0"])
+        out[name] = {"per_rank": per_rank, "losses_step0": losses,
+                     "one_process_losses_step0": one["losses_step0"],
+                     "losses_step0_rel_err": rel, "tol": SP_FAMILY_TOL,
+                     **grads, "grad_tol": grad_tol,
+                     "grads_bit_equal_on_ranks": equal,
+                     "launches_a_rank_want": want}
+        if not (rel <= SP_FAMILY_TOL and _grads_within(grads, grad_tol)
+                and equal):
+            raise AssertionError(f"sp {name} vs one process (f32): "
+                                 f"{out[name]}")
+    # the control: halos of zeros in StyleGAN2, one D update and the G
+    # update; its first D update's gradients against one process's
+    argv, one = sg["stylegan2"]
+    fault_got, _ = _tp_grads(out_dir, "gloo2", fault, SP_SPACE)
+    chk = grad_check(fault_got[:1], one["grads"][:1], param_names(argv))
+    chk["caught_by"] = ["gradients"] if not _grads_within(
+        chk, grad_tol) else []
+    if not chk["caught_by"]:
+        raise AssertionError(f"the checks passed StyleGAN2's planted fault "
+                             f"(halos of zeros): {chk}")
+    out["stylegan2"]["planted_fault_control"] = chk
+    return out
+
+
+def sp_nccl(tmp: str, data: str, one: dict, one_sg: dict,
+            one128: dict) -> dict:
+    """The spatial phase's NCCL part, where there are several cards (on
+    one card a line says it was not run), in bf16 at batch 16: the
+    flagship at S = 2 over 2 cards and data 2 x space 2 over 4, beside
+    ``one``, the dp phase's one-process bf16 run (step-0 losses, each
+    rank's peak, vol/s); StyleGAN2 and StyleGAN-1 at S = 2 over 2 cards,
+    beside ``one_sg``, the train phase's one-process runs of the same
+    flags (vol/s, peak); the reference's 128^3 widths without remat at S
+    = 2 over 2 cards (the run that hung before its BatchNorm statistics
+    and halos shared one communicator: PERF.md's C4), its step-0 losses
+    against ``one128``'s (the train128 phase's remat run of the same
+    widths) to bf16 rounding (2^-7 of the larger |loss|, at least 2^-7),
+    K1 8 / K2 6 launches a step on each rank."""
     import torch
 
     from gan3d_tpu_torch.parallel import dist
@@ -3266,16 +3415,21 @@ def sp_nccl(tmp: str, data: str, one: dict) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     cards = min(torch.cuda.device_count(), DP_MAX_CARDS)
     res = {}
-    base = FLAGSHIP + [f"--data_path={data}", f"--niters={SP_STEPS}",
-                       f"--spatial_devices={SP_SPACE}"]
-    for n in [w for w in (2, 4) if w <= cards]:
-        argvn = base + [f"--log_dir={tmp}/sp_nccl{n}", f"--num_devices={n}"]
-        dist.launch(tp_rank, ([argvn], out_dir, f"nccl{n}"),
+    sp_flags = [f"--niters={SP_STEPS}", f"--spatial_devices={SP_SPACE}"]
+
+    def launch(tag, argv, n, attention):
+        dist.launch(tp_rank, ([argv + [f"--log_dir={tmp}/sp_{tag}",
+                                       f"--num_devices={n}"]],
+                              out_dir, tag),
                     dist.Plan(world=n, local=n, first=0, device="cuda",
                               space=SP_SPACE))
-        ranks = _dp_read(out_dir, f"nccl{n}", n)
-        wn = _dp_rank_checks(f"sp_nccl{n}", ranks, "_tc", SP_STEPS,
-                             f"{tmp}/sp_nccl{n}")
+        ranks = _dp_read(out_dir, tag, n)
+        return ranks, _dp_rank_checks(f"sp_{tag}", ranks, "_tc", SP_STEPS,
+                                      f"{tmp}/sp_{tag}", attention)
+
+    base = FLAGSHIP + [f"--data_path={data}"] + sp_flags
+    for n in [w for w in (2, 4) if w <= cards]:
+        ranks, wn = launch(f"nccl{n}", base, n, (1, 1))
         res[f"nccl_world{n}_bf16"] = {
             **wn, "data": n // SP_SPACE, "space": SP_SPACE,
             "losses_step0_rel_err_vs_one_process_bf16": _rel(
@@ -3286,7 +3440,211 @@ def sp_nccl(tmp: str, data: str, one: dict) -> dict:
     if cards < 2:
         res["nccl_multi_card"] = f"not run: {cards} card(s) visible"
         phase("sp_nccl_multi_card", not_run=res["nccl_multi_card"])
+        return res
+    for name, flags in (("stylegan2", SG2), ("stylegan", SG1)):
+        ranks, w2 = launch(f"nccl2_{name}", flags + [
+            f"--data_path={data}"] + sp_flags, 2, (0, 0))
+        res[f"nccl_world2_bf16_{name}"] = {
+            **w2, "data": 1, "space": SP_SPACE,
+            **_tp_memory(ranks, one_sg[name]["max_memory_allocated"]),
+            "one_process_bf16_vol_per_s": one_sg[name]["steady_vol_per_s"]}
+        phase(f"sp_nccl2_{name}", **res[f"nccl_world2_bf16_{name}"])
+    data128 = os.path.join(tmp, "train128.npz")
+    ranks, w2 = launch("nccl2_ref128", REF128 + [
+        "--remat=False", f"--data_path={data128}"] + sp_flags, 2, (1, 1))
+    want = one128["loss_d0"] + [one128["loss_g0"]]
+    err = max(abs(x - y) / max(1.0, abs(y))
+              for x, y in zip(w2["losses_step0"], want))
+    res["nccl_world2_bf16_ref128"] = {
+        **w2, "data": 1, "space": SP_SPACE,
+        "one_process_losses_step0": want, "losses_step0_rel_err": err,
+        "tol": 2 ** -7,
+        **_tp_memory(ranks, one128["max_memory_allocated"]),
+        "one_process_remat_bf16_vol_per_s": one128["steady_vol_per_s"]}
+    phase("sp_nccl2_ref128", **res["nccl_world2_bf16_ref128"])
+    if not err <= 2 ** -7:
+        raise AssertionError(f"128^3 at space 2 over 2 cards vs one process: "
+                             f"{res['nccl_world2_bf16_ref128']}")
     return res
+
+
+def _two_communicators(rp, sync: bool) -> tuple:
+    """The slab BatchNorm's scope as it was when C4 hung: with ``sync``
+    the default group, a second communicator over the space group's ranks
+    at data 1."""
+    if sync:
+        return rp.group, rp.world, rp.rank
+    return rp.space_group, rp.space, rp.space_rank
+
+
+def c4_rank(local_rank: int, world: int, init_file: str, argv: list,
+            out_dir: str, tag: str, two: bool) -> None:
+    """A rank of ``c4_diag``: NCCL with a collective timeout of
+    C4_TIMEOUT_S, the slab BatchNorm on two communicators (``two``) or
+    on the space group's, one ``cli.train.train_rank`` run; writes
+    ``{tag}_rank{r}.json``."""
+    import datetime
+
+    import torch
+
+    from gan3d_tpu_torch.cli import train as cli_train
+    from gan3d_tpu_torch.config import config_from_args
+    from gan3d_tpu_torch.nn import norm
+    from gan3d_tpu_torch.parallel import dist
+
+    rp = dist.init(local_rank, world, "file://" + init_file, local_rank,
+                   world, torch.device("cuda", local_rank),
+                   timeout=datetime.timedelta(seconds=C4_TIMEOUT_S),
+                   space=world)
+    if two:
+        norm.slab_scope = _two_communicators
+    try:
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_train.train_rank(rp, config_from_args(argv))
+        torch.cuda.synchronize()
+        with open(os.path.join(out_dir, f"{tag}_rank{rp.rank}.json"),
+                  "w") as f:
+            json.dump({"seconds": time.time() - t0, "stdout": buf.getvalue(),
+                       "max_memory_allocated":
+                       torch.cuda.max_memory_allocated()}, f)
+        rp.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def c4_diag(filters: int, tmp: str, two: bool = True,
+            trial: int = 0) -> dict:
+    """The run that hung (C4): the reference's 128^3 flags at ``filters``
+    without remat, space 2 over 2 cards, 2 steps, the slab BatchNorm's
+    statistics on a second communicator (``two``; else the space
+    group's), under the environment's TORCH_DISTRIBUTED_DEBUG; whether it
+    finished, its seconds and each rank's peak, or how it failed."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(tmp, f"c4_{filters}_{int(two)}_{trial}")
+    os.makedirs(out_dir, exist_ok=True)
+    argv = (REF128 + ["--remat=False", f"--filterG={filters}",
+                      f"--filterD={filters}",
+                      f"--data_path={tmp}/train128.npz",
+                      f"--log_dir={out_dir}/run", f"--niters={SP_STEPS}",
+                      f"--spatial_devices={SP_SPACE}",
+                      f"--num_devices={SP_SPACE}"])
+    t0 = time.time()
+    try:
+        mp.start_processes(c4_rank, args=(SP_SPACE, f"{out_dir}/rdv", argv,
+                                          out_dir, "c4", two),
+                           nprocs=SP_SPACE, join=True, start_method="spawn")
+    except Exception as e:  # noqa: BLE001 — a hang's timeout is a reading
+        return {"filters": filters, "two_communicators": two,
+                "trial": trial, "finished": False,
+                "seconds": time.time() - t0, "error": repr(e)[-2000:]}
+    ranks = _dp_read(out_dir, "c4", SP_SPACE)
+    return {"filters": filters, "two_communicators": two, "trial": trial,
+            "finished": True,
+            "seconds": time.time() - t0,
+            "losses_step0": _ckpt_losses(f"{out_dir}/run"),
+            "max_memory_allocated": [r["max_memory_allocated"]
+                                     for r in ranks],
+            **_done(ranks[0]["stdout"])}
+
+
+def _c4_pairs(tmp: str, jobs: tuple, trials: int, detail: bool) -> None:
+    """``c4_diag`` ``trials`` times for each (filters, two communicators,
+    cards) of ``jobs``, each job a process of its own on its pair of
+    cards, all at once (DETAIL with ``detail``), each ended by a wall
+    limit of trials x C4_WALL_S; a line a job's exit."""
+    procs = []
+    for filters, two, cards in jobs:
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=cards)
+        if detail:
+            env["TORCH_DISTRIBUTED_DEBUG"] = "DETAIL"
+        procs.append(((filters, two), subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             f"--c4-diag={filters}", tmp, str(int(two)), str(trials)],
+            env=env)))
+    for (filters, two), proc in procs:
+        try:
+            rc = proc.wait(timeout=trials * C4_WALL_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        phase("c4_exit", filters=filters, two_communicators=two, rc=rc)
+
+
+def _c4_setup(tmp: str, *libs: str) -> bool:
+    """The 4-card modes' kernels and 128^3 data; False with fewer cards."""
+    import numpy as np
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        print(f"chip_smoke: {torch.cuda.device_count()} card(s), the C4 "
+              "modes need 4", file=sys.stderr)
+        return False
+    sys.path.insert(0, REPO)
+    from gan3d_tpu_torch.ops import cuda_build
+    from gan3d_tpu_torch.utils.platform import configure_precision
+
+    configure_precision(torch.device("cuda"))
+    cuda_build.build(*libs)
+    np.savez(os.path.join(tmp, "train128.npz"), X=np.tanh(
+        np.random.default_rng(0).standard_normal((16, 128, 128, 128),
+                                                 np.float32)))
+    return True
+
+
+def c4_repeat_main() -> int:
+    """``python3 chip_smoke.py --c4-repeat`` on a machine with 4 cards:
+    the run that hung, as it ran (no DETAIL), C4_TRIALS times with the
+    slab BatchNorm on two communicators on cards 0-1 and as many with
+    one communicator on cards 2-3, at once; a line a trial."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c4_") as tmp:
+        if not _c4_setup(tmp, "pooled_attention"):
+            return 1
+        _c4_pairs(tmp, ((128, True, "0,1"), (128, False, "2,3")),
+                  C4_TRIALS, detail=False)
+    return 0
+
+
+def c4_main() -> int:
+    """``python3 chip_smoke.py --c4`` on a machine with 4 cards: the run
+    that hung as it was (``c4_diag``, TORCH_DISTRIBUTED_DEBUG=DETAIL) at
+    filters 128 on cards 2-3 and 64 on cards 0-1 at once; then the
+    one-process controls and the spatial phase's multi-card runs as the
+    script runs them (``sp_nccl``: the 128^3 run with one
+    communicator). Prints a line a reading; exits non-zero when a
+    multi-card run fails."""
+    import numpy as np
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c4_") as tmp:
+        if not _c4_setup(tmp, "pooled_attention", "conv3d_k3"):
+            return 1
+        from gan3d_tpu_torch.ops import cuda_attention as ca
+        from gan3d_tpu_torch.ops import cuda_conv as cc
+
+        np.savez(os.path.join(tmp, "train.npz"), X=np.tanh(
+            np.random.default_rng(0).standard_normal((48, 64, 64, 64),
+                                                     np.float32)))
+        _c4_pairs(tmp, ((128, True, "2,3"), (64, True, "0,1")), 1,
+                  detail=True)
+        one = _dp_one_process(ca, cc, FLAGSHIP + [
+            f"--data_path={tmp}/train.npz", f"--log_dir={tmp}/one",
+            f"--niters={DP_RATE_STEPS}"], "one")
+        one_sg = {}
+        for name, flags in (("stylegan2", SG2), ("stylegan", SG1)):
+            one_sg[name] = train_run(ca, cc, name, flags, flags + [
+                f"--data_path={tmp}/train.npz",
+                f"--log_dir={tmp}/one_{name}"], 4, 0, (0, 0))
+        one128 = train_run(ca, cc, "ref128", TRAIN128_RUNS[0][1],
+                           TRAIN128_RUNS[0][1] + [
+                               f"--data_path={tmp}/train128.npz",
+                               f"--log_dir={tmp}/one128"], 2, 0, (1, 1))
+        torch.cuda.empty_cache()
+        sp_nccl(tmp, f"{tmp}/train.npz", one, one_sg, one128)
+    print(json.dumps({"ok": True, "c4": True}), flush=True)
+    return 0
 
 
 def model_check(log_dir: str, cc, n: int = 2) -> dict:
@@ -3454,6 +3812,11 @@ def main() -> int:
         spatial = sp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"), dp,
                            tp)
         train128 = train128_phase(ca, cc, tmp)
+        spatial.update(sp_nccl(
+            tmp, os.path.join(tmp, "train.npz"), dp["_one"],
+            {"stylegan2": train["stylegan2/run_0_18"],
+             "stylegan": train["stylegan/run_0_8"]},
+            train128["ref128/run_0_2"]))
         phase("inloop_fid", **inloop_fid_phase(
             ca, cc, tmp, train["default/run_0_12"]["steady_vol_per_s"]))
         phase("eval", **eval_phase(tmp, os.path.join(tmp, EVAL_RUN)))
@@ -3493,4 +3856,16 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--c4"]:
+        sys.exit(c4_main())
+    if sys.argv[1:2] == ["--c4-repeat"]:
+        sys.exit(c4_repeat_main())
+    if sys.argv[1:2] and sys.argv[1].startswith("--c4-diag="):
+        # --c4-diag=FILTERS TMP TWO TRIALS
+        sys.path.insert(0, REPO)
+        for trial in range(int(sys.argv[4])):
+            phase("c4_diag", **c4_diag(int(sys.argv[1].split("=")[1]),
+                                       sys.argv[2], sys.argv[3] == "1",
+                                       trial))
+        sys.exit(0)
     sys.exit(main())

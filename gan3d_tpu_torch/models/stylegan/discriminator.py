@@ -15,6 +15,13 @@ NDHWC and its exporter permutes that FC's weight to this order).
 differs from the reference: see its docstring. ``cfg.remat`` makes each
 block a group recomputed in backward (nn/remat.py;
 gan3d_tpu/models/stylegan/discriminator.py:139); StyleGAN-1 uses this D.
+
+Under a space axis (parallel/sp.py) the blocks run on this rank's depth
+slabs (layers.py; a block whose output side runs whole gathers it), the
+minibatch-std statistics sum over space, and the epilogue gathers its 4^3
+input where it is a slab (S = 2): its FC flattens NCDHW, so a rank's
+columns are not contiguous, and the gathered whole is exact. The logits
+are whole and alike on every rank of a space group.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from gan3d_tpu_torch.models.stylegan.generator import synthesis_channels
 from gan3d_tpu_torch.models.stylegan.layers import (Conv3dLayer,
                                                     FullyConnectedLayer)
 from gan3d_tpu_torch.nn import remat
+from gan3d_tpu_torch.parallel import sp
 
 SQRT_HALF = float(np.sqrt(0.5))
 
@@ -74,7 +82,10 @@ class MinibatchStdLayer(nn.Module):
     The groups span the global batch: in a data-parallel run (``replicas``)
     every rank's rows are gathered (differentiably: the backward sums the
     gradient over ranks), the statistics computed on the whole, and each
-    rank keeps its rows of the result.
+    rank keeps its rows of the result. On a depth slab the rows are
+    gathered over the data group alone and the mean over (C, D, H, W)
+    sums the slabs' parts over the space group (``sp.allsum``: a whole
+    statistic that meets this rank's slab).
     """
 
     def __init__(self, group_size: int = 4, num_channels: int = 1):
@@ -91,7 +102,11 @@ class MinibatchStdLayer(nn.Module):
         y = xs.float().reshape(g, n // g, f, c // f, d, h, w)
         y = y - y.mean(dim=0, keepdim=True)
         y = torch.sqrt((y * y).mean(dim=0) + 1e-8)
-        y = y.mean(dim=(2, 3, 4, 5))                    # [n // g, F]
+        if sp.on(rp) and sp.is_sharded(x):
+            cnt = y[0, 0].numel() * rp.space
+            y = sp.allsum(y.sum(dim=(2, 3, 4, 5)), rp) / cnt
+        else:
+            y = y.mean(dim=(2, 3, 4, 5))                # [n // g, F]
         y = y.repeat_interleave(g, dim=0)               # [n, F]
         if rp is not None:
             y = rp.rows(y)
@@ -112,9 +127,13 @@ class DiscriminatorEpilogue(nn.Module):
         self.fc = FullyConnectedLayer(in_channels * 4 ** 3, in_channels,
                                       activation="lrelu")
         self.out = FullyConnectedLayer(in_channels, 1)
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(self.mbstd(x.float()))
+        x = self.mbstd(x.float())
+        if sp.on(self.replicas) and sp.is_sharded(x):
+            x = sp.gather(x, self.replicas)
+        x = self.conv(x)
         return self.out(self.fc(x.reshape(x.shape[0], -1)))
 
 

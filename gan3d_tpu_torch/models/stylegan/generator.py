@@ -19,6 +19,16 @@ each layer would draw in turn). The mapping is f32; the synthesis runs in
 cfg.compute_dtype, its image in f32. ``cfg.remat`` makes each synthesis
 block a group recomputed in backward (nn/remat.py;
 gan3d_tpu/models/stylegan/generator.py:140); the noise is its input.
+
+Under a space axis (parallel/sp.py) the synthesis writes this rank's
+depth slab of the image. The 4^3 const is cut to the slab where the rule
+shards 4^3 (S = 2; ``sp.cut``, so its gradient is partial); at S = 4 the
+4^3 block runs whole on every rank and the first up layer's output and
+the upsampled image are split to 8^3 slabs (``sp.form`` after every
+layer and image upsample). The layers and the image's skip upsample run
+on slabs (layers.py, resample.py); the mapping and ws stay whole, and
+``noise_shapes`` stays the global shape: each layer slices its whole
+draw.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ from gan3d_tpu_torch.models.stylegan.layers import OutBlock, SynthesisLayer
 from gan3d_tpu_torch.models.stylegan.mapping import MappingNetwork
 from gan3d_tpu_torch.models.stylegan.resample import setup_filter, upfirdn3d
 from gan3d_tpu_torch.nn import remat
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp, tp
 
 Noise = Optional[Sequence[torch.Tensor]]
 CHANNEL_MAX = 512
@@ -85,21 +95,26 @@ class SynthesisBlock(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 noise_mode: str = "random", fused_modconv: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        rp = self.replicas
         if self.in_channels == 0:
             const = self.const
             if getattr(self, "tp_span", None) is not None:  # sharded
-                const = tp.gather(const, self.replicas, dim=0)
+                const = tp.gather(const, rp, dim=0)
             x = const[None].expand(ws.shape[0], *const.shape)
+            if sp.on(rp):
+                x = sp.cut(x, rp, self.const)
         x = x.to(self.dtype)
         for j, layer in enumerate(self.layers()):
-            x = layer(x, ws[:, j], None if noise is None else noise[j],
-                      generator, noise_mode, fused_modconv)
+            x = sp.form(layer(x, ws[:, j], None if noise is None else noise[j],
+                              generator, noise_mode, fused_modconv), rp)
         if img is not None:
             # the reference inlines upsample2x's padding (stylegan.py:620-634)
             f = self.resample_filter
             fw, up = f.shape[0], 2
             p = [(fw + up - 1) // 2, (fw - up) // 2] * 3
-            img = upfirdn3d(img, f, up=up, padding=p, gain=up ** 3)
+            slab = sp.on(rp) and sp.is_sharded(img)
+            img = sp.form(upfirdn3d(img, f, up=up, padding=p, gain=up ** 3,
+                                    rp=rp if slab else None), rp)
         y = self.torgb(x, ws[:, self.num_conv],
                        fused_modconv=fused_modconv).float()
         return x, (img + y if img is not None else y)

@@ -20,6 +20,18 @@ computes its output channels' slice from its whole inputs (each through
 ``tp.copy``) and gathers it at once: the StyleGAN families keep sharded
 parameters and Adam state, and whole activations (``tp_local_activations``
 unset). Bias, noise and activation follow the gather.
+
+Under a space axis (parallel/sp.py) a layer whose input is a depth slab
+(told at its input) runs its conv on the halo'd slab (resample.py) and
+its pointwise ops on the slab: its parameters are marked as used on
+slabs (``sp.mark``: the conv weight, the bias, ``noise_strength`` and
+the affine), the whole ws it reads goes through ``tp.copy`` over the
+space group (the styles and demodulation coefficients are whole [N, C]
+values that meet this rank's slab only, so the gradient of ws is summed
+over space and the mapping's stays whole), and the layer's whole noise
+draw is sliced to the output slab. A discriminator layer's output is
+then formed by the rule (``sp.form``: gathered where its side runs
+whole). A layer whose input is whole runs as in one process.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ import torch.nn.functional as F
 
 from gan3d_tpu_torch.models.stylegan.resample import (conv3d_resample,
                                                       setup_filter)
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp, tp
 
 
 def _sharded(layer: nn.Module):
@@ -41,6 +53,18 @@ def _sharded(layer: nn.Module):
     rp = layer.replicas
     return (rp if tp.on(rp) and getattr(layer, "tp_span", None) is not None
             else None)
+
+
+def _on_slab(layer: nn.Module, x: torch.Tensor, w=None):
+    """(the layer's Replicas when ``x`` is a depth slab, else None; ``w``
+    made ready to meet the slab). A layer on a slab has its parameters
+    marked (their gradients are partial) and its whole ``w`` copied over
+    the space group (its gradient summed there)."""
+    rp = layer.replicas
+    if not (sp.on(rp) and sp.is_sharded(x)):
+        return None, w
+    sp.mark(layer)
+    return rp, None if w is None else tp.copy(w, rp.space_axis)
 
 
 def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -97,7 +121,7 @@ def modulated_conv3d(x: torch.Tensor, weight: torch.Tensor,
                      padding: int = 0,
                      resample_filter: Optional[torch.Tensor] = None,
                      demodulate: bool = True,
-                     fused: bool = False) -> torch.Tensor:
+                     fused: bool = False, rp=None) -> torch.Tensor:
     """StyleGAN2 modulated conv: x [N, Cin, D, H, W], weight [Cout, Cin, k,
     k, k], styles [N, Cin], noise broadcast over channels. The weight is
     correlated (flip_weight) at up == 1 and convolved when upsampling, as
@@ -108,11 +132,13 @@ def modulated_conv3d(x: torch.Tensor, weight: torch.Tensor,
     by the f32 demodulation coefficients; the noise is added as
     ``noise + x * dcoefs``. ``fused=True`` (stylegan.py:438-445, used when
     not training): per-sample weights, one grouped conv with groups = N.
+    With ``rp`` x is a depth slab: the conv takes its halo and the output
+    is this rank's slab (``noise`` must be the slab's).
     """
     n = x.shape[0]
     cout, cin = weight.shape[:2]
     kw = dict(f=resample_filter, up=up, padding=padding,
-              flip_weight=up == 1)
+              flip_weight=up == 1, rp=rp)
 
     if fused:
         w = weight.float()[None] * styles.float().reshape(n, 1, cin, 1, 1, 1)
@@ -164,16 +190,17 @@ class Conv3dLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
         rp = _sharded(self)
+        srp, _ = _on_slab(self, x)
         y = conv3d_resample(x if rp is None else tp.copy(x, rp),
                             (self.weight * self.weight_gain).to(x.dtype),
                             f=self.resample_filter, down=self.down,
-                            padding=self.padding)
+                            padding=self.padding, rp=srp)
         if rp is not None:
             y = tp.gather(y, rp)
         y = bias_act(y, self.bias, self.activation)
         if gain != 1.0:
             y = y * gain
-        return y
+        return y if srp is None else sp.form(y, srp)
 
 
 class SynthesisLayer(nn.Module):
@@ -225,6 +252,9 @@ class SynthesisLayer(nn.Module):
                                  "generator to draw it from")
             noise = torch.randn(self.noise_shape(x.shape[0]),
                                 generator=generator, device=x.device)
+        srp, w = _on_slab(self, x, w)
+        if srp is not None:  # the output slab's planes of the whole draw
+            noise = noise[:, :, slice(*sp.span(self.resolution, srp))]
         styles = self.affine(w.float())
         noise = noise.float() * self.noise_strength
         rp = _sharded(self)
@@ -232,7 +262,7 @@ class SynthesisLayer(nn.Module):
             y = modulated_conv3d(x, self.weight, styles, noise=noise,
                                  up=self.up, padding=1,
                                  resample_filter=self.resample_filter,
-                                 fused=fused_modconv)
+                                 fused=fused_modconv, rp=srp)
         else:  # the noise meets the gathered channels (one sum, exact)
             y = tp.gather(modulated_conv3d(
                 tp.copy(x, rp), self.weight, tp.copy(styles, rp), up=self.up,
@@ -253,9 +283,11 @@ class OutBlock(nn.Module):
         self.weight = nn.Parameter(torch.randn(out_channels, in_channels, 1,
                                                1, 1))
         self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.replicas = None    # parallel.Replicas, set by parallel.attach
 
     def forward(self, x: torch.Tensor, w: torch.Tensor,
                 fused_modconv: bool = False) -> torch.Tensor:
+        _, w = _on_slab(self, x, w)
         styles = self.affine(w.float()) * self.weight_gain
         y = modulated_conv3d(x, self.weight, styles, demodulate=False,
                              fused=fused_modconv)

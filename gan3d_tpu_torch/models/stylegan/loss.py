@@ -48,6 +48,17 @@ whose derivative is that penalty's, so no collective runs in backward.
 Gradients are mean-all-reduced before Adam and the logged losses are the
 global batch's, as in train/step.py; under a model axis the rows, draws
 and path-length rows are a data rank's, shared by its model group.
+
+Under a space axis (parallel/sp.py) the rows, draws and path-length rows
+are a data rank's too, shared by its space group; G writes this rank's
+depth slab and D's logits are whole. Each synthesis layer slices its
+whole noise draw, and the path-length pass its pl_noise, to the slab.
+R1's squared norm is a per-slab part, summed over space (``sp.reduce``).
+The path-length gradient with respect to the whole ws is whole as it
+comes out: every layer on a slab reads ws through ``tp.copy`` over the
+space group (models/stylegan/layers.py), whose backward sums the slabs'
+parts. The gradients are made whole over the space group
+(``train/step.reduce_grads``) before the data group's mean.
 """
 
 from __future__ import annotations
@@ -59,10 +70,10 @@ import torch
 import torch.nn.functional as F
 
 from gan3d_tpu_torch.config import Config
-from gan3d_tpu_torch.parallel import tp
+from gan3d_tpu_torch.parallel import sp
 from gan3d_tpu_torch.parallel.dist import ONE, Replicas
 from gan3d_tpu_torch.train.state import Adam
-from gan3d_tpu_torch.train.step import frozen, global_metrics
+from gan3d_tpu_torch.train.step import frozen, global_metrics, reduce_grads
 
 STYLE_MIXING_PROB = 0.9
 R1_GAMMA = 10.0
@@ -130,17 +141,21 @@ def run_generator(G: torch.nn.Module, z: torch.Tensor, draws: Draws,
     return G.synthesize(ws, noise)
 
 
-def r1_penalty(D: torch.nn.Module, real: torch.Tensor, create_graph: bool
+def r1_penalty(D: torch.nn.Module, real: torch.Tensor, create_graph: bool,
+               replicas: Replicas = ONE
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(D(real) in f32, the R1 penalty [N, W]): the squared input gradient
-    summed over (C, D, H), times gamma / 2. The logits' graph is kept for
-    the D loss's backward."""
+    summed over (C, D, H), times gamma / 2 (a depth slab's sum summed over
+    space). The logits' graph is kept for the D loss's backward."""
     real = real.detach().requires_grad_(True)
     logits = D(real).float()
     (grad,) = torch.autograd.grad(logits.sum(), real, retain_graph=True,
                                   create_graph=create_graph)
     g = grad.float()
-    return logits, (g * g).sum(dim=(1, 2, 3)) * (R1_GAMMA / 2)
+    sq = (g * g).sum(dim=(1, 2, 3))
+    if sp.on(replicas) and sp.is_sharded(real):
+        sq = sp.reduce(sq, replicas)
+    return logits, sq * (R1_GAMMA / 2)
 
 
 def path_length_penalty(G: torch.nn.Module, z: torch.Tensor,
@@ -170,6 +185,8 @@ def path_length_penalty(G: torch.nn.Module, z: torch.Tensor,
         if not create_graph:
             ws = ws.detach().requires_grad_(True)
         img = G.synthesize(ws, noise)
+        if sp.on(replicas) and sp.is_sharded(img):
+            pl_noise = pl_noise[:, :, slice(*sp.span(r, replicas))]
         (grad,) = torch.autograd.grad((img.float() * pl_noise).sum(), ws,
                                       create_graph=create_graph)
         g = grad.float()
@@ -215,13 +232,13 @@ def d_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
         fake = _generate(G, z, draws, v2, replicas).to(real.dtype)
     err_fake = F.softplus(D(fake).float()).mean()
     if r1:
-        real_logits, pen = r1_penalty(D, real, reg_grads)
+        real_logits, pen = r1_penalty(D, real, reg_grads, replicas)
         if not reg_grads:
             pen = pen.detach()
         err_real = torch.mean(F.softplus(-real_logits) + pen)
     else:
         err_real = F.softplus(-D(real).float()).mean()
-    d_opt.step(tp.reduce_grads(replicas, d_opt.params, torch.autograd.grad(
+    d_opt.step(reduce_grads(replicas, d_opt.params, torch.autograd.grad(
         err_fake + err_real, d_opt.params)))
     return err_real.detach(), err_fake.detach()
 
@@ -248,8 +265,8 @@ def g_step(cfg: Config, G: torch.nn.Module, D: torch.nn.Module,
             pen, pl_mean = path_length_penalty(
                 G, z[:k], pl_mean, draws, reg_grads, replicas, n_pl, first)
             err_g = err_g + (pen if reg_grads else pen.detach())
-        g_opt.step(tp.reduce_grads(replicas, g_opt.params,
-                                   torch.autograd.grad(err_g, g_opt.params)))
+        g_opt.step(reduce_grads(replicas, g_opt.params,
+                                torch.autograd.grad(err_g, g_opt.params)))
     if v2:
         d = cfg.ema_decay
         with torch.no_grad():

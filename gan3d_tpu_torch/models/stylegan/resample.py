@@ -22,6 +22,21 @@ depthwise ``F.conv3d`` (groups = C), the up conv by ``F.conv_transpose3d``.
 The JAX package's ``fast_fir`` / ``fast_c1`` lowerings (separable banded
 matmuls for narrow channels) are TPU layout rewrites of these same ops
 (ROADMAP A8): their config knobs are accepted and the plain op runs.
+
+Under a space axis (parallel/sp.py) an input that is a depth slab (the
+caller tells it at the layer's input and passes ``rp``; it is never told
+from a padded or interleaved intermediate) takes its depth halo from the
+neighbouring slabs (``sp.halo``; zeros at the volume's ends, which are
+the op's own zero padding there) and is padded only on H and W; the
+planes the halo adds are cropped from the output, which is this rank's
+slab of the whole op's output. The halo follows from the padding
+algebra: an upfirdn output o reads interleaved samples [down o - p0,
+down o - p0 + k), so a slab of n planes needs ceil(p0 / up) planes
+before it and floor((k - 1 - down - p0) / up) + 1 after (the
+discriminator's skip FIR: 1 and 1; the generator's skip-image upsample:
+1 and 1, then the interleave and a crop to 2n); the downsampling conv
+(FIR, then a k3/s2 conv) reads 2 before and 2 after; the upsampling conv
+(a transposed conv, then the FIR) 1 and 1.
 """
 
 from __future__ import annotations
@@ -31,6 +46,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gan3d_tpu_torch.parallel import sp
 
 
 def setup_filter_np(f1d: Sequence[float] = (1, 3, 3, 1)) -> np.ndarray:
@@ -55,9 +72,27 @@ def _pads(padding) -> List[int]:
 
 
 def upfirdn3d(x: torch.Tensor, f: torch.Tensor, up: int = 1, down: int = 1,
-              padding=0, gain: float = 1.0) -> torch.Tensor:
+              padding=0, gain: float = 1.0, rp=None) -> torch.Tensor:
     """Upsample (zero-interleave), pad or crop, FIR, downsample; x is
-    [N, C, D, H, W], f a [kd, kh, kw] filter."""
+    [N, C, D, H, W], f a [kd, kh, kw] filter. With ``rp`` x is a depth
+    slab and the output this rank's slab of the whole op's (whose depth
+    must scale by up / down exactly)."""
+    if rp is None:
+        return _upfirdn3d(x, f, up, down, padding, gain)
+    pads = _pads(padding)
+    p0, k, n = pads[4], f.shape[0], x.shape[2]
+    before = max(-(-p0 // up), 0)
+    after = max((k - 1 - down - p0) // up + 1, 0)
+    xh = sp.halo(x, before, after, rp)
+    e = up * before - p0  # interleaved samples ahead of the first read
+    length = up * (n + before + after) - e
+    out = up * n // down
+    return _upfirdn3d(xh, f, up, down,
+                      pads[:4] + [-e, down * (out - 1) + k - length], gain)
+
+
+def _upfirdn3d(x: torch.Tensor, f: torch.Tensor, up: int, down: int,
+               padding, gain: float) -> torch.Tensor:
     n, c, d, h, w = x.shape
     if up > 1:
         x = x.reshape(n, c, d, 1, h, 1, w, 1)
@@ -81,10 +116,12 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding=0,
 def conv3d_resample(x: torch.Tensor, w: torch.Tensor,
                     f: Optional[torch.Tensor] = None, up: int = 1,
                     down: int = 1, padding=0, groups: int = 1,
-                    flip_weight: bool = True) -> torch.Tensor:
+                    flip_weight: bool = True, rp=None) -> torch.Tensor:
     """Conv with optional FIR up/downsampling (reference stylegan.py
     :202-294); w is [O, I / groups, kd, kh, kw]. The same case analysis
-    and padding algebra as the JAX package's."""
+    and padding algebra as the JAX package's. With ``rp`` x is a depth
+    slab and the output this rank's slab of the whole conv's output."""
+    slab = rp is not None
     kd, kh, kw = w.shape[2:]
     if f is None:
         fw = fh = fd = 1
@@ -110,14 +147,20 @@ def conv3d_resample(x: torch.Tensor, w: torch.Tensor,
 
     # 1x1x1 kernel fast paths.
     if kw == kh == kd == 1 and down > 1 and up == 1:
-        x = upfirdn3d(x, f, down=down, padding=pads)
+        x = upfirdn3d(x, f, down=down, padding=pads, rp=rp)
         return _conv(x, w, groups=groups, flip_weight=flip_weight)
     if kw == kh == kd == 1 and up > 1 and down == 1:
         x = _conv(x, w, groups=groups, flip_weight=flip_weight)
-        return upfirdn3d(x, f, up=up, padding=pads, gain=up ** 2)
+        return upfirdn3d(x, f, up=up, padding=pads, gain=up ** 2, rp=rp)
 
-    # Downsample only: FIR, then a strided conv.
+    # Downsample only: FIR, then a strided conv. On a slab: conv output o
+    # reads FIR outputs [down o, down o + kd), FIR output m planes [m -
+    # pz0, m - pz0 + fd): pz0 planes before the slab, kd + fd - 1 - down
+    # - pz0 after, both convs then unpadded in depth.
     if down > 1 and up == 1:
+        if slab:
+            x = sp.halo(x, pz0, kd + fd - 1 - down - pz0, rp)
+            pads[4:] = [0, 0]
         x = upfirdn3d(x, f, padding=pads)
         return _conv(x, w, stride=down, groups=groups,
                      flip_weight=flip_weight)
@@ -134,6 +177,25 @@ def conv3d_resample(x: torch.Tensor, w: torch.Tensor,
         pxt = max(min(-px0, -px1), 0)
         pyt = max(min(-py0, -py1), 0)
         pzt = max(min(-pz0, -pz1), 0)
+        if slab:
+            if down > 1:
+                raise ValueError("no slab form for an up- and "
+                                 "downsampling conv")
+            # FIR output q reads transposed-conv outputs [q - pz0, q - pz0
+            # + fd), which read inputs [ceil((o - kd + 1) / up), o // up]:
+            # the halo, the transposed conv unpadded in depth, and its
+            # outputs ahead of the slab's first read (e) and past its last
+            # cropped by the FIR's depth pads
+            n = x.shape[2]
+            before = (pz0 + kd - 1) // up
+            after = (fd - 2 - pz0) // up + 1
+            x = sp.halo(x, before, after, rp)
+            e = up * before - pz0
+            length = (n + before + after - 1) * up + kd
+            zpads = [-e, up * n - 1 + fd - length + e]
+            pzt = 0
+        else:
+            zpads = [pz0 + pzt, pz1 + pzt]
         # conv_transpose3d correlates the dilated input with its weight
         # flipped and in/out swapped: flip_weight=False hands it w as is.
         wt = w if not flip_weight else torch.flip(w, (2, 3, 4))
@@ -143,16 +205,24 @@ def conv3d_resample(x: torch.Tensor, w: torch.Tensor,
         x = F.conv_transpose3d(x, wt.to(x.dtype), stride=up,
                                padding=(pzt, pyt, pxt), groups=groups)
         x = upfirdn3d(x, f, padding=[px0 + pxt, px1 + pxt, py0 + pyt,
-                                     py1 + pyt, pz0 + pzt, pz1 + pzt],
+                                     py1 + pyt] + zpads,
                       gain=up ** 2)
         if down > 1:
             x = upfirdn3d(x, f, down=down)
         return x
 
-    # Plain conv: symmetric non-negative pads go to the conv itself.
+    # Plain conv: symmetric non-negative pads go to the conv itself. On a
+    # slab the depth pads are the halo (the output keeps the depth).
+    if slab:
+        if pz0 < 0 or pz1 < 0 or pz0 + pz1 != kd - 1:
+            raise ValueError(f"no slab form for a conv with depth pads "
+                             f"{pz0}, {pz1} and kernel {kd}")
+        x = sp.halo(x, pz0, pz1, rp)
+        pz0 = pz1 = 0
     if px0 == px1 and py0 == py1 and pz0 == pz1 \
             and px0 >= 0 and py0 >= 0 and pz0 >= 0:
         return _conv(x, w, padding=(pz0, py0, px0), groups=groups,
                      flip_weight=flip_weight)
     # Otherwise pad (or crop) first.
-    return _conv(F.pad(x, pads), w, groups=groups, flip_weight=flip_weight)
+    return _conv(F.pad(x, [px0, px1, py0, py1, pz0, pz1]), w, groups=groups,
+                 flip_weight=flip_weight)

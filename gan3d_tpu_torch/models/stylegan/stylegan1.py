@@ -30,6 +30,18 @@ stylegan.py:931-1148):
 
 State_dict keys are the reference's (gan3d_tpu/eval/export.py:342-357):
 ``latentMapping.{0,2,..,14}``, ``A{i}``, ``C{i}.0``, ``C_out.0``.
+
+Under a space axis (parallel/sp.py) G writes this rank's depth slab. The
+4^3 ones are cut to the slab where the rule shards 4^3 (S = 2); at S = 4
+the 4^3 stage runs whole and its upsample is split to 8^3 slabs
+(``sp.form``). On a slab, ``ada_in``'s mean and variance sum over space
+(the unbiased factor from the whole volume's count) and its affine reads
+the whole w through ``tp.copy`` over the space group (its gradient summed
+there, the affine's marked partial); the trilinear upsample takes a
+one-plane halo each side that repeats the end plane at the volume's two
+ends (``align_corners=False`` clamps there) and keeps twice the slab; the
+k3 convs take their halo in ``nn/layers.py`` Conv3d (``sp.conv3d``,
+the K4 / K3 routes on the halo'd slab).
 """
 
 from __future__ import annotations
@@ -45,25 +57,44 @@ from gan3d_tpu_torch.models.biggan import compute_dtype
 from gan3d_tpu_torch.models.stylegan.loss import Draws
 from gan3d_tpu_torch.nn.layers import Conv3d, Linear
 from gan3d_tpu_torch.ops.conv3d import upsample_trilinear3d
+from gan3d_tpu_torch.parallel import sp, tp
 
 MAPPING_LAYERS = 8
 MIX_POINTS = 6  # the swap point is drawn from [0, MIX_POINTS)
 
 
 def ada_in(content: torch.Tensor, style: torch.Tensor,
-           eps: float = 1e-5) -> torch.Tensor:
+           eps: float = 1e-5, rp=None) -> torch.Tensor:
     """content [N, C, D, H, W], style [N, 2C] -> [N, C, D, H, W] in the
-    content's dtype."""
+    content's dtype. With ``rp`` the content is a depth slab and the
+    statistics are the whole volume's (``sp.allsum`` of the slabs')."""
     c = content.shape[1]
     x32 = content.float()
     n_el = content.shape[2] * content.shape[3] * content.shape[4]
     s_mean = style[:, :c].float().reshape(-1, c, 1, 1, 1)
     s_std = style[:, c:].float().reshape(-1, c, 1, 1, 1)
-    mean = x32.mean(dim=(2, 3, 4), keepdim=True)
-    var = ((x32 - mean) ** 2).mean(dim=(2, 3, 4), keepdim=True) \
-        * (n_el / (n_el - 1))
+    dims = (2, 3, 4)
+    if rp is not None:
+        n_el *= rp.space
+        mean = sp.allsum(x32.sum(dim=dims, keepdim=True), rp) / n_el
+        var = sp.allsum(((x32 - mean) ** 2).sum(dim=dims, keepdim=True),
+                        rp) / n_el * (n_el / (n_el - 1))
+    else:
+        mean = x32.mean(dim=dims, keepdim=True)
+        var = ((x32 - mean) ** 2).mean(dim=dims, keepdim=True) \
+            * (n_el / (n_el - 1))
     normed = (x32 - mean) / torch.sqrt(var + eps)
     return (normed * s_std + s_mean).to(content.dtype)
+
+
+def upsample2x(x: torch.Tensor, rp=None) -> torch.Tensor:
+    """The G's trilinear 2x upsample, formed by the rule under a space
+    axis; a depth slab's takes a one-plane halo each side (the end plane
+    repeated at the volume's ends) and keeps its middle 2n planes."""
+    if sp.on(rp) and sp.is_sharded(x):
+        x = upsample_trilinear3d(sp.halo(x, 1, 1, rp, edge=True), 2)
+        return x[:, :, 2:-2]
+    return sp.form(upsample_trilinear3d(x, 2), rp)
 
 
 def stage_channels(resolution: int) -> List[int]:
@@ -153,7 +184,12 @@ class StyleGAN1Generator(nn.Module):
         def style(h: torch.Tensor) -> torch.Tensor:
             nonlocal a_i
             a_i += 1
-            return ada_in(h, getattr(self, f"A{a_i}")(w))
+            affine, v = getattr(self, f"A{a_i}"), w
+            slab = sp.on(rp) and sp.is_sharded(h)
+            if slab:  # a whole style that meets this rank's slab
+                sp.mark(affine)
+                v = tp.copy(w, rp.space_axis)
+            return ada_in(h, affine(v), rp=rp if slab else None)
 
         def conv(h: torch.Tensor) -> torch.Tensor:
             nonlocal c_i
@@ -162,12 +198,14 @@ class StyleGAN1Generator(nn.Module):
 
         h = torch.ones((n, z.shape[1], 4, 4, 4), dtype=self.dtype,
                        device=z.device)
+        if sp.on(rp):
+            h = sp.cut(h, rp)
         h = conv(style(h))
         w = maybe_mix(w)
         for _ in range(1, len(self.chans) - 1):
-            h = conv(upsample_trilinear3d(style(h), 2))
+            h = conv(upsample2x(style(h), rp))
             h = conv(style(h))
             w = maybe_mix(w)
-        h = conv(upsample_trilinear3d(style(h), 2))
+        h = conv(upsample2x(style(h), rp))
         w = maybe_mix(w)
         return torch.tanh(self.C_out(style(h)))

@@ -46,7 +46,10 @@
   its backward all-reduces the two per-channel sums of the gradient over
   the same ranks (torch.nn.SyncBatchNorm's scheme) and is first-order, as
   no loss of these families differentiates G twice. Its affine then has
-  a partial gradient (``sp.mark``).
+  a partial gradient (``sp.mark``). At a data group of one, ``sync``'s
+  all-reduces run on the space group's communicator, which has the same
+  ranks (``slab_scope``): two NCCL communicators over the same two cards
+  were the suspects of a hang at 128^3 (PERF.md).
 - LayerNormVolume (norm.py:121-144): torch's LayerNorm over [C, D, H, W]
   of an NCDHW input, per sample, eps 1e-5, with a full-shape affine
   [C, D, H, W] (the JAX scale and bias are (D, H, W, C): the transpose
@@ -120,6 +123,17 @@ class _SlabBatchNorm(torch.autograd.Function):
               * (w.to(sdt)[:, None] * invstd[:, None, :, None]))
         return (dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype),
                 db.to(w.dtype), None, None, None, None, None)
+
+
+def slab_scope(rp, sync: bool) -> tuple:
+    """(process group, ranks, this one's place) of a slab BatchNorm's
+    statistics: every rank with ``sync``, else the space group. Where the
+    two have the same ranks (a data group of one) the space group's
+    communicator runs both, so the halo exchanges and the statistics
+    share one NCCL communicator and one order on every rank."""
+    if sync and rp.data_world > 1:
+        return rp.group, rp.world, rp.rank
+    return rp.space_group, rp.space, rp.space_rank
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -199,11 +213,10 @@ class BatchNorm3d(nn.BatchNorm3d):
         """Train mode on this rank's depth slab: the statistics over the
         space group, and with ``sync`` over every rank."""
         rp = self.replicas
-        scope = ((rp.group, rp.world, rp.rank) if sync
-                 else (rp.space_group, rp.space, rp.space_rank))
         sp.mark(self)
         y, mean, var, cnt = _SlabBatchNorm.apply(x, self.weight, self.bias,
-                                                 g, *scope, self.eps)
+                                                 g, *slab_scope(rp, sync),
+                                                 self.eps)
         with torch.no_grad():
             upd = [mean.mean(dim=0),
                    (var * (cnt / max(cnt - 1, 1))).mean(dim=0)]

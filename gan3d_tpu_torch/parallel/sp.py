@@ -34,7 +34,8 @@ every rank of a space group. A slab's gradient is its slab's; a whole
 value computed alike on every rank has the whole gradient on every rank:
 
 - ``halo(x, before, after)``: the neighbours' edge planes around the
-  slab (zeros at the volume's two ends); its backward adds the halo's
+  slab (zeros at the volume's two ends, or the end plane repeated with
+  ``edge``, as a clamped sample reads it); its backward adds the halo's
   gradient back onto the neighbours' edge planes (``_HaloT``);
 - ``gather`` / ``split``: the whole depth from the slabs / this rank's
   slab of a whole value; backward the slab of the whole gradient / the
@@ -223,12 +224,23 @@ class _HaloT(torch.autograd.Function):
             None, None
 
 
-def halo(x: torch.Tensor, before: int, after: int, rp) -> torch.Tensor:
+def halo(x: torch.Tensor, before: int, after: int, rp,
+         edge: bool = False) -> torch.Tensor:
     """The slab ``x`` with ``before`` planes of the previous slab and
-    ``after`` of the next around it (zeros at the volume's ends)."""
+    ``after`` of the next around it: zeros at the volume's ends, or with
+    ``edge`` the end plane repeated (a sample clamped to the volume)."""
     if not before and not after:
         return x
-    return _Halo.apply(rp, x, before, after)
+    xh = _Halo.apply(rp, x, before, after)
+    if edge:
+        d, ax = xh.shape[2], rp.space_axis
+        if before and ax.rank == 0:
+            xh = torch.cat([x[:, :, :1].expand(-1, -1, before, -1, -1),
+                            xh[:, :, before:]], 2)
+        if after and ax.rank == ax.size - 1:
+            xh = torch.cat([xh[:, :, :d - after],
+                            x[:, :, -1:].expand(-1, -1, after, -1, -1)], 2)
+    return xh
 
 
 @contextlib.contextmanager

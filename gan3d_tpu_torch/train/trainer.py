@@ -70,9 +70,9 @@ activation (parallel/sp.py). A rank's reals are its rows and its slab of
 their depth. The samples of the PNG grid, the in-loop FID's fake and
 ``async_log``'s deferred fake are gathered over space before rank 0's
 output work; checkpoints are whole (a resume works under another S), and
-the replica check holds every tensor alike on every rank. The BigGAN
-family, the DCGAN family and the hybrid run under it; the StyleGAN
-families raise (ROADMAP.md A3).
+the replica check holds every tensor alike on every rank. Every family
+runs under it: BigGAN, the DCGAN family, the hybrid, StyleGAN2 (its EMA
+alike on every rank) and StyleGAN-1.
 
 ``param_dtype`` is accepted and, as in the JAX package (whose modules fix
 ``param_dtype=jnp.float32``), the parameters stay f32.
@@ -109,18 +109,12 @@ from gan3d_tpu_torch.utils.profiling import StepProfiler
 
 
 def _reject_unported(cfg: Config) -> None:
-    """Raise on options whose code paths the port does not have yet (and,
-    as the JAX package's ``make_mesh`` and trainer, on spatial and model
-    parallelism together and on a resolution ``spatial_devices`` does not
-    divide)."""
+    """Raise, as the JAX package's ``make_mesh`` and trainer do, on
+    spatial and model parallelism together and on a resolution
+    ``spatial_devices`` does not divide."""
     if cfg.spatial_devices > 1 and cfg.model_devices > 1:
         raise ValueError("spatial and model parallelism cannot be combined "
                          "yet — pick one of spatial_devices/model_devices")
-    if cfg.spatial_devices > 1 and cfg.family() in ("stylegan",
-                                                    "stylegan2"):
-        raise NotImplementedError(
-            f"not ported yet: spatial_devices > 1 for the {cfg.family()} "
-            "family (ROADMAP.md queue A3)")
     if cfg.spatial_devices > 1 and cfg.resolution % cfg.spatial_devices:
         raise ValueError(f"resolution {cfg.resolution} not divisible by "
                          f"spatial_devices {cfg.spatial_devices}")

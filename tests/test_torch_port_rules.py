@@ -121,11 +121,11 @@ def test_default_platform_raises_without_cuda(tmp_path, monkeypatch):
                                 dict(spatial_devices=2), dict(model_devices=2),
                                 dict(param_dtype="bfloat16")])
 def test_unported_options_raise(tmp_path, kw):
-    """``spatial_devices`` > 1 raises for the StyleGAN families, which are
-    not ported to it yet, and like ``model_devices=2`` is refused in one
-    process with no process group, as any config of more than one rank
-    is (its ranks start through the train CLI). ``param_dtype`` is
-    accepted and the parameters stay f32, as in the JAX package."""
+    """``spatial_devices`` > 1, for every family the StyleGAN ones
+    included, and ``model_devices=2`` are refused in one process with no
+    process group, as any config of more than one rank is (its ranks
+    start through the train CLI). ``param_dtype`` is accepted and the
+    parameters stay f32, as in the JAX package."""
     from gan3d_tpu_torch.data import open_dataset
 
     cfg = Config(resolution=16, filterG=8, filterD=8, z_size=8, batch_size=2,
@@ -138,7 +138,7 @@ def test_unported_options_raise(tmp_path, kw):
                     cfg.replace(num_devices=2))
         if "spatial_devices" in kw:
             for family in ("stylegan2", "stylegan"):
-                with pytest.raises(NotImplementedError, match="A3"):
+                with pytest.raises(ValueError, match="start the run with"):
                     Trainer(open_dataset(_dataset(tmp_path)),
                             cfg.replace(num_devices=2, filterG=16,
                                         filterD=16, **{family: True}))

@@ -56,7 +56,9 @@ Each case is then asserted in its own test. Cases and tolerances (f32):
   process: both print the resume, and their next step's losses agree to
   1e-4;
 - the raises: a resolution the space axis does not divide, spatial with
-  model parallelism, the StyleGAN families.
+  model parallelism; the StyleGAN families, which train under the space
+  axis (test_torch_spatial_stylegan.py), refused in one process without a
+  process group as the other families are.
 
 Budget: under 40 s on one worker (the spawn and the JAX compiles
 overlap).
@@ -876,7 +878,7 @@ def test_spatial_errors(tmp_path, case):
             dist.plan(3, "cpu", spatial_devices=2)
     else:
         for fam in ("stylegan2", "stylegan"):
-            with pytest.raises(NotImplementedError, match="A3"):
+            with pytest.raises(ValueError, match="start the run with"):
                 Trainer(open_dataset(path), cfg.replace(
                     biggan=False, spatial_devices=2, filterG=16,
                     filterD=16, **{fam: True}))

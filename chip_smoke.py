@@ -20,15 +20,20 @@ Phases, each printing its own line:
              DCGAN with --sagan (G: L=4096, M=512, c=16; D: L=512, M=64,
              c=32) and the two of the 128^3 BigGAN-Deep at filters 128 (G:
              L=32768, M=4096, c=64; D: L=4096, M=512, c=128), N=16, in f32
-             and bf16, and the flagship's two on a rank of a space group
-             of 2 and 4 (L / S queries against the whole M keys) in bf16
+             and bf16, the flagship's two on a rank of a space group
+             of 2 and 4 (L / S queries against the whole M keys) in bf16,
+             and the 256^3 flagship's two (the 128^3 model's shapes) on a
+             rank of a space group of 4 (G: L=8192, M=4096, c=64; D:
+             L=1024, M=512, c=128) at sp_nccl4_r256's batch, f32 and bf16
              (each pass has two routes: bf16 on the tensor-core kernels,
              f32 on the FMA kernels; the backward's check runs on the
              forward's o and lse),
              holds each against the plain PyTorch version, and times the
              kernel, the plain version and F.scaled_dot_product_attention
              (a yardstick the port never calls) with CUDA events, and the
-             kernel's and the yardstick's device time in a profiler trace;
+             kernel's and the yardstick's device time in a profiler trace
+             (in f32 timed at the flagship's G and the 256^3 placements
+             alone, traced at G alone);
              then
              checks every c and ragged L/M tails at small shapes, the
              flagship's G and D shapes at a data-parallel rank's rows (N =
@@ -80,7 +85,8 @@ Phases, each printing its own line:
              checkpoint and sample grid; after each run but the flagship's
              short --fast_dw=on and the profiled ones, the trained G and D on
              the card (kernels) are held against the same networks on the
-             CPU (plain path; the msl D at fixed crop offsets; StyleGAN2's
+             CPU at batch 1 (plain path; the msl D at fixed
+             crop offsets; StyleGAN2's
              G at fixed ws and noise, its modulated convs both unfused and
              fused); a StyleGAN2 checkpoint must hold a nonzero pl_mean,
              a StyleGAN-1 checkpoint a pl_mean of 0.
@@ -92,16 +98,18 @@ Phases, each printing its own line:
              flags, --remat=True --remat_scope=stage --fused_step=False (2
              steps; its resume to 3 went in PR 16 for the spatial
              phase's time), then --remat_scope=block with the
-             fused step (2 steps), both at batch 16; the flagship's
-             widths (filters 64, batch 16) without remat and with it per
-             stage (2 steps each: the same step-0 losses to bf16 rounding,
-             the same K1/K2 launches, both peaks); StyleGAN2 at filters 128
-             with remat and without, StyleGAN-1 at batch 8 (2 steps each).
-             Each run's checks as above (K1 8 and K2 6 launches a step in
-             the BigGAN runs, at c = 64 in G and c = 128 in D), its steady
-             vol/s and peak memory; the trained G and D of the first run,
-             of the StyleGAN2 runs and of StyleGAN-1 on the card against
-             the CPU at batch 1 (StyleGAN2: sg2_model_check);
+             fused step (1 step), both at batch 16; the
+             flagship's widths (filters 64, batch 16) without remat and
+             with it per stage (1 step each: the same step-0 losses to
+             bf16 rounding, the same K1/K2 launches, both peaks);
+             StyleGAN2 at filters 128 with remat and without, StyleGAN-1
+             at batch 8 (1 step each: the first run keeps
+             the 128^3 steady rate). Each run's checks as above (K1 8 and
+             K2 6 launches a step in the BigGAN runs, at c = 64 in G and
+             c = 128 in D) and peak memory; the trained G and D of the
+             first run, of the StyleGAN2 runs and of StyleGAN-1 on the
+             card against the CPU at batch 1 (StyleGAN2:
+             sg2_model_check);
    dp      — data parallelism (slice 8): the flagship through the train
              CLI's data-parallel entry point (cli.train.train_rank): world
              1 over NCCL against the one-process run (6 steps each:
@@ -168,7 +176,18 @@ Phases, each printing its own line:
              without remat, its step-0 losses to bf16 rounding of the
              train128 phase's remat run) and 4 (data 2 x space 2, the
              flagship) where there are that many (else a line says it was
-             not run);
+             not run); and 256^3: ``sp_gloo4_r256``, four gloo
+             ranks sharing the card (data 1 x space 4) at
+             scripts/run_spatial_256.py's parity config with filters 8,
+             remat per stage and the split step, f32, one step against one
+             process (losses 1e-5, gradients, the ranks bit-equal, K1 7 /
+             K2 4 on each rank, each rank's peak), and ``sp_nccl4_r256``,
+             the flagship's widths on data 1 x space 4 over 4 NCCL cards
+             where there are 4 (batch 16, 3 steps: the trainer's
+             steady vol/s over steps 1-2, each rank's peak, reserved
+             memory and allocator retries, K1/K2, the unsharded step's
+             peak reckoned; step-0 losses at batch 2 against one process
+             to bf16 rounding; else a line says it was not run);
    inloop_fid — the flagship with in-loop FID: the random stand-in
              (--fid_in_loop=True, 4 steps, a log and a checkpoint every 2),
              a random-init Inception-V3 weights file the script writes in
@@ -202,7 +221,9 @@ Phases, each printing its own line:
              sampling bit-identically to its source;
    eval_metrics — calibrate(reps=1) at 64^3, batch 16, on the card
              (random ResNet-50, slice-FID stand-in): randn vs randn below
-             randn vs uniform in 3D-FID, axial FID and MMD; its seconds;
+             randn vs uniform in 3D-FID, axial FID and MMD; its seconds
+             (it launches none of the kernels and runs in a thread while
+             they build: its line follows the build's);
    step_trace — reads each profiled run's trace of steps 5-9 (the
              flagship's, then StyleGAN2's and StyleGAN-1's): each device
              op's time (the top 15), the device's busy time a step and
@@ -243,6 +264,11 @@ Phases, each printing its own line:
 Any failure raises and the script exits non-zero without the result line.
 It needs no arguments and one card; it imports nothing of JAX.
 
+``python3 chip_smoke.py --r256`` runs the 256^3 runs alone (for a
+machine with 4 cards; on fewer, ``sp_gloo4_r256`` and the one-process
+control of ``sp_nccl4_r256``), then times the slab BatchNorm's two
+routes (``slab_bn``).
+
 On a machine with 4 cards, ``python3 chip_smoke.py --c4`` reads PERF.md's
 C4 (a hang of the 128^3 run at space 2 over 2 cards): that run with the
 slab BatchNorm's statistics on a second communicator, as it hung, under
@@ -254,6 +280,7 @@ DETAIL) C4_TRIALS times with two communicators and as many with one.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import functools
@@ -306,6 +333,13 @@ PLACEMENTS = (("G", 32768, 4096, 16), ("D", 4096, 512, 32),
 SPATIAL_PLACEMENTS = tuple(
     (f"{place}_s{s}", L // s, m, c)
     for s in (2, 4) for place, L, m, c in PLACEMENTS[:2])
+# The 256^3 flagship's placements (filters 64: G at 32^3 on 512 channels,
+# c = 64; D at 16^3 on 1024, c = 128, as the 128^3 reference model's) on a
+# rank of a space group of 4, at sp_nccl4_r256's batch
+# R256_KERNEL_N, f32 and bf16.
+R256_PLACEMENTS = (("G_r256_s4", 32768 // 4, 4096, 64),
+                   ("D_r256_s4", 4096 // 4, 512, 128))
+R256_KERNEL_N = 16
 # Kernel instances that must not spill (ptxas): every K3, K4 and K5 bf16
 # instance, the K1 and K2 bf16 kernels at the flagship's c = 16 and 32 and
 # the 128^3 model's c = 64 and 128, and the ladder's wide_fwd, box_copy
@@ -397,16 +431,16 @@ TRAIN128_RUNS = (
                          "--fused_step=False"], ((2, 0),), (1, 1),
      True),
     ("ref128_block", REF128 + ["--remat=True", "--remat_scope=block",
-                               "--fused_step=True"], ((2, 0),), (1, 1),
+                               "--fused_step=True"], ((1, 0),), (1, 1),
      False),
-    ("flagship128", FLAG128 + ["--remat=False"], ((2, 0),), (1, 1), False),
+    ("flagship128", FLAG128 + ["--remat=False"], ((1, 0),), (1, 1), False),
     ("flagship128_remat", FLAG128 + ["--remat=True", "--remat_scope=stage"],
-     ((2, 0),), (1, 1), False),
-    ("stylegan2_128_remat", SG2_128 + ["--remat=True"], ((2, 0),), (0, 0),
+     ((1, 0),), (1, 1), False),
+    ("stylegan2_128_remat", SG2_128 + ["--remat=True"], ((1, 0),), (0, 0),
      True),
-    ("stylegan2_128", SG2_128, ((2, 0),), (0, 0), True),
+    ("stylegan2_128", SG2_128, ((1, 0),), (0, 0), True),
     ("stylegan_128", ["--stylegan=True", "--filterG=128", "--filterD=128",
-                      "--batch_size=8"] + W128, ((2, 0),), (0, 0), True),
+                      "--batch_size=8"] + W128, ((1, 0),), (0, 0), True),
 )
 KNOB_RUN = "wide_conv+fast_dw"
 # The runs whose K3/K4 launches the kernels line lists by path (the first
@@ -516,6 +550,38 @@ C4_WALL_S = 360
 # ``--c4-repeat``: the run as it hung (no DETAIL), this many times with two
 # communicators and as many with one, on two pairs of cards at once
 C4_TRIALS = 3
+# 256^3 over the space axis: BigGAN-Deep, hinge, remat and the
+# split step (--fused_step=False, the same step in the port) on data 1 x
+# space 4, on R256_VOLUMES volumes tanh(N(0, 1)) of 256^3 (seed 0; 1.07 GB
+# in the npz).
+R256_SPACE = 4
+R256_VOLUMES = 16
+R256 = ["--biggan=True", "--hinge=True", "--resolution=256", "--remat=True",
+        "--fused_step=False"]
+# ``sp_gloo4_r256``: scripts/run_spatial_256.py --mode=cpu_parity's config
+# (z 16, batch 2, iterD 1, f32, remat per stage) at filters 8: its filters
+# 4 give G's attention (32 channels at 32^3) c = 4, which K1/K2 do not
+# take (c in 8..128); filters 8 gives c = 8 in G and 16 in D. Four gloo
+# ranks share the card, against one process on it.
+R256_GLOO = R256 + ["--remat_scope=stage", "--filterG=8", "--filterD=8",
+                    "--z_size=16", "--batch_size=2", "--iterD=1",
+                    "--compute_dtype=float32"]
+# ``sp_nccl4_r256``: the flagship's widths (filters 64, z 512, iterD 2,
+# bf16) on 4 NCCL cards, R256_STEPS steps at R256_BATCH, the larger of
+# 16 and 8 that fits a rank (58.95 GB of 80 on an H100), remat per
+# R256_SCOPE, the lighter scope in one process at batch R256_CHECK_BATCH
+# (29.09 GB against 38.50-38.86 per block on an H100, PERF.md); the
+# rate is the trainer's steady one, steps 1 to R256_STEPS - 1 (the sample
+# grid at step 0 only: steps_per_img_log 50); the check: space 4 at batch
+# R256_CHECK_BATCH against one process on one card, step-0 losses to
+# bf16 rounding
+R256_WIDTHS = R256 + ["--filterG=64", "--filterD=64", "--z_size=512",
+                      "--iterD=2"]
+R256_SCOPE = "stage"
+R256_BATCH = 16
+R256_CHECK_BATCH = 2
+R256_STEPS = 3
+R256_WALL_S = 600  # a launch of the 4 NCCL ranks, ended past it
 # The tournament phase's runs (each read as name + "0"): the flagship,
 # the DCGAN with --sagan, the hybrid.
 TOURNAMENT_RUNS = ("default", "dcgan_sagan", "hybrid")
@@ -672,17 +738,21 @@ def device_ms(fn, needle: str = "", iters: int = 20, per_call: bool = False):
     return None
 
 
-def timings(kern, lib, iters: int) -> dict:
+def timings(kern, lib, iters: int, traced: bool = True) -> dict:
     """A K1-K4 case's times (ms) of the kernel's wrapper and of the one
     PyTorch call computing the same function (``lib``): each the median of
-    three windows of ``iters`` calls (all three kept) and the device time
-    per call in a profiler trace."""
+    three windows of ``iters`` calls (all three kept) and, if ``traced``,
+    the device time per call in a profiler trace (else None: the f32
+    cases off the kernels line's main shape, whose traces cost seconds
+    of the script's limit)."""
     ms, windows = kernel_ms(kern, iters)
     lib_ms, lib_windows = kernel_ms(lib, iters)
     return {"ms": ms, "ms_windows": windows,
-            "device_ms": device_ms(kern, iters=iters, per_call=True),
+            "device_ms": (device_ms(kern, iters=iters, per_call=True)
+                          if traced else None),
             "library_ms": lib_ms, "library_ms_windows": lib_windows,
-            "library_device_ms": device_ms(lib, iters=iters, per_call=True)}
+            "library_device_ms": (device_ms(lib, iters=iters, per_call=True)
+                                  if traced else None)}
 
 
 def bound(kind: str, dtype: str, n: int, L: int, m: int, c: int):
@@ -719,10 +789,11 @@ def kernel_phase(ca, attention_plain) -> list:
     gen.manual_seed(0)
     cases = []
     both = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
-    for place, L, m, c in PLACEMENTS + SPATIAL_PLACEMENTS:
-        for dname, dt in (both if (place, L, m, c) in PLACEMENTS
-                          else both[1:]):
-            n = N_FLAGSHIP
+    runs = ([(p, N_FLAGSHIP, both) for p in PLACEMENTS]
+            + [(p, N_FLAGSHIP, both[1:]) for p in SPATIAL_PLACEMENTS]
+            + [(p, R256_KERNEL_N, both) for p in R256_PLACEMENTS])
+    for (place, L, m, c), n, dtypes in runs:
+        for dname, dt in dtypes:
             q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(dt)
                            for s in ((n, L, c), (n, m, c), (n, m, c),
                                      (n, L, c)))
@@ -765,9 +836,15 @@ def kernel_phase(ca, attention_plain) -> list:
                             sdpa_out, sdpa_in, do[:, None],
                             retain_graph=True)),
             }
-            times = {kind: {**timings(kern, lib, fwd_iters),
+            # f32 timed at the kernels line's main placement and at
+            # 256^3's alone, traced at the main one
+            timed = dname == "bfloat16" or place in ("G",) + tuple(
+                p[0] for p in R256_PLACEMENTS)
+            times = {kind: {**timings(kern, lib, fwd_iters,
+                                      dname == "bfloat16" or place == "G"),
                             "plain_ms": cuda_ms(plain, fwd_iters)}
-                     for kind, (kern, plain, lib) in calls.items()}
+                     for kind, (kern, plain, lib) in calls.items()
+                     if timed}
             del calls, o_ref, grads_ref, sdpa_out
             for kind in ("fwd", "bwd"):
                 b_ms, b_by = bound(kind, dname, n, L, m, c)
@@ -782,7 +859,7 @@ def kernel_phase(ca, attention_plain) -> list:
                     "max_err": max(e[1] for e in errs_k.values()),
                     "max_abs_err": max(e[0] for e in errs_k.values()),
                     "rel_err": {x: e[1] for x, e in errs_k.items()},
-                    "tol": tol, **times[kind],
+                    "tol": tol, "timed": timed, **times.get(kind, {}),
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
                 phase("kernel_case", **case)
@@ -932,8 +1009,9 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
     """The wide-N conv (forward; dx) and the dW kernel at each distinct
     shape of the flagship's G and D and StyleGAN-1's G, N=16, f32 and bf16:
     error against the plain version, and times of the kernel, the plain
-    version and the PyTorch call. Each case names the networks that run
-    its shape ("paths": G, D, SG1, SG1_s2)."""
+    version and the PyTorch call (in f32 at 32ch@64^3 alone, the kernels
+    line's main shape: elsewhere ``timed`` is false). Each case names the
+    networks that run its shape ("paths": G, D, SG1, SG1_s2)."""
     import torch
     import torch.nn.functional as F
 
@@ -949,6 +1027,9 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
         iters = max(3, min(20, int(5e11 / (2 * n * s * ci * 27 * co))))
         for dname, dt in (("float32", torch.float32),
                           ("bfloat16", torch.bfloat16)):
+            # f32: checked at every shape, timed at the kernels line's
+            # main one (32ch@64^3) alone
+            timed = dname == "bfloat16" or (ci, d) == (32, 64)
             x, wt, g, wr = _conv_inputs(gen, n, ci, co, d, h, w, dt)
             one = [1, 1, 1]
             runs = {
@@ -982,10 +1063,12 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
                               else "fma"),
                     "N": n, "Ci": cin, "Co": cout, "D": d, "H": h, "W": w,
                     "max_err": rel, "max_abs_err": abs_err, "tol": tol,
-                    **timings(kern, lib, iters),
-                    "plain_ms": cuda_ms(plain, max(2, iters // 4), 1),
-                    "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_ms": b_ms, "bound_by": b_by, "timed": timed,
                 }
+                if timed:
+                    case.update(
+                        timings(kern, lib, iters),
+                        plain_ms=cuda_ms(plain, max(2, iters // 4), 1))
                 phase("conv_case", **case)
                 cases.append(case)
             del x, wt, g, wr, runs
@@ -1429,9 +1512,12 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
     rank's count in the dp, tp and spatial phases' runs (``dp``: world 1
     over NCCL, bf16; two ranks on one card over gloo, f32, data-parallel,
     as ``tp_gloo_model2_f32`` model 2 and as ``sp_gloo_space2_f32`` space
-    2; NCCL across cards where there are several); K1's and K2's cases
-    include the flagship's placements on a rank of a space group
-    (``G_s2``, ``D_s2``, ``G_s4``, ``D_s4``, bf16); each conv case lists
+    2, ``sp_gloo_space4_r256_f32`` 256^3 at space 4; NCCL across cards
+    where there are several), and rank 0's counts of the 256^3 runs join
+    ``launches_by_path``; K1's and K2's cases include the flagship's
+    placements on a rank of a space group (``G_s2``, ``D_s2``, ``G_s4``,
+    ``D_s4``, bf16) and the 256^3 flagship's on a rank of a space group
+    of 4 (``G_r256_s4``, ``D_r256_s4``, f32 and bf16); each conv case lists
     the networks that run its shape ("paths": G, D, SG1, SG1_s2; K3 and
     K4 add ``launches_per_rank`` of the spatial phase's StyleGAN-1 knob
     run on the gloo ranks, f32 route). K1-K5 and the
@@ -1495,6 +1581,10 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
             for run, got in dp.items() if isinstance(got, dict)
             and "per_rank" in got
             and all(k in v for v in got["per_rank"].values())}
+        # the 256^3 runs' rank 0 (its route: f32 over gloo, bf16 over NCCL)
+        for run, got in out[-1]["launches_per_rank"].items():
+            if "r256" in run:
+                out[-1]["launches_by_path"][f"{run}_rank0"] = got["rank0"]
         # the same case's f32 route (FMA kernels) beside it
         f32 = next(c for c in mine if c["dtype"] == "float32" and all(
             c[k] == main[k] for k in main
@@ -1745,16 +1835,16 @@ def train128_phase(ca, cc, tmp: str) -> dict:
             phase("train128_run", run=name, niters=niters, **results[key])
         check_outputs(name, log_dir, runs[-1][0] - 1)
         if check:
-            phase("model_check", run=name, **model_check(log_dir, cc, n=1))
+            phase("model_check", run=name, **model_check(log_dir, cc))
         torch.cuda.empty_cache()
     stage = results["ref128/run_0_2"]["max_memory_allocated"]
-    block = results["ref128_block/run_0_2"]["max_memory_allocated"]
+    block = results["ref128_block/run_0_1"]["max_memory_allocated"]
     if stage > block:
         raise AssertionError(f"remat per stage peaks at {stage} B, above "
                              f"per block's {block} B")
     phase("remat_scopes", peak_stage=stage, peak_block=block)
-    a = results["flagship128/run_0_2"]
-    b = results["flagship128_remat/run_0_2"]
+    a = results["flagship128/run_0_1"]
+    b = results["flagship128_remat/run_0_1"]
     # the same seed, weights and data: the forward math is unchanged, so
     # step 0's losses agree to bf16 rounding (2^-7 of the larger |loss|,
     # at least 2^-7: the gradients may take other cuDNN algorithms)
@@ -1769,6 +1859,19 @@ def train128_phase(ca, cc, tmp: str) -> dict:
           launches_equal=True, peak_no_remat=a["max_memory_allocated"],
           peak_remat=b["max_memory_allocated"])
     return results
+
+
+def eval_test_set(tmp: str) -> str:
+    """The eval phases' test set: EVAL_N volumes tanh(N(0, 1)) of 64^3
+    (seed EVAL_SEED) in an npz in ``tmp``, written once."""
+    import numpy as np
+
+    path = os.path.join(tmp, "eval_test.npz")
+    if not os.path.exists(path):
+        rng = np.random.default_rng(EVAL_SEED)
+        np.savez(path, X=np.tanh(rng.standard_normal((EVAL_N, 64, 64, 64),
+                                                     np.float32)))
+    return path
 
 
 def eval_phase(tmp: str, run_dir: str) -> dict:
@@ -1787,10 +1890,7 @@ def eval_phase(tmp: str, run_dir: str) -> dict:
 
     t0 = time.time()
     r = 64
-    data = os.path.join(tmp, "eval_test.npz")
-    rng = np.random.default_rng(EVAL_SEED)
-    np.savez(data, X=np.tanh(rng.standard_normal((EVAL_N, r, r, r),
-                                                  np.float32)))
+    data = eval_test_set(tmp)
     out = os.path.join(tmp, "generated.npz")
     t = time.time()
     cli_generate.main(["-l", run_dir, f"--num={EVAL_N}",
@@ -2130,7 +2230,8 @@ def eval_metrics_phase(tmp: str) -> dict:
     """calibrate(reps=1) on the card at 64^3, batch 16: the eval phase's
     test set as the data batches, the random ResNet-50 and the slice-FID
     stand-in; randn vs randn must score below randn vs uniform in 3D-FID,
-    axial FID and MMD."""
+    axial FID and MMD. It launches none of the kernels, so main() runs it
+    in a thread while they build."""
     import torch
 
     from gan3d_tpu_torch.cli.eval_metrics import calibrate
@@ -2139,7 +2240,7 @@ def eval_metrics_phase(tmp: str) -> dict:
     from gan3d_tpu_torch.eval.slice_fid import SliceFID
 
     cuda = torch.device("cuda")
-    loader = Loader(open_dataset(os.path.join(tmp, "eval_test.npz")),
+    loader = Loader(open_dataset(eval_test_set(tmp)),
                     EVAL_BATCH, seed=EVAL_SEED, drop_last=False)
     batches = [torch.from_numpy(b)[:, None]
                for _, b in zip(range(6), loader)]
@@ -2436,15 +2537,17 @@ def _dp_one_process(ca, cc, argv: list, tag: str, record: int = 0
             "tag": tag, "grads": grads}
 
 
-def param_names(argv: list) -> dict:
+def param_names(argv: list, device: str = "meta") -> dict:
     """G's and D's parameter names in their optimizers' order ("G.x",
-    "D.y"), keyed by how many there are."""
+    "D.y"), keyed by how many there are; the networks built on
+    ``device`` (the meta device's spectral-norm init costs seconds at
+    256^3, where narrow networks build faster on the CPU)."""
     import torch
 
     from gan3d_tpu_torch.config import config_from_args
     from gan3d_tpu_torch.models import build_models
 
-    with torch.device("meta"):
+    with torch.device(device):
         nets = build_models(config_from_args(argv))
     return {len(ns): ns for ns in (
         [f"{tag}.{n}" for n, _ in net.named_parameters()]
@@ -2539,12 +2642,12 @@ def bn_formula():
 
 def _dp_rank_checks(name: str, ranks: list, route: str, steps: int,
                     log_dir: str, attention: tuple = (1, 1),
-                    run: int = 0) -> dict:
+                    run: int = 0, iter_d: int = 2) -> dict:
     """Each rank's K1/K2 launches (``route``: "_tc" for bf16, "" for f32)
-    in its run ``run`` as the step implies on its rows (``attention``:
-    the attention blocks in G and D), rank 0 alone printing, the replica
-    check passed; returns the per-rank numbers."""
-    want = expected_launches(0, steps, 2, 50, attention)
+    in its run ``run`` as the step (``iter_d`` D updates) implies on its
+    rows (``attention``: the attention blocks in G and D), rank 0 alone
+    printing, the replica check passed; returns the per-rank numbers."""
+    want = expected_launches(0, steps, iter_d, 50, attention)
     per_rank = {}
     for r in ranks:
         got = r["runs"][run]["launches"]
@@ -2826,8 +2929,8 @@ def tp_rank(rp, runs: list, out_dir: str, tag: str, record: tuple = (),
     of them) has the planted fault
     ``PLANTED[planted]``; before run i, rank 0 copies the directory
     ``copies[i][0]`` to ``copies[i][1]`` (a resume's start). Writes
-    ``{tag}_rank{r}.json``: each run's counters, stdout and peak
-    memory."""
+    ``{tag}_rank{r}.json``: each run's counters, stdout, peak memory
+    allocated and reserved and the allocator's retries."""
     import torch
 
     from gan3d_tpu_torch.cli import train as cli_train
@@ -2852,6 +2955,8 @@ def tp_rank(rp, runs: list, out_dir: str, tag: str, record: tuple = (),
         ca.reset_counters()
         cc.reset_counters()
         torch.cuda.reset_peak_memory_stats(rp.device)
+        retries = torch.cuda.memory_stats(rp.device).get(
+            "num_alloc_retries", 0)
         buf = io.StringIO()
         if i in faults:
             setattr(where, attr, bad)
@@ -2865,7 +2970,11 @@ def tp_rank(rp, runs: list, out_dir: str, tag: str, record: tuple = (),
         res["runs"].append({
             "launches": _counters(ca, cc), "stdout": buf.getvalue(),
             "max_memory_allocated": torch.cuda.max_memory_allocated(
-                rp.device)})
+                rp.device),
+            "max_memory_reserved": torch.cuda.max_memory_reserved(
+                rp.device),
+            "alloc_retries": torch.cuda.memory_stats(rp.device).get(
+                "num_alloc_retries", 0) - retries})
         if seen:
             torch.save(seen, os.path.join(
                 out_dir, f"{tag}_grads{i}_rank{rp.rank}.pt"))
@@ -2918,7 +3027,8 @@ def tp_gloo_rank(local_rank: int, world: int, init_file: str, runs: list,
     """A rank of ``world`` sharing card 0 through a gloo group this script
     makes, on a data x model or data x space grid (parallel/dist.py
     ``grid``); ``tp_rank``'s runs, then ``tp_memory_probe`` at
-    ``probe_batch``, written to ``{tag}_probe_rank{r}.json``."""
+    ``probe_batch`` (none at 0), written to
+    ``{tag}_probe_rank{r}.json``."""
     import torch
     import torch.distributed as tdist
 
@@ -2934,10 +3044,12 @@ def tp_gloo_rank(local_rank: int, world: int, init_file: str, runs: list,
     try:
         tp_rank(rp, runs, out_dir, tag, record=record, fault=fault,
                 planted=planted, copies=copies)
-        probe = tp_memory_probe(rp, probe_batch)
-        with open(os.path.join(out_dir, f"{tag}_probe_rank{rp.rank}.json"),
-                  "w") as f:
-            json.dump(probe, f)
+        if probe_batch:
+            probe = tp_memory_probe(rp, probe_batch)
+            with open(os.path.join(out_dir,
+                                   f"{tag}_probe_rank{rp.rank}.json"),
+                      "w") as f:
+                json.dump(probe, f)
         rp.barrier()
     finally:
         tdist.destroy_process_group()
@@ -3468,6 +3580,262 @@ def sp_nccl(tmp: str, data: str, one: dict, one_sg: dict,
     return res
 
 
+def r256_data(tmp: str) -> str:
+    """R256_VOLUMES volumes tanh(N(0, 1)) of 256^3 (seed 0) in an npz in
+    ``tmp`` (1.07 GB), written once."""
+    import numpy as np
+
+    path = os.path.join(tmp, "train256.npz")
+    if not os.path.exists(path):
+        x = np.random.default_rng(0).standard_normal(
+            (R256_VOLUMES, 256, 256, 256), np.float32)
+        np.tanh(x, out=x)
+        np.savez(path, X=x)
+    return path
+
+
+def sp_gloo4_r256(ca, cc, tmp: str, grad_tol: float = DP_GRAD_TOL) -> dict:
+    """BigGAN-Deep at 256^3 (R256_GLOO: filters 8, batch 2, iterD 1, f32,
+    remat per stage, the split step) through the train CLI's entry point
+    on four ranks sharing the card over a gloo group the script makes
+    (data 1 x space 4: 64 planes a rank; the 4^3 grid whole), one step,
+    against one process on the card with the same flags and seed, run
+    while the ranks run (``one_process_seconds`` and ``ranks_seconds``
+    are read so; cuDNN
+    deterministic, TF32 off as everywhere): step-0 losses within
+    SP_LOSS_TOL relative, step 0's gradients before Adam by
+    ``grad_check`` within ``grad_tol`` of each update's largest (the
+    spatial phase's limit: 5e-4 or 3x the tp phase's ``bn_formula``
+    floor; this run's own floor read 2.98e-4 of the G update's largest
+    on an H100), and bit-equal on every rank; the replica check;
+    K1 7 / K2 4 launches on each rank (f32 routes: G's attention in the
+    D update's no-grad G, the G update's G and the two sample grids; D's
+    in D(real), D(fake) and the G update's D; the backward of each but
+    the no-grad and sample forwards), on its L / 4 queries; each rank's
+    peak beside the control's; the seconds."""
+    import torch.multiprocessing as mp
+
+    t0 = time.time()
+    out_dir = os.path.join(tmp, "r256")
+    os.makedirs(out_dir, exist_ok=True)
+    base = R256_GLOO + [f"--data_path={r256_data(tmp)}", "--niters=1"]
+    iter_d = int(next(f for f in R256_GLOO if f.startswith("--iterD="))[8:])
+    argv = base + [f"--spatial_devices={R256_SPACE}",
+                   f"--num_devices={R256_SPACE}",
+                   f"--log_dir={tmp}/r256_gloo4"]
+    # the control runs here while the ranks start and run beside it
+    t1 = time.time()
+    ranks_run = mp.start_processes(tp_gloo_rank, args=(
+        R256_SPACE, os.path.join(out_dir, "gloo_rendezvous"), [argv],
+        out_dir, "gloo4", (0,), -1, 1, R256_SPACE, 0),
+        nprocs=R256_SPACE, join=False, start_method="spawn")
+    try:
+        one = _dp_one_process(ca, cc, base + [f"--log_dir={tmp}/r256_one"],
+                              "r256_one", record=iter_d + 1)
+        names = param_names(base, device="cpu")
+        while not ranks_run.join():
+            pass
+    finally:
+        for proc in ranks_run.processes:
+            if proc.is_alive():
+                proc.terminate()
+    ranks_s = time.time() - t1
+    ranks = _dp_read(out_dir, "gloo4", R256_SPACE)
+    w4 = _dp_rank_checks("sp_gloo4_r256", ranks, "", 1,
+                         f"{tmp}/r256_gloo4", (1, 1), iter_d=iter_d)
+    rel = _rel(w4["losses_step0"], one["losses_step0"])
+    got, equal = _tp_grads(out_dir, "gloo4", 0, R256_SPACE)
+    grads = grad_check(got, one["grads"], names)
+    res = {**w4, "resolution": 256, "data": 1, "space": R256_SPACE,
+           "flags": R256_GLOO, "one_process_losses_step0":
+           one["losses_step0"], "losses_step0_rel_err": rel,
+           "tol": SP_LOSS_TOL, **grads, "grad_tol": grad_tol,
+           "grads_bit_equal_on_ranks": equal,
+           **_tp_memory(ranks, one["max_memory_allocated"]),
+           "one_process_seconds": one["seconds"],
+           "ranks_seconds": ranks_s, "seconds": time.time() - t0}
+    if not (rel <= SP_LOSS_TOL and _grads_within(grads, grad_tol)
+            and equal):
+        raise AssertionError(f"256^3 at space 4 vs one process (f32): {res}")
+    return res
+
+
+def _param_bytes(log_dir: str) -> int:
+    """Bytes of the floating-point tensors of G's and D's state dicts in
+    the run's checkpoint (read through a memory map)."""
+    import torch
+
+    ckpt = torch.load(os.path.join(log_dir, "models", "checkpoint.pt"),
+                      map_location="cpu", weights_only=True, mmap=True)
+    return sum(t.numel() * t.element_size()
+               for key in ("modelG_state_dict", "modelD_state_dict")
+               for t in ckpt[key].values() if t.is_floating_point())
+
+
+def sp_nccl4_r256(ca, cc, tmp: str, control: bool = False) -> dict:
+    """The 256^3 flagship's widths (R256_WIDTHS: filters 64, z 512, iterD
+    2, bf16, remat and the split step) on data 1 x space 4 over 4 NCCL
+    cards, where there are 4 (else a line says it was not run; with
+    ``control`` the one-process control runs on one card all the same):
+
+    1. the one-process control on one card at batch R256_CHECK_BATCH,
+       one step with remat per R256_SCOPE: peak and reserved memory, the
+       allocator's retries, the seconds;
+    2. one launch of the 4 ranks: space 4 at batch R256_CHECK_BATCH (one
+       step: step-0 losses against the control's to bf16 rounding, 2^-7
+       of the larger |loss|, at least 2^-7, as sp_nccl2_ref128; K1 10 /
+       K2 6 on each rank), then R256_STEPS steps at R256_BATCH: the
+       trainer's steady vol/s (rank 0's clock from the end of step 0 to
+       the end of the last step, every rank in step with it through the
+       collectives), each rank's peak and reserved memory and allocator
+       retries, K1 26 / K2 18 on each rank, the replica check; and
+       the peak the unsharded step would need at that batch, reckoned
+       from the control's: the networks' bytes x 3 (parameters,
+       gradients, Adam's second moment; b1 = 0 keeps no first) plus the
+       rest of the control's peak scaled by batch / R256_CHECK_BATCH."""
+    import torch
+
+    from gan3d_tpu_torch.parallel import dist
+
+    cards = torch.cuda.device_count()
+    not_run = (f"{cards} card(s) visible, space {R256_SPACE} over NCCL "
+               f"needs {R256_SPACE}")
+    if cards < R256_SPACE and not control:
+        return {"not_run": not_run}
+    t0 = time.time()
+    data = r256_data(tmp)
+    widths = R256_WIDTHS + [f"--data_path={data}",
+                            f"--remat_scope={R256_SCOPE}"]
+    flags = widths + [f"--batch_size={R256_CHECK_BATCH}"]
+    log_dir = f"{tmp}/r256_one_{R256_SCOPE}"
+    one = train_run(ca, cc, f"r256_one_{R256_SCOPE}", flags,
+                    flags + [f"--log_dir={log_dir}"], 1, 0, (1, 1))
+    one["losses_step0"] = one["loss_d0"] + [one["loss_g0"]]
+    torch.cuda.empty_cache()
+    res = {"one_process": one, "scope": R256_SCOPE}
+    if cards < R256_SPACE:
+        return {**res, "not_run": not_run, "seconds": time.time() - t0}
+    out_dir = os.path.join(tmp, "r256")
+    os.makedirs(out_dir, exist_ok=True)
+    flags = widths + [f"--spatial_devices={R256_SPACE}",
+                      f"--num_devices={R256_SPACE}"]
+    plan = dist.Plan(world=R256_SPACE, local=R256_SPACE, first=0,
+                     device="cuda", space=R256_SPACE)
+    runs = [flags + [f"--batch_size={R256_CHECK_BATCH}", "--niters=1",
+                     f"--log_dir={tmp}/r256_nccl4_check"],
+            flags + [f"--batch_size={R256_BATCH}", f"--niters={R256_STEPS}",
+                     f"--log_dir={tmp}/r256_nccl4"]]
+    dist.launch(tp_rank, (runs, out_dir, "nccl4"), plan,
+                timeout=R256_WALL_S)
+    ranks = _dp_read(out_dir, "nccl4", R256_SPACE)
+    # the check: space 4 at batch R256_CHECK_BATCH against one process
+    check = _dp_rank_checks("sp_nccl4_r256_check", ranks, "_tc", 1,
+                            f"{tmp}/r256_nccl4_check", (1, 1))
+    err = max(abs(x - y) / max(1.0, abs(y))
+              for x, y in zip(check["losses_step0"], one["losses_step0"]))
+    res["check"] = {**check, "batch": R256_CHECK_BATCH,
+                    "one_process_losses_step0": one["losses_step0"],
+                    "losses_step0_rel_err": err, "tol": 2 ** -7,
+                    **_tp_memory(ranks, one["max_memory_allocated"])}
+    if not err <= 2 ** -7:
+        raise AssertionError(f"256^3 at space 4 over 4 cards vs one process "
+                             f"at batch {R256_CHECK_BATCH}: {res['check']}")
+    main = _dp_rank_checks("sp_nccl4_r256", ranks, "_tc", R256_STEPS,
+                           f"{tmp}/r256_nccl4", (1, 1), run=1)
+    for r in ranks:
+        got = r["runs"][1]
+        main["per_rank"][f"rank{r['rank']}"].update(
+            max_memory_reserved=got["max_memory_reserved"],
+            alloc_retries=got["alloc_retries"])
+    static = 3 * _param_bytes(log_dir)
+    res.update(main, batch=R256_BATCH, networks_and_adam_bytes=static,
+               unsharded_peak_reckoned=static + (
+                   one["max_memory_allocated"] - static)
+               * R256_BATCH / R256_CHECK_BATCH,
+               seconds=time.time() - t0)
+    return res
+
+
+# ``--r256``'s slab_bn line: the slab BatchNorm at one rank, forward and
+# backward, on a depth slab's activation: G's last block at 64^3 (64
+# channels, N 16) on a rank of a space group of 2 and 4, and G's 256^3
+# block on a rank of 4 (2^32 values: bf16 alone, where the formula's f32
+# copies would not fit).
+SLAB_BN_SHAPES = (("flagship64_s2", (16, 64, 32, 64, 64)),
+                  ("flagship64_s4", (16, 64, 16, 64, 64)),
+                  ("r256_s4", (16, 64, 64, 256, 256)))
+
+
+def slab_bn_timing() -> dict:
+    """The slab BatchNorm (nn/norm.py ``_SlabBatchNorm``) at one rank on
+    the card, its collective the identity: forward and backward ms of
+    torch's SyncBatchNorm kernels (the route of a bf16 slab on the card)
+    against the explicit formula (the route of an f32 slab and of the
+    CPU), each forced through ``norm._native``, and one cuDNN BatchNorm on
+    the whole tensor as a yardstick (both but at the 2^32 shape), at
+    SLAB_BN_SHAPES in bf16 and f32 (bf16 alone at 2^32);
+    the two routes' outputs and input gradients must agree to the dtype's
+    rounding (2^-6 of the largest value in bf16, 1e-4 in f32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gan3d_tpu_torch.nn import norm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    reduce, native = norm.dist.all_reduce, norm._native
+    norm.dist.all_reduce = lambda t, group=None: t
+    out = {}
+    try:
+        for name, shape in SLAB_BN_SHAPES:
+            big = shape[2] > 32
+            for dname, dt in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+                if big and dt == torch.float32:
+                    continue
+                x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+                gy = torch.randn(shape, generator=gen, device="cuda").to(dt)
+                w = torch.rand(shape[1], generator=gen, device="cuda") + 0.5
+                b = torch.randn(shape[1], generator=gen, device="cuda")
+                leaves = [t.requires_grad_(True) for t in (x, w, b)]
+
+                def slab():
+                    y = norm._SlabBatchNorm.apply(*leaves, 1, None, 1, 0,
+                                                  1e-5)[0]
+                    return (y, *torch.autograd.grad(y, leaves, gy))
+
+                def cudnn():
+                    y = F.batch_norm(leaves[0], None, None, w, b, True, 0.1,
+                                     1e-5)
+                    return (y, *torch.autograd.grad(y, leaves, gy))
+
+                iters = 3 if big else 10
+                norm._native = lambda t: True
+                case = {"shape": list(shape), "dtype": dname,
+                        "native_ms": cuda_ms(slab, iters, 1)}
+                if not big:
+                    case["library_ms"] = cuda_ms(cudnn, iters, 1)
+                    got = slab()
+                    norm._native = lambda t: False
+                    case["formula_ms"] = cuda_ms(slab, iters, 1)
+                    want = slab()
+                    case["rel_err"] = {
+                        k: rel_err(a, e)[1]
+                        for k, a, e in zip(("y", "dx", "dw", "db"), got,
+                                           want)}
+                    tol = 2 ** -6 if dt == torch.bfloat16 else 1e-4
+                    if not max(case["rel_err"].values()) <= tol:
+                        raise AssertionError(f"slab BN {name} {dname}: the "
+                                             f"routes differ {case}")
+                norm._native = native
+                out[f"{name}/{dname}"] = case
+                del x, gy, leaves
+                torch.cuda.empty_cache()
+    finally:
+        norm.dist.all_reduce, norm._native = reduce, native
+    return out
+
+
 def _two_communicators(rp, sync: bool) -> tuple:
     """The slab BatchNorm's scope as it was when C4 hung: with ``sync``
     the default group, a second communicator over the space group's ranks
@@ -3647,7 +4015,7 @@ def c4_main() -> int:
     return 0
 
 
-def model_check(log_dir: str, cc, n: int = 2) -> dict:
+def model_check(log_dir: str, cc, n: int = 1) -> dict:
     """The trained G and D, in f32 and eval mode, at batch ``n``: on the
     card (kernels, the run's conv routes) against the same weights on the
     CPU (plain attention, F.conv3d); the msl D crops at the same fixed
@@ -3776,9 +4144,18 @@ def main() -> int:
     from gan3d_tpu_torch.probes import mosaic_ladder as ml
     from gan3d_tpu_torch.utils.profiling import PROFILE_STEPS
 
-    t0 = time.time()
-    libs = cuda_build.build("pooled_attention", "conv3d_k3",
-                            "conv3d_toeplitz", "probe_ladder")
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    # the calibration launches none of the kernels: it runs while they
+    # build, as does the writing of the 256^3 data
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        calibration = pool.submit(eval_metrics_phase, work.name)
+        data256 = pool.submit(r256_data, work.name)
+        t0 = time.time()
+        libs = cuda_build.build("pooled_attention", "conv3d_k3",
+                                "conv3d_toeplitz", "probe_ladder")
+        build_s = time.time() - t0
+        metrics = calibration.result()
+        data256.result()
     ptxas = []
     for lib in libs:
         with open(os.path.join(os.path.dirname(lib), "ptxas.log")) as f:
@@ -3786,9 +4163,10 @@ def main() -> int:
                       if any(w in ln for w in ("entry function", "registers",
                                                "spill"))]
     registers = kernel_ptxas(ptxas)
-    phase("build", seconds=time.time() - t0,
+    phase("build", seconds=build_s,
           libraries=[os.path.relpath(lib, REPO) for lib in libs],
           ptxas=ptxas, registers=registers)
+    phase("eval_metrics", **metrics)
     spills = [k for k, v in registers.items()
               if NO_SPILL.search(k) and (v["spill_stores"] or v["spill_loads"])]
     missing = [k for k in ("wide_fwd_kernel", "box_copy_kernel<0>",
@@ -3804,26 +4182,30 @@ def main() -> int:
     phase("conv_shapes", **shapes)
     conv_cases = conv_kernel_phase(cc, shapes)
     phase("conv_extra", **conv_extra_checks(cc))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    with work as tmp:
         train = train_phase(ca, cc, tmp, shapes)
         dp = dp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"),
                       power_limit_w)
         tp = tp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"), dp)
         spatial = sp_phase(ca, cc, tmp, os.path.join(tmp, "train.npz"), dp,
                            tp)
+        spatial["gloo_space4_r256_f32"] = sp_gloo4_r256(
+            ca, cc, tmp, spatial["gloo_space2_f32"]["grad_tol"])
+        phase("sp_gloo4_r256", **spatial["gloo_space4_r256_f32"])
         train128 = train128_phase(ca, cc, tmp)
         spatial.update(sp_nccl(
             tmp, os.path.join(tmp, "train.npz"), dp["_one"],
             {"stylegan2": train["stylegan2/run_0_18"],
              "stylegan": train["stylegan/run_0_8"]},
             train128["ref128/run_0_2"]))
+        spatial["nccl4_r256"] = sp_nccl4_r256(ca, cc, tmp)
+        phase("sp_nccl4_r256", **spatial["nccl4_r256"])
         phase("inloop_fid", **inloop_fid_phase(
             ca, cc, tmp, train["default/run_0_12"]["steady_vol_per_s"]))
         phase("eval", **eval_phase(tmp, os.path.join(tmp, EVAL_RUN)))
         tourn = tournament_phase(ca, cc, tmp)
         phase("tournament", **tourn)
         phase("export", **export_phase(tmp))
-        phase("eval_metrics", **eval_metrics_phase(tmp))
         for run, sub, kernels in TRACED:
             phase("step_trace", run=run, **trace_phase(
                 os.path.join(tmp, sub), PROFILE_STEPS, kernels))
@@ -3855,7 +4237,40 @@ def main() -> int:
     return 0
 
 
+def r256_main() -> int:
+    """``python3 chip_smoke.py --r256``: the 256^3 runs alone, for a
+    4-card machine: sp_gloo4_r256 on card 0, then sp_nccl4_r256 with its
+    one-process control (on fewer cards the control alone), then the
+    slab BatchNorm's routes timed (``slab_bn``). Prints the card line, a
+    line a run, then ``{"ok": true, "r256": true}``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from gan3d_tpu_torch.ops import cuda_attention as ca
+    from gan3d_tpu_torch.ops import cuda_build
+    from gan3d_tpu_torch.ops import cuda_conv as cc
+    from gan3d_tpu_torch.utils.platform import configure_precision
+
+    configure_precision(torch.device("cuda"))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip(),
+          flush=True)
+    cuda_build.build("pooled_attention")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_r256_") as tmp:
+        phase("sp_gloo4_r256", **sp_gloo4_r256(ca, cc, tmp))
+        phase("sp_nccl4_r256", **sp_nccl4_r256(ca, cc, tmp, control=True))
+    phase("slab_bn", **slab_bn_timing())
+    print(json.dumps({"ok": True, "r256": True}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--r256"]:
+        sys.exit(r256_main())
     if sys.argv[1:2] == ["--c4"]:
         sys.exit(c4_main())
     if sys.argv[1:2] == ["--c4-repeat"]:

@@ -36,8 +36,12 @@ ranks a data x space grid, S adjacent ranks (on one host) sharing each
 row set and holding a slab of 1/S of the volume's depth each, with a halo
 exchange in every conv; e.g. ``--num_devices=2 --spatial_devices=2`` trains
 one row set on 2 space ranks, ``--num_devices=4 --spatial_devices=2`` on 2
-data x 2 space ranks. The resolution must divide by S; the BigGAN family,
-the DCGAN family and the hybrid take it, the StyleGAN families raise.
+data x 2 space ranks. The resolution must divide by S; every family
+takes it (BigGAN, the DCGAN family, the hybrid, StyleGAN2, StyleGAN-1),
+with ``--remat`` and ``--fused_step=False`` too. At 256^3 the BigGAN-Deep
+flagship's widths train on data 1 x space 4 over 4 cards
+(``--resolution=256 --num_devices=4 --spatial_devices=4 --remat=True
+--fused_step=False``; chip_smoke.py's ``sp_nccl4_r256``).
 """
 
 from __future__ import annotations

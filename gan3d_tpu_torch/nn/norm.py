@@ -43,7 +43,12 @@
   combines each rank's per-channel mean and centred sum of squares as
   above, and it saves the input alone, as torch's kernel does (the
   explicit formula's autograd would save three full-size f32 tensors);
-  its backward all-reduces the two per-channel sums of the gradient over
+  on a bf16 slab on the card its passes are torch's SyncBatchNorm
+  kernels, which read it as it is and sum in f32 (a 256^3 slab at the
+  flagship's widths holds 2^32 values and more at batch 16: a full-size
+  f32 copy would not fit), on an f32 slab or the CPU the explicit
+  formula (``_native``); its
+  backward all-reduces the two per-channel sums of the gradient over
   the same ranks (torch.nn.SyncBatchNorm's scheme) and is first-order, as
   no loss of these families differentiates G twice. Its affine then has
   a partial gradient (``sp.mark``). At a data group of one, ``sync``'s
@@ -74,35 +79,60 @@ from torch.autograd.function import once_differentiable
 from gan3d_tpu_torch.parallel import sp, tp
 
 
+def _native(x: torch.Tensor) -> bool:
+    """Whether the slab BatchNorm runs torch's SyncBatchNorm kernels on
+    ``x`` rather than the explicit formula: a bf16 (or f16) slab on the
+    card, which the formula would copy whole to f32. An f32 slab keeps
+    the formula, whose rounding holds a sharded f32 run to one process
+    within the spatial checks' limits (torch's kernels put a DCGAN
+    ``--msl`` step's losses 1.54e-4 from one process's on an H100, past
+    the 1e-4 the formula met)."""
+    return x.is_cuda and x.element_size() < 4
+
+
 class _SlabBatchNorm(torch.autograd.Function):
     """BatchNorm's train-mode forward on ``x`` [N, C, ...] in ``groups``
     groups of rows, each group's statistics combined over the ``n`` ranks
     of ``group`` (this one ``rank``), which hold the same count; returns
-    (y, the combined mean [groups, C], the biased variance, the count)."""
+    (y, the combined mean [groups, C], the biased variance, the count).
+    A bf16 input on the card takes torch's SyncBatchNorm kernels (a group
+    of rows a call), any other the explicit formula in at least f32."""
 
     @staticmethod
     def forward(ctx, x, w, b, groups, group, n, rank, eps):
-        sdt = torch.promote_types(x.dtype, torch.float32)
         rows, c = x.shape[:2]
-        xf = x.reshape(groups, rows // groups, c, -1).to(sdt)
-        cnt = (rows // groups) * xf.shape[-1]
-        mean = xf.mean(dim=(1, 3))                               # [g, c]
-        m2 = (xf - mean[:, None, :, None]).square().sum(dim=(1, 3))
-        every = x.new_zeros((n, 2) + tuple(mean.shape), dtype=sdt)
+        cnt = rows // groups * x[0, 0].numel()
+        if _native(x):
+            parts = x.chunk(groups)
+            # at eps 0 the kernel's invstd gives back the biased variance
+            mean, inv = (torch.stack(t) for t in zip(
+                *(torch.batch_norm_stats(p, 0.0) for p in parts)))
+            m2 = cnt / inv.square()
+        else:
+            sdt = torch.promote_types(x.dtype, torch.float32)
+            xf = x.reshape(groups, rows // groups, c, -1).to(sdt)
+            mean = xf.mean(dim=(1, 3))                           # [g, c]
+            m2 = (xf - mean[:, None, :, None]).square().sum(dim=(1, 3))
+        every = x.new_zeros((n, 2) + tuple(mean.shape), dtype=mean.dtype)
         every[rank] = torch.stack([mean, m2])
         dist.all_reduce(every, group=group)
         means, m2s = every.unbind(1)                          # [n, g, c]
         mean = means.mean(dim=0)
         m2 = m2s.sum(dim=0) + cnt * (means - mean).square().sum(dim=0)
-        cnt *= n
-        var = m2 / cnt
+        var = m2 / (cnt * n)
         invstd = torch.rsqrt(var + eps)
-        y = ((xf - mean[:, None, :, None]) * invstd[:, None, :, None]
-             * w.to(sdt)[:, None] + b.to(sdt)[:, None]).reshape(x.shape)
+        if _native(x):
+            ys = [torch.batch_norm_elemt(p, w, b, mu, i, eps)
+                  for p, mu, i in zip(parts, mean, invstd)]
+            y = ys[0] if groups == 1 else torch.cat(ys)
+        else:
+            y = ((xf - mean[:, None, :, None]) * invstd[:, None, :, None]
+                 * w.to(sdt)[:, None] + b.to(sdt)[:, None]
+                 ).reshape(x.shape).to(x.dtype)
         ctx.save_for_backward(x, mean, invstd, w)
-        ctx.groups, ctx.cnt, ctx.group = groups, cnt, group
+        ctx.groups, ctx.cnt, ctx.n, ctx.group = groups, cnt, n, group
         ctx.mark_non_differentiable(mean, var)
-        return y.to(x.dtype), mean, var, cnt
+        return y, mean, var, cnt * n
 
     @staticmethod
     @once_differentiable
@@ -110,19 +140,40 @@ class _SlabBatchNorm(torch.autograd.Function):
         x, mean, invstd, w = ctx.saved_tensors
         sdt = mean.dtype
         rows, c = x.shape[:2]
-        shape = (ctx.groups, rows // ctx.groups, c, -1)
-        xhat = ((x.reshape(shape).to(sdt) - mean[:, None, :, None])
-                * invstd[:, None, :, None])
-        g = gy.reshape(shape).to(sdt)
-        sums = torch.stack([g.sum(dim=(1, 3)),
-                            (g * xhat).sum(dim=(1, 3))])       # [2, g, c]
+        if _native(x):
+            parts, gparts = x.chunk(ctx.groups), gy.contiguous().chunk(
+                ctx.groups)
+            # each group's sums of dy and of dy (x - mean), then of dy xhat
+            s, sx = (torch.stack(t) for t in zip(*(
+                torch.batch_norm_backward_reduce(
+                    g, p, mu, i, w, True, False, False)[:2]
+                for g, p, mu, i in zip(gparts, parts, mean, invstd))))
+            sums = torch.stack([s, sx * invstd])
+        else:
+            shape = (ctx.groups, rows // ctx.groups, c, -1)
+            xhat = ((x.reshape(shape).to(sdt) - mean[:, None, :, None])
+                    * invstd[:, None, :, None])
+            g = gy.reshape(shape).to(sdt)
+            sums = torch.stack([g.sum(dim=(1, 3)),
+                                (g * xhat).sum(dim=(1, 3))])   # [2, g, c]
         dw, db = sums[1].sum(dim=0), sums[0].sum(dim=0)   # this rank's part
         dist.all_reduce(sums, group=ctx.group)
-        dx = ((g - (sums[0] / ctx.cnt)[:, None, :, None]
-               - xhat * (sums[1] / ctx.cnt)[:, None, :, None])
-              * (w.to(sdt)[:, None] * invstd[:, None, :, None]))
-        return (dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype),
-                db.to(w.dtype), None, None, None, None, None)
+        if _native(x):
+            count = torch.full((ctx.n,), ctx.cnt, dtype=torch.int32,
+                               device=x.device)
+            dxs = [torch.batch_norm_backward_elemt(g, p, mu, i, w, s, sx / i,
+                                                   count)
+                   for g, p, mu, i, s, sx in zip(gparts, parts, mean,
+                                                 invstd, *sums)]
+            dx = dxs[0] if ctx.groups == 1 else torch.cat(dxs)
+        else:
+            total = ctx.cnt * ctx.n
+            dx = ((g - (sums[0] / total)[:, None, :, None]
+                   - xhat * (sums[1] / total)[:, None, :, None])
+                  * (w.to(sdt)[:, None] * invstd[:, None, :, None])
+                  ).reshape(x.shape).to(x.dtype)
+        return (dx, dw.to(w.dtype), db.to(w.dtype), None, None, None, None,
+                None)
 
 
 def slab_scope(rp, sync: bool) -> tuple:

@@ -16,13 +16,15 @@ holds at least MIN_PLANES planes (r / S >= 2; the sides and S are powers
 of two, so a slab starts on an even plane and no 2-window of a pool or an
 upsample crosses it). Below that a layer runs on the gathered whole on
 every rank and the result is split again where the next side allows
-(``form``). At 64^3 and 128^3 that is:
+(``form``). The rule depends on S alone; at 64^3-256^3 that is:
 
 - S = 2: every side from 4^3 up is sharded; only the 1^3 ends run whole
   (the DCGAN G's noise, the D's last conv output);
 - S = 4: the 4^3 grid runs whole (BigGAN's first G block up to its
   upsample, its D's last stage after the downsample, the DCGAN G's stem
-  and first BN, the DCGAN D's last conv);
+  and first BN, the DCGAN D's last conv); at 256^3 every other grid, 8^3
+  to 256^3, is sharded, and the attention blocks (G at 32^3, D at 16^3)
+  take 8 and 4 planes a rank;
 - S = 8: the 4^3 and 8^3 grids run whole (also BigGAN's second G block
   and its D's last two stages, the DCGAN's 8^3 stages and its D's
   attention).
@@ -69,9 +71,23 @@ the space group and averages the others (computed alike on every rank,
 such as D's last linear after the pooled sum; the mean makes them
 bit-equal), before the data group's mean. The halo'd input a conv saves
 is kept as the slab and its edge planes (``kept``), rebuilt when the
-backward needs it; inside a remat group (nn/remat.py) the group
-recomputes instead, and its recompute exchanges again in the same order
-on every rank.
+backward needs it.
+
+Inside a remat group (nn/remat.py) ``kept`` stands aside: the
+checkpoint's own saved-tensor hooks take whatever the group's layers
+save and drop it, and the group keeps only its input, which is a slab
+(its bytes on a rank are the slab's, not a halo'd copy's; were ``kept``
+to pack there, each conv's slab and edge planes would stay saved through
+the step beside the group's input, and remat would save nothing on
+them). The group's recompute in backward runs its forward again on a
+copy of the BN and spectral-norm state: every halo all-gather (and the
+edge-plane fix of ``edge``) and every slab BatchNorm's statistics
+all-reduce of the group, in the forward's order, on every rank of the
+space group; attention stays outside the groups, so its gathers of the
+pooled keys run once. Torch ends a recompute once it has the tensors
+the backward needs, at the same op on every rank, since every rank runs
+the same graph. The recompute's saved tensors (the halo'd slabs among
+them) live until the group's backward ends.
 
 Nothing here runs at import.
 """

@@ -67,12 +67,17 @@ Spatial parallelism (gan3d_tpu/train/trainer.py:140-148, 207-213):
 ``spatial_devices`` > 1 makes the ranks a data x space grid (parallel/
 dist.py); every rank holds both networks whole and its depth slab of every
 activation (parallel/sp.py). A rank's reals are its rows and its slab of
-their depth. The samples of the PNG grid, the in-loop FID's fake and
-``async_log``'s deferred fake are gathered over space before rank 0's
-output work; checkpoints are whole (a resume works under another S), and
-the replica check holds every tensor alike on every rank. Every family
-runs under it: BigGAN, the DCGAN family, the hybrid, StyleGAN2 (its EMA
-alike on every rank) and StyleGAN-1.
+their depth: every rank of a host assembles the host's batch from the
+dataset on the host and uploads only its slab (iterD x B x R/S x R^2
+f32 values a step). The samples of the PNG grid, the in-loop FID's fake
+and ``async_log``'s deferred fake are gathered over space before rank
+0's output work; checkpoints are whole (a resume works under another S),
+and the replica check holds every tensor alike on every rank. Every
+family runs under it: BigGAN, the DCGAN family, the hybrid, StyleGAN2
+(its EMA alike on every rank) and StyleGAN-1; so do ``remat`` (each
+group's recompute exchanges its halos and statistics again, in the same
+order on every rank) and ``fused_step=False`` (the same step: each
+update's gradients are made whole over space, then averaged over data).
 
 ``param_dtype`` is accepted and, as in the JAX package (whose modules fix
 ``param_dtype=jnp.float32``), the parameters stay f32.

@@ -39,10 +39,15 @@ Each case is then asserted in its own test. Cases and tolerances (f32):
   (inputs sharded ``P("data", "space")``, G's output sharded alike,
   attention through XLA), with the same weights: G's output to 1e-4 of
   its largest, D's outputs and the loss to 1e-5, each gradient to 1e-5
-  of the largest gradient;
+  of the largest gradient; the same with ``remat=True``,
+  ``remat_scope="stage"`` on both sides (the port's G run with gradients
+  on, so its groups checkpoint; each group's recompute exchanges again),
+  where every group's input on a rank is a slab and ``sp.kept`` packs
+  nothing inside a group (the checkpoint's hooks take those tensors);
 - two training steps at data 2 x space 2 against the port's one process
   on the global batch (held to JAX by test_torch_step.py), same seed and
-  generator, for the flagship's flags, ``--dcgan`` (LayerNorm D),
+  generator, for the flagship's flags, with ``remat`` per stage and per
+  block and with ``fused_step=False``, ``--dcgan`` (LayerNorm D),
   ``--msl``, the hybrid and ``--dcgan --gp_weight=10`` (the double
   backward through every halo), and the flagship at S = 4, where the 4^3
   grid runs whole (the layer rule for thin grids; its forms read by
@@ -55,15 +60,22 @@ Each case is then asserted in its own test. Cases and tolerances (f32):
 - a checkpoint written at data 2 x space 2 resumed at S = 4 and in one
   process: both print the resume, and their next step's losses agree to
   1e-4;
+- the slab BatchNorm a chunk of rows at a time against one chunk and
+  against torch's BatchNorm (one rank; the collective the identity);
+- without compute, the 256^3 configs at S = 4 (filters 64, 8 and 4):
+  every grid from 8^3 up is a slab and 4^3 runs whole, and each attention
+  placement's query slab (L / 4, M, c) is one the K1/K2 wrapper admits,
+  but for filters 4's c = 4;
 - the raises: a resolution the space axis does not divide, spatial with
   model parallelism; the StyleGAN families, which train under the space
   axis (test_torch_spatial_stylegan.py), refused in one process without a
   process group as the other families are.
 
-Budget: under 40 s on one worker (the spawn and the JAX compiles
+Budget: under 50 s on one worker (the spawn and the JAX compiles
 overlap).
 """
 
+import contextlib
 import copy
 import os
 import shutil
@@ -77,10 +89,11 @@ import torch
 from gan3d_tpu_torch import convert
 from gan3d_tpu_torch.config import Config
 from gan3d_tpu_torch.models import build_models
-from gan3d_tpu_torch.nn import SelfAttention3d
+from gan3d_tpu_torch.nn import SelfAttention3d, remat
 from gan3d_tpu_torch.nn.layers import Conv3d, ConvTranspose3d
 from gan3d_tpu_torch.nn.norm import BatchNorm3d, LayerNormVolume
 from gan3d_tpu_torch.ops import conv3d as conv_ops
+from gan3d_tpu_torch.ops import cuda_attention
 from gan3d_tpu_torch.parallel import dist, sp
 from gan3d_tpu_torch.train.step import reduce_grads, train_step
 
@@ -104,18 +117,25 @@ ATTN_CH, ATTN_SIDE = 16, 16
 BN_C = 3
 # the step cases (space, flags): the flagship's flags, the DCGAN family,
 # the hybrid, the gradient penalty; the flagship at S = 4
+FLAGSHIP = dict(BASE, biggan=True, hinge=True)
 STEPS = {
-    "flagship": (2, dict(BASE, biggan=True, hinge=True)),
+    "flagship": (2, FLAGSHIP),
+    "flagship_remat_stage": (2, dict(FLAGSHIP, remat=True,
+                                     remat_scope="stage")),
+    "flagship_remat_block": (2, dict(FLAGSHIP, remat=True,
+                                     remat_scope="block")),
+    "flagship_split": (2, dict(FLAGSHIP, fused_step=False)),
     "dcgan": (2, dict(BASE, dcgan=True)),
     "dcgan_msl": (2, dict(BASE, dcgan=True, msl=True)),
     "hybrid": (2, dict(BASE, hybrid=True, biggan=True)),
     "dcgan_gp": (2, dict(BASE, dcgan=True, gp_weight=10.0)),
-    "flagship_s4": (4, dict(BASE, biggan=True, hinge=True)),
+    "flagship_s4": (4, FLAGSHIP),
 }
 CONV_CASES = [(name, s) for name in CONVS for s in (2, 4)
               if (name, s) != ("k3_knobs", 4)]
 SLICE = dict(resolution=16, z_size=16, filterG=8, filterD=8, batch_size=4,
              iterD=1, biggan=True, hinge=True, compute_dtype="float32")
+SLICE_REMAT = dict(remat=True, remat_scope="stage")
 INPUTS = "inputs.pt"  # the layer cases' inputs, which the ranks read
 CKPT = dict(BASE, biggan=True, hinge=True, niters=1, steps_per_log=1,
             steps_per_img_log=10, steps_per_ckpt=10, platform="cpu",
@@ -309,29 +329,63 @@ def norm_case(rp, inp, which, sync=True):
     return out
 
 
-def slice_case(rp, inp):
-    """SLICE's G forward, D's forwards of the reals and of G's output (the
-    JAX side's fake, numpy) and D's hinge-loss gradient, made whole and
-    averaged as the step does."""
-    cfg = Config(**SLICE, spatial_devices=SPACE, num_devices=WORLD)
+@contextlib.contextmanager
+def spied_groups():
+    """Inside the block, the shape of every remat group's input
+    (``remat``'s checkpoint calls, the recomputes' nested ones too) and
+    the number of tensors ``sp.kept``'s hooks packed as a slab and its
+    edge planes."""
+    seen = {"group_inputs": [], "kept_packs": 0}
+    ckpt, hooks = remat._checkpoint, torch.autograd.graph.saved_tensors_hooks
+
+    def group(fn, x, **kw):
+        seen["group_inputs"].append(tuple(x.shape))
+        return ckpt(fn, x, **kw)
+
+    class counted(hooks):
+        def __init__(self, pack, unpack):
+            def counting(t):
+                p = pack(t)
+                seen["kept_packs"] += (isinstance(p, tuple)
+                                       and p[:1] == ("sp_halo",))
+                return p
+            super().__init__(counting, unpack)
+
+    remat._checkpoint = group
+    torch.autograd.graph.saved_tensors_hooks = counted
+    try:
+        yield seen
+    finally:
+        remat._checkpoint = ckpt
+        torch.autograd.graph.saved_tensors_hooks = hooks
+
+
+def slice_case(rp, inp, **flags):
+    """SLICE's (with ``flags``) G forward, D's forwards of the reals and
+    of G's output (the JAX side's fake, numpy) and D's hinge-loss
+    gradient, made whole and averaged as the step does. With ``remat``
+    G runs with gradients on (else its groups run as they are); what the
+    groups keep is read by ``spied_groups``."""
+    cfg = Config(**SLICE, **flags, spatial_devices=SPACE, num_devices=WORLD)
     G, D = build_models(cfg, rp)
     G.load_state_dict(inp["g_sd"])
     D.load_state_dict(inp["d_sd"])
     G.train()
     D.train()
-    with torch.no_grad():
-        fake = G(torch.from_numpy(inp["z"])[slice(*rp.span(4))])
-    real = _slab(torch.from_numpy(inp["real"]), rp)
-    fake_j = _slab(torch.from_numpy(inp["fake_j"]), rp)
-    d_real, d_fake = D(real), D(fake_j)
-    loss = torch.relu(1 - d_real).mean() + torch.relu(1 + d_fake).mean()
-    params = list(D.parameters())
-    grads = reduce_grads(rp, params, torch.autograd.grad(loss, params))
-    return {"fake": fake, "d_real": d_real.detach(),
+    with spied_groups() as seen:
+        with torch.set_grad_enabled(cfg.remat):
+            fake = G(torch.from_numpy(inp["z"])[slice(*rp.span(4))])
+        real = _slab(torch.from_numpy(inp["real"]), rp)
+        fake_j = _slab(torch.from_numpy(inp["fake_j"]), rp)
+        d_real, d_fake = D(real), D(fake_j)
+        loss = torch.relu(1 - d_real).mean() + torch.relu(1 + d_fake).mean()
+        params = list(D.parameters())
+        grads = reduce_grads(rp, params, torch.autograd.grad(loss, params))
+    return {"fake": fake.detach(), "d_real": d_real.detach(),
             "d_fake": d_fake.detach(),
             "loss": rp.mean([loss.detach().reshape(1)])[0],
             "grads": dict(zip([n for n, _ in D.named_parameters()],
-                              grads))}
+                              grads)), **seen}
 
 
 def run_steps(cfg, rp=None, steps=2, hooks=False):
@@ -433,6 +487,9 @@ def rank_cases(rp, tmp, data):
     out["ln"] = norm_case(rp, inp["norm"]["ln"], "ln")
     out["slice"] = slice_case(rp, torch.load(
         _wait_for(os.path.join(tmp, "slice.pt")), weights_only=False))
+    out["slice_remat"] = slice_case(rp, torch.load(
+        _wait_for(os.path.join(tmp, "slice_remat.pt")), weights_only=False),
+        **SLICE_REMAT)
     torch.save(out, os.path.join(tmp, f"rank{rp.rank}.pt"))
 
 
@@ -524,10 +581,10 @@ def jax_norm(inp, which, groups=1):
     return out
 
 
-def jax_slice(inp):
-    """SLICE on the JAX mesh make_mesh(4, spatial=2): G's train-mode
-    forward, then D's forwards and hinge-loss gradient with G's output as
-    the fake."""
+def jax_slice(inp, **flags):
+    """SLICE (with ``flags``) on the JAX mesh make_mesh(4, spatial=2):
+    G's train-mode forward, then D's forwards and hinge-loss gradient
+    with G's output as the fake."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -535,7 +592,8 @@ def jax_slice(inp):
     from gan3d_tpu.models import build_models as jbuild
     from gan3d_tpu.parallel.mesh import make_mesh
 
-    jcfg = JConfig(**SLICE, num_devices=WORLD, spatial_devices=SPACE)
+    jcfg = JConfig(**SLICE, **flags, num_devices=WORLD,
+                   spatial_devices=SPACE)
     mesh = make_mesh(WORLD, spatial=SPACE)
     G_j, D_j = jbuild(jcfg)
     gv, dv = inp["gv"], inp["dv"]
@@ -577,11 +635,13 @@ def jax_side(inp, tmp):
 
     set_attention_impl("xla")
     try:
-        out = {"slice": jax_slice(inp["slice"])}
-        torch.save({**inp["slice"], "fake_j": out["slice"]["fake"]},
-                   os.path.join(tmp, "slice.pt.tmp"))
-        os.replace(os.path.join(tmp, "slice.pt.tmp"),
-                   os.path.join(tmp, "slice.pt"))
+        out = {}
+        for name, flags in (("slice", {}), ("slice_remat", SLICE_REMAT)):
+            out[name] = jax_slice(inp["slice"], **flags)
+            torch.save({**inp["slice"], "fake_j": out[name]["fake"]},
+                       os.path.join(tmp, f"{name}.pt.tmp"))
+            os.replace(os.path.join(tmp, f"{name}.pt.tmp"),
+                       os.path.join(tmp, f"{name}.pt"))
         out["conv"] = {name: jax_conv(inp["conv"][name], name)
                        for name in CONVS}
         out["attention"] = jax_attention(inp["attention"])
@@ -766,13 +826,9 @@ def test_norms_on_slabs_match_jax(ranks, name):
         np.testing.assert_allclose(var.numpy(), want["var"], **TOL)
 
 
-@pytest.mark.parametrize("part", ["g_forward", "d_forward", "d_grads"])
-def test_slice_matches_jax_spatial_mesh(ranks, part):
-    """BigGAN at 16^3 on the port's data 2 x space 2 against the JAX
-    program on make_mesh(4, spatial=2)."""
-    rs, jx, _, _, _, _ = ranks()
-    want = jx["slice"]
-    got = [r["slice"] for r in rs]
+def check_slice(want, got, part):
+    """One part of a slice case: every rank's results against the JAX
+    mesh program's."""
     if part == "g_forward":
         close(assemble([g["fake"] for g in got], SPACE), want["fake"],
               rel=1e-4, msg="G")
@@ -792,6 +848,32 @@ def test_slice_matches_jax_spatial_mesh(ranks, part):
                 assert torch.equal(r["grads"][name], g), name
             n += 1
         assert n == len(got[0]["grads"]) > 10
+
+
+@pytest.mark.parametrize("part", ["g_forward", "d_forward", "d_grads"])
+def test_slice_matches_jax_spatial_mesh(ranks, part):
+    """BigGAN at 16^3 on the port's data 2 x space 2 against the JAX
+    program on make_mesh(4, spatial=2)."""
+    rs, jx, _, _, _, _ = ranks()
+    check_slice(jx["slice"], [r["slice"] for r in rs], part)
+    if part == "d_grads":  # the spies' control: halo'd convs pack
+        assert rs[0]["slice"]["kept_packs"] > 0
+        assert rs[0]["slice"]["group_inputs"] == []
+
+
+@pytest.mark.parametrize("part", ["g_forward", "d_forward", "d_grads"])
+def test_slice_with_remat_matches_jax_spatial_mesh(ranks, part):
+    """The same with remat per stage on both sides; every remat group's
+    input on a rank is a slab (no halo), and ``sp.kept`` packed nothing:
+    the checkpoint keeps each group's input alone."""
+    rs, jx, _, _, _, _ = ranks()
+    check_slice(jx["slice_remat"], [r["slice_remat"] for r in rs], part)
+    for r in rs:
+        inputs = r["slice_remat"]["group_inputs"]
+        assert len(inputs) > 6, inputs  # G's and D's stages, recomputes
+        for shape in inputs:
+            assert shape[2] * SPACE == shape[3], shape
+        assert r["slice_remat"]["kept_packs"] == 0
 
 
 @pytest.mark.parametrize("name", list(STEPS))
@@ -849,6 +931,73 @@ def test_checkpoint_resumes_under_another_s(ranks, capsys):
     np.testing.assert_allclose(a["lossG"], b["lossG"], rtol=1e-4, atol=1e-6)
     # the 2 x 2 run's first step equals the one-process resume's history
     assert a["lossD"][0] == b["lossD"][0]
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_slab_batchnorm_at_one_rank(monkeypatch, groups):
+    """The slab BatchNorm at one rank (the collective the identity) does
+    what torch's BatchNorm does on each group of rows: the output, the
+    input and affine gradients, the mean and the biased variance."""
+    from gan3d_tpu_torch.nn import norm
+
+    monkeypatch.setattr(norm.dist, "all_reduce", lambda t, group=None: t)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rand(rng, 6, 3, 4, 5, 5) * 2 + 0.5)
+    r = torch.from_numpy(rand(rng, 6, 3, 4, 5, 5))
+    w, b = (torch.from_numpy(rand(rng, 3)) for _ in range(2))
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    y, mean, var, cnt = norm._SlabBatchNorm.apply(*leaves, groups, None, 1,
+                                                  0, 1e-5)
+    got = [y, *torch.autograd.grad((y * r).sum(), leaves), mean, var]
+    assert cnt == 6 // groups * 4 * 5 * 5
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    y = torch.cat([torch.nn.functional.batch_norm(
+        part, None, None, leaves[1], leaves[2], True, 0.1, 1e-5)
+        for part in leaves[0].chunk(groups)])
+    xs = x.reshape(groups, -1, 3, 100).transpose(1, 2).reshape(groups, 3, -1)
+    want = [y, *torch.autograd.grad((y * r).sum(), leaves), xs.mean(-1),
+            xs.var(-1, unbiased=False)]
+    for a, e in zip(got, want):
+        np.testing.assert_allclose(a.detach().numpy(), e.detach().numpy(),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("filters", [64, 8, 4])
+def test_r256_slabs_and_attention_at_s4(filters):
+    """256^3 at S = 4 without compute (the networks' layout read from
+    Config's architecture tables, the attention blocks built at their
+    channels): the rule slabs every grid from 8^3 up and leaves 4^3 whole;
+    G's attention at 32^3 and D's at 16^3 take (L / 4, M, c) queries on
+    a rank against the whole M pooled keys, which the K1/K2 wrapper
+    admits (its last check, the device, is the one that fails here) at
+    the flagship's filters 64 (c = 64 and 128) and the parity run's 8
+    (c = 8 and 16); filters 4 gives G c = 4, which it refuses."""
+    cfg = Config(resolution=256, filterG=filters, filterD=filters,
+                 z_size=16, biggan=True, hinge=True)
+    rp4 = dist.Replicas(world=4, space=4)
+    g, d = cfg.biggan_g_arch(), cfg.biggan_d_arch()
+    sides = {4, 256} | set(g["resolution"]) | set(d["resolution"])
+    assert sorted(sides) == [4, 8, 16, 32, 64, 128, 256]
+    assert [r for r in sorted(sides) if not sp.shards(r, rp4)] == [4]
+    got = []
+    for arch in (g, d):
+        at = [i for i, r in enumerate(arch["resolution"])
+              if arch["attention"][r]]
+        assert len(at) == 1
+        side = arch["resolution"][at[0]]
+        c = SelfAttention3d(arch["out_channels"][at[0]]).c
+        got.append((side ** 3 // 4, side ** 3 // 8, c))
+    f = filters
+    assert got == [(8192, 4096, f), (1024, 512, 2 * f)]
+    for L, m, c in got:
+        q = torch.empty((16, L, c), dtype=torch.bfloat16, device="meta")
+        k = torch.empty((16, m, c), dtype=torch.bfloat16, device="meta")
+        want = ("not a CUDA device" if c in cuda_attention.SUPPORTED_C
+                else f"c={c} not in")
+        with pytest.raises(ValueError, match=want):
+            cuda_attention.check_inputs(q, k, k)
+    assert (filters == 4) == (4 not in cuda_attention.SUPPORTED_C
+                              and got[0][2] == 4)
 
 
 @pytest.mark.parametrize("case", ["resolution", "spatial_and_model",

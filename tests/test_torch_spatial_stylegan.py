@@ -41,10 +41,12 @@ one space group of 4. Cases and tolerances (f32):
 - planted faults the checks catch: G's up layer with every halo of zeros
   (``sp.halo``), the trilinear upsample with its end planes zeroed;
 - the order of collectives (the guard of PERF.md's C4): every collective
-  of one StyleGAN2 step and one BigGAN step at data 2 x space 2, as
-  (group members, op, shape), the same sequence on the ranks of a space
-  group; and one BigGAN step at data 1 x space 2 (two ranks and their
-  own groups) runs every collective on one communicator.
+  of one StyleGAN2 step and one BigGAN step at data 2 x space 2 (also
+  with remat per stage, whose recomputes exchange again, and with
+  ``fused_step=False``), as (group members, op, shape), the same sequence
+  on the ranks of a space group; and one BigGAN step at data 1 x space 2
+  (two ranks and their own groups) runs every collective on one
+  communicator.
 
 Budget: under ~45 s on one worker (the spawn and the JAX compiles
 overlap).
@@ -362,13 +364,18 @@ def one_step(cfg, rp):
 
 
 def order_case(rp):
-    """The collectives of one StyleGAN2 and one BigGAN step at data 2 x
-    space 2, and of one BigGAN step at data 1 x space 2 over this rank's
-    pair (its own world and space groups, made by every rank in one
-    order, as ``dist.grid`` makes them)."""
+    """The collectives of one StyleGAN2 and one BigGAN step (plain, with
+    remat per stage, split) at data 2 x space 2, and of one BigGAN step
+    at data 1 x space 2 over this rank's pair (its own world and space
+    groups, made by every rank in one order, as ``dist.grid`` makes
+    them)."""
     out = {}
+    biggan = dict(BASE, biggan=True, hinge=True)
     for name, kw in (("stylegan2", dict(SG, stylegan2=True)),
-                     ("biggan", dict(BASE, biggan=True, hinge=True))):
+                     ("biggan", biggan),
+                     ("biggan_remat", dict(biggan, remat=True,
+                                           remat_scope="stage")),
+                     ("biggan_split", dict(biggan, fused_step=False))):
         cfg = Config(**kw, spatial_devices=SPACE, num_devices=WORLD)
         _, out[name], _ = recorded_collectives(lambda: one_step(cfg, rp),
                                                rp)
@@ -700,12 +707,14 @@ def test_checkpoint_resumes_under_another_s(ranks, capsys):
     assert float(a["pl_mean"]) == float(b["pl_mean"]) > 0
 
 
-@pytest.mark.parametrize("name", ["stylegan2", "biggan", "biggan_data1"])
+@pytest.mark.parametrize("name", ["stylegan2", "biggan", "biggan_data1",
+                                  "biggan_remat", "biggan_split"])
 def test_collectives_in_one_order(ranks, name):
     """The ranks of each space group issue the same collectives in the
     same order (group, op, shape); at data 1 every collective of the
     step, BatchNorm's statistics with the halos, runs on one
-    communicator."""
+    communicator. With remat the recomputes add the groups' halos and
+    statistics again."""
     rs, _, _, _, _ = ranks()
     seqs = [r["order"][name] for r in rs]
     for first in range(0, WORLD, SPACE):
@@ -720,3 +729,5 @@ def test_collectives_in_one_order(ranks, name):
         assert {m for m, _, _ in seqs[0]} == {"space"}
     else:
         assert {m for m, _, _ in seqs[0]} >= {"space", "data"}
+    if name == "biggan_remat":
+        assert len(seqs[0]) > len(rs[0]["order"]["biggan"])

@@ -10,10 +10,10 @@ Phases, each printing its own line:
              conv3d_toeplitz.cu and probe_ladder.cu with nvcc for sm_90a,
              one nvcc each, started together, and prints the kernels' ptxas
              lines (registers, spills), the registers and spills of each
-             tensor-core kernel and of the ladder's wide_fwd, box_copy and
-             im2col27 kernels, and fails if one of them spills (the
-             attention kernels: at the instances the trainers run, c = 16,
-             32, 64 and 128);
+             tensor-core kernel (the attention's bf16 and 3xTF32 ones) and
+             of the ladder's wide_fwd, box_copy and im2col27 kernels, and
+             fails if one of them spills (the attention kernels: at the
+             instances the trainers run, c = 16, 32, 64 and 128);
 3. kernels — runs the pooled-attention forward and backward kernels at the
              two shapes of the 64^3 BigGAN-Deep flagship (G: L=32768,
              M=4096, c=16; D: L=4096, M=512, c=32), the two of the 64^3
@@ -25,15 +25,15 @@ Phases, each printing its own line:
              and the 256^3 flagship's two (the 128^3 model's shapes) on a
              rank of a space group of 4 (G: L=8192, M=4096, c=64; D:
              L=1024, M=512, c=128) at sp_nccl4_r256's batch, f32 and bf16
-             (each pass has two routes: bf16 on the tensor-core kernels,
-             f32 on the FMA kernels; the backward's check runs on the
-             forward's o and lse),
+             (each pass has two routes on the tensor cores: bf16 in bf16
+             products, f32 in 3xTF32 ones; the backward's check runs on
+             the forward's o and lse),
              holds each against the plain PyTorch version, and times the
              kernel, the plain version and F.scaled_dot_product_attention
              (a yardstick the port never calls) with CUDA events, and the
              kernel's and the yardstick's device time in a profiler trace
-             (in f32 timed at the flagship's G and the 256^3 placements
-             alone, traced at G alone);
+             (in f32 traced at the flagship's G and the 128^3 D alone),
+             each case beside its bound and the kernel's share of it;
              then
              checks every c and ragged L/M tails at small shapes, the
              flagship's G and D shapes at a data-parallel rank's rows (N =
@@ -220,7 +220,8 @@ Phases, each printing its own line:
              loading the exported optimizer states, and the exported dir
              sampling bit-identically to its source;
    eval_metrics — calibrate(reps=1) at 64^3, batch 16, on the card
-             (random ResNet-50, slice-FID stand-in): randn vs randn below
+             (random ResNet-50, slice-FID stand-in; its two random
+             controls, without data batches): randn vs randn below
              randn vs uniform in 3D-FID, axial FID and MMD; its seconds
              (it launches none of the kernels and runs in a thread while
              they build: its line follows the build's);
@@ -318,6 +319,10 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # implies 1.83 GHz; the higher clock gives the least time.
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# The attention's f32 products at the faster of the card's two ways to f32
+# accuracy: the FMA pipes (67 TF) or 3xTF32 on the tensor cores (three
+# TF32 products at 495 TF, 165 TF of f32-accurate ones).
+ATTENTION_FLOPS = {"float32": max(67e12, 495e12 / 3), "bfloat16": 989e12}
 SFU_OPS = 132 * 16 * 1.98e9
 # K1/K2 placements (name, L, M, c), N=16: the 64^3 BigGAN-Deep flagship's
 # G (32^3) and D (16^3) attention, then the 64^3 DCGAN's with --sagan, G at
@@ -341,16 +346,17 @@ R256_PLACEMENTS = (("G_r256_s4", 32768 // 4, 4096, 64),
                    ("D_r256_s4", 4096 // 4, 512, 128))
 R256_KERNEL_N = 16
 # Kernel instances that must not spill (ptxas): every K3, K4 and K5 bf16
-# instance, the K1 and K2 bf16 kernels at the flagship's c = 16 and 32 and
-# the 128^3 model's c = 64 and 128, and the ladder's wide_fwd, box_copy
-# (both modes) and im2col27.
+# instance, the K1 and K2 kernels of both routes (bf16, 3xTF32) at the
+# flagship's c = 16 and 32 and the 128^3 model's c = 64 and 128, and the
+# ladder's wide_fwd, box_copy (both modes) and im2col27.
 NO_SPILL = re.compile(r"wide_tc_kernel|dw_tc_kernel|toeplitz_tc_kernel|"
-                      r"(fwd|bwd_\w+)_tc_kernel<(16|32|64|128)>|"
+                      r"(fwd|bwd_\w+)_(tc|tf32x3)_kernel<(16|32|64|128)>|"
                       r"wide_fwd_kernel|box_copy_kernel|im2col27_kernel")
 # The kernels whose registers and spills the build phase reports: the
-# tensor-core kernels, the ladder's wide_fwd, box_copy and im2col27.
-REPORTED = (r"[a-z_]+_tc_kernel|wide_fwd_kernel|box_copy_kernel|"
-            r"im2col27_kernel")
+# tensor-core kernels (the attention's 3xTF32 ones too), the ladder's
+# wide_fwd, box_copy and im2col27.
+REPORTED = (r"[a-z_]+_tc_kernel|[a-z_]+_tf32x3_kernel|wide_fwd_kernel|"
+            r"box_copy_kernel|im2col27_kernel")
 # Off the main path, checked but not timed: every template instance of c,
 # and ragged L and M tails (neither a multiple of any tile).
 EXTRA_SHAPES = ((2, 1000, 125, 8), (3, 300, 38, 16), (1, 4133, 517, 32),
@@ -743,8 +749,8 @@ def timings(kern, lib, iters: int, traced: bool = True) -> dict:
     PyTorch call computing the same function (``lib``): each the median of
     three windows of ``iters`` calls (all three kept) and, if ``traced``,
     the device time per call in a profiler trace (else None: the f32
-    cases off the kernels line's main shape, whose traces cost seconds
-    of the script's limit)."""
+    cases off the kernels line's main shape (the attention's: but G and
+    D128), whose traces cost seconds of the script's limit)."""
     ms, windows = kernel_ms(kern, iters)
     lib_ms, lib_windows = kernel_ms(lib, iters)
     return {"ms": ms, "ms_windows": windows,
@@ -760,7 +766,11 @@ def bound(kind: str, dtype: str, n: int, L: int, m: int, c: int):
 
     Forward: 2 products (q k^T, p v) and one exp per score; reads q, k, v
     once, writes o and lse. Backward: 5 products (s, dp, dv, dk, dq) and one
-    exp per score; reads q, k, v, o, dO, lse, writes dq, dk, dv.
+    exp per score; reads q, k, v, o, dO, lse, writes dq, dk, dv (the dk/dv
+    partials of ``dkdv_split`` are the kernels' own traffic, not the
+    function's: each backward case reports them beside its bound). Products
+    at ATTENTION_FLOPS (f32: 3xTF32's 165 TF, above the FMA pipes' 67),
+    exponentials at SFU_OPS.
     """
     es = 4 if dtype == "float32" else 2
     scores = n * L * m
@@ -771,7 +781,7 @@ def bound(kind: str, dtype: str, n: int, L: int, m: int, c: int):
         flops = 10 * scores * c
         nbytes = (4 * n * L * c + 4 * n * m * c) * es + 4 * n * L
     t_bytes = nbytes / HBM_BPS
-    t_ops = max(flops / PEAK_FLOPS[dtype], scores / SFU_OPS)
+    t_ops = max(flops / ATTENTION_FLOPS[dtype], scores / SFU_OPS)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -836,16 +846,14 @@ def kernel_phase(ca, attention_plain) -> list:
                             sdpa_out, sdpa_in, do[:, None],
                             retain_graph=True)),
             }
-            # f32 timed at the kernels line's main placement and at
-            # 256^3's alone, traced at the main one
-            timed = dname == "bfloat16" or place in ("G",) + tuple(
-                p[0] for p in R256_PLACEMENTS)
-            times = {kind: {**timings(kern, lib, fwd_iters,
-                                      dname == "bfloat16" or place == "G"),
+            # f32 traced at the kernels line's main placement and the
+            # 128^3 D alone
+            traced = dname == "bfloat16" or place in ("G", "D128")
+            times = {kind: {**timings(kern, lib, fwd_iters, traced),
                             "plain_ms": cuda_ms(plain, fwd_iters)}
-                     for kind, (kern, plain, lib) in calls.items()
-                     if timed}
+                     for kind, (kern, plain, lib) in calls.items()}
             del calls, o_ref, grads_ref, sdpa_out
+            parts = ca.dkdv_split(n, L, m, c, f32=dname == "float32")
             for kind in ("fwd", "bwd"):
                 b_ms, b_by = bound(kind, dname, n, L, m, c)
                 errs_k = ({"o": errs["o"], "lse": errs["lse"]}
@@ -854,14 +862,21 @@ def kernel_phase(ca, attention_plain) -> list:
                 case = {
                     "kernel": kind, "placement": place, "dtype": dname,
                     "route": ("tensor_core" if dname == "bfloat16"
-                              else "fma"),
+                              else "tf32x3"),
                     "N": n, "L": L, "M": m, "c": c,
                     "max_err": max(e[1] for e in errs_k.values()),
                     "max_abs_err": max(e[0] for e in errs_k.values()),
                     "rel_err": {x: e[1] for x, e in errs_k.items()},
-                    "tol": tol, "timed": timed, **times.get(kind, {}),
+                    "tol": tol, **times[kind],
                     "bound_ms": b_ms, "bound_by": b_by,
+                    "share_of_bound": b_ms / times[kind]["ms"],
                 }
+                if kind == "bwd":
+                    # the dk/dv pass's parts and the bytes of writing and
+                    # reading back their f32 partials (none at one part)
+                    case["dkdv_parts"] = parts
+                    case["partials_bytes"] = (
+                        2 * 2 * parts * n * m * c * 4 if parts > 1 else 0)
                 phase("kernel_case", **case)
                 cases.append(case)
             torch.cuda.empty_cache()
@@ -1522,9 +1537,10 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
     K4 add ``launches_per_rank`` of the spatial phase's StyleGAN-1 knob
     run on the gloo ranks, f32 route). K1-K5 and the
     ladder add ``device_ms`` and ``library_device_ms`` (device time per
-    call, profiler), and K1-K5 the f32 route's (the FMA kernels') numbers
-    at the same case: ``f32_ms``, ``f32_device_ms``, ``f32_library_ms``
-    and ``f32_library_device_ms``. ``max_err`` is the largest error
+    call, profiler), and K1-K5 the f32 route's (K1/K2: the 3xTF32
+    kernels; K3-K5: the FMA kernels) numbers at the same case:
+    ``f32_ms``, ``f32_device_ms``, ``f32_library_ms`` and
+    ``f32_library_device_ms``. ``max_err`` is the largest error
     relative to max |plain| over the compared outputs, the number held
     against ``tol``; ``max_abs_err`` is the largest absolute difference."""
     launches = paths[KNOB_RUN]
@@ -1585,7 +1601,7 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
         for run, got in out[-1]["launches_per_rank"].items():
             if "r256" in run:
                 out[-1]["launches_by_path"][f"{run}_rank0"] = got["rank0"]
-        # the same case's f32 route (FMA kernels) beside it
+        # the same case's f32 route (3xTF32 / FMA kernels) beside it
         f32 = next(c for c in mine if c["dtype"] == "float32" and all(
             c[k] == main[k] for k in main
             if k in ("kernel", "placement", "Ci", "D")))
@@ -2226,26 +2242,23 @@ def export_phase(tmp: str) -> dict:
     return result
 
 
-def eval_metrics_phase(tmp: str) -> dict:
-    """calibrate(reps=1) on the card at 64^3, batch 16: the eval phase's
-    test set as the data batches, the random ResNet-50 and the slice-FID
-    stand-in; randn vs randn must score below randn vs uniform in 3D-FID,
-    axial FID and MMD. It launches none of the kernels, so main() runs it
-    in a thread while they build."""
+def eval_metrics_phase() -> dict:
+    """calibrate(reps=1) on the card at 64^3, batch 16: the random ResNet-50
+    and the slice-FID stand-in; randn vs randn must score below randn vs
+    uniform in 3D-FID, axial FID and MMD. No data batches: the test set is
+    one batch, so its control compared the batch with itself (every FID 0)
+    at the cost of a host sqrtm of 2048^2, the phase's longest step. It
+    launches none of the kernels, so main() runs it in a thread while they
+    build."""
     import torch
 
     from gan3d_tpu_torch.cli.eval_metrics import calibrate
-    from gan3d_tpu_torch.data import Loader, open_dataset
     from gan3d_tpu_torch.eval.fid_resnet import get_fid_model
     from gan3d_tpu_torch.eval.slice_fid import SliceFID
 
     cuda = torch.device("cuda")
-    loader = Loader(open_dataset(eval_test_set(tmp)),
-                    EVAL_BATCH, seed=EVAL_SEED, drop_last=False)
-    batches = [torch.from_numpy(b)[:, None]
-               for _, b in zip(range(6), loader)]
     t0 = time.time()
-    res = calibrate(data_batches=batches, reps=1, size=64, batch=EVAL_BATCH,
+    res = calibrate(reps=1, size=64, batch=EVAL_BATCH,
                     fid_features=get_fid_model(None, cuda),
                     sfid=SliceFID(device=cuda), seed=EVAL_SEED, device=cuda)
     secs = time.time() - t0
@@ -2254,7 +2267,7 @@ def eval_metrics_phase(tmp: str) -> dict:
     if bad:
         raise AssertionError(f"calibration: randn vs randn not below randn "
                              f"vs uniform in {bad}: {res}")
-    return {"results": res, "data_batches": len(batches), "seconds": secs}
+    return {"results": res, "seconds": secs}
 
 
 def gp_refusal(data: str, tmp: str) -> dict:
@@ -4148,7 +4161,7 @@ def main() -> int:
     # the calibration launches none of the kernels: it runs while they
     # build, as does the writing of the 256^3 data
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        calibration = pool.submit(eval_metrics_phase, work.name)
+        calibration = pool.submit(eval_metrics_phase)
         data256 = pool.submit(r256_data, work.name)
         t0 = time.time()
         libs = cuda_build.build("pooled_attention", "conv3d_k3",
@@ -4170,7 +4183,10 @@ def main() -> int:
     spills = [k for k, v in registers.items()
               if NO_SPILL.search(k) and (v["spill_stores"] or v["spill_loads"])]
     missing = [k for k in ("wide_fwd_kernel", "box_copy_kernel<0>",
-                           "box_copy_kernel<1>", "im2col27_kernel")
+                           "box_copy_kernel<1>", "im2col27_kernel",
+                           *(f"{kern}_tf32x3_kernel<{c}>"
+                             for kern in ("fwd", "bwd_dq", "bwd_dkdv")
+                             for c in (16, 32, 64, 128)))
                if k not in registers]
     if spills or missing or not any("_tc_kernel" in k for k in registers):
         raise AssertionError(f"kernels spill: {spills}; not in ptxas.log: "

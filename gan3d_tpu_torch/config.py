@@ -67,7 +67,13 @@ class Config:
                                 # (0 = every visible card; on the CPU
                                 # that many gloo processes, 0 = one);
                                 # more cards than visible raises
-    spatial_devices: int = 1    # not ported: above 1 raises
+    spatial_devices: int = 1    # >1: a data x space rank grid, each
+                                # volume's depth sharded into slabs over
+                                # the space groups with a halo exchange in
+                                # every conv (parallel/sp.py), for volumes
+                                # whose activations exceed one card (256^3,
+                                # or 128^3 without remat); resolution must
+                                # divide by it; not with model_devices > 1
     model_devices: int = 1      # >1: a data x model rank grid, the wide
                                 # layers' channels sharded over the model
                                 # groups (parallel/tp.py)

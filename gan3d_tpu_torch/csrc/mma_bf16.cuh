@@ -3,7 +3,8 @@
 // and probe_ladder.cu (gram27, wide_fwd), for sm_90a: ldmatrix loads of
 // 8x8 b16 tiles from shared memory, the m16n8k16 bf16 product with f32
 // sums, zero-filling cp.async, a swizzle that keeps ldmatrix free of bank
-// conflicts, and the fixed-order sum of split-K partials.
+// conflicts, and the fixed-order sum of split-K partials (also for the
+// f32 kernels of pooled_attention.cu).
 //
 // Fragments (PTX ISA, mma.m16n8k16 .row.col), with g = lane / 4 and
 // q = lane % 4; a 32-bit register holds two bf16, the lower index in its
@@ -28,6 +29,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tc {
 
@@ -128,23 +131,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// out[j] = bf16(sum_{p = 0 .. P-1} part[p * M + j]), in that order.
+// out[j] = T(sum_{p = 0 .. P-1} part[p * M + j]), in that order; T is
+// bf16 (rounded to nearest even) or f32.
+template <typename T>
 __global__ void sum_partials_kernel(const float* __restrict__ part,
-                                    __nv_bfloat16* __restrict__ out, int P,
-                                    long long M) {
+                                    T* __restrict__ out, int P, long long M) {
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < M;
        j += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int p = 0; p < P; ++p) s += part[(long long)p * M + j];
-    out[j] = __float2bfloat16_rn(s);
+    if constexpr (std::is_same<T, float>::value) {
+      out[j] = s;
+    } else {
+      out[j] = __float2bfloat16_rn(s);
+    }
   }
 }
 
-inline cudaError_t sum_partials(const float* part, __nv_bfloat16* out, int P,
+template <typename T>
+inline cudaError_t sum_partials(const float* part, T* out, int P,
                                 long long M, cudaStream_t st) {
   const long long blocks = (M + 255) / 256;
-  sum_partials_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
-                        st>>>(part, out, P, M);
+  sum_partials_kernel<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                           st>>>(part, out, P, M);
   return cudaGetLastError();
 }
 

@@ -7,27 +7,40 @@
 //   backward -> _bwd_kernel (line 67, pallas_call at line 135)
 //
 // What bounds it on this card. C is small (ch/8: 16 in the 64^3 BigGAN G,
-// 32 in its D), so each score costs 2C multiply-adds in the product and one
-// exponential in the softmax. At the G placement (N=16, L=32768, M=4096) a
-// forward is 2.1 G exponentials, 137 GFLOP of products and ~38 MB of
-// traffic: the special-function unit (one exp per score) is the ceiling,
-// then the products; memory is far below both. The TPU kernel was
-// softmax-bound for the same reason.
+// 32 in its D, 64 and 128 in the 128^3 model's), so each score costs 2C
+// multiply-adds in each product and one exponential in the softmax. At
+// the G placement (N=16, L=32768, M=4096) a forward is 2.1 G
+// exponentials, 137 GFLOP of products and ~38 MB of traffic: the
+// special-function unit (one exp per score) and the products are the
+// ceilings; memory is far below both. The TPU kernel was softmax-bound
+// for the same reason.
 //
 // What the designs do about it. Exponentials are exp2 of log2-scaled
-// scores (one MUFU op each). The forward (K1) and the backward (K2) each
-// have two routes, picked by dtype in ops/cuda_attention.py:
-// - bf16: the *_tc kernels, the products on the tensor cores (mma.sync
-//   m16n8k16, 16 rows a warp), so the exponentials are the ceiling. The
-//   forward is the FlashAttention-2 forward (fwd_tc_kernel, below); the
-//   dk/dv pass of the backward splits L into P parts where M alone gives
-//   too few blocks (the D placement), summing f32 partials in a fixed
-//   order.
-// - f32: one thread per query (forward, dq) or key (dk/dv) row, its C-wide
-//   operand and accumulators in f32 registers, K/V (or Q/dO) tiles read
-//   by broadcast from shared memory, products on the f32 FMA pipes
-//   (tensor cores would run f32 as TF32, outside the f32 tolerance).
-
+// scores (one MUFU op each). Both products run on the tensor cores, and
+// the forward (K1) and the backward (K2) each have two routes, picked by
+// dtype in ops/cuda_attention.py, one design for both:
+// - bf16: the *_tc kernels, mma.sync m16n8k16 (16 rows a warp), so the
+//   exponentials are the ceiling.
+// - f32: the *_tf32x3 kernels, mma.sync m16n8k8 in 3xTF32 (mma_tf32.cuh):
+//   each f32 operand split into two TF32 halves, three products a term,
+//   about 21 significant bits a product against TF32's 11, so the route
+//   keeps its f32 contract (1e-4 of the largest value; plain TF32 would
+//   not). What bounds them: the split (two roundings and a subtraction a
+//   value, redone by every warp that reads it) and the three products
+//   (165 TF of f32-accurate products against the FMA pipes' 67); the
+//   exponentials come third at c >= 16. Operands are staged in f32 and
+//   split where they are read, so no tile is held twice.
+// The forward is the FlashAttention-2 forward (fwd_tc_kernel,
+// fwd_tf32x3_kernel, below); the dk/dv pass of the backward splits L into
+// P parts where M alone gives too few blocks (the D placements: at the
+// 128^3 D, 16 x 4 key blocks of the f32 route against 132 SMs, so 5
+// parts), summing f32 partials in a fixed order; at C = 128 the bf16
+// route also splits the columns of dk and dv over two blocks. On the f32
+// route the split also bounds the queries a part sums in the tensor cores,
+// whose f32 sums are not rounded to nearest (ops/cuda_attention.py
+// dkdv_split: over 32768 queries dk and dv drift past 1e-4; 2048 a part
+// hold it).
+//
 // Differences from the TPU kernel:
 // - The TPU kept all M keys of a sample resident in VMEM and did one
 //   softmax pass. K and V at M=4096 do not fit beside a useful query tile
@@ -39,8 +52,8 @@
 //   backward is the FlashAttention-2 split, with no atomics and a fixed
 //   summation order: a dq kernel (its prologue also writes delta_i =
 //   sum_c dO_i * O_i, the JAX kernel's `dsum`), then a dk/dv kernel that
-//   loops over the queries of its sample. Both get p from the saved lse
-//   instead of a second softmax pass.
+//   loops over the queries of its sample (or of its part of them). Both
+//   get p from the saved lse instead of a second softmax pass.
 //
 // Inputs: f32 (pa_fwd, pa_bwd) or bf16 (pa_fwd_tc, pa_bwd_tc); every
 // accumulation is f32; outputs take the inputs' dtype.
@@ -49,17 +62,18 @@
 // cudaErrorInvalidValue for a C or a size it does not take.
 //
 // C = 128 (the D attention of the 128^3 BigGAN-Deep at filters 128: 1024
-// channels at 16^3). A 64-row bf16 tile is then 16 KB, so the double-
-// buffered K/V (or Q/dO) tiles of a tc kernel take 64 KB: every tc kernel
-// stages its tiles in dynamic shared memory (up to 227 KB a block on
-// Hopper; cudaFuncSetAttribute lifts the 48 KB default where a kernel needs
-// more). Registers: the tc backward kernels walk each staged 64-row tile in
-// two 32-row halves at C = 128 (the s and dp fragments halve), and the
-// dk/dv kernel also splits the C columns of its dk and dv accumulators over
-// two blocks, each recomputing S^T and dP^T for its half (2 x 16 x 64 f32 a
-// warp would otherwise be 128 registers a thread for the sums alone). The
-// f32 route stages 32-row tiles at C = 128 (static shared memory stays
-// under 48 KB); its C-wide per-thread rows spill to local memory there.
+// channels at 16^3). A 64-row bf16 tile is then 16 KB, an f32 tile 32 KB,
+// so every kernel stages its tiles in dynamic shared memory (up to 227 KB
+// a block on Hopper; cudaFuncSetAttribute lifts the 48 KB default where a
+// kernel needs more). Registers: the tc backward kernels walk each staged
+// 64-row tile in two 32-row halves at C = 128 (the s and dp fragments
+// halve), and the tc dk/dv kernel splits the C columns of its dk and dv
+// accumulators over two blocks, each recomputing S^T and dP^T for its half
+// (2 x 16 x 64 f32 a warp would otherwise be 128 registers a thread for
+// the sums alone). The tf32x3 kernels stage their own rows in shared
+// memory too, walk a streamed tile in parts of 16 NJ rows and, at C = 128,
+// run 8 warps a block, since one block fills a SM's shared memory there;
+// their dk/dv kernel keeps all C columns (X3Shape, below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,236 +83,15 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-constexpr int kFwdThreads = 128;  // query rows per forward block
-constexpr int kChunk = 16;        // keys per online-softmax rescale
-constexpr int kDqThreads = 128;   // query rows per dq block
-constexpr int kDkvThreads = 64;   // key rows per dk/dv block
-
-// Rows of a staged f32 tile (keys in the forward and dq, queries in dk/dv):
-// two [rows][C] f32 tiles stay within 48 KB of static shared memory.
-template <int C>
-__host__ __device__ constexpr int f32_tile() { return C > 64 ? 32 : 64; }
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// Copy rows [row0, row0 + nrows) of a [rows, C] matrix into a [tile, C]
-// f32 shared-memory tile, zero-filling the rows past nrows.
-template <typename T, int C, int TILE>
-__device__ __forceinline__ void load_tile(float (*dst)[C], const T* src,
-                                          int row0, int nrows) {
-  for (int idx = threadIdx.x; idx < TILE * C; idx += blockDim.x) {
-    const int r = idx / C;
-    dst[r][idx % C] =
-        r < nrows ? to_f32(src[(size_t)(row0 + r) * C + idx % C]) : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward: one thread per query row; K/V tiles streamed, online softmax.
-// grid (ceil(L / kFwdThreads), N)
-// ---------------------------------------------------------------------------
-template <typename T, int C>
-__global__ void __launch_bounds__(kFwdThreads)
-    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               float* __restrict__ lse, int L, int M) {
-  constexpr int kKvTile = f32_tile<C>();
-  __shared__ __align__(16) float ks[kKvTile][C];
-  __shared__ __align__(16) float vs[kKvTile][C];
-  const int n = blockIdx.y;
-  const int i = blockIdx.x * kFwdThreads + threadIdx.x;
-  const bool active = i < L;
-  const T* kn = k + (size_t)n * M * C;
-  const T* vn = v + (size_t)n * M * C;
-
-  float qr[C], acc[C];
-  const T* qi = q + ((size_t)n * L + (active ? i : 0)) * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    qr[c] = to_f32(qi[c]) * kLog2e;  // scores in log2 units
-    acc[c] = 0.f;
-  }
-  float mx = -INFINITY;  // running max (log2 units)
-  float den = 0.f;       // running sum of exp2(s - mx)
-
-  for (int j0 = 0; j0 < M; j0 += kKvTile) {
-    const int nt = min(kKvTile, M - j0);
-    __syncthreads();
-    load_tile<T, C, kKvTile>(ks, kn, j0, nt);
-    load_tile<T, C, kKvTile>(vs, vn, j0, nt);
-    __syncthreads();
-    for (int jc = 0; jc < nt; jc += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        float d = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) d = fmaf(qr[c], ks[jc + jj][c], d);
-        s[jj] = (jc + jj < nt) ? d : -INFINITY;
-        cmax = fmaxf(cmax, s[jj]);
-      }
-      const float mnew = fmaxf(mx, cmax);  // finite: every chunk has a key
-      const float scale = exp2f(mx - mnew);
-      den *= scale;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] *= scale;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float p = exp2f(s[jj] - mnew);
-        den += p;
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] = fmaf(p, vs[jc + jj][c], acc[c]);
-      }
-      mx = mnew;
-    }
-  }
-  if (active) {
-    const float inv = 1.f / den;
-    T* oi = o + ((size_t)n * L + i) * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) oi[c] = from_f32<T>(acc[c] * inv);
-    lse[(size_t)n * L + i] = (mx + log2f(den)) * kLn2;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward, dq: one thread per query row. Prologue writes delta_i.
-//   p = exp(s - lse);  dp = dO . v;  ds = p (dp - delta);  dq = sum ds k
-// grid (ceil(L / kDqThreads), N)
-// ---------------------------------------------------------------------------
-template <typename T, int C>
-__global__ void __launch_bounds__(kDqThreads)
-    bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ o,
-                  const T* __restrict__ dout, const float* __restrict__ lse,
-                  T* __restrict__ dq, float* __restrict__ delta, int L,
-                  int M) {
-  constexpr int kKvTile = f32_tile<C>();
-  __shared__ __align__(16) float ks[kKvTile][C];
-  __shared__ __align__(16) float vs[kKvTile][C];
-  const int n = blockIdx.y;
-  const int i = blockIdx.x * kDqThreads + threadIdx.x;
-  const bool active = i < L;
-  const size_t row = (size_t)n * L + (active ? i : 0);
-  const T* kn = k + (size_t)n * M * C;
-  const T* vn = v + (size_t)n * M * C;
-
-  float qr[C], dor[C], acc[C];
-  float dlt = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    qr[c] = to_f32(q[row * C + c]) * kLog2e;
-    dor[c] = to_f32(dout[row * C + c]);
-    dlt = fmaf(dor[c], to_f32(o[row * C + c]), dlt);
-    acc[c] = 0.f;
-  }
-  const float lse2 = lse[row] * kLog2e;
-  if (active) delta[row] = dlt;
-
-  for (int j0 = 0; j0 < M; j0 += kKvTile) {
-    const int nt = min(kKvTile, M - j0);
-    __syncthreads();
-    load_tile<T, C, kKvTile>(ks, kn, j0, nt);
-    load_tile<T, C, kKvTile>(vs, vn, j0, nt);
-    __syncthreads();
-    for (int j = 0; j < nt; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        s = fmaf(qr[c], ks[j][c], s);
-        dp = fmaf(dor[c], vs[j][c], dp);
-      }
-      const float ds = exp2f(s - lse2) * (dp - dlt);
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = fmaf(ds, ks[j][c], acc[c]);
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) dq[row * C + c] = from_f32<T>(acc[c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward, dk/dv: one thread per key row, looping over every query.
-//   dv = sum p dO;  dk = sum ds q
-// grid (ceil(M / kDkvThreads), N)
-// ---------------------------------------------------------------------------
-template <typename T, int C>
-__global__ void __launch_bounds__(kDkvThreads)
-    bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int L, int M) {
-  constexpr int kQTile = f32_tile<C>();
-  __shared__ __align__(16) float qs[kQTile][C];
-  __shared__ __align__(16) float dos[kQTile][C];
-  __shared__ float lse2s[kQTile];
-  __shared__ float dlts[kQTile];
-  const int n = blockIdx.y;
-  const int j = blockIdx.x * kDkvThreads + threadIdx.x;
-  const bool active = j < M;
-  const size_t row = (size_t)n * M + (active ? j : 0);
-  const T* qn = q + (size_t)n * L * C;
-  const T* dn = dout + (size_t)n * L * C;
-
-  float kr[C], vr[C], dka[C], dva[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    kr[c] = to_f32(k[row * C + c]) * kLog2e;
-    vr[c] = to_f32(v[row * C + c]);
-    dka[c] = 0.f;
-    dva[c] = 0.f;
-  }
-
-  for (int i0 = 0; i0 < L; i0 += kQTile) {
-    const int nt = min(kQTile, L - i0);
-    __syncthreads();
-    load_tile<T, C, kQTile>(qs, qn, i0, nt);
-    load_tile<T, C, kQTile>(dos, dn, i0, nt);
-    for (int r = threadIdx.x; r < kQTile; r += blockDim.x) {
-      lse2s[r] = r < nt ? lse[(size_t)n * L + i0 + r] * kLog2e : 0.f;
-      dlts[r] = r < nt ? delta[(size_t)n * L + i0 + r] : 0.f;
-    }
-    __syncthreads();
-    for (int r = 0; r < nt; ++r) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        s = fmaf(qs[r][c], kr[c], s);
-        dp = fmaf(dos[r][c], vr[c], dp);
-      }
-      const float p = exp2f(s - lse2s[r]);
-      const float ds = p * (dp - dlts[r]);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        dva[c] = fmaf(p, dos[r][c], dva[c]);
-        dka[c] = fmaf(ds, qs[r][c], dka[c]);
-      }
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dk[row * C + c] = from_f32<T>(dka[c]);
-      dv[row * C + c] = from_f32<T>(dva[c]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -310,7 +103,8 @@ __global__ void __launch_bounds__(kDkvThreads)
 // CK = max(C, 16) bf16, swizzled (tc::swz) so ldmatrix is conflict-free.
 constexpr int kTcThreads = 128;  // 4 warps x 16 rows (queries or keys)
 constexpr int kTcRows = 64;      // rows per block
-constexpr int kTcTile = 64;      // keys (dq) or queries (dk/dv) per tile
+constexpr int kTcTile = 64;      // keys (dq, and both forwards) or queries
+                                 // (dk/dv) per tile
 
 template <int C>
 struct TcShape {
@@ -827,15 +621,6 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
 }
 
 template <int C>
-void launch_fwd(const void* q, const void* k, const void* v, void* o,
-                void* lse, int N, int L, int M, cudaStream_t st) {
-  dim3 grid((L + kFwdThreads - 1) / kFwdThreads, N);
-  fwd_kernel<float, C><<<grid, kFwdThreads, 0, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o,
-      (float*)lse, L, M);
-}
-
-template <int C>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
                           void* o, void* lse, int N, int L, int M,
                           cudaStream_t st) {
@@ -849,18 +634,509 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int C>
-void launch_bwd(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, const void* lse, void* dq, void* dk,
-                void* dv, void* delta, int N, int L, int M, cudaStream_t st) {
-  dim3 gq((L + kDqThreads - 1) / kDqThreads, N);
-  bwd_dq_kernel<T, C><<<gq, kDqThreads, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
-      (const float*)lse, (T*)dq, (float*)delta, L, M);
-  dim3 gk((M + kDkvThreads - 1) / kDkvThreads, N);
-  bwd_dkdv_kernel<T, C><<<gk, kDkvThreads, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, L, M);
+// ---------------------------------------------------------------------------
+// The f32 route: the same FA2 kernels in 3xTF32 (mma_tf32.cuh) on the
+// tensor cores, mma.sync m16n8k8. A block is WARPS warps of 16 rows
+// (queries in the forward and dq, keys in dk/dv); its own rows and the
+// streamed tiles are staged by cp.async as f32 in dynamic shared memory,
+// swizzled (tc::f32_at), and every fragment is split into its TF32 halves
+// where it is read. Products take the channels (or the keys) as k in the
+// order of mma_tf32.cuh, so the S and dP C fragments are the A fragments
+// of the P V, dS K, P^T dO and dS^T Q products as they stand.
+//
+// Sizes. 4 warps (64 rows) a block, and 64-row streamed tiles, as the
+// bf16 backward; at C = 128 an f32 row is 512 bytes and shared memory
+// holds one block a SM, so there the block is 8 warps (128 rows: two
+// warps a scheduler to hide the latencies) and the backward streams
+// 32-row tiles (its own rows take 128 KB). The backward walks a streamed
+// tile in parts of 16 NJ rows: its S and dP fragments are 2 x 8 NJ floats
+// a lane, beside C / 2 (dq) or C (dk/dv) of sums; at C = 128, 16-row
+// parts keep dk/dv from spilling (ptxas hoists the reads and splits of the
+// unrolled products; 32-row parts spilled there). dk/dv keeps all C
+// columns in one block (247 registers at C = 128, no spill): split over
+// two column halves as the tc kernel is, each half redid S^T and dP^T,
+// and the K2 f32 pass was slower at the 128^3 D (PERF.md, section 6).
+template <int C>
+struct X3Shape {
+  static constexpr int KS = C / 8;  // k-steps over c
+  static constexpr int NT = C / 8;  // n8 tiles over c
+  static constexpr int WARPS = C > 64 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int ROWS = 16 * WARPS;     // own rows a block
+  static constexpr int TR = C > 64 ? 32 : 64;  // rows a backward tile
+  static constexpr int NJ = C > 64 ? 1 : C >= 32 ? 2 : 4;
+  // dynamic shared memory (floats): the forward's Q rows and two stages
+  // of 64-key K and V tiles; dq's Q and dO rows and two stages of K and V;
+  // dk/dv's K and V rows and two stages of Q, dO, lse and delta
+  static constexpr int FWD = ROWS * C + 4 * kTcTile * C;
+  static constexpr int DQ = 2 * ROWS * C + 4 * TR * C;
+  static constexpr int DKDV = 2 * ROWS * C + 4 * TR * C + 4 * TR;
+};
+
+// Request rows [row0, row0 + nrows) of a [rows, C] f32 matrix into a
+// swizzled [R][C] tile by cp.async, zero-filling rows past nrows.
+template <int C, int R>
+__device__ __forceinline__ void load_tile_x3(float* dst, const float* src,
+                                             int row0, int nrows) {
+  constexpr int NP = C / 4;  // 16-byte pieces a row
+  for (int i = threadIdx.x; i < R * NP; i += blockDim.x) {
+    const int r = i / NP, p = i % NP;
+    const bool ok = r < nrows;
+    tc::cp_async16(dst + tc::f32_at<C>(r, 4 * p),
+                   ok ? src + (size_t)(row0 + r) * C + 4 * p : src,
+                   ok ? 16 : 0);
+  }
+}
+
+// s[2 NJ][4] += A B^T over c: A is rows [a_row, a_row + 16) of the
+// staged tile `a`, B rows [row0, row0 + 16 NJ) of the staged tile `b`
+// (2 NJ n8 tiles).
+template <int C, int NJ>
+__device__ __forceinline__ void rows_times_tile_x3(float (*s)[4],
+                                                   const float* a, int a_row,
+                                                   const float* b, int row0,
+                                                   int g, int qd) {
+#pragma unroll
+  for (int kk = 0; kk < X3Shape<C>::KS; ++kk) {
+    const int col = 8 * kk + 2 * qd;
+    const float2 x0 =
+        *reinterpret_cast<const float2*>(a + tc::f32_at<C>(a_row + g, col));
+    const float2 x1 = *reinterpret_cast<const float2*>(
+        a + tc::f32_at<C>(a_row + g + 8, col));
+    uint32_t ah[4], al[4];
+    tc::split_tf32(x0.x, ah[0], al[0]);
+    tc::split_tf32(x1.x, ah[1], al[1]);
+    tc::split_tf32(x0.y, ah[2], al[2]);
+    tc::split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+    for (int t = 0; t < 2 * NJ; ++t) {
+      const float2 y = *reinterpret_cast<const float2*>(
+          b + tc::f32_at<C>(row0 + 8 * t + g, col));
+      uint32_t bh[2], bl[2];
+      tc::split_tf32(y.x, bh[0], bl[0]);
+      tc::split_tf32(y.y, bh[1], bl[1]);
+      tc::mma3(s[t], ah, al, bh, bl);
+    }
+  }
+}
+
+// acc[C / 8][4] += X @ B: X is 16 rows x 16 NJ as the C fragments x[2
+// NJ][4] (its columns as k), B rows [row0, row0 + 16 NJ) of the staged
+// tile `b` (as k; its C / 8 n8 tiles of columns as n).
+template <int C, int NJ>
+__device__ __forceinline__ void frags_times_tile_x3(float (*acc)[4],
+                                                    const float (*x)[4],
+                                                    const float* b, int row0,
+                                                    int g, int qd) {
+#pragma unroll
+  for (int t = 0; t < 2 * NJ; ++t) {
+    uint32_t ah[4], al[4];
+    tc::split_tf32(x[t][0], ah[0], al[0]);
+    tc::split_tf32(x[t][2], ah[1], al[1]);
+    tc::split_tf32(x[t][1], ah[2], al[2]);
+    tc::split_tf32(x[t][3], ah[3], al[3]);
+    const int r = row0 + 8 * t + 2 * qd;
+#pragma unroll
+    for (int nt = 0; nt < X3Shape<C>::NT; ++nt) {
+      const int col = 8 * nt + g;
+      uint32_t bh[2], bl[2];
+      tc::split_tf32(b[tc::f32_at<C>(r, col)], bh[0], bl[0]);
+      tc::split_tf32(b[tc::f32_at<C>(r + 1, col)], bh[1], bl[1]);
+      tc::mma3(acc[nt], ah, al, bh, bl);
+    }
+  }
+}
+
+// K1 f32: grid (ceil(L / ROWS), N), WARPS warps of 16 query rows. The
+// block's Q rows are staged once; K and V stream in 64-key tiles,
+// double-buffered by cp.async. Per tile: S = Q K^T in 3xTF32; keys past M
+// get score -inf before the row max; the row max (log2 units) over the
+// quad that shares a row; the running output and row sum rescaled by
+// 2^(m_old - m_new); p = 2^(s log2e - m) in f32, summed into the row sum
+// and, split, into O += P V in 3xTF32. o = acc / den; lse = (m + log2
+// den) ln2 (natural log).
+template <int C>
+__global__ void __launch_bounds__(X3Shape<C>::THREADS)
+    fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int L, int M) {
+  using S = X3Shape<C>;
+  // qs [ROWS][C], then stage st of K at ks + st kT, of V at vs + st kT
+  constexpr int kT = kTcTile * C;
+  extern __shared__ float4 smem_x3[];
+  float* const qs = reinterpret_cast<float*>(smem_x3);
+  float* const ks = qs + S::ROWS * C;
+  float* const vs = ks + 2 * kT;
+  const int n = blockIdx.y;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int row0 = blockIdx.x * S::ROWS;
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  const size_t nl = (size_t)n * L;
+  const float* kn = k + (size_t)n * M * C;
+  const float* vn = v + (size_t)n * M * C;
+
+  float acc[S::NT][4];
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  float mx[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+  float den[2] = {0.f, 0.f};             // this lane's share of the row sum
+
+  // two stages: tile j + 1 is in flight while tile j's products run; Q
+  // rides with the first
+  load_tile_x3<C, S::ROWS>(qs, q + nl * C, row0, min(S::ROWS, L - row0));
+  auto request = [&](int j0, int st) {
+    load_tile_x3<C, kTcTile>(ks + st * kT, kn, j0, min(kTcTile, M - j0));
+    load_tile_x3<C, kTcTile>(vs + st * kT, vn, j0, min(kTcTile, M - j0));
+    tc::cp_async_commit();
+  };
+  request(0, 0);
+  for (int j0 = 0, st = 0; j0 < M; j0 += kTcTile, st ^= 1) {
+    const int nt = min(kTcTile, M - j0);
+    if (j0 + kTcTile < M) {
+      request(j0 + kTcTile, st ^ 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+    rows_times_tile_x3<C, 4>(s, qs, warp * 16, ks + st * kT, 0, g, qd);
+    if (nt < kTcTile) {  // the ragged last tile: keys past M
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (t * 8 + 2 * qd + (e & 1) >= nt) s[t][e] = -INFINITY;
+    }
+    float tm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      tm[0] = fmaxf(tm[0], fmaxf(s[t][0], s[t][1]));
+      tm[1] = fmaxf(tm[1], fmaxf(s[t][2], s[t][3]));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tm[h] = fmaxf(tm[h], __shfl_xor_sync(0xffffffffu, tm[h], 1));
+      tm[h] = fmaxf(tm[h], __shfl_xor_sync(0xffffffffu, tm[h], 2));
+      // finite: every tile holds at least one key
+      const float mnew = fmaxf(mx[h], tm[h] * kLog2e);
+      const float scale = tc::exp2_approx(mx[h] - mnew);
+      mx[h] = mnew;
+      den[h] *= scale;
+#pragma unroll
+      for (int t = 0; t < S::NT; ++t) {
+        acc[t][2 * h] *= scale;
+        acc[t][2 * h + 1] *= scale;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = tc::exp2_approx(fmaf(s[t][e], kLog2e, -mx[e >> 1]));
+        den[e >> 1] += p;
+        s[t][e] = p;
+      }
+    frags_times_tile_x3<C, 4>(acc, s, vs + st * kT, 0, g, qd);
+    __syncthreads();  // stage st is refilled two tiles on
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+  }
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t) {
+    const int col = t * 8 + 2 * qd;
+    if (r0 < L)
+      *reinterpret_cast<float2*>(o + (nl + r0) * C + col) =
+          make_float2(acc[t][0] / den[0], acc[t][1] / den[0]);
+    if (r1 < L)
+      *reinterpret_cast<float2*>(o + (nl + r1) * C + col) =
+          make_float2(acc[t][2] / den[1], acc[t][3] / den[1]);
+  }
+  if (qd == 0) {
+    if (r0 < L) lse[nl + r0] = (mx[0] + log2f(den[0])) * kLn2;
+    if (r1 < L) lse[nl + r1] = (mx[1] + log2f(den[1])) * kLn2;
+  }
+}
+
+// K2 f32, dq: grid (ceil(L / ROWS), N), WARPS warps of 16 query rows; the
+// block's Q and dO rows staged once, K and V streamed in TR-key tiles. The
+// prologue writes delta_i = sum_c dO_i O_i (4 lanes a row, fixed order).
+// Per tile (in parts of 16 NJ keys): S = Q K^T and dP = dO V^T; P = 2^(S
+// log2e - lse log2e); dS = P (dP - delta); dQ += dS K; every product in
+// 3xTF32.
+template <int C>
+__global__ void __launch_bounds__(X3Shape<C>::THREADS)
+    bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ o,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         float* __restrict__ dq, float* __restrict__ delta,
+                         int L, int M) {
+  using S = X3Shape<C>;
+  // qs, dos [ROWS][C]; stage st of K at ks + st kT, of V at vs + st kT
+  constexpr int kT = S::TR * C;
+  extern __shared__ float4 smem_x3[];
+  float* const qs = reinterpret_cast<float*>(smem_x3);
+  float* const dos = qs + S::ROWS * C;
+  float* const ks = dos + S::ROWS * C;
+  float* const vs = ks + 2 * kT;
+  const int n = blockIdx.y;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int row0 = blockIdx.x * S::ROWS;
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  const size_t nl = (size_t)n * L;
+  const float* kn = k + (size_t)n * M * C;
+  const float* vn = v + (size_t)n * M * C;
+
+  load_tile_x3<C, S::ROWS>(qs, q + nl * C, row0, min(S::ROWS, L - row0));
+  load_tile_x3<C, S::ROWS>(dos, dout + nl * C, row0, min(S::ROWS, L - row0));
+  auto request = [&](int j0, int st) {
+    load_tile_x3<C, S::TR>(ks + st * kT, kn, j0, min(S::TR, M - j0));
+    load_tile_x3<C, S::TR>(vs + st * kT, vn, j0, min(S::TR, M - j0));
+    tc::cp_async_commit();
+  };
+  request(0, 0);
+
+  float dl[2], l2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? r1 : r0;
+    const bool ok = r < L;
+    float part = 0.f;
+    if (ok)
+      for (int c = qd * (C / 4); c < (qd + 1) * (C / 4); ++c)
+        part = fmaf(dout[(nl + r) * C + c], o[(nl + r) * C + c], part);
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    dl[h] = part;
+    l2[h] = ok ? lse[nl + r] * kLog2e : INFINITY;
+    if (ok && qd == 0) delta[nl + r] = part;
+  }
+
+  float acc[S::NT][4];
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  for (int j0 = 0, st = 0; j0 < M; j0 += S::TR, st ^= 1) {
+    const int nt = min(S::TR, M - j0);
+    if (j0 + S::TR < M) {
+      request(j0 + S::TR, st ^ 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + st * kT;
+#pragma unroll 1
+    for (int j = 0; j < S::TR; j += 16 * S::NJ) {
+      float s[2 * S::NJ][4], dp[2 * S::NJ][4];
+#pragma unroll
+      for (int t = 0; t < 2 * S::NJ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+      rows_times_tile_x3<C, S::NJ>(s, qs, warp * 16, kt, j, g, qd);
+      rows_times_tile_x3<C, S::NJ>(dp, dos, warp * 16, vs + st * kT, j, g,
+                                   qd);
+#pragma unroll
+      for (int t = 0; t < 2 * S::NJ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pv = tc::exp2_approx(fmaf(s[t][e], kLog2e, -l2[e >> 1]));
+          if (j + t * 8 + 2 * qd + (e & 1) >= nt) pv = 0.f;  // past M
+          s[t][e] = pv * (dp[t][e] - dl[e >> 1]);            // dS
+        }
+      frags_times_tile_x3<C, S::NJ>(acc, s, kt, j, g, qd);
+    }
+    __syncthreads();  // stage st is refilled two tiles on
+  }
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t) {
+    const int col = t * 8 + 2 * qd;
+    if (r0 < L)
+      *reinterpret_cast<float2*>(dq + (nl + r0) * C + col) =
+          make_float2(acc[t][0], acc[t][1]);
+    if (r1 < L)
+      *reinterpret_cast<float2*>(dq + (nl + r1) * C + col) =
+          make_float2(acc[t][2], acc[t][3]);
+  }
+}
+
+// K2 f32, dk/dv: grid (ceil(M / ROWS), N, P), WARPS warps of 16 key
+// rows; part p = z walks query tiles [T p / P, T (p + 1) / P) of the T =
+// ceil(L / TR), and writes all C columns of dk and dv. The block's K and V
+// rows are staged once; Q, dO, lse and delta stream in TR-query tiles. Per
+// tile (in parts of 16 NJ queries): S^T = K Q^T and dP^T = V dO^T; P^T
+// from the stored lse; dV += P^T dO and dK += dS^T Q with dS^T = P^T (dP^T
+// - delta); every product in 3xTF32. P = 1 writes dk/dv; P > 1 writes f32
+// partials [P, N, M, C], summed in order by tc::sum_partials.
+template <int C>
+__global__ void __launch_bounds__(X3Shape<C>::THREADS)
+    bwd_dkdv_tf32x3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           float* __restrict__ dkp, float* __restrict__ dvp,
+                           int L, int M, int P) {
+  using S = X3Shape<C>;
+  // kts, vts [ROWS][C]; stage st of Q at qs + st kT, of dO at dos + st kT,
+  // of lse at lses + st TR, of delta at dls + st TR
+  constexpr int kT = S::TR * C;
+  extern __shared__ float4 smem_x3[];
+  float* const kts = reinterpret_cast<float*>(smem_x3);
+  float* const vts = kts + S::ROWS * C;
+  float* const qs = vts + S::ROWS * C;
+  float* const dos = qs + 2 * kT;
+  float* const lses = dos + 2 * kT;
+  float* const dls = lses + 2 * S::TR;
+  const int n = blockIdx.y, p = blockIdx.z;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int row0 = blockIdx.x * S::ROWS;
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  const size_t nl = (size_t)n * L, nm = (size_t)n * M;
+
+  float dka[S::NT][4], dva[S::NT][4];
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[t][e] = dva[t][e] = 0.f;
+
+  // two stages: tile i + 1 is in flight while tile i's products run; K and
+  // V ride with the first. Query rows past L arrive as zeros (q, dO, lse,
+  // delta): their S^T and dP^T are 0, so their dS^T is 0 and their dO adds
+  // nothing to dV.
+  load_tile_x3<C, S::ROWS>(kts, k + nm * C, row0, min(S::ROWS, M - row0));
+  load_tile_x3<C, S::ROWS>(vts, v + nm * C, row0, min(S::ROWS, M - row0));
+  auto request = [&](int i0, int st) {
+    const int nt = min(S::TR, L - i0);
+    load_tile_x3<C, S::TR>(qs + st * kT, q + nl * C, i0, nt);
+    load_tile_x3<C, S::TR>(dos + st * kT, dout + nl * C, i0, nt);
+    for (int r = threadIdx.x; r < S::TR; r += blockDim.x) {
+      const bool ok = r < nt;
+      const size_t at = nl + (ok ? i0 + r : 0);
+      tc::cp_async4(lses + st * S::TR + r, lse + at, ok ? 4 : 0);
+      tc::cp_async4(dls + st * S::TR + r, delta + at, ok ? 4 : 0);
+    }
+    tc::cp_async_commit();
+  };
+  const int tiles = (L + S::TR - 1) / S::TR;
+  const int t_begin = (int)((long long)tiles * p / P);
+  const int t_end = (int)((long long)tiles * (p + 1) / P);
+  request(t_begin * S::TR, 0);
+  for (int ti = t_begin, st = 0; ti < t_end; ++ti, st ^= 1) {
+    if (ti + 1 < t_end) {
+      request((ti + 1) * S::TR, st ^ 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* qt = qs + st * kT;
+    const float* dot = dos + st * kT;
+#pragma unroll 1
+    for (int i = 0; i < S::TR; i += 16 * S::NJ) {
+      float s[2 * S::NJ][4], dp[2 * S::NJ][4];
+#pragma unroll
+      for (int t = 0; t < 2 * S::NJ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+      rows_times_tile_x3<C, S::NJ>(s, kts, warp * 16, qt, i, g, qd);
+      rows_times_tile_x3<C, S::NJ>(dp, vts, warp * 16, dot, i, g, qd);
+#pragma unroll
+      for (int t = 0; t < 2 * S::NJ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int at = st * S::TR + i + t * 8 + 2 * qd + (e & 1);
+          const float pv = tc::exp2_approx((s[t][e] - lses[at]) * kLog2e);
+          s[t][e] = pv;                          // P^T
+          dp[t][e] = pv * (dp[t][e] - dls[at]);  // dS^T
+        }
+      frags_times_tile_x3<C, S::NJ>(dva, s, dot, i, g, qd);
+      frags_times_tile_x3<C, S::NJ>(dka, dp, qt, i, g, qd);
+    }
+    __syncthreads();  // stage st is refilled two tiles on
+  }
+#pragma unroll
+  for (int t = 0; t < S::NT; ++t) {
+    const int col = t * 8 + 2 * qd;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? r1 : r0;
+      if (row >= M) continue;
+      const size_t at = (nm + row) * C + col;
+      const size_t pat = P == 1 ? at : (size_t)p * gridDim.y * M * C + at;
+      *reinterpret_cast<float2*>((P == 1 ? dk : dkp) + pat) =
+          make_float2(dka[t][2 * r], dka[t][2 * r + 1]);
+      *reinterpret_cast<float2*>((P == 1 ? dv : dvp) + pat) =
+          make_float2(dva[t][2 * r], dva[t][2 * r + 1]);
+    }
+  }
+}
+
+template <int C>
+cudaError_t launch_fwd_x3(const void* q, const void* k, const void* v,
+                          void* o, void* lse, int N, int L, int M,
+                          cudaStream_t st) {
+  using S = X3Shape<C>;
+  const int smem = S::FWD * (int)sizeof(float);
+  const cudaError_t err = allow_smem(fwd_tf32x3_kernel<C>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L + S::ROWS - 1) / S::ROWS, N);
+  fwd_tf32x3_kernel<C><<<grid, S::THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, L, M);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_bwd_x3(const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const void* lse,
+                          void* dq, void* dk, void* dv, void* delta, void* dkp,
+                          void* dvp, int N, int L, int M, int P,
+                          cudaStream_t st) {
+  using F = float;
+  using S = X3Shape<C>;
+  if (P > (L + S::TR - 1) / S::TR) return cudaErrorInvalidValue;
+  const int dq_smem = S::DQ * (int)sizeof(F);
+  const int dkdv_smem = S::DKDV * (int)sizeof(F);
+  cudaError_t err = allow_smem(bwd_dq_tf32x3_kernel<C>, dq_smem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(bwd_dkdv_tf32x3_kernel<C>, dkdv_smem);
+  if (err != cudaSuccess) return err;
+  dim3 gq((L + S::ROWS - 1) / S::ROWS, N);
+  bwd_dq_tf32x3_kernel<C><<<gq, S::THREADS, dq_smem, st>>>(
+      (const F*)q, (const F*)k, (const F*)v, (const F*)o, (const F*)dout,
+      (const F*)lse, (F*)dq, (F*)delta, L, M);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 gk((M + S::ROWS - 1) / S::ROWS, N, P);
+  bwd_dkdv_tf32x3_kernel<C><<<gk, S::THREADS, dkdv_smem, st>>>(
+      (const F*)q, (const F*)k, (const F*)v, (const F*)dout, (const F*)lse,
+      (const F*)delta, (F*)dk, (F*)dv, (F*)dkp, (F*)dvp, L, M, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || P == 1) return err;
+  const long long count = (long long)N * M * C;
+  err = tc::sum_partials((const F*)dkp, (F*)dk, P, count, st);
+  if (err != cudaSuccess) return err;
+  return tc::sum_partials((const F*)dvp, (F*)dv, P, count, st);
 }
 
 // f(std::integral_constant<int, C>) for a supported C; false otherwise.
@@ -880,16 +1156,38 @@ bool dispatch_c(int C, F&& f) {
 
 extern "C" {
 
-// The f32 route of the forward: o [N, L, C] and lse [N, L] (f32) from q
-// [N, L, C], k/v [N, M, C], all f32.
+// The dk/dv grid of a route at C, as the launches above set it: grid[0]
+// key rows a block, grid[1] queries a staged tile, grid[2] column halves
+// (blocks a key block's columns split over). The caller chooses the parts
+// P from it (ops/cuda_attention.py dkdv_split, which checks its own copy
+// against this at load).
+int pa_bwd_grid(int C, int f32, int* grid) {
+  const bool ok = dispatch_c(C, [&](auto c) {
+    constexpr int K = decltype(c)::value;
+    if (f32) {
+      grid[0] = X3Shape<K>::ROWS;
+      grid[1] = X3Shape<K>::TR;
+      grid[2] = 1;
+    } else {
+      grid[0] = kTcRows;
+      grid[1] = kTcTile;
+      grid[2] = TcShape<K>::CS;
+    }
+  });
+  return ok ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The f32 route of the forward (3xTF32): o [N, L, C] and lse [N, L]
+// (f32) from q [N, L, C], k/v [N, M, C], all f32.
 int pa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            int N, int L, int M, int C, void* stream) {
+  if (N < 1 || L < 1 || M < 1 || N > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!dispatch_c(C, [&](auto c) {
-        launch_fwd<decltype(c)::value>(q, k, v, o, lse, N, L, M, st);
-      }))
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+  dispatch_c(C, [&](auto c) {
+    err = launch_fwd_x3<decltype(c)::value>(q, k, v, o, lse, N, L, M, st);
+  });
+  return (int)err;
 }
 
 // The bf16 route of the forward (q, k, v, o bf16; lse f32).
@@ -904,19 +1202,24 @@ int pa_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)err;
 }
 
-// The f32 route of the backward (all f32): dq, dk, dv from the forward's
-// inputs, o, lse and dO. delta [N, L] (f32) is scratch written by the dq
-// kernel and read by the dk/dv kernel.
+// The f32 route of the backward (3xTF32; all f32): dq, dk, dv from the
+// forward's inputs, o, lse and dO. delta [N, L] (f32) is scratch written by
+// the dq kernel and read by the dk/dv kernel; with P > 1 the dk/dv kernel
+// splits L into P parts and dkp / dvp [P, N, M, C] f32 are scratch
+// (ignored for P = 1).
 int pa_bwd(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
-           void* delta, int N, int L, int M, int C, void* stream) {
+           void* delta, void* dkp, void* dvp, int N, int L, int M, int C,
+           int P, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!dispatch_c(C, [&](auto c) {
-        launch_bwd<float, decltype(c)::value>(q, k, v, o, dout, lse, dq, dk,
-                                              dv, delta, N, L, M, st);
-      }))
+  if (N < 1 || L < 1 || M < 1 || N > 65535 || P < 1 || P > 32767)
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+  dispatch_c(C, [&](auto c) {  // P at most one part a tile: checked there
+    err = launch_bwd_x3<decltype(c)::value>(q, k, v, o, dout, lse, dq, dk, dv,
+                                            delta, dkp, dvp, N, L, M, P, st);
+  });
+  return (int)err;
 }
 
 // The bf16 route of the backward (all of q, k, v, o, dO bf16; lse f32).

@@ -75,8 +75,9 @@ def check_sn_state(tmod, spectral, prefix=""):
 
 def run_pair(jmod, tmod, x, variables, sd, mutable, jkw):
     tmod.load_state_dict(sd, strict=True)
-    y_j, new_state = jmod.apply(variables, jnp.asarray(ndhwc(x)),
-                                mutable=mutable, **jkw)
+    # jitted: one compile of the block, not one a primitive
+    y_j, new_state = jax.jit(lambda v, xj: jmod.apply(
+        v, xj, mutable=mutable, **jkw))(variables, jnp.asarray(ndhwc(x)))
     xt = torch.from_numpy(x.copy()).requires_grad_(True)
     y_t = tmod(xt)
     np.testing.assert_allclose(ndhwc(y_t.detach().numpy()), np.asarray(y_j),
@@ -86,7 +87,7 @@ def run_pair(jmod, tmod, x, variables, sd, mutable, jkw):
         out, _ = jmod.apply(variables, xj, mutable=mutable, **jkw)
         return jnp.sum(out ** 2)
 
-    g_j = jax.grad(loss)(jnp.asarray(ndhwc(x)))
+    g_j = jax.jit(jax.grad(loss))(jnp.asarray(ndhwc(x)))
     (y_t ** 2).sum().backward()
     np.testing.assert_allclose(ndhwc(xt.grad.numpy()), np.asarray(g_j),
                                atol=1e-4, rtol=1e-3)

@@ -67,8 +67,9 @@ def unit(n):
 def apply_jax(mod, variables, x, **kw):
     params = variables["params"]
     state = {k: v for k, v in variables.items() if k != "params"}
-    out, new_state = mod.apply({"params": params, **state}, x,
-                               mutable=list(state), **kw)
+    # jitted, as every JAX call here: one compile, not one a primitive
+    out, new_state = jax.jit(lambda v, xj: mod.apply(
+        v, xj, mutable=list(state), **kw))({"params": params, **state}, x)
     return np.asarray(out), {"params": params, **to_np(new_state)}
 
 
@@ -76,7 +77,7 @@ def apply_jax(mod, variables, x, **kw):
 def test_snconv3d_output_and_state_two_forwards(k, pad):
     x = rand(2, 4, 6, 6, 6)
     jmod = JSNConv3d(6, kernel_size=k, padding=pad)
-    jv = to_np(jmod.init(jax.random.key(0), jnp.asarray(ndhwc(x))))
+    jv = to_np(jax.jit(jmod.init)(jax.random.key(0), jnp.asarray(ndhwc(x))))
     # Random (u, v): the 15-step warm start is near-stationary, so one and
     # two further steps would be indistinguishable.
     jv["spectral"] = {"u": unit(6), "v": unit(4 * k ** 3)}
@@ -96,7 +97,7 @@ def test_snconv3d_output_and_state_two_forwards(k, pad):
 def test_snlinear_output_and_state_two_forwards():
     x = rand(3, 10)
     jmod = JSNLinear(7)
-    jv = to_np(jmod.init(jax.random.key(1), jnp.asarray(x)))
+    jv = to_np(jax.jit(jmod.init)(jax.random.key(1), jnp.asarray(x)))
     jv["spectral"] = {"u": unit(7), "v": unit(10)}
     sd = {}
     convert.linear_state(sd, "", jv["params"], jv["spectral"])
@@ -123,7 +124,7 @@ def test_batchnorm3d_train_and_eval():
     c = 5
     x = rand(3, c, 4, 5, 6) * 2 + 0.5
     jmod = JBatchNorm3d(c)
-    jv = to_np(jmod.init(jax.random.key(2), jnp.asarray(ndhwc(x))))
+    jv = to_np(jax.jit(jmod.init)(jax.random.key(2), jnp.asarray(ndhwc(x))))
     jv["params"] = {"scale": rand(c), "bias": rand(c)}
     jv["batch_stats"] = {"mean": rand(c), "var": np.abs(rand(c)) + 0.5}
     sd = {}
@@ -139,9 +140,9 @@ def test_batchnorm3d_train_and_eval():
     np.testing.assert_allclose(tmod.running_var.numpy(),
                                jv2["batch_stats"]["var"], **TOL)
     # eval: running statistics
-    y_j = jmod.apply({"params": jv2["params"],
-                      "batch_stats": jv2["batch_stats"]},
-                     jnp.asarray(ndhwc(x)), use_running_average=True)
+    y_j = jax.jit(lambda v, xj: jmod.apply(v, xj, use_running_average=True))(
+        {"params": jv2["params"], "batch_stats": jv2["batch_stats"]},
+        jnp.asarray(ndhwc(x)))
     y_t = tmod.eval()(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(ndhwc(y_t), np.asarray(y_j), **TOL)
 
@@ -154,7 +155,7 @@ def test_self_attention3d_gamma_nonzero():
     ch = 16
     x = rand(2, ch, 8, 8, 8)
     jmod = JSelfAttention3d(ch)
-    jv = to_np(jmod.init(jax.random.key(3), jnp.asarray(ndhwc(x))))
+    jv = to_np(jax.jit(jmod.init)(jax.random.key(3), jnp.asarray(ndhwc(x))))
     jv["params"]["gamma"] = np.float32(0.7)
     sd = {}
     convert.attention_state(sd, "", jv["params"], jv["spectral"])
@@ -176,7 +177,7 @@ def test_self_attention3d_gamma_nonzero():
         out, _ = jmod.apply(jv, xj, mutable=["spectral"])
         return jnp.sum(out ** 2)
 
-    g_j = jax.grad(loss)(jnp.asarray(ndhwc(x)))
+    g_j = jax.jit(jax.grad(loss))(jnp.asarray(ndhwc(x)))
     (y_t ** 2).sum().backward()
     np.testing.assert_allclose(ndhwc(xt.grad.numpy()), np.asarray(g_j),
                                atol=1e-4, rtol=1e-3)

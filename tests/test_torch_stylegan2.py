@@ -337,7 +337,7 @@ def test_discriminator_matches_jax():
     D_j, dv = jax_variables(jcfg, "d")
     x = np.tanh(rand(8, 1, 16, 16, 16))
     x[1::2] *= 0.2     # the samples' statistics differ across groups
-    want = np.asarray(D_j.apply(dv, jnp.asarray(ndhwc(x))))
+    want = np.asarray(jax.jit(D_j.apply)(dv, jnp.asarray(ndhwc(x))))
     D = port_module(cfg, "d", dv)
     with torch.no_grad():
         got = D(torch.from_numpy(x)).numpy()

@@ -45,17 +45,18 @@ Phases, each printing its own line:
              hooks on the port's models, and at each distinct shape (N=16,
              f32 and
              bf16: the wide conv's and dW's bf16 routes on the tensor
-             cores, their f32 routes on the FMA kernels) holds the wide-N
-             conv kernel (forward, and dx with the flipped weights) and the
-             dW kernel against their plain
-             versions, timing each beside its plain version and the one
-             PyTorch call that computes the same function (F.conv3d;
+             cores, the wide conv's f32 route in 3xTF32 on them, dW's on
+             the FMA kernel) holds the wide-N conv kernel (forward, and dx
+             with the flipped weights) and the dW kernel against their
+             plain versions, timing each beside the one PyTorch call that
+             computes the same function (F.conv3d;
              aten.convolution_backward for dW), yardsticks the port never
-             calls (the kernels' and the yardsticks' time: the median of
-             three windows, and the device time in a profiler trace);
-             then ragged shapes, a repeated dW and a repeated bf16 wide
-             conv bit-identical, the bf16 weight repack bit-equal to its
-             plain version and an f16 input refused;
+             calls (the median of three windows; the device time in a
+             profiler trace for bf16 and for f32 at 32ch@64^3, whose
+             plain version is timed too);
+             then ragged shapes, a repeated dW and a repeated wide conv
+             (both routes) bit-identical, both routes' weight repacks
+             bit-equal to their plain versions and an f16 input refused;
 5. train   — trains the flagship (64^3, filters 64, z 512, batch 16,
              iterD 2, biggan, hinge) through gan3d_tpu_torch.cli.train:
              the default run (a few steps and a resume; no conv kernel
@@ -235,8 +236,9 @@ Phases, each printing its own line:
              the port of scripts/bench_lane_conv.py's "pl" variant): at the
              bench's shapes (16/32/32/64/128 channels at 64/64/32/32/16^3,
              batch 16, t = pick_tile; none at 128@16^3, whose kernel is
-             skipped as the bench skips it), f32 (the FMA kernel) and bf16
-             (the tensor-core kernel), drives the op's forward and
+             skipped as the bench skips it), f32 (the 3xTF32 kernel) and
+             bf16 (the bf16 one, both on the tensor cores), drives the op's
+             forward and
              forward+backward with each route's launch counter read around
              that run; holds the forward, dx and dW against autograd
              through the plain version; times the forward (the median of
@@ -244,9 +246,10 @@ Phases, each printing its own line:
              forward+backward, the plain forward and F.conv3d on the same
              tensors viewed as NCDHW channels_last_3d (a yardstick the port
              never calls, timed the same way); then the tests' shapes and
-             ragged Cin != Cout ones, a bad tile and an f16 input refused,
-             and 1 launch per forward, 2 per forward+backward on the
-             dtype's route;
+             ragged Cin != Cout ones, a repeated forward bit-identical,
+             the f32 weight split bit-equal to its plain version, a bad
+             tile and an f16 input refused, and 1 launch per forward, 2
+             per forward+backward on the dtype's route;
 7. probe_ladder — the 14 rungs of the Mosaic probe ladders
              (probes/mosaic_ladder.py) on the card, each held against its
              plain version, with each kernel's launches from that run, and
@@ -313,16 +316,16 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 # in delta = sum(dO * o), where the plain autograd uses its f32 o.
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32
-# (non-tensor) and bf16 tensor-core FLOP/s; exponentials: 132 SMs x 16
-# special-function ops per clock at the 1.98 GHz boost clock, the clock of
-# the f32 figure (132 x 128 FMA x 2 x 1.98 GHz = 67 TF). The bf16 figure
+# (non-tensor), TF32 and bf16 tensor-core FLOP/s; exponentials: 132 SMs x
+# 16 special-function ops per clock at the 1.98 GHz boost clock, the clock
+# of the f32 figure (132 x 128 FMA x 2 x 1.98 GHz = 67 TF). The bf16 figure
 # implies 1.83 GHz; the higher clock gives the least time.
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# The attention's f32 products at the faster of the card's two ways to f32
-# accuracy: the FMA pipes (67 TF) or 3xTF32 on the tensor cores (three
-# TF32 products at 495 TF, 165 TF of f32-accurate ones).
-ATTENTION_FLOPS = {"float32": max(67e12, 495e12 / 3), "bfloat16": 989e12}
+# The products of K1-K5 and the ladder: bf16 at the tensor cores' rate; f32
+# at the faster of the card's two ways to f32 accuracy, whatever a kernel
+# uses: the FMA pipes (67 TF) or 3xTF32 on the tensor cores (three TF32
+# products at 495 TF, 165 TF of f32-accurate ones).
+PRODUCT_FLOPS = {"float32": max(67e12, 495e12 / 3), "bfloat16": 989e12}
 SFU_OPS = 132 * 16 * 1.98e9
 # K1/K2 placements (name, L, M, c), N=16: the 64^3 BigGAN-Deep flagship's
 # G (32^3) and D (16^3) attention, then the 64^3 DCGAN's with --sagan, G at
@@ -345,13 +348,20 @@ SPATIAL_PLACEMENTS = tuple(
 R256_PLACEMENTS = (("G_r256_s4", 32768 // 4, 4096, 64),
                    ("D_r256_s4", 4096 // 4, 512, 128))
 R256_KERNEL_N = 16
-# Kernel instances that must not spill (ptxas): every K3, K4 and K5 bf16
-# instance, the K1 and K2 kernels of both routes (bf16, 3xTF32) at the
-# flagship's c = 16 and 32 and the 128^3 model's c = 64 and 128, and the
-# ladder's wide_fwd, box_copy (both modes) and im2col27.
-NO_SPILL = re.compile(r"wide_tc_kernel|dw_tc_kernel|toeplitz_tc_kernel|"
+# Kernel instances that must not spill (ptxas): every K3 bf16 instance and
+# every K4 and K5 instance of both routes (bf16, 3xTF32), the K1 and K2
+# kernels of both routes at the flagship's c = 16 and 32 and the 128^3
+# model's c = 64 and 128, and the ladder's wide_fwd, box_copy (both modes)
+# and im2col27.
+NO_SPILL = re.compile(r"(wide|dw|toeplitz)_tc_kernel|"
+                      r"(wide|toeplitz)_tf32x3_kernel|"
                       r"(fwd|bwd_\w+)_(tc|tf32x3)_kernel<(16|32|64|128)>|"
                       r"wide_fwd_kernel|box_copy_kernel|im2col27_kernel")
+# The f32 conv kernels' instances: wide_tf32x3_kernel<wm, vec>,
+# toeplitz_tf32x3_kernel<wn, vec>.
+X3_CONV_INSTANCES = (
+    *(f"wide_tf32x3_kernel<{wm},{v}>" for wm in (1, 2, 4) for v in (0, 1)),
+    *(f"toeplitz_tf32x3_kernel<{wn},{v}>" for wn in (1, 2) for v in (0, 1)))
 # The kernels whose registers and spills the build phase reports: the
 # tensor-core kernels (the attention's 3xTF32 ones too), the ladder's
 # wide_fwd, box_copy and im2col27.
@@ -769,7 +779,7 @@ def bound(kind: str, dtype: str, n: int, L: int, m: int, c: int):
     exp per score; reads q, k, v, o, dO, lse, writes dq, dk, dv (the dk/dv
     partials of ``dkdv_split`` are the kernels' own traffic, not the
     function's: each backward case reports them beside its bound). Products
-    at ATTENTION_FLOPS (f32: 3xTF32's 165 TF, above the FMA pipes' 67),
+    at PRODUCT_FLOPS (f32: 3xTF32's 165 TF, above the FMA pipes' 67),
     exponentials at SFU_OPS.
     """
     es = 4 if dtype == "float32" else 2
@@ -781,7 +791,7 @@ def bound(kind: str, dtype: str, n: int, L: int, m: int, c: int):
         flops = 10 * scores * c
         nbytes = (4 * n * L * c + 4 * n * m * c) * es + 4 * n * L
     t_bytes = nbytes / HBM_BPS
-    t_ops = max(flops / ATTENTION_FLOPS[dtype], scores / SFU_OPS)
+    t_ops = max(flops / PRODUCT_FLOPS[dtype], scores / SFU_OPS)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -941,8 +951,10 @@ def extra_checks(ca, attention_plain) -> dict:
 
 def conv_bound(kind: str, dtype: str, n: int, ci: int, co: int, s: int):
     """Least time for one k3 conv call on an H100 SXM: (ms, "bytes" |
-    "operations"). 2 * N * S * Ci * 27 * Co operations at the type's peak;
-    bytes: each input read once, each output written once — the conv reads
+    "operations"). 2 * N * S * Ci * 27 * Co operations at PRODUCT_FLOPS
+    (f32: 3xTF32's 165 TF, for K3's FMA route too: the least time the card
+    needs for f32-accurate products); bytes: each input read once, each
+    output written once — the conv reads
     x [N,Ci,S] and w [Co,Ci,27] and writes out [N,Co,S] in one dtype; dW
     reads x and g [N,Co,S] and writes f32 dW [Co,Ci,27]."""
     es = 4 if dtype == "float32" else 2
@@ -951,7 +963,7 @@ def conv_bound(kind: str, dtype: str, n: int, ci: int, co: int, s: int):
         nbytes = n * s * (ci + co) * es + co * ci * 27 * 4
     else:
         nbytes = (n * s * (ci + co) + co * ci * 27) * es
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / PRODUCT_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -1023,10 +1035,12 @@ def _conv_inputs(gen, n, ci, co, d, h, w, dt):
 def conv_kernel_phase(cc, shapes: dict) -> list:
     """The wide-N conv (forward; dx) and the dW kernel at each distinct
     shape of the flagship's G and D and StyleGAN-1's G, N=16, f32 and bf16:
-    error against the plain version, and times of the kernel, the plain
-    version and the PyTorch call (in f32 at 32ch@64^3 alone, the kernels
-    line's main shape: elsewhere ``timed`` is false). Each case names the
-    networks that run its shape ("paths": G, D, SG1, SG1_s2)."""
+    error against the plain version, and times of the kernel and the
+    PyTorch call; their device times (a profiler trace) for bf16 and, in
+    f32, at 32ch@64^3 alone (the kernels line's main shape), where the
+    plain version is timed too (elsewhere ``traced`` is false and there is
+    no ``plain_ms``: the plain version is no yardstick). Each case names
+    the networks that run its shape ("paths": G, D, SG1, SG1_s2)."""
     import torch
     import torch.nn.functional as F
 
@@ -1040,11 +1054,10 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
         s = d * h * w
         paths = [p for p in shapes if (ci, co, d, h, w) in shapes[p]]
         iters = max(3, min(20, int(5e11 / (2 * n * s * ci * 27 * co))))
+        main = (ci, d) == (32, 64)  # the kernels line's main shape
         for dname, dt in (("float32", torch.float32),
                           ("bfloat16", torch.bfloat16)):
-            # f32: checked at every shape, timed at the kernels line's
-            # main one (32ch@64^3) alone
-            timed = dname == "bfloat16" or (ci, d) == (32, 64)
+            traced = dname == "bfloat16" or main
             x, wt, g, wr = _conv_inputs(gen, n, ci, co, d, h, w, dt)
             one = [1, 1, 1]
             runs = {
@@ -1075,15 +1088,14 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
                 case = {
                     "kernel": kind, "dtype": dname, "paths": paths,
                     "route": ("tensor_core" if dname == "bfloat16"
-                              else "fma"),
+                              else "fma" if kind == "dw" else "tf32x3"),
                     "N": n, "Ci": cin, "Co": cout, "D": d, "H": h, "W": w,
                     "max_err": rel, "max_abs_err": abs_err, "tol": tol,
-                    "bound_ms": b_ms, "bound_by": b_by, "timed": timed,
+                    "bound_ms": b_ms, "bound_by": b_by, "traced": traced,
+                    **timings(kern, lib, iters, traced),
                 }
-                if timed:
-                    case.update(
-                        timings(kern, lib, iters),
-                        plain_ms=cuda_ms(plain, max(2, iters // 4), 1))
+                if main:
+                    case["plain_ms"] = cuda_ms(plain, max(2, iters // 4), 1)
                 phase("conv_case", **case)
                 cases.append(case)
             del x, wt, g, wr, runs
@@ -1093,9 +1105,9 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
 
 def conv_extra_checks(cc) -> dict:
     """The conv kernels against the plain versions at CONV_RAGGED; a
-    repeated dW and a repeated bf16 wide conv bit-identical (there and at
-    the flagship's largest shape); the bf16 weight repack bit-equal to its
-    plain version;
+    repeated dW and a repeated wide conv bit-identical, both dtypes (there
+    and at the flagship's largest shape); both routes' weight repacks (the
+    f32 one split into TF32 halves) bit-equal to their plain versions;
     an f16 CUDA input refused by both wrappers."""
     import torch
 
@@ -1112,10 +1124,10 @@ def conv_extra_checks(cc) -> dict:
             if not torch.equal(dw, cc.conv3d_dw_cuda(x, g)):
                 raise AssertionError(f"{shape} {dname}: a repeated dW is not "
                                      "bit-identical")
-            if dt == torch.bfloat16 and not torch.equal(
-                    cc.wide_conv3d_cuda(x, wt), cc.wide_conv3d_cuda(x, wt)):
-                raise AssertionError(f"{shape}: a repeated bf16 wide conv is "
-                                     "not bit-identical")
+            if not torch.equal(cc.wide_conv3d_cuda(x, wt),
+                               cc.wide_conv3d_cuda(x, wt)):
+                raise AssertionError(f"{shape} {dname}: a repeated wide conv "
+                                     "is not bit-identical")
             if shape not in CONV_RAGGED:
                 continue
             got = {"wide_fwd": cc.wide_conv3d_cuda(x, wt),
@@ -1130,16 +1142,19 @@ def conv_extra_checks(cc) -> dict:
                 if not rel <= TOL[dname]:
                     raise AssertionError(f"{kind} {shape} {dname}: relative "
                                          f"error {rel:.3e}")
-    # the bf16 route's weight repack on the card, bit for bit against its
-    # plain version, for a forward and a dx weight
+    # both routes' weight repacks on the card, bit for bit against their
+    # plain versions, for a forward and a dx weight
     for co, ci in ((40, 24), (256, 128)):
-        w = torch.randn((co, ci, 3, 3, 3), generator=gen,
-                        device="cuda").bfloat16()
+        w = torch.randn((co, ci, 3, 3, 3), generator=gen, device="cuda")
         for wt in (w, w.flip(2, 3, 4).transpose(0, 1).contiguous()):
-            if not torch.equal(cc.repack_weight_cuda(wt),
-                               cc.repack_weight(wt)):
-                raise AssertionError(f"weight repack {tuple(wt.shape)} "
-                                     "differs from its plain version")
+            for card, plain, dt in (
+                    (cc.repack_weight_cuda, cc.repack_weight, torch.bfloat16),
+                    (cc.repack_weight_x3_cuda, cc.repack_weight_x3,
+                     torch.float32)):
+                if not torch.equal(card(wt.to(dt)), plain(wt.to(dt))):
+                    raise AssertionError(
+                        f"weight repack {tuple(wt.shape)} {dt} differs "
+                        "from its plain version")
     x, wt, g, _ = _conv_inputs(gen, 1, 8, 8, 4, 4, 4, torch.float16)
     for what, call in (("wide", lambda: cc.wide_conv3d_cuda(x, wt)),
                        ("dW", lambda: cc.conv3d_dw_cuda(x, g))):
@@ -1151,20 +1166,20 @@ def conv_extra_checks(cc) -> dict:
             raise AssertionError(f"the {what} kernel took an f16 input")
     return {"shapes": CONV_RAGGED, "worst_rel_err": worst,
             "repeated_dw": "bit-identical",
-            "repeated_wide_bf16": "bit-identical",
-            "weight_repack": "bit-equal to its plain version",
+            "repeated_wide": "bit-identical (bf16, f32)",
+            "weight_repack": "bit-equal to its plain version (bf16, f32)",
             "float16": "refused"}
 
 
 def toeplitz_bound(dtype: str, n: int, s: int, ci: int, co: int):
     """Least time for one K5 forward on an H100 SXM: (ms, "bytes" |
-    "operations"). 2 * N * S * Ci * Co * 27 operations at the type's peak;
-    bytes: x [N,S,Ci] and w [27,Ci,Co] read once, out [N,S,Co] written
-    once, in one dtype."""
+    "operations"). 2 * N * S * Ci * Co * 27 operations at PRODUCT_FLOPS
+    (f32: 3xTF32's 165 TF); bytes: x [N,S,Ci] and w [27,Ci,Co] read once,
+    out [N,S,Co] written once, in one dtype."""
     es = 4 if dtype == "float32" else 2
     flops = 2 * n * s * ci * co * 27
     nbytes = (n * s * (ci + co) + 27 * ci * co) * es
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / PRODUCT_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -1214,7 +1229,7 @@ def toeplitz_phase(cc) -> list:
                                  f"{tuple(y.shape)} or non-finite values")
         runs[dname] += 1
         del y, dx, dw, xr, wr
-    # each route's counter: the f32 FMA kernel, the bf16 tensor-core kernel
+    # each route's counter: the f32 3xTF32 kernel, the bf16 one
     launches = {"float32": cc.toeplitz_launches,
                 "bfloat16": cc.toeplitz_tc_launches}
     if any(launches[k] != 3 * runs[k] or not launches[k] for k in runs):
@@ -1238,7 +1253,7 @@ def toeplitz_phase(cc) -> list:
         lib = functools.partial(F.conv3d, xc, wc, None, 1, 1)
         lib_ms, lib_windows = kernel_ms(lib, TOEPLITZ_ITERS)
         case = {"kernel": "toeplitz_fwd", "dtype": dname,
-                "route": ("tensor_core" if dname == "bfloat16" else "fma"),
+                "route": ("tensor_core" if dname == "bfloat16" else "tf32x3"),
                 "N": n, "C": c, "S": s, "T": t, "tol": TOL[dname],
                 "library_ms": lib_ms, "library_ms_windows": lib_windows,
                 "library_device_ms": device_ms(lib, iters=TOEPLITZ_ITERS,
@@ -1295,9 +1310,10 @@ def toeplitz_phase(cc) -> list:
 
 def toeplitz_extra_checks(cc) -> dict:
     """K5 at TOEPLITZ_EXTRA against the plain version (forward, dx, dW); a
-    bad tile and an f16 input refused; 1 launch per forward and 2 per
-    forward+backward, on the dtype's route (bf16: the tensor-core kernel;
-    f32: the FMA kernel)."""
+    repeated forward bit-identical; the f32 route's weight split bit-equal
+    to its plain version; a bad tile and an f16 input refused; 1 launch
+    per forward and 2 per forward+backward, on the dtype's route (bf16:
+    the bf16 kernel; f32: the 3xTF32 kernel)."""
     import torch
 
     from gan3d_tpu_torch.ops import toeplitz_conv as tc
@@ -1317,10 +1333,14 @@ def toeplitz_extra_checks(cc) -> dict:
             if dt == torch.float32:
                 mine, other = other, mine
             before = (getattr(cc, mine), getattr(cc, other))
-            tc.toeplitz_conv3d(x, w, t)
-            fwd = getattr(cc, mine) - before[0]
+            if not torch.equal(tc.toeplitz_conv3d(x, w, t),
+                               tc.toeplitz_conv3d(x, w, t)):
+                raise AssertionError(f"toeplitz {shape} {ci}->{co} {dname}: "
+                                     "a repeated forward is not "
+                                     "bit-identical")
+            fwd = (getattr(cc, mine) - before[0]) // 2
             got = _toeplitz_grads(tc, x, w, t, g, plain=False)
-            both = getattr(cc, mine) - before[0] - fwd
+            both = getattr(cc, mine) - before[0] - 2 * fwd
             if (fwd, both) != (1, 2) or getattr(cc, other) != before[1]:
                 raise AssertionError(f"toeplitz {dname} launches: {fwd} per "
                                      f"forward, {both} per forward+backward "
@@ -1334,6 +1354,12 @@ def toeplitz_extra_checks(cc) -> dict:
                     raise AssertionError(f"toeplitz {shape} {ci}->{co} "
                                          f"{dname} {name}: relative error "
                                          f"{rel:.3e}")
+    for ci, co in ((24, 40), (128, 64)):
+        w = torch.randn((3, 3, 3, ci, co), generator=gen, device="cuda")
+        if not torch.equal(cc.repack_toeplitz_weight_x3_cuda(w),
+                           cc.repack_toeplitz_weight_x3(w)):
+            raise AssertionError(f"toeplitz weight split {ci}->{co} differs "
+                                 "from its plain version")
     x = torch.zeros((1, 2, 2, 8, 8), device="cuda")
     w = torch.zeros((3, 3, 3, 8, 8), device="cuda")
     for what, call in (("tile 3 for W=8", lambda: tc.toeplitz_conv3d(x, w, 3)),
@@ -1346,6 +1372,8 @@ def toeplitz_extra_checks(cc) -> dict:
         else:
             raise AssertionError(f"toeplitz conv took {what}")
     return {"shapes": TOEPLITZ_EXTRA, "worst_rel_err": worst,
+            "repeated_forward": "bit-identical (bf16, f32)",
+            "weight_split": "bit-equal to its plain version",
             "launches": "1 per forward, 2 per forward+backward",
             "refused": ["tile 3 for W=8", "float16"]}
 
@@ -1414,7 +1442,7 @@ def ladder_phase(ml) -> list:
         else:
             nbytes = (inp.w2.numel() + inp.xt.numel()) * 2 + out_bytes
             flops = 2 * 8 * 27 * ml.CI * ml.DD * ml.H * ml.W * ml.N
-        t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS["bfloat16"]
+        t_bytes, t_ops = nbytes / HBM_BPS, flops / PRODUCT_FLOPS["bfloat16"]
         case = {"rung": name, "kernel": kernel,
                 "replaces": LADDER_SITES[name],
                 "shape": list(got.shape), "dtype": str(got.dtype)[6:],
@@ -1503,6 +1531,13 @@ def kernel_ptxas(lines: list) -> dict:
     return out
 
 
+# The f32 route's kernels of K1-K4 in the kernels line, by bf16 route.
+F32_KERNELS = {"fwd_tc": "fwd_tf32x3_kernel",
+               "bwd_tc": "bwd_dq_tf32x3_kernel + bwd_dkdv_tf32x3_kernel",
+               "wide_tc": "wide_tf32x3_kernel",
+               "dw_tc": "dw_partial_kernel + dw_reduce_kernel"}
+
+
 def f32_fields(case: dict) -> dict:
     """An f32 case's kernel and library times, for the kernels line."""
     return {f"f32_{k}": case[k] for k in ("ms", "device_ms", "library_ms",
@@ -1537,10 +1572,11 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
     K4 add ``launches_per_rank`` of the spatial phase's StyleGAN-1 knob
     run on the gloo ranks, f32 route). K1-K5 and the
     ladder add ``device_ms`` and ``library_device_ms`` (device time per
-    call, profiler), and K1-K5 the f32 route's (K1/K2: the 3xTF32
-    kernels; K3-K5: the FMA kernels) numbers at the same case:
+    call, profiler), and K1-K5 the f32 route's (K1, K2, K4, K5: the 3xTF32
+    kernels; K3: the FMA kernel) numbers at the same case:
     ``f32_ms``, ``f32_device_ms``, ``f32_library_ms`` and
-    ``f32_library_device_ms``. ``max_err`` is the largest error
+    ``f32_library_device_ms``, beside its kernels (``f32_kernel``) and
+    route (``f32_route``). ``max_err`` is the largest error
     relative to max |plain| over the compared outputs, the number held
     against ``tol``; ``max_abs_err`` is the largest absolute difference."""
     launches = paths[KNOB_RUN]
@@ -1605,7 +1641,8 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
         f32 = next(c for c in mine if c["dtype"] == "float32" and all(
             c[k] == main[k] for k in main
             if k in ("kernel", "placement", "Ci", "D")))
-        out[-1].update(f32_fields(f32))
+        out[-1].update(f32_fields(f32), f32_kernel=F32_KERNELS[key],
+                       f32_route=f32["route"])
     k5 = next(c for c in toeplitz_cases
               if c["dtype"] == "bfloat16" and (c["C"], c["S"]) == (32, 64))
     k5_f32 = next(c for c in toeplitz_cases
@@ -1620,7 +1657,8 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
         "device_ms": k5["device_ms"],
         "library_device_ms": k5["library_device_ms"],
-        **f32_fields(k5_f32),
+        **f32_fields(k5_f32), "f32_kernel": "toeplitz_tf32x3_kernel",
+        "f32_route": k5_f32["route"],
         "at": "forward, bfloat16 (tensor cores), N=16, Ci=Co=32, 64^3, T=4",
         "cases": toeplitz_cases})
     for kernel, rung in LADDER_MAIN.items():
@@ -4186,7 +4224,8 @@ def main() -> int:
                            "box_copy_kernel<1>", "im2col27_kernel",
                            *(f"{kern}_tf32x3_kernel<{c}>"
                              for kern in ("fwd", "bwd_dq", "bwd_dkdv")
-                             for c in (16, 32, 64, 128)))
+                             for c in (16, 32, 64, 128)),
+                           *X3_CONV_INSTANCES)
                if k not in registers]
     if spills or missing or not any("_tc_kernel" in k for k in registers):
         raise AssertionError(f"kernels spill: {spills}; not in ptxas.log: "

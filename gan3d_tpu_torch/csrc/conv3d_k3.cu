@@ -16,31 +16,28 @@
 // per byte for bf16 at 32 channels, ~3.5k at 128. That is far above the
 // H100's ~295 operations per byte of bf16 tensor-core work per HBM byte,
 // so the arithmetic bounds them, not memory (0.235 ms of bf16 tensor-core
-// work at 32ch@64^3, N=16, against 0.16 ms of bytes).
+// work at 32ch@64^3, N=16, against 0.16 ms of bytes; in f32, 1.41 ms of
+// f32-accurate products at 3xTF32's 165 TF against 0.32 ms of bytes).
 //
 // What the designs do about it. The wide conv has two routes, picked by
-// dtype in ops/cuda_conv.py:
-// - wide_tc (bf16): an implicit GEMM on the tensor cores (mma.sync
-//   m16n8k16, bf16 operands, f32 sums: the TPU kernel's rounding,
-//   wide_conv.py:140-141,186); see its comment below.
-// - wide (f32): f32 FMAs on the CUDA cores (tensor cores would run f32 as
-//   TF32, outside the f32 tolerance), ceiling the 67 TF f32 line.
+// dtype in ops/cuda_conv.py, one implicit GEMM on the tensor cores:
+// - wide_tc (bf16): mma.sync m16n8k16, bf16 operands, f32 sums: the TPU
+//   kernel's rounding, wide_conv.py:140-141,186; see its comment below.
+// - wide_tf32x3 (f32): mma.sync m16n8k8 in 3xTF32 (mma_tf32.cuh): each f32
+//   operand split into two TF32 halves and three products a term, ~21
+//   significant bits a product against TF32's 11, so the route keeps its
+//   f32 contract (1e-4 of the largest value; plain TF32 would not), at
+//   165 TF of f32-accurate products where the FMA pipes give 67; see its
+//   comment below.
 // dW has two routes the same way:
 // - dw_tc (bf16): an implicit GEMM on the tensor cores with the positions
 //   as its k (bf16 operands, f32 sums: the TPU kernel's rounding,
 //   dw_conv.py:157-158); see its comment below.
 // - dW (f32): f32 FMAs on the CUDA cores, as below.
-// - wide (f32): a block owns a box of output positions of one sample (td x th x
-//   tw) and up to 32 output channels; it stages the box's input plus its
-//   1-voxel halo, 4 input channels at a time, and those channels' weights
-//   in shared memory as f32. The halo is masked (zero) at the volume's
-//   edge, so nothing is padded or transposed in memory, unlike the TPU
-//   path's jnp.pad and transposes (wide_conv.py:183-187). Each thread
-//   keeps 8 channels x 4 rows of one column in registers (32 f32
-//   accumulators): per (ci, kd, kw) it reads 6 inputs and 3 x 8 weights
-//   (broadcast float4s) and does 96 FMAs. Small volumes halve the channel
-//   groups per block until the grid has a block per SM (4^3, N=16 still
-//   gets 128-256 blocks).
+// Neither the wide conv nor dW pads or transposes x in device memory, as
+// the TPU path's jnp.pad and transposes did (wide_conv.py:183-187): a
+// block stages a box of x with its 1-voxel halo, masked to zero at the
+// volume's edge.
 // - dW: the TPU accumulated dW in one f32 block revisited across its
 //   sequential (N, D/dD) grid (dw_conv.py:161-167); on CUDA that is a
 //   race. Here the (n, box) list is split into P chunks (split-K): a block
@@ -50,8 +47,8 @@
 //   No atomics, so a repeated dW is bit-identical. Per position a thread
 //   reads 8 gradients and 4 inputs as three float4s and does 32 FMAs.
 //
-// Inputs: wide and dW f32, wide_tc and dw_tc bf16, the same for both
-// operands; every accumulation is f32; the wide output takes the input's
+// Inputs: wide_tf32x3 and dW f32, wide_tc and dw_tc bf16, the same for
+// both operands; every accumulation is f32; the wide output takes the input's
 // dtype, dW is f32 on both routes.
 // Any N, Ci, Co, D, H, W >= 1; ragged channel and spatial tiles are masked.
 // The tiling is chosen by the caller (gan3d_tpu_torch/ops/cuda_conv.py).
@@ -63,13 +60,10 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kRC = 8;       // wide: output channels per thread
-constexpr int kRH = 4;       // wide: output rows (h) per thread
-constexpr int kCiT = 4;      // wide: input channels per shared-memory stage
-constexpr int kWideMaxThreads = 256;
 constexpr int kDwCo = 32;    // dW: output channels per block
 constexpr int kDwCi = 16;    // dW: input channels per block
 constexpr int kDwThreads = 27 * (kDwCo / 8) * (kDwCi / 4);  // 432
@@ -82,14 +76,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // A box of td x th x tw positions of one sample; boxes are numbered
 // (n, bd, bh, bw), bw fastest.
@@ -100,119 +86,6 @@ struct Geom {
 };
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// ---------------------------------------------------------------------------
-// wide: grid (boxes, Co tiles of cg*8), block cg * td * (th/4) * tw threads.
-// Shared memory: xs [kCiT][td+2][th+2][tw+2], then ws [kCiT][27][cg*8].
-template <typename T>
-__global__ void __launch_bounds__(kWideMaxThreads)
-wide_kernel(const T* __restrict__ x, const T* __restrict__ w,
-            T* __restrict__ out, Geom g, int cg) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  const int tco = cg * kRC;
-  const int DB = g.td + 2, HB = g.th + 2, WB = g.tw + 2;
-  const int plane = HB * WB;
-  const int halo = DB * plane;
-  float* ws = xs + ((kCiT * halo + 3) & ~3);
-
-  int b = blockIdx.x;
-  const int bw = b % g.nbw; b /= g.nbw;
-  const int bh = b % g.nbh; b /= g.nbh;
-  const int bd = b % g.nbd;
-  const int n = b / g.nbd;
-  const int d0 = bd * g.td, h0 = bh * g.th, w0 = bw * g.tw;
-  const int co0 = blockIdx.y * tco;
-
-  const int hgs = g.th / kRH;
-  const int per_cg = g.td * hgs * g.tw;
-  const int t = threadIdx.x;
-  const int cgi = t / per_cg;
-  int r = t - cgi * per_cg;
-  const int wl = r % g.tw; r /= g.tw;
-  const int hg = r % hgs;
-  const int dl = r / hgs;
-
-  const long long HW = (long long)g.H * g.W;
-  const long long DHW = HW * g.D;
-  const T* xn = x + (long long)n * g.Ci * DHW;
-
-  float acc[kRC][kRH];
-#pragma unroll
-  for (int o = 0; o < kRC; ++o)
-#pragma unroll
-    for (int j = 0; j < kRH; ++j) acc[o][j] = 0.f;
-
-  for (int ci0 = 0; ci0 < g.Ci; ci0 += kCiT) {
-    __syncthreads();
-    for (int i = t; i < kCiT * halo; i += blockDim.x) {
-      int q = i;
-      const int ww = q % WB; q /= WB;
-      const int hh = q % HB; q /= HB;
-      const int dd = q % DB;
-      const int c = q / DB;
-      const int gd = d0 + dd - 1, gh = h0 + hh - 1, gw = w0 + ww - 1;
-      float v = 0.f;
-      if (ci0 + c < g.Ci && gd >= 0 && gd < g.D && gh >= 0 && gh < g.H &&
-          gw >= 0 && gw < g.W)
-        v = to_f32(xn[(ci0 + c) * DHW + gd * HW + (long long)gh * g.W + gw]);
-      xs[i] = v;
-    }
-    for (int i = t; i < tco * kCiT * 27; i += blockDim.x) {
-      const int tap = i % 27;
-      const int c = (i / 27) % kCiT;
-      const int col = i / (27 * kCiT);
-      const int co = co0 + col, ci = ci0 + c;
-      float v = 0.f;
-      if (co < g.Co && ci < g.Ci)
-        v = to_f32(w[((long long)co * g.Ci + ci) * 27 + tap]);
-      ws[(c * 27 + tap) * tco + col] = v;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int c = 0; c < kCiT; ++c) {
-      const float* xc = xs + c * halo + dl * plane + hg * kRH * WB + wl;
-      const float* wc = ws + c * 27 * tco + cgi * kRC;
-#pragma unroll
-      for (int kd = 0; kd < 3; ++kd) {
-#pragma unroll
-        for (int kw = 0; kw < 3; ++kw) {
-          float xv[kRH + 2];
-#pragma unroll
-          for (int q = 0; q < kRH + 2; ++q)
-            xv[q] = xc[kd * plane + q * WB + kw];
-#pragma unroll
-          for (int kh = 0; kh < 3; ++kh) {
-            const float4* wp = reinterpret_cast<const float4*>(
-                wc + (kd * 9 + kh * 3 + kw) * tco);
-            const float4 wa = wp[0], wb = wp[1];
-            const float wv[kRC] = {wa.x, wa.y, wa.z, wa.w,
-                                   wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-            for (int o = 0; o < kRC; ++o)
-#pragma unroll
-              for (int j = 0; j < kRH; ++j)
-                acc[o][j] = fmaf(wv[o], xv[j + kh], acc[o][j]);
-          }
-        }
-      }
-    }
-  }
-
-  const int d = d0 + dl, wq = w0 + wl;
-  if (d >= g.D || wq >= g.W) return;
-#pragma unroll
-  for (int o = 0; o < kRC; ++o) {
-    const int co = co0 + cgi * kRC + o;
-    if (co >= g.Co) break;
-    T* on = out + ((long long)n * g.Co + co) * DHW + d * HW + wq;
-#pragma unroll
-    for (int j = 0; j < kRH; ++j) {
-      const int h = h0 + hg * kRH + j;
-      if (h < g.H) on[(long long)h * g.W] = from_f32<T>(acc[o][j]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // wide_tc: the bf16 route of the wide conv, an implicit GEMM on the tensor
@@ -523,6 +396,294 @@ __global__ void repack_kernel(const __nv_bfloat16* __restrict__ w,
     const int tap = (int)(r % 27), ci = (int)(r / 27) * kTcCi + i;
     wp[j] = co < Co && ci < Ci ? w[((long long)co * Ci + ci) * 27 + tap]
                                : __float2bfloat16_rn(0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide_tf32x3: the f32 route of the wide conv, the same implicit GEMM (M =
+// Co, N = positions, K = 27 * Ci) in 3xTF32 on the tensor cores
+// (mma.sync m16n8k8, mma_tf32.cuh: each product a_lo b_hi + a_hi b_lo +
+// a_hi b_hi of TF32 halves, f32 sums).
+//
+// grid (boxes, Co tiles of BM = 32 * WM, P split-K parts), 8 warps. A
+// block owns a td x th x tw box of one sample (at most 64 * (8 / WM)
+// positions, w fastest) and BM output channels; warp (wm, wn) computes 32
+// channels x 64 positions (2 x 8 m16n8 tiles, 64 f32 sums a thread), as
+// wide_tc's warps do. The part's chunks of 8 input channels are walked
+// one input plane kd at a time; a step (chunk, kd) stages, in f32:
+// - xs [8][CS]: planes d0 + kd - 1 .. d0 + kd + td - 2 of the chunk's
+//   channels over the box's rows and their 1-voxel halo, each row tw + 8
+//   values from w0 - 4, as NCDHW holds them: whole 16-byte cp.async units
+//   where W and tw are multiples of 4 (kVec), else 4-byte ones, zero-filled
+//   outside the volume (nothing padded in device memory). The B value
+//   (channel, position) of a tap is xs[channel][the position's row + the
+//   tap's offset], so a tap's shift is an offset: no im2col, no transpose.
+//   A channel's CS floats are 4 mod 8, so a fragment read (8 positions x 4
+//   channels) touches 32 banks.
+// - ws [2][9][BM][8]: the hi and lo TF32 halves of the step's 9 taps'
+//   weights, copied from wpx [2][Ci/8][27][Cop][8] (repack_x3_kernel
+//   splits w once a call, so no warp splits A); rows of 32 bytes, read
+//   4 rows a half-warp, free of bank conflicts.
+// Both are double-buffered: step s + 1's copies are requested before step
+// s's products run, and one barrier a step orders them. The activations
+// are split where a warp reads them: split once a step into hi and lo
+// planes in shared memory, they cost an extra pass, a barrier and twice
+// the B reads, and came out no faster (PERF.md, section 6). At ~190
+// registers a thread one 8-warp block runs on an SM; held to 128 (two
+// blocks) ptxas spills.
+// Sum length: the tensor cores' f32 sums are not rounded to nearest, so a
+// chain of many terms drifts (over 32768, past 1e-4 of the largest value:
+// ops/cuda_attention.py dkdv_split). A part sums at most kX3Chunks chunks
+// (1944 terms); the plan splits longer sums into P parts, whose f32
+// partials [P, N, Co, S] tc::sum_partials adds in a fixed order (no
+// atomics: a repeat is bit-identical). Parts rather than a second,
+// running sum: that would be 64 more registers a thread, and the parts
+// also fill the card at small volumes, as wide_tc's do. Positions past
+// the box or the volume are computed on clamped rows and not stored.
+constexpr int kX3Threads = 256;  // 8 warps
+constexpr int kX3Ci = 8;         // input channels a chunk: one k8 step a tap
+constexpr int kX3CoPad = 128;    // wpx's Co is padded to a multiple of this
+constexpr int kX3Chunks = 9;     // most chunks a part sums: 9 * 8 * 27 terms
+
+// Floats a channel of a wide_tf32x3 x stage: td planes of th + 2 rows of
+// tw + 8, rounded up to 4 mod 8.
+__host__ __device__ inline int x3_cs(int td, int th, int tw) {
+  return ((td * (th + 2) * (tw + 8) + 7) & ~7) + 4;
+}
+
+// Shape of a wide_tf32x3 x stage and reciprocals for fdiv.
+struct X3Box {
+  int HB, RW, WB, CS, U;  // rows a plane; floats a row; halo columns; a
+                          // channel's floats; 16-byte units a row
+  float inv_U, inv_WB, inv_HB, inv_td, inv_tw, inv_th;
+};
+
+__device__ __forceinline__ X3Box x3_box(const Geom& g) {
+  X3Box b;
+  b.HB = g.th + 2;
+  b.RW = g.tw + 8;
+  b.WB = g.tw + 2;
+  b.CS = x3_cs(g.td, g.th, g.tw);
+  b.U = b.RW / 4;
+  b.inv_U = 1.f / b.U;
+  b.inv_WB = 1.f / b.WB;
+  b.inv_HB = 1.f / b.HB;
+  b.inv_td = 1.f / g.td;
+  b.inv_tw = 1.f / g.tw;
+  b.inv_th = 1.f / g.th;
+  return b;
+}
+
+// The 9 taps (kh, kw) of one step: acc += ws (this warp's 32 channels) x
+// xs (its 64 positions, rows hb + the tap's offset), in 3xTF32. k runs in
+// mma_tf32.cuh's order: k index q is channel 2q, q + 4 is 2q + 1, so a
+// lane's two A values of a row are one 64-bit read. A tap's products run
+// in three passes over the 16 tiles (a_lo b_hi, then a_hi b_lo, then a_hi
+// b_hi: each tile's sums in mma3's order), so 16 independent sums are in
+// flight rather than mma3's chain of three on one: 16% faster at
+// 32ch@64^3 (PERF.md, section 6).
+template <int WM>
+__device__ __forceinline__ void wide_x3_step(float (*acc)[8][4],
+                                             const float* xs,
+                                             const float* ws, const int* hb,
+                                             int RW, int CS, int wm, int gq,
+                                             int q) {
+  constexpr int BM = 32 * WM;
+  const float* wl = ws + 9 * BM * kX3Ci;
+  const float* x0 = xs + 2 * q * CS;  // channel 2q; 2q + 1 at + CS
+#pragma unroll 1
+  for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+      const int tap = kh * 3 + kw, toff = kh * RW + kw;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = (tap * BM + wm * 32 + mt * 16 + gq) * kX3Ci + 2 * q;
+        const uint2 h0 = *reinterpret_cast<const uint2*>(ws + r);
+        const uint2 h1 = *reinterpret_cast<const uint2*>(ws + r + 8 * kX3Ci);
+        const uint2 v0 = *reinterpret_cast<const uint2*>(wl + r);
+        const uint2 v1 = *reinterpret_cast<const uint2*>(wl + r + 8 * kX3Ci);
+        ah[mt][0] = h0.x; ah[mt][1] = h1.x; ah[mt][2] = h0.y; ah[mt][3] = h1.y;
+        al[mt][0] = v0.x; al[mt][1] = v1.x; al[mt][2] = v0.y; al[mt][3] = v1.y;
+      }
+      uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {  // x split where read
+        const int e = hb[nt] + toff;
+        tc::split_tf32(x0[e], bh[nt][0], bl[nt][0]);
+        tc::split_tf32(x0[e + CS], bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          tc::mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          tc::mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          tc::mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+    }
+  }
+}
+
+template <int WM, bool kVec>
+__global__ void __launch_bounds__(kX3Threads)
+wide_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+                   float* __restrict__ part, float* __restrict__ out, Geom g,
+                   int P) {
+  constexpr int BM = 32 * WM;
+  constexpr int kWs = 2 * 9 * BM * kX3Ci;  // floats of one weight stage
+  extern __shared__ float4 smem_x3[];
+  const X3Box bx = x3_box(g);
+  float* xs0 = reinterpret_cast<float*>(smem_x3);  // [2][8][CS]
+  float* ws0 = xs0 + 2 * kX3Ci * bx.CS;            // [2][kWs]
+
+  int b = blockIdx.x;
+  const int bw = b % g.nbw; b /= g.nbw;
+  const int bh = b % g.nbh; b /= g.nbh;
+  const int bd = b % g.nbd;
+  const int n = b / g.nbd;
+  const int d0 = bd * g.td, h0 = bh * g.th, w0 = bw * g.tw;
+  const int co0 = blockIdx.y * BM;
+  const int p = blockIdx.z;
+  const int nchunk = cdiv(g.Ci, kX3Ci);
+  const int c_begin = nchunk * p / P, c_end = nchunk * (p + 1) / P;
+  const int Cop = cdiv(g.Co, kX3CoPad) * kX3CoPad;
+  const int box = g.td * g.th * g.tw;
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int wm = warp % WM, wn = warp / WM;
+  const int gq = lane >> 2, q = lane & 3;
+  const bool active = wn * 64 < box;  // warp has positions in the box
+
+  // x row (tap (0, 0, 0), plane dl of the stage) of position gq of each
+  // of the warp's n8 tiles
+  int hb[8];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int pos = wn * 64 + nt * 8 + gq;
+    const int r = fdiv(pos, bx.inv_tw), wl = pos - r * g.tw;
+    const int dl = fdiv(r, bx.inv_th), hl = r - dl * g.th;
+    hb[nt] = pos < box ? (dl * bx.HB + hl) * bx.RW + wl + 3 : 0;
+  }
+
+  const long long HW = (long long)g.H * g.W;
+  const long long DHW = HW * g.D;
+  const float* xn = x + (long long)n * g.Ci * DHW;
+
+  // step s: chunk c_begin + s / 3, input planes from d0 + kd - 1
+  auto load = [&](int s, int buf) {
+    const int c = c_begin + s / 3, kd = s % 3;
+    float* xs = xs0 + buf * kX3Ci * bx.CS;
+    float* ws = ws0 + buf * kWs;
+    for (int i = t; i < 2 * 9 * BM * 2; i += kX3Threads) {
+      const int half = i & 1, row = i >> 1;  // row = (plane * 9 + tap) * BM + co
+      const int pt = row / BM, co = row % BM;
+      const int pl = pt / 9, tap = pt - pl * 9;
+      tc::cp_async16(ws + row * kX3Ci + half * 4,
+                     wp + ((((long long)pl * nchunk + c) * 27 + kd * 9 + tap) *
+                               Cop + co0 + co) * kX3Ci + half * 4);
+    }
+    const int ci0 = c * kX3Ci, gd0 = d0 + kd - 1;
+    // an item: one 16-byte unit (kVec) or one value of a (channel, plane,
+    // row) of the stage
+    const int per_row = kVec ? bx.U : bx.WB;
+    const float inv_row = kVec ? bx.inv_U : bx.inv_WB;
+    const int items = kX3Ci * g.td * bx.HB * per_row;
+    for (int i = t; i < items; i += kX3Threads) {
+      const int r = fdiv(i, inv_row), u = i - r * per_row;
+      const int r2 = fdiv(r, bx.inv_HB), hh = r - r2 * bx.HB;
+      const int ch = fdiv(r2, bx.inv_td), dl = r2 - ch * g.td;
+      const int gd = gd0 + dl, gh = h0 + hh - 1;
+      const int gw = kVec ? w0 - 4 + 4 * u : w0 - 1 + u;
+      const bool ok = ci0 + ch < g.Ci && gd >= 0 && gd < g.D && gh >= 0 &&
+                      gh < g.H && gw >= 0 && gw < g.W;
+      const float* src =
+          ok ? xn + (ci0 + ch) * DHW + gd * HW + (long long)gh * g.W + gw : xn;
+      float* dst = xs + ch * bx.CS + (dl * bx.HB + hh) * bx.RW;
+      if (kVec)
+        tc::cp_async16(dst + 4 * u, src, ok ? 16 : 0);
+      else
+        tc::cp_async4(dst + u + 3, src, ok ? 4 : 0);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int steps = 3 * (c_end - c_begin);
+  load(0, 0);
+  tc::cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // step s landed; step s - 1's buffers are free
+    if (s + 1 < steps) {
+      load(s + 1, (s + 1) & 1);  // in flight during this step's products
+      tc::cp_async_commit();
+    }
+    if (active)
+      wide_x3_step<WM>(acc, xs0 + (s & 1) * kX3Ci * bx.CS,
+                       ws0 + (s & 1) * kWs, hb, bx.RW, bx.CS, wm, gq, q);
+  }
+  if (!active) return;
+
+  const long long plane_out = (long long)g.N * g.Co * DHW;
+  float* dst = P == 1 ? out : part + p * plane_out;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      const int pos = wn * 64 + nt * 8 + 2 * q + e1;
+      const int r = fdiv(pos, bx.inv_tw), wl = pos - r * g.tw;
+      const int dl = fdiv(r, bx.inv_th), hl = r - dl * g.th;
+      const int d = d0 + dl, h = h0 + hl, w = w0 + wl;
+      if (pos >= box || d >= g.D || h >= g.H || w >= g.W) continue;
+      const long long sp = d * HW + (long long)h * g.W + w;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int co = co0 + wm * 32 + mt * 16 + gq + e2 * 8;
+          if (co < g.Co)
+            dst[((long long)n * g.Co + co) * DHW + sp] = acc[mt][nt][e2 * 2 + e1];
+        }
+      }
+    }
+  }
+}
+
+// wpx [2][Ci/8][27][Cop][8] from w [Co, Ci, 27] (f32): plane 0 the hi TF32
+// halves, plane 1 the lo (tc::split_tf32), zero where ci >= Ci or co >= Co:
+// the layout wide_tf32x3_kernel's weight stages copy from
+// (ops/cuda_conv.py:repack_weight_x3 is its plain version).
+__global__ void repack_x3_kernel(const float* __restrict__ w,
+                                 float* __restrict__ wp, int Co, int Ci,
+                                 int Cop, long long total) {
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       j < total; j += (long long)gridDim.x * blockDim.x) {
+    const int i = (int)(j % kX3Ci);
+    long long r = j / kX3Ci;
+    const int co = (int)(r % Cop);
+    r /= Cop;
+    const int tap = (int)(r % 27), ci = (int)(r / 27) * kX3Ci + i;
+    const float v =
+        co < Co && ci < Ci ? w[((long long)co * Ci + ci) * 27 + tap] : 0.f;
+    uint32_t hi, lo;
+    tc::split_tf32(v, hi, lo);
+    wp[j] = __uint_as_float(hi);
+    wp[total + j] = __uint_as_float(lo);
   }
 }
 
@@ -855,24 +1016,45 @@ bool set_smem(K kernel, size_t bytes) {
   return true;
 }
 
-template <typename T>
-int launch_wide(const void* x, const void* w, void* out, const Geom& g,
-                int cg, cudaStream_t st) {
-  const int threads = cg * g.td * (g.th / kRH) * g.tw;
-  if (cg < 1 || g.th % kRH != 0 || threads > kWideMaxThreads)
-    return (int)cudaErrorInvalidValue;
-  const int halo = (g.td + 2) * (g.th + 2) * (g.tw + 2);
-  const size_t smem =
-      sizeof(float) * (((kCiT * halo + 3) & ~3) + kCiT * 27 * cg * kRC);
-  if (!set_smem(wide_kernel<T>, smem)) return (int)cudaErrorInvalidValue;
+int launch_wide_x3(const void* x, const void* wp, void* part, void* out,
+                   const Geom& g, int wm, int P, cudaStream_t st) {
   const long long boxes = (long long)g.N * g.nbd * g.nbh * g.nbw;
-  const int co_tiles = cdiv(g.Co, cg * kRC);
-  if (boxes > 0x7fffffffLL || co_tiles > 65535)
+  const int co_tiles = cdiv(g.Co, 32 * wm);
+  const int nchunk = cdiv(g.Ci, kX3Ci);
+  // P within the chunks, and no part summing more than kX3Chunks of them
+  if ((wm != 1 && wm != 2 && wm != 4) || g.td * g.th * g.tw > 64 * (8 / wm) ||
+      P > nchunk || P < cdiv(nchunk, kX3Chunks) || P > 65535 ||
+      co_tiles > 65535 || boxes > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  wide_kernel<T><<<dim3((unsigned)boxes, co_tiles), threads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(out), g, cg);
-  return (int)cudaGetLastError();
+  const bool vec =
+      g.W % 4 == 0 && g.tw % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const size_t cs = x3_cs(g.td, g.th, g.tw);
+  const size_t smem = sizeof(float) * (2 * kX3Ci * cs +
+                                       (size_t)2 * 2 * 9 * 32 * wm * kX3Ci);
+  const dim3 grid((unsigned)boxes, co_tiles, P);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(wp);
+  auto* of = static_cast<float*>(out);
+  float* pf = static_cast<float*>(part);
+  auto launch = [&](auto kernel) {
+    if (!set_smem(kernel, smem)) return false;
+    kernel<<<grid, kX3Threads, smem, st>>>(xf, wf, pf, of, g, P);
+    return true;
+  };
+  auto by_wm = [&](auto k1, auto k2, auto k4) {
+    return wm == 1 ? launch(k1) : wm == 2 ? launch(k2) : launch(k4);
+  };
+  const bool ok = vec ? by_wm(wide_tf32x3_kernel<1, true>,
+                              wide_tf32x3_kernel<2, true>,
+                              wide_tf32x3_kernel<4, true>)
+                      : by_wm(wide_tf32x3_kernel<1, false>,
+                              wide_tf32x3_kernel<2, false>,
+                              wide_tf32x3_kernel<4, false>);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || P == 1) return (int)err;
+  return (int)tc::sum_partials(pf, of, P,
+                               (long long)g.N * g.Co * g.D * g.H * g.W, st);
 }
 
 int launch_wide_tc(const void* x, const void* wp, void* part, void* out,
@@ -956,16 +1138,32 @@ int launch_dw_tc(const void* x, const void* gr, void* part, void* dw,
 
 extern "C" {
 
-// The f32 route: out [N, Co, D, H, W] from x [N, Ci, D, H, W] and w
-// [Co, Ci, 3, 3, 3], all f32; tiling (td, th, tw, cg) as chosen by
-// ops/cuda_conv.py:wide_plan.
-int k3_wide(const void* x, const void* w, void* out, int N, int Ci, int Co,
-            int D, int H, int W, int td, int th, int tw, int cg,
-            void* stream) {
+// wpx [2][Ci/8][27][Cop][8] f32 (Cop = Co rounded up to 128) from w
+// [Co, Ci, 3, 3, 3] f32: the f32 route's weight layout, split into its hi
+// and lo TF32 halves.
+int k3_repack_x3(const void* w, void* wp, int Co, int Ci, void* stream) {
+  if (Co < 1 || Ci < 1) return (int)cudaErrorInvalidValue;
+  const int Cop = cdiv(Co, kX3CoPad) * kX3CoPad;
+  const long long total = (long long)cdiv(Ci, kX3Ci) * 27 * Cop * kX3Ci;
+  const long long blocks = (total + 255) / 256;
+  repack_x3_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                     (cudaStream_t)stream>>>(static_cast<const float*>(w),
+                                             static_cast<float*>(wp), Co, Ci,
+                                             Cop, total);
+  return (int)cudaGetLastError();
+}
+
+// The f32 route: out [N, Co, D, H, W] f32 from x [N, Ci, D, H, W] f32 and
+// wpx [2][Ci/8][27][Cop][8] (the split weight); part [P, N, Co, D*H*W] f32
+// is scratch when P > 1. Tiling (td, th, tw, wm, P) as chosen by
+// ops/cuda_conv.py:wide_x3_plan.
+int k3_wide_x3(const void* x, const void* wp, void* part, void* out, int N,
+               int Ci, int Co, int D, int H, int W, int td, int th, int tw,
+               int wm, int P, void* stream) {
   Geom g;
   if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
     return (int)cudaErrorInvalidValue;
-  return launch_wide<float>(x, w, out, g, cg, (cudaStream_t)stream);
+  return launch_wide_x3(x, wp, part, out, g, wm, P, (cudaStream_t)stream);
 }
 
 // wp [Ci/16][27][Cop][16] bf16 (Cop = Co rounded up to 64) from w

@@ -3,8 +3,9 @@
 // and probe_ladder.cu (gram27, wide_fwd), for sm_90a: ldmatrix loads of
 // 8x8 b16 tiles from shared memory, the m16n8k16 bf16 product with f32
 // sums, zero-filling cp.async, a swizzle that keeps ldmatrix free of bank
-// conflicts, and the fixed-order sum of split-K partials (also for the
-// f32 kernels of pooled_attention.cu).
+// conflicts, and the fixed-order sum of split-K partials (the last two
+// also for the f32 *_tf32x3 kernels of pooled_attention.cu, conv3d_k3.cu
+// and conv3d_toeplitz.cu).
 //
 // Fragments (PTX ISA, mma.m16n8k16 .row.col), with g = lane / 4 and
 // q = lane % 4; a 32-bit register holds two bf16, the lower index in its

@@ -1,5 +1,6 @@
-// 3xTF32 building blocks for the f32 kernels of pooled_attention.cu (the
-// *_tf32x3 kernels), for sm_90a: the split of an f32 value into two TF32
+// 3xTF32 building blocks for the f32 kernels of pooled_attention.cu,
+// conv3d_k3.cu and conv3d_toeplitz.cu (the *_tf32x3 kernels), for sm_90a:
+// the split of an f32 value into two TF32
 // halves, the m16n8k8 TF32 product with f32 sums, the three products that
 // give an f32-accurate a b, and a swizzle of f32 tiles in shared memory
 // that keeps their fragment reads free of bank conflicts.

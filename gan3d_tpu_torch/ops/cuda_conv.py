@@ -10,8 +10,10 @@ stream:
   forward and, with spatially flipped, in/out-swapped weights, for dx. Two
   routes by dtype: bf16 goes to the tensor-core implicit GEMM
   (``wide_tc_kernel``, on the weight as ``repack_weight_cuda`` lays it
-  out; ``repack_weight`` is its plain version),
-  f32 to the f32-FMA ``wide_kernel``; any other dtype raises;
+  out; ``repack_weight`` is its plain version), f32 to the 3xTF32 implicit
+  GEMM on the tensor cores (``wide_tf32x3_kernel``, on the weight split
+  into its TF32 halves as ``repack_weight_x3_cuda`` lays it out;
+  ``repack_weight_x3`` is its plain version); any other dtype raises;
 - ``conv3d_dw_cuda(x, g)``: its weight gradient (K3), split-K partials
   summed in a fixed order by a second kernel, so a repeated dW is
   bit-identical. Two routes by dtype: bf16 goes to the tensor-core
@@ -22,10 +24,12 @@ stream:
   Two routes by dtype: bf16 goes to the tensor-core implicit GEMM
   (``toeplitz_tc_kernel``, on the weight as ``repack_toeplitz_weight_cuda``
   lays it out; ``repack_toeplitz_weight`` is its plain version), f32 to
-  the f32-FMA ``toeplitz_kernel``.
+  the 3xTF32 one (``toeplitz_tf32x3_kernel``, on the weight as
+  ``repack_toeplitz_weight_x3_cuda`` lays it out;
+  ``repack_toeplitz_weight_x3`` is its plain version).
 
-The tiling of each launch (``wide_plan``, ``wide_tc_plan``, ``dw_plan``,
-``dw_tc_plan``, ``toeplitz_plan``, ``toeplitz_tc_plan``)
+The tiling of each launch (``wide_x3_plan``, ``wide_tc_plan``,
+``dw_plan``, ``dw_tc_plan``, ``toeplitz_x3_plan``, ``toeplitz_tc_plan``)
 is chosen here, so the CPU tests reach it. Two ``autograd.Function``s
 carry the routes of ``ops/conv3d.conv3d``, counterparts of the JAX custom
 VJPs (K5's is ``ops/toeplitz_conv.py:ToeplitzConv3d``):
@@ -58,8 +62,6 @@ from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
 from gan3d_tpu_torch.ops.cuda_build import SMS
 
 _DTYPES = (torch.float32, torch.bfloat16)
-WIDE_POS_THREADS = 64      # K4: threads (4 output rows each) per co group
-WIDE_MAX_CO_GROUPS = 4     # K4: co groups (8 channels each) per block
 TC_CI = 16                 # K4, K5 bf16: input channels per stage (kTcCi)
 TC_CO_PAD = 64             # K4, K5 bf16: repacked Co multiple (csrc kTcCoPad)
 DW_BOX = 128               # K3: output positions per staged box
@@ -67,11 +69,15 @@ DW_CI, DW_CO = 16, 32      # K3: channels per block (csrc kDwCi / kDwCo;
                            # the bf16 route's kDwTcCi / kDwTcCo too)
 DW_BLOCKS_PER_SM = 2       # K3: resident blocks per SM (both routes)
 DW_TC_BOX = 512            # K3 bf16: most positions per staged box
-TOEPLITZ_THREADS = 256     # K5: most threads per block (csrc kMaxThreads)
-TOEPLITZ_CI = 8            # K5: input channels per stage (csrc kCi)
-TOEPLITZ_SMEM = 96 << 10   # K5: shared-memory budget of one block
 TOEPLITZ_TC_WARPS = 8      # K5 bf16: warps per block (csrc kTcThreads / 32)
 TOEPLITZ_TC_SMEM = 113 << 10  # K5 bf16: shared memory of one of 2 blocks/SM
+X3_WARPS = 8               # K4, K5 f32: warps per block (csrc kX3Threads / 32)
+X3_CI = 8                  # K4, K5 f32: input channels a chunk (csrc kX3Ci)
+X3_CHUNKS = 9              # K4, K5 f32: most chunks a split-K part sums in
+                           # the tensor cores (csrc kX3Chunks: 1944 terms)
+WIDE_X3_CO_PAD = 128       # K4 f32: repacked Co multiple (csrc kX3CoPad)
+TOEPLITZ_X3_CO_PAD = 64    # K5 f32: repacked Co multiple (csrc kX3CoPad)
+SMEM_MAX = 227 << 10       # shared memory a block can have (sm_90)
 
 wide_launches = 0
 wide_tc_launches = 0
@@ -99,21 +105,48 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def wide_plan(n: int, co: int, d: int, h: int, w: int
-              ) -> Tuple[int, int, int, int]:
-    """K4 tiling (td, th, tw, cg): a block computes a td x th x tw box of
-    output positions of one sample (th a multiple of 4: a thread owns 4
-    rows of one column) for cg groups of 8 output channels. Groups are
-    halved while the grid has fewer blocks than the card has SMs."""
+def wide_x3_smem(td: int, th: int, tw: int, wm: int) -> int:
+    """Shared-memory bytes of a K4 f32 block (csrc launch_wide_x3): two
+    x stages of X3_CI channels (td planes of th + 2 rows of tw + 8 floats a
+    channel, csrc x3_cs) and two weight stages (hi and lo halves of 9 taps
+    x 32*wm channels x X3_CI)."""
+    cs = ((td * (th + 2) * (tw + 8) + 7) & ~7) + 4
+    return 4 * X3_CI * (2 * cs + 2 * 2 * 9 * 32 * wm)
+
+
+def _x3_parts(chunks: int, blocks: int) -> int:
+    """Split-K parts of the f32 routes: enough that none sums more than
+    X3_CHUNKS chunks in the tensor cores, whose f32 sums are not rounded to
+    nearest, and where ``blocks`` (the grid of one part) is fewer than the
+    card's SMs, enough to cover it about twice."""
+    p = _cdiv(chunks, X3_CHUNKS)
+    if blocks * p < SMS:
+        p = min(chunks, max(p, _cdiv(2 * SMS, blocks)))
+    return p
+
+
+def wide_x3_plan(n: int, ci: int, co: int, d: int, h: int, w: int
+                 ) -> Tuple[int, int, int, int, int]:
+    """K4 f32 tiling (td, th, tw, wm, P): a block of X3_WARPS warps
+    computes 32*wm output channels x a td x th x tw box of one sample, at
+    most 64*(8 // wm) positions (w fastest, up to 32 along w): wm = 1 for
+    Co <= 32, 4 for Co >= 128 on volumes of at most 128 positions (whose
+    boxes would leave most 64-position warps idle), else 2. Planes, then
+    rows, are halved while the block's shared memory exceeds SMEM_MAX;
+    the Ci/8 chunks are split into P parts (``_x3_parts``)."""
+    wm = 1 if co <= 32 else 4 if co >= 128 and d * h * w <= 128 else 2
+    bn = 64 * (X3_WARPS // wm)
     tw = min(w, 32)
-    rows = max(1, WIDE_POS_THREADS // tw)
-    hg = min(_cdiv(h, 4), rows)
-    td = min(d, max(1, rows // hg))
-    cg = min(_cdiv(co, 8), WIDE_MAX_CO_GROUPS)
-    boxes = n * _cdiv(d, td) * _cdiv(h, 4 * hg) * _cdiv(w, tw)
-    while cg > 1 and boxes * _cdiv(co, 8 * cg) < SMS:
-        cg //= 2
-    return td, 4 * hg, tw, cg
+    th = min(h, max(1, bn // tw))
+    td = min(d, max(1, bn // (tw * th)))
+    while (td > 1 or th > 1) and wide_x3_smem(td, th, tw, wm) > SMEM_MAX:
+        if td > 1:
+            td = _cdiv(td, 2)
+        else:
+            th = _cdiv(th, 2)
+    blocks = (n * _cdiv(d, td) * _cdiv(h, th) * _cdiv(w, tw)
+              * _cdiv(co, 32 * wm))
+    return td, th, tw, wm, _x3_parts(_cdiv(ci, X3_CI), blocks)
 
 
 def wide_tc_plan(n: int, ci: int, co: int, d: int, h: int, w: int
@@ -147,6 +180,31 @@ def repack_weight(w: torch.Tensor) -> torch.Tensor:
     wp = F.pad(w.reshape(co, ci, 27), (0, 0, 0, cip - ci, 0, cop - co))
     return (wp.reshape(cop, cip // TC_CI, TC_CI, 27).permute(1, 3, 0, 2)
             .contiguous())
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of an f32 tensor as the f32 routes' kernels split it
+    (csrc/mma_tf32.cuh split_tf32): hi is x rounded to TF32 to nearest,
+    ties away from zero (half a TF32 ulp added to the magnitude's bit
+    pattern, its 13 low bits cleared), lo the same rounding of x - hi."""
+    def rna(v):
+        return ((v.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def repack_weight_x3(w: torch.Tensor) -> torch.Tensor:
+    """w [Co, Ci, 3, 3, 3] f32 -> the K4 f32 kernel's [2, Ci/8, 27, Cop, 8]
+    (Ci and Co zero-padded to multiples of 8 and WIDE_X3_CO_PAD): [0, c, t,
+    co, i] is the hi TF32 half of W[co, 8c + i, t], [1, c, t, co, i] its lo
+    half (``split_tf32``). The plain version of ``repack_weight_x3_cuda``."""
+    co, ci = w.shape[:2]
+    cip = _cdiv(ci, X3_CI) * X3_CI
+    cop = _cdiv(co, WIDE_X3_CO_PAD) * WIDE_X3_CO_PAD
+    wp = F.pad(w.reshape(co, ci, 27), (0, 0, 0, cip - ci, 0, cop - co))
+    wp = wp.reshape(cop, cip // X3_CI, X3_CI, 27).permute(1, 3, 0, 2)
+    return torch.stack(split_tf32(wp.contiguous()))
 
 
 def dw_plan(n: int, ci: int, co: int, d: int, h: int, w: int
@@ -189,29 +247,28 @@ def dw_tc_smem(td: int, th: int, tw: int) -> int:
     return 32 * (td + 2) * (th + 2) * (tw + 2) + (64 + 4) * kpad
 
 
-def toeplitz_smem(bh: int, wg: int, cg: int) -> int:
-    """Shared-memory bytes of a K5 block: the staged 3-row slab (rows of
-    4*wg + 2 columns rounded up to 4) and the chunk's weights, f32."""
-    row = (4 * wg + 2 + 3) & ~3
-    return 4 * TOEPLITZ_CI * (3 * (bh + 2) * row + 27 * 8 * cg)
+def toeplitz_x3_smem(bh: int, bw: int, wn: int) -> int:
+    """Shared-memory bytes of a K5 f32 block (csrc launch_x3): two x
+    stages of the plane's (bh + 2) x (bw + 2) halo rows of X3_CI floats
+    and two weight stages (hi and lo halves of 9 taps x 32*wn channels x
+    X3_CI)."""
+    return 4 * X3_CI * (2 * (bh + 2) * (bw + 2) + 2 * 2 * 9 * 32 * wn)
 
 
-def toeplitz_plan(n: int, d: int, h: int, w: int, co: int
-                  ) -> Tuple[int, int, int]:
-    """K5 tiling (bh, wg, cg): a block computes bh rows x 4*wg columns of
-    one (n, d) for cg groups of 8 output channels, a thread 4 columns x 8
-    channels; at most TOEPLITZ_THREADS threads and TOEPLITZ_SMEM bytes.
-    Groups are halved while the grid has fewer blocks than the card has
-    SMs."""
-    cg = min(_cdiv(co, 8), 4)
-    wg = min(_cdiv(w, 4), 16)
-    bh = min(h, max(1, TOEPLITZ_THREADS // (cg * wg)))
-    while bh > 1 and toeplitz_smem(bh, wg, cg) > TOEPLITZ_SMEM:
+def toeplitz_x3_plan(n: int, d: int, h: int, w: int, ci: int, co: int
+                     ) -> Tuple[int, int, int, int]:
+    """K5 f32 tiling (bh, bw, wn, P): toeplitz_tc_plan's block (X3_WARPS
+    warps, 32*wn output channels x bh rows x bw columns of one (n, d), at
+    most 64 * (8 // wn) positions), rows halved while its shared memory
+    exceeds SMEM_MAX; the Ci/8 chunks are split into P parts
+    (``_x3_parts``)."""
+    wn = 1 if co <= 32 else 2
+    bw = min(w, 32)
+    bh = min(h, max(1, 64 * (X3_WARPS // wn) // bw))
+    while bh > 1 and toeplitz_x3_smem(bh, bw, wn) > SMEM_MAX:
         bh = _cdiv(bh, 2)
-    tiles = n * d * _cdiv(h, bh) * _cdiv(w, 4 * wg)
-    while cg > 1 and tiles * _cdiv(co, 8 * cg) < SMS:
-        cg //= 2
-    return bh, wg, cg
+    blocks = n * d * _cdiv(h, bh) * _cdiv(w, bw) * _cdiv(co, 32 * wn)
+    return bh, bw, wn, _x3_parts(_cdiv(ci, X3_CI), blocks)
 
 
 def toeplitz_tc_smem(bh: int, bw: int, wn: int) -> int:
@@ -248,13 +305,28 @@ def repack_toeplitz_weight(w: torch.Tensor) -> torch.Tensor:
             .contiguous())
 
 
+def repack_toeplitz_weight_x3(w: torch.Tensor) -> torch.Tensor:
+    """w [3, 3, 3, Ci, Co] (DHWIO) f32 -> the K5 f32 kernel's [2, Ci/8, 27,
+    Cop, 8] (Ci and Co zero-padded to multiples of 8 and
+    TOEPLITZ_X3_CO_PAD): [0, k, t, co, i] is the hi TF32 half of
+    w[t, 8k + i, co], [1, k, t, co, i] its lo half (``split_tf32``). The
+    plain version of ``repack_toeplitz_weight_x3_cuda``."""
+    ci, co = w.shape[3:]
+    cip = _cdiv(ci, X3_CI) * X3_CI
+    cop = _cdiv(co, TOEPLITZ_X3_CO_PAD) * TOEPLITZ_X3_CO_PAD
+    wp = F.pad(w.reshape(27, ci, co), (0, cop - co, 0, cip - ci))
+    wp = wp.reshape(27, cip // X3_CI, X3_CI, cop).permute(1, 0, 3, 2)
+    return torch.stack(split_tf32(wp.contiguous()))
+
+
 # library -> entry point -> (pointer arguments, int arguments); each entry
 # point also takes the stream and returns a cudaError_t.
-_SIGNATURES = {"conv3d_k3": {"k3_wide": (3, 10), "k3_wide_tc": (4, 11),
-                              "k3_repack": (2, 2),
+_SIGNATURES = {"conv3d_k3": {"k3_wide_x3": (4, 11), "k3_wide_tc": (4, 11),
+                              "k3_repack": (2, 2), "k3_repack_x3": (2, 2),
                               "k3_dw": (4, 10), "k3_dw_tc": (4, 10)},
-               "conv3d_toeplitz": {"k3_toeplitz": (3, 9),
+               "conv3d_toeplitz": {"k3_toeplitz_x3": (4, 10),
                                    "k3_toeplitz_repack": (2, 2),
+                                   "k3_toeplitz_repack_x3": (2, 2),
                                    "k3_toeplitz_tc": (3, 9)}}
 
 
@@ -317,10 +389,24 @@ def repack_weight_cuda(w: torch.Tensor) -> torch.Tensor:
     return wp
 
 
+def repack_weight_x3_cuda(w: torch.Tensor) -> torch.Tensor:
+    """``repack_weight_x3`` of a contiguous f32 CUDA weight by one kernel
+    launch (part of each K4 f32 call, so not counted apart)."""
+    co, ci = w.shape[:2]
+    wp = torch.empty((2, _cdiv(ci, X3_CI), 27,
+                      _cdiv(co, WIDE_X3_CO_PAD) * WIDE_X3_CO_PAD, X3_CI),
+                     dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _load("conv3d_k3").k3_repack_x3(_ptr(w), _ptr(wp), co, ci,
+                                              _stream(w))
+    _raise_if(err, "weight split")
+    return wp
+
+
 def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K4: k3/s1/p1 conv of x [N,Ci,D,H,W] with w [Co,Ci,3,3,3] (same
-    dtype), f32 accumulation; [N,Co,D,H,W] in x's dtype. bf16 runs on the
-    tensor cores, f32 on the FMA pipes."""
+    dtype), f32 accumulation; [N,Co,D,H,W] in x's dtype. Both dtypes run
+    on the tensor cores, f32 in 3xTF32."""
     global wide_launches, wide_tc_launches
     x, w = x.contiguous(), w.contiguous()
     _check(x, w, "weight")
@@ -344,10 +430,13 @@ def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _raise_if(err, "wide (bf16)")
         wide_tc_launches += 1
         return out
-    td, th, tw, cg = wide_plan(n, co, d, h, wd)
+    td, th, tw, wm, p = wide_x3_plan(n, ci, co, d, h, wd)
+    wp = repack_weight_x3_cuda(w)
+    part = (torch.empty((p, n, co, d * h * wd), dtype=torch.float32,
+                        device=x.device) if p > 1 else out)
     with torch.cuda.device(x.device):
-        err = lib.k3_wide(_ptr(x), _ptr(w), _ptr(out), n, ci, co, d, h, wd,
-                          td, th, tw, cg, _stream(x))
+        err = lib.k3_wide_x3(_ptr(x), _ptr(wp), _ptr(part), _ptr(out), n, ci,
+                             co, d, h, wd, td, th, tw, wm, p, _stream(x))
     _raise_if(err, "wide (f32)")
     wide_launches += 1
     return out
@@ -401,10 +490,24 @@ def repack_toeplitz_weight_cuda(w: torch.Tensor) -> torch.Tensor:
     return wp
 
 
+def repack_toeplitz_weight_x3_cuda(w: torch.Tensor) -> torch.Tensor:
+    """``repack_toeplitz_weight_x3`` of a contiguous f32 CUDA weight by one
+    kernel launch (part of each K5 f32 call, so not counted apart)."""
+    ci, co = w.shape[3:]
+    wp = torch.empty((2, _cdiv(ci, X3_CI), 27,
+                      _cdiv(co, TOEPLITZ_X3_CO_PAD) * TOEPLITZ_X3_CO_PAD,
+                      X3_CI), dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _load("conv3d_toeplitz").k3_toeplitz_repack_x3(
+            _ptr(w), _ptr(wp), ci, co, _stream(w))
+    _raise_if(err, "toeplitz weight split")
+    return wp
+
+
 def toeplitz_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K5: k3/s1/p1 conv of x [N,D,H,W,Ci] with w [3,3,3,Ci,Co] (same
-    dtype), f32 accumulation; [N,D,H,W,Co] in x's dtype. bf16 runs on the
-    tensor cores, f32 on the FMA pipes."""
+    dtype), f32 accumulation; [N,D,H,W,Co] in x's dtype. Both dtypes run
+    on the tensor cores, f32 in 3xTF32."""
     global toeplitz_launches, toeplitz_tc_launches
     x, w = x.contiguous(), w.contiguous()
     _check(x, w, "weight")
@@ -424,10 +527,13 @@ def toeplitz_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _raise_if(err, "toeplitz (bf16)")
         toeplitz_tc_launches += 1
         return out
-    bh, wg, cg = toeplitz_plan(n, d, h, wd, co)
+    bh, bw, wn, p = toeplitz_x3_plan(n, d, h, wd, ci, co)
+    wp = repack_toeplitz_weight_x3_cuda(w)
+    part = (torch.empty((p, n, d, h, wd, co), dtype=torch.float32,
+                        device=x.device) if p > 1 else out)
     with torch.cuda.device(x.device):
-        err = lib.k3_toeplitz(_ptr(x), _ptr(w), _ptr(out), n, d, h, wd, ci,
-                              co, bh, wg, cg, _stream(x))
+        err = lib.k3_toeplitz_x3(_ptr(x), _ptr(wp), _ptr(part), _ptr(out), n,
+                                 d, h, wd, ci, co, bh, bw, wn, p, _stream(x))
     _raise_if(err, "toeplitz (f32)")
     toeplitz_launches += 1
     return out

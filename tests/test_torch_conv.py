@@ -11,7 +11,9 @@
   forward and (dx, dW) through tanh against ``jax.grad`` of
   ``wide_conv3d`` / ``conv3d_k3_dw`` in interpret mode (1e-4 / 1e-5);
 - the dispatcher's modes and eligibility, the kernels' tiling plans (the
-  f32 and bf16 routes of K4, and K3) and the bf16 route's weight repack;
+  f32 and bf16 routes of K4, and K3; StyleGAN-1's G shapes, whole and on
+  a space rank's slab, both ways round for dx) and the weight repacks of
+  both routes (the f32 route's split into TF32 halves);
 - the port's eligibility admits every flagship conv the JAX rule admits
   (it also admits the three the JAX VMEM budgets turn down).
 
@@ -33,6 +35,7 @@ from gan3d_tpu_torch.ops import conv3d as tconv
 from gan3d_tpu_torch.ops import cuda_conv
 from gan3d_tpu_torch.ops.cuda_build import SMS
 
+from test_torch_attention import split_tf32  # noqa: E402
 from test_torch_layers import jax_reference_lowering  # noqa: F401,E402
 
 torch.set_num_threads(1)
@@ -46,6 +49,12 @@ FLAGSHIP_G = [(128, 4), (128, 8), (128, 8), (128, 16), (64, 16), (64, 32),
               (32, 32), (32, 64)]
 FLAGSHIP_D = [(32, 64), (32, 32), (64, 32), (64, 16), (128, 16), (128, 8),
               (256, 8), (256, 4)]
+
+
+# The JAX references (Pallas in interpret mode) under jax.jit: one
+# compiled program a shape rather than eager dispatch of every grid step.
+jax_wide = jax.jit(wide_conv.wide_conv3d)
+jax_dw = jax.jit(dw_conv.conv3d_dw)
 
 
 def ncdhw(a):
@@ -76,7 +85,7 @@ def inputs(seed, n, spatial, cin, cout):
 def test_conv3d_k3_plain_matches_pallas_wide(n, spatial, cin, cout):
     x, w = inputs(0, n, spatial, cin, cout)
     with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(wide_conv.wide_conv3d(jnp.asarray(x), jnp.asarray(w)))
+        ref = np.asarray(jax_wide(jnp.asarray(x), jnp.asarray(w)))
     got = tconv.conv3d_k3_plain(ncdhw(x), oidhw(w))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(to_ndhwc(got), ref, rtol=1e-4, atol=1e-4)
@@ -86,7 +95,7 @@ def test_conv3d_k3_plain_matches_pallas_wide_bf16():
     x, w = inputs(4, 2, (4, 8, 8), 16, 16)
     xb, wb = (jnp.asarray(a, jnp.bfloat16) for a in (x, w))
     with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(wide_conv.wide_conv3d(xb, wb).astype(jnp.float32))
+        ref = np.asarray(jax_wide(xb, wb).astype(jnp.float32))
     got = tconv.conv3d_k3_plain(ncdhw(np.asarray(xb.astype(jnp.float32)))
                                 .bfloat16(),
                                 oidhw(np.asarray(wb.astype(jnp.float32)))
@@ -102,7 +111,7 @@ def test_conv3d_dw_plain_matches_pallas_dw(n, spatial, cin, cout):
     x = rng.normal(size=(n, *spatial, cin)).astype(np.float32)
     g = rng.normal(size=(n, *spatial, cout)).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(dw_conv.conv3d_dw(jnp.asarray(x), jnp.asarray(g)))
+        ref = np.asarray(jax_dw(jnp.asarray(x), jnp.asarray(g)))
     got = tconv.conv3d_dw_plain(ncdhw(x), ncdhw(g))
     assert got.dtype == torch.float32 and got.shape == (cout, cin, 3, 3, 3)
     np.testing.assert_allclose(to_dhwio(got), ref, rtol=1e-4, atol=1e-4)
@@ -135,9 +144,9 @@ def test_functions_match_jax_custom_vjps(kind):
         return jnp.sum(jnp.tanh(jfn(x_, w_)))
 
     with pltpu.force_tpu_interpret_mode():
-        y_ref = np.asarray(jfn(jnp.asarray(x), jnp.asarray(w)))
-        gx_ref, gw_ref = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
-                                                         jnp.asarray(w))
+        y_ref = np.asarray(jax.jit(jfn)(jnp.asarray(x), jnp.asarray(w)))
+        gx_ref, gw_ref = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+            jnp.asarray(x), jnp.asarray(w))
     xt = ncdhw(x).requires_grad_(True)
     wt = oidhw(w).requires_grad_(True)
     y = fn.apply(xt, wt)
@@ -224,29 +233,43 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_conv.conv3d_dw_cuda(x, x)
 
 
+@pytest.mark.parametrize("route", ["bf16", "f32"])
 @pytest.mark.parametrize("co,ci", [(8, 8), (40, 24), (32, 32), (64, 128)])
-def test_weight_repack_is_exact(co, ci):
+def test_weight_repack_is_exact(co, ci, route):
     """repack_weight lays w [Co, Ci, 3, 3, 3] out as [Ci/16, 27, Cop, 16]
     with wp[i // 16, tap, o, i % 16] = w[o, i, tap] and zeros in the padding,
     bit for bit; for the dx weight (flipped in space, in/out swapped) that
-    entry is w[i, o, 26 - tap]."""
+    entry is w[i, o, 26 - tap]. The f32 route's repack_weight_x3: [2, Ci/8,
+    27, Cop (a multiple of 128), 8], plane 0 the hi and plane 1 the lo
+    TF32 half (split_tf32) of that entry at [., i // 8, tap, o, i % 8]."""
     rng = np.random.default_rng(7)
     w = torch.from_numpy(rng.normal(size=(co, ci, 3, 3, 3)).astype(
-        np.float32)).bfloat16()
+        np.float32))
+    if route == "bf16":
+        w = w.bfloat16()
+    k, pad = (16, 64) if route == "bf16" else (8, 128)
     for name, wt in (("fwd", w), ("dx", w.flip(2, 3, 4).transpose(0, 1))):
         o_n, i_n = wt.shape[:2]
-        wp = cuda_conv.repack_weight(wt)
-        assert wp.dtype == torch.bfloat16 and wp.is_contiguous()
-        assert wp.shape == (-(-i_n // 16), 27, -(-o_n // 64) * 64, 16), name
         o, i, t = (torch.from_numpy(a) for a in np.meshgrid(
             np.arange(o_n), np.arange(i_n), np.arange(27), indexing="ij"))
-        got = wp[i // 16, t, o, i % 16]
         want = (w.reshape(co, ci, 27)[o, i, t] if name == "fwd"
                 else w.reshape(co, ci, 27)[i, o, 26 - t])
-        assert torch.equal(got, want), name
-        rest = wp.clone()
-        rest[i // 16, t, o, i % 16] = 0
-        assert not rest.any(), name
+        if route == "bf16":
+            planes, wants = cuda_conv.repack_weight(wt)[None], [want]
+            assert planes.dtype == torch.bfloat16
+        else:
+            planes = cuda_conv.repack_weight_x3(wt.contiguous())
+            wants = split_tf32(want)
+            assert planes.dtype == torch.float32
+        assert planes.is_contiguous()
+        assert planes.shape[1:] == (-(-i_n // k), 27, -(-o_n // pad) * pad,
+                                    k), name
+        for wp, want in zip(planes, wants):
+            got = wp[i // k, t, o, i % k]
+            assert torch.equal(got, want), name
+            rest = wp.clone()
+            rest[i // k, t, o, i % k] = 0
+            assert not rest.any(), name
 
 
 def test_bf16_routes_refuse_cpu_tensors():
@@ -332,10 +355,19 @@ def test_port_rule_admits_what_the_jax_rules_admit(ci, co, r, stride,
                                            and p == (1, 1, 1))
 
 
-# Every distinct flagship conv (N=16), the chip check's ragged shapes
-# (chip_smoke.py CONV_RAGGED) and a deep, thin column.
+# StyleGAN-1's G convs at 64^3 (chip_smoke.py CONV_SG1): (Ci, Co, side)
+SG1_G = [(512, 512, 4), (512, 256, 8), (256, 256, 8), (256, 128, 16),
+         (128, 128, 16), (128, 64, 32), (64, 64, 32), (64, 32, 64)]
+# Every distinct flagship conv (N=16); StyleGAN-1's G convs whose Ci != Co
+# (the dx way round too: 512 and 256 channels in) and on a space rank's
+# halo'd slab (chip_smoke.py SG1_s2: half the depth and two planes); the
+# chip check's ragged shapes (chip_smoke.py CONV_RAGGED) and a deep, thin
+# column.
 PLAN_SHAPES = ([(16, c, c, r, r, r) for c, r in sorted(set(FLAGSHIP_G
                                                           + FLAGSHIP_D))]
+               + [(16, a, b, r, r, r) for ci, co, r in SG1_G if ci != co
+                  for a, b in ((ci, co), (co, ci))]
+               + [(16, ci, co, r // 2 + 2, r, r) for ci, co, r in SG1_G]
                + [(1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3),
                   (1, 16, 40, 1, 1, 33), (3, 40, 16, 7, 6, 70),
                   (1, 256, 8, 4, 4, 4), (1, 8, 8, 200, 1, 1)])
@@ -365,13 +397,23 @@ def test_tiling_plans_cover_the_volume_and_fit_the_card(n, ci, co, d, h, w):
     assert boxes * td * th * tw >= n * d * h * w
     blocks = boxes * cdiv(co, 32 * wm) * p
     assert blocks >= SMS or p == stages
-    td, th, tw, cg = cuda_conv.wide_plan(n, co, d, h, w)
-    assert th % 4 == 0 and 1 <= cg <= 4 and td <= d and tw <= w
-    assert cg * td * (th // 4) * tw <= 256
-    halo = (td + 2) * (th + 2) * (tw + 2)
-    assert 4 * (4 * halo + 4 * 27 * 8 * cg) <= 227 * 1024
-    blocks = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw) * cdiv(co, 8 * cg)
-    assert blocks >= SMS or cg == 1
+    # K4 f32: 8 warps of 64 positions x 32 channels, a box of at most
+    # 64 * (8 // wm) positions, within 227 KB (two x and two weight stages,
+    # csrc launch_wide_x3); P parts of the Ci/8 chunks, each chunk once and
+    # none summing more than 2048 terms in the tensor cores; the grid
+    # fills the card where the chunks allow
+    td, th, tw, wm, p = cuda_conv.wide_x3_plan(n, ci, co, d, h, w)
+    assert wm in (1, 2, 4) and (wm == 1) == (co <= 32)
+    assert 1 <= td <= d and 1 <= th <= h and 1 <= tw <= min(w, 32)
+    assert td * th * tw <= 64 * (8 // wm)
+    assert cuda_conv.wide_x3_smem(td, th, tw, wm) <= 227 * 1024
+    chunks = cdiv(ci, 8)
+    parts = [range(chunks * j // p, chunks * (j + 1) // p) for j in range(p)]
+    assert [c for r in parts for c in r] == list(range(chunks))
+    assert max(len(r) for r in parts) * 27 * 8 <= 2048
+    boxes = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw)
+    assert boxes * td * th * tw >= n * d * h * w
+    assert boxes * cdiv(co, 32 * wm) * p >= SMS or p == chunks
     td, th, tw, p = cuda_conv.dw_plan(n, ci, co, d, h, w)
     assert td * th * tw <= cuda_conv.DW_BOX
     boxes = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw)

@@ -1,12 +1,16 @@
-"""The bf16 tensor-core routes of K3 (dW) and K5 (the W-Toeplitz conv) on
-the CPU: what of them runs without a card.
+"""The tensor-core routes of K3 (dW, bf16), K4 (the wide conv, f32) and K5
+(the W-Toeplitz conv, bf16 and f32) on the CPU: what of them runs without
+a card.
 
-- the launch plans (``dw_tc_plan``, ``toeplitz_tc_plan``) at every flagship
-  and bench shape and the chip check's ragged ones: grid limits, shared
-  memory for two blocks an SM, every position covered,
-  and K3's split-K parts covering every box exactly once;
-- K5's weight repack (DHWIO, as the forward and as dx takes it) against
-  its definition, bit for bit;
+- the launch plans (``dw_tc_plan``, ``toeplitz_tc_plan``,
+  ``toeplitz_x3_plan``) at every flagship and bench shape and the chip
+  check's ragged ones: grid limits, shared memory (two blocks an SM for
+  the bf16 routes), every position covered, and K3's split-K parts
+  covering every box exactly once; the f32 route's parts covering every
+  chunk of input channels once, none summing more than 2048 terms in the
+  tensor cores;
+- K5's weight repacks (DHWIO, as the forward and as dx takes it; the f32
+  route's split into TF32 halves) against their definitions, bit for bit;
 - numpy emulations of the two kernels' data movement (csrc/conv3d_k3.cu
   ``dw_tc_kernel``, csrc/conv3d_toeplitz.cu ``toeplitz_tc_kernel``): the
   staged boxes, the halo-row table, each tap's row offset, the repacked
@@ -14,6 +18,17 @@ the CPU: what of them runs without a card.
   order, on bf16-rounded inputs with f32 sums; against the plain versions
   (1e-5 of max |plain|: both sum in f32, in other orders) and, for K3,
   against ``gan3d_tpu.ops.dw_conv.conv3d_dw`` in Pallas interpret mode;
+- emulations of the f32 routes' arithmetic (csrc/conv3d_k3.cu
+  ``wide_tf32x3_kernel``, csrc/conv3d_toeplitz.cu ``toeplitz_tf32x3_kernel``):
+  the repacked weight's TF32 halves, x split where read, three products a
+  k8 step (a_lo b_hi, a_hi b_lo, a_hi b_hi) in the kernels' order of
+  chunks, planes and taps, the plan's split-K parts summed in order;
+  against the plain versions and against ``gan3d_tpu.ops.wide_conv.
+  wide_conv3d`` / ``pallas_conv.pallas_conv3d`` in Pallas interpret mode,
+  forward and dx, with one case of 27 * Ci > 2048;
+- ``probes/conv_f32.py`` (the f32 conv routes alone on the card) checks
+  chip_smoke.py's conv shapes, reads ptxas's registers and spills, and
+  raises without a card;
 - the bf16 routes refuse CPU tensors and count nothing.
 
 Inputs come from numpy seeds.
@@ -22,15 +37,19 @@ Inputs come from numpy seeds.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
-from gan3d_tpu.ops import dw_conv
+from gan3d_tpu.ops import dw_conv, pallas_conv, wide_conv
 from gan3d_tpu_torch.ops import cuda_conv
 from gan3d_tpu_torch.ops import toeplitz_conv as tc
-from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain
+from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
 from gan3d_tpu_torch.ops.cuda_build import SMS
+
+from test_torch_attention import split_tf32  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -89,45 +108,87 @@ def test_dw_tc_plan_covers_every_box_once_and_fits_the_card(n, ci, co, d,
     assert p * tiles >= SMS or p == nboxes
 
 
+def chains_within_2048(ci: int, p: int) -> bool:
+    """The f32 routes' split-K parts: part j sums chunks [chunks*j//p,
+    chunks*(j+1)//p) of 8 input channels; each chunk, every chunk covered
+    once, and no part summing more than 2048 terms (27 taps x 8 channels a
+    chunk) in the tensor cores, whose f32 sums are not rounded to
+    nearest."""
+    chunks = cdiv(ci, cuda_conv.X3_CI)
+    parts = [range(chunks * j // p, chunks * (j + 1) // p) for j in range(p)]
+    return (1 <= p <= chunks and [c for r in parts for c in r]
+            == list(range(chunks))
+            and max(len(r) for r in parts) * 27 * cuda_conv.X3_CI <= 2048)
+
+
+@pytest.mark.parametrize("route", ["bf16", "f32"])
 @pytest.mark.parametrize("n,d,h,w,ci,co", TOEPLITZ_SHAPES)
 def test_toeplitz_tc_plan_covers_the_volume_and_fits_the_card(n, d, h, w, ci,
-                                                             co):
-    bh, bw, wn = cuda_conv.toeplitz_tc_plan(n, d, h, w, co)
+                                                             co, route):
+    """The bf16 route's block (toeplitz_tc_plan) within two blocks an SM;
+    the f32 route's (toeplitz_x3_plan) within one block's shared memory,
+    with its split-K parts (chains_within_2048) filling the card where
+    the grid is smaller than it."""
+    if route == "bf16":
+        bh, bw, wn = cuda_conv.toeplitz_tc_plan(n, d, h, w, co)
+        warps = cuda_conv.TOEPLITZ_TC_WARPS
+        # two blocks an SM (launch bounds and shared memory)
+        assert 2 * cuda_conv.toeplitz_tc_smem(bh, bw, wn) <= 227 * 1024
+    else:
+        bh, bw, wn, p = cuda_conv.toeplitz_x3_plan(n, d, h, w, ci, co)
+        warps = cuda_conv.X3_WARPS
+        assert cuda_conv.toeplitz_x3_smem(bh, bw, wn) <= 227 * 1024
+        assert chains_within_2048(ci, p)
+        grid = n * d * cdiv(h, bh) * cdiv(w, bw) * cdiv(co, 32 * wn)
+        assert grid * p >= SMS or p == cdiv(ci, 8)
     assert (wn == 1) == (co <= 32)
     assert 1 <= bh <= h and 1 <= bw <= min(w, 32)
-    assert bh * bw <= 64 * (cuda_conv.TOEPLITZ_TC_WARPS // wn)
-    # two blocks an SM (launch bounds and shared memory)
-    assert 2 * cuda_conv.toeplitz_tc_smem(bh, bw, wn) <= 227 * 1024
+    assert bh * bw <= 64 * (warps // wn)
     blocks = n * d * cdiv(h, bh) * cdiv(w, bw)
     assert blocks * bh * bw >= n * d * h * w and blocks < 2 ** 31
     assert cdiv(co, 32 * wn) <= 65535
 
 
+@pytest.mark.parametrize("route", ["bf16", "f32"])
 @pytest.mark.parametrize("ci,co", [(8, 8), (20, 40), (32, 32), (128, 64)])
-def test_toeplitz_weight_repack_is_exact(ci, co):
+def test_toeplitz_weight_repack_is_exact(ci, co, route):
     """repack_toeplitz_weight lays w [3, 3, 3, Ci, Co] out as [Ci/16, 27,
     Cop, 16] with wp[i // 16, tap, o, i % 16] = w[tap, i, o] and zeros in
     the padding, bit for bit; for the dx weight (flipped in space, Ci/Co
     swapped, as ToeplitzConv3d.backward builds it) that entry is
-    w[26 - tap, o, i]."""
+    w[26 - tap, o, i]. The f32 route's repack_toeplitz_weight_x3: [2,
+    Ci/8, 27, Cop, 8], plane 0 the hi and plane 1 the lo TF32 half
+    (split_tf32) of that entry at [., i // 8, tap, o, i % 8]."""
     rng = np.random.default_rng(8)
     w = torch.from_numpy(rng.normal(size=(3, 3, 3, ci, co)).astype(
-        np.float32)).bfloat16()
+        np.float32))
+    if route == "bf16":
+        w = w.bfloat16()
+    k = 16 if route == "bf16" else 8
     for name, wt in (("fwd", w),
                      ("dx", w.flip(0, 1, 2).transpose(3, 4).contiguous())):
         i_n, o_n = wt.shape[3:]
-        wp = cuda_conv.repack_toeplitz_weight(wt)
-        assert wp.dtype == torch.bfloat16 and wp.is_contiguous()
-        assert wp.shape == (cdiv(i_n, 16), 27, cdiv(o_n, 64) * 64, 16), name
         i, o, t = (torch.from_numpy(a) for a in np.meshgrid(
             np.arange(i_n), np.arange(o_n), np.arange(27), indexing="ij"))
-        got = wp[i // 16, t, o, i % 16]
         w27 = w.reshape(27, ci, co)
         want = w27[t, i, o] if name == "fwd" else w27[26 - t, o, i]
-        assert torch.equal(got, want), name
-        rest = wp.clone()
-        rest[i // 16, t, o, i % 16] = 0
-        assert not rest.any(), name
+        if route == "bf16":
+            planes = cuda_conv.repack_toeplitz_weight(wt)[None]
+            wants = [want]
+            assert planes.dtype == torch.bfloat16
+        else:
+            planes = cuda_conv.repack_toeplitz_weight_x3(wt)
+            wants = split_tf32(want)
+            assert planes.dtype == torch.float32
+        assert planes.is_contiguous()
+        assert planes.shape[1:] == (cdiv(i_n, k), 27, cdiv(o_n, 64) * 64,
+                                    k), name
+        for wp, want in zip(planes, wants):
+            got = wp[i // k, t, o, i % k]
+            assert torch.equal(got, want), name
+            rest = wp.clone()
+            rest[i // k, t, o, i % k] = 0
+            assert not rest.any(), name
 
 
 def emulate_dw_tc(x: np.ndarray, g: np.ndarray) -> np.ndarray:
@@ -246,6 +307,170 @@ def test_toeplitz_tc_emulation_matches_plain(shape, ci, co, t):
         want = tc.toeplitz_conv3d_plain(torch.from_numpy(inp), wt.float(),
                                         t).numpy()
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# The f32 routes' emulations against the plain versions and the JAX
+# kernels: 2e-5 of max |reference|. Both sides sum f32 products in f32 in
+# other orders; the emulation's products carry 3xTF32's ~2^-21 relative
+# error (a_lo b_lo dropped, lo rounded to TF32), a few 1e-6 of the largest
+# value at these sizes; the route's contract is 1e-4.
+X3_TOL = 2e-5
+# (N, Ci, Co, D, H, W): a ragged volume, Ci != Co, and Ci = 80, whose
+# 27 * 80 = 2160 terms the plan splits into parts
+X3_WIDE = [(2, 16, 24, 3, 5, 7), (1, 24, 8, 4, 4, 4), (1, 80, 16, 4, 4, 8)]
+# ((N, D, H, W), Ci, Co, t): tests/test_pallas_conv.py's non-cubic shape,
+# ragged channels with Ci != Co, and Ci = 80
+X3_TOEPLITZ = [((1, 3, 5, 8), 16, 16, 8), ((2, 3, 7, 12), 20, 36, 4),
+               ((1, 4, 4, 8), 80, 16, 4)]
+
+
+def emulate_wide_tf32x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """wide_tf32x3_kernel's arithmetic: x [N,Ci,D,H,W], w [Co,Ci,3,3,3]
+    f32 -> f32 [N,Co,D,H,W]. A is the weight's TF32 halves as
+    repack_weight_x3 lays them out, B x split where read; part j of the
+    plan's P sums its chunks c, each input plane kd, tap (kh, kw) as the
+    products a_lo b_hi, a_hi b_lo, a_hi b_hi of that k8 step, and the
+    parts are summed in order (tc::sum_partials)."""
+    n, ci, d, h, wd = x.shape
+    co = w.shape[0]
+    p = cuda_conv.wide_x3_plan(n, ci, co, d, h, wd)[4]
+    wp = cuda_conv.repack_weight_x3(w)[:, :, :, :co]    # [2, chunks, 27, Co, 8]
+    chunks = wp.shape[1]
+    xh, xl = split_tf32(F.pad(x, (1, 1, 1, 1, 1, 1, 0, 8 * chunks - ci)))
+    out = torch.zeros((n, co, d * h * wd))
+    for j in range(p):
+        acc = torch.zeros((n, co, d * h * wd))
+        for c in range(chunks * j // p, chunks * (j + 1) // p):
+            for tap in range(27):
+                kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+                bh, bl = (v[:, 8 * c:8 * c + 8, kd:kd + d, kh:kh + h,
+                            kw:kw + wd].reshape(n, 8, -1) for v in (xh, xl))
+                ah, al = wp[0, c, tap], wp[1, c, tap]
+                for a, b in ((al, bh), (ah, bl), (ah, bh)):
+                    acc += torch.einsum("ok,nks->nos", a, b)
+        out += acc
+    return out.reshape(n, co, d, h, wd)
+
+
+def emulate_toeplitz_tf32x3(x: torch.Tensor, w: torch.Tensor
+                            ) -> torch.Tensor:
+    """toeplitz_tf32x3_kernel's arithmetic: x [N,D,H,W,Ci], w
+    [3,3,3,Ci,Co] f32 -> f32 [N,D,H,W,Co]. A is x split where read, B the
+    weight's TF32 halves as repack_toeplitz_weight_x3 lays them out; part
+    j sums its chunks c, each input plane a, tap (b, c') as the products
+    a_lo b_hi, a_hi b_lo, a_hi b_hi, and the parts are summed in order."""
+    n, d, h, wd, ci = x.shape
+    co = w.shape[4]
+    p = cuda_conv.toeplitz_x3_plan(n, d, h, wd, ci, co)[3]
+    wp = cuda_conv.repack_toeplitz_weight_x3(w)[:, :, :, :co]
+    chunks = wp.shape[1]
+    xh, xl = split_tf32(F.pad(x, (0, 8 * chunks - ci, 1, 1, 1, 1, 1, 1)))
+    out = torch.zeros((n, d, h, wd, co))
+    for j in range(p):
+        acc = torch.zeros((n, d, h, wd, co))
+        for c in range(chunks * j // p, chunks * (j + 1) // p):
+            for tap in range(27):
+                kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+                ah, al = (v[:, kd:kd + d, kh:kh + h, kw:kw + wd,
+                            8 * c:8 * c + 8] for v in (xh, xl))
+                bh, bl = wp[0, c, tap], wp[1, c, tap]
+                for a, b in ((al, bh), (ah, bl), (ah, bh)):
+                    acc += a @ b.T
+        out += acc
+    return out
+
+
+def _x3_inputs(seed, x_shape, g_shape, w_shape, ci):
+    rng = np.random.default_rng(seed)
+    x, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in (x_shape, g_shape))
+    w = torch.from_numpy((rng.normal(size=w_shape) / np.sqrt(27 * ci))
+                         .astype(np.float32))
+    return x, g, w
+
+
+def _rel(got, want) -> float:
+    got, want = (np.asarray(v, np.float64) for v in (got, want))
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+# The JAX kernels (Pallas in interpret mode), compiled once a shape.
+jax_wide = jax.jit(wide_conv.wide_conv3d)
+jax_conv = jax.jit(pallas_conv.pallas_conv3d, static_argnums=2)
+
+
+@pytest.mark.parametrize("n,ci,co,d,h,w", X3_WIDE)
+def test_wide_tf32x3_emulation_matches_plain_and_jax(n, ci, co, d, h, w):
+    """The forward, and dx as WideConv3d.backward calls the conv (the
+    output gradient with the flipped, swapped weight), against
+    conv3d_k3_plain; the forward also against the JAX wide_conv3d (Pallas,
+    interpret mode) of the same inputs in NDHWC / DHWIO (dx is the same
+    kernel on other operands; a JAX compile a shape is most of the
+    test's time)."""
+    x, g, wt = _x3_inputs(12, (n, ci, d, h, w), (n, co, d, h, w),
+                          (co, ci, 3, 3, 3), ci)
+    if ci == 80:
+        assert cuda_conv.wide_x3_plan(n, ci, co, d, h, w)[4] > 1
+    wr = wt.flip(2, 3, 4).transpose(0, 1).contiguous()
+    for inp, weight in ((x, wt), (g, wr)):
+        got = emulate_wide_tf32x3(inp, weight)
+        assert _rel(got, conv3d_k3_plain(inp, weight)) <= X3_TOL
+        if inp is x:
+            with pltpu.force_tpu_interpret_mode():
+                ref = jax_wide(jnp.asarray(x.permute(0, 2, 3, 4, 1).numpy()),
+                               jnp.asarray(wt.permute(2, 3, 4, 1, 0).numpy()))
+            assert _rel(got.permute(0, 2, 3, 4, 1), ref) <= X3_TOL
+
+
+@pytest.mark.parametrize("shape,ci,co,t", X3_TOEPLITZ)
+def test_toeplitz_tf32x3_emulation_matches_plain_and_jax(shape, ci, co, t):
+    """The forward, and dx as ToeplitzConv3d.backward calls the conv,
+    against toeplitz_conv3d_plain; the forward also against the JAX
+    pallas_conv3d (interpret mode)."""
+    x, g, w = _x3_inputs(13, (*shape, ci), (*shape, co), (3, 3, 3, ci, co),
+                         ci)
+    if ci == 80:
+        n, d, h, wd = shape
+        assert cuda_conv.toeplitz_x3_plan(n, d, h, wd, ci, co)[3] > 1
+    w_flip = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+    for inp, wt in ((x, w), (g, w_flip)):
+        got = emulate_toeplitz_tf32x3(inp, wt)
+        assert _rel(got, tc.toeplitz_conv3d_plain(inp, wt, t)) <= X3_TOL
+        if inp is x:
+            with pltpu.force_tpu_interpret_mode():
+                ref = jax_conv(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
+                               t)
+            assert _rel(got, ref) <= X3_TOL
+
+
+def test_conv_f32_probe_shapes_ptxas_and_card_check(tmp_path,
+                                                    monkeypatch):
+    """probes/conv_f32.py checks chip_smoke.py's conv shapes (the
+    flagship's G and D, StyleGAN-1's G whole and on a space rank's halo'd
+    slab, the ragged ones), reads each f32 conv kernel instance's
+    registers and spills off ptxas.log, and raises without a card."""
+    import chip_smoke
+    from gan3d_tpu_torch.probes import conv_f32
+
+    want = ({(16, c, c, r, r, r) for c, r in chip_smoke.CONV_G
+             + chip_smoke.CONV_D}
+            | {(16, ci, co, r, r, r) for ci, co, r in chip_smoke.CONV_SG1}
+            | {(16, ci, co, r // chip_smoke.SP_SPACE + 2, r, r)
+               for ci, co, r in chip_smoke.CONV_SG1}
+            | set(chip_smoke.CONV_RAGGED))
+    assert set(conv_f32.SHAPES) == want
+    (tmp_path / "ptxas.log").write_text(
+        "ptxas info : Compiling entry function '_ZN45_GLOBAL__N__1_12_conv3d"
+        "_k3_cu_218wide_tf32x3_kernelILi2ELb1EEEvPKfS2_PfS3_NS_4GeomEi'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info : Used 210 registers, used 1 barriers\n"
+        "ptxas info : Compiling entry function '_Z13dw_tc_kerneli'\n"
+        "ptxas info : Used 93 registers\n")
+    got = conv_f32._registers([str(tmp_path / "libconv3d_k3.so")])
+    assert got == {"wide_tf32x3_kernel<2,1>": [210, 8]}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        conv_f32.main()
 
 
 def test_bf16_routes_refuse_cpu_tensors():

@@ -12,7 +12,9 @@
   1e-5);
 - a tile that does not divide W, or is < 1, raises on the CPU too; the
   inputs entry raises without a card unless asked for the CPU; the kernel
-  wrapper refuses CPU tensors and the CPU path launches nothing.
+  wrapper refuses CPU tensors and the CPU path launches nothing;
+- the f32 kernel's tiling plan (``toeplitz_x3_plan``) at the bench's
+  largest shapes and at small, thin and tall ones.
 
 Inputs come from numpy seeds, in the JAX op's layout (NDHWC, DHWIO).
 """
@@ -64,12 +66,16 @@ def test_pick_tile_is_the_jax_rule(c, s):
     assert tc.pick_tile(c, s) == lane_conv.pick_tile(c, s)
 
 
+# The JAX op (Pallas in interpret mode) under jax.jit: one compiled
+# program a shape rather than eager dispatch of every grid step.
+jax_conv = jax.jit(pallas_conv.pallas_conv3d, static_argnums=2)
+
+
 @pytest.mark.parametrize("shape,cin,cout,t", SHAPES)
 def test_op_matches_pallas_conv3d(shape, cin, cout, t):
     x, w = inputs(0, shape, cin, cout)
     with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(pallas_conv.pallas_conv3d(jnp.asarray(x),
-                                                   jnp.asarray(w), t))
+        ref = np.asarray(jax_conv(jnp.asarray(x), jnp.asarray(w), t))
     cuda_conv.reset_counters()
     got = tc.toeplitz_conv3d(torch.from_numpy(x), torch.from_numpy(w), t)
     assert cuda_conv.toeplitz_launches == 0
@@ -81,7 +87,7 @@ def test_op_matches_pallas_conv3d_bf16():
     x, w = inputs(2, (1, 4, 4, 8), 16, 16)
     xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
     with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(pallas_conv.pallas_conv3d(xb, wb, 8), np.float32)
+        ref = np.asarray(jax_conv(xb, wb, 8), np.float32)
     got = tc.toeplitz_conv3d(torch.from_numpy(np.asarray(xb, np.float32))
                              .bfloat16(),
                              torch.from_numpy(np.asarray(wb, np.float32))
@@ -103,8 +109,8 @@ def test_grads_match_jax_custom_vjp():
         return jnp.sum(jnp.tanh(pallas_conv.pallas_conv3d(x, w, 4)))
 
     with pltpu.force_tpu_interpret_mode():
-        gx_j, gw_j = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
-                                                    jnp.asarray(w))
+        gx_j, gw_j = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(x),
+                                                             jnp.asarray(w))
     xt = torch.from_numpy(x).requires_grad_(True)
     wt = torch.from_numpy(w).requires_grad_(True)
     torch.tanh(tc.toeplitz_conv3d(xt, wt, 4)).sum().backward()
@@ -152,9 +158,15 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                         (1, 3, 5, 8, 16), (2, 1, 1, 33, 40),
                                         (1, 300, 2, 2, 8)])
 def test_tiling_plan_covers_the_volume_and_fits_the_card(n, d, h, w, co):
-    bh, wg, cg = cuda_conv.toeplitz_plan(n, d, h, w, co)
-    assert bh * wg * cg <= cuda_conv.TOEPLITZ_THREADS
-    assert cuda_conv.toeplitz_smem(bh, wg, cg) <= cuda_conv.TOEPLITZ_SMEM
-    assert 1 <= bh <= h and 4 * (wg - 1) < w and 8 * (cg - 1) < co
-    blocks = n * d * -(-h // bh) * -(-w // (4 * wg)) * -(-co // (8 * cg))
-    assert blocks >= cuda_conv.SMS or cg == 1
+    """The f32 route's plan (toeplitz_x3_plan) at Ci = Co: a block of 8
+    warps within 227 KB, every position covered, the split-K parts of the
+    Ci/8 chunks none longer than 2048 terms and filling the card where the
+    chunks allow."""
+    bh, bw, wn, p = cuda_conv.toeplitz_x3_plan(n, d, h, w, co, co)
+    assert cuda_conv.toeplitz_x3_smem(bh, bw, wn) <= 227 * 1024
+    assert 1 <= bh <= h and 1 <= bw <= min(w, 32)
+    assert bh * bw <= 64 * (8 // wn)
+    chunks = -(-co // 8)
+    assert 1 <= p <= chunks and -(-chunks // p) * 27 * 8 <= 2048
+    blocks = n * d * -(-h // bh) * -(-w // bw) * -(-co // (32 * wn))
+    assert blocks * p >= cuda_conv.SMS or p == chunks

@@ -45,8 +45,8 @@ Phases, each printing its own line:
              hooks on the port's models, and at each distinct shape (N=16,
              f32 and
              bf16: the wide conv's and dW's bf16 routes on the tensor
-             cores, the wide conv's f32 route in 3xTF32 on them, dW's on
-             the FMA kernel) holds the wide-N conv kernel (forward, and dx
+             cores, their f32 routes in 3xTF32 on them) holds the wide-N
+             conv kernel (forward, and dx
              with the flipped weights) and the dW kernel against their
              plain versions, timing each beside the one PyTorch call that
              computes the same function (F.conv3d;
@@ -54,8 +54,10 @@ Phases, each printing its own line:
              calls (the median of three windows; the device time in a
              profiler trace for bf16 and for f32 at 32ch@64^3, whose
              plain version is timed too);
-             then ragged shapes, a repeated dW and a repeated wide conv
-             (both routes) bit-identical, both routes' weight repacks
+             then ragged shapes (one whose f32 dW blocks sum two chains
+             of MMAs, several with split-K parts), a repeated dW and a
+             repeated wide conv (both routes) bit-identical, both routes'
+             weight repacks
              bit-equal to their plain versions and an f16 input refused;
 5. train   — trains the flagship (64^3, filters 64, z 512, batch 16,
              iterD 2, biggan, hinge) through gan3d_tpu_torch.cli.train:
@@ -348,19 +350,19 @@ SPATIAL_PLACEMENTS = tuple(
 R256_PLACEMENTS = (("G_r256_s4", 32768 // 4, 4096, 64),
                    ("D_r256_s4", 4096 // 4, 512, 128))
 R256_KERNEL_N = 16
-# Kernel instances that must not spill (ptxas): every K3 bf16 instance and
-# every K4 and K5 instance of both routes (bf16, 3xTF32), the K1 and K2
+# Kernel instances that must not spill (ptxas): every K3, K4 and K5
+# instance of both routes (bf16, 3xTF32), the K1 and K2
 # kernels of both routes at the flagship's c = 16 and 32 and the 128^3
 # model's c = 64 and 128, and the ladder's wide_fwd, box_copy (both modes)
 # and im2col27.
-NO_SPILL = re.compile(r"(wide|dw|toeplitz)_tc_kernel|"
-                      r"(wide|toeplitz)_tf32x3_kernel|"
+NO_SPILL = re.compile(r"(wide|dw|toeplitz)_(tc|tf32x3)_kernel|"
                       r"(fwd|bwd_\w+)_(tc|tf32x3)_kernel<(16|32|64|128)>|"
                       r"wide_fwd_kernel|box_copy_kernel|im2col27_kernel")
 # The f32 conv kernels' instances: wide_tf32x3_kernel<wm, vec>,
-# toeplitz_tf32x3_kernel<wn, vec>.
+# dw_tf32x3_kernel<vec>, toeplitz_tf32x3_kernel<wn, vec>.
 X3_CONV_INSTANCES = (
     *(f"wide_tf32x3_kernel<{wm},{v}>" for wm in (1, 2, 4) for v in (0, 1)),
+    *(f"dw_tf32x3_kernel<{v}>" for v in (0, 1)),
     *(f"toeplitz_tf32x3_kernel<{wn},{v}>" for wn in (1, 2) for v in (0, 1)))
 # The kernels whose registers and spills the build phase reports: the
 # tensor-core kernels (the attention's 3xTF32 ones too), the ladder's
@@ -644,10 +646,12 @@ CONV_D = ((32, 64), (32, 32), (64, 32), (64, 16), (128, 16), (128, 8),
 CONV_SG1 = ((512, 512, 4), (512, 256, 8), (256, 256, 8), (256, 128, 16),
             (128, 128, 16), (128, 64, 32), (64, 64, 32), (64, 32, 64))
 # Off the main path, checked but not timed: (N, Ci, Co, D, H, W) with odd,
-# non-cubic volumes, Ci != Co, the narrowest and widest channels.
+# non-cubic volumes, Ci != Co, the narrowest and widest channels; the last
+# one's f32 dW blocks each sum 12-13 boxes of 256 positions, two chains of
+# MMAs (dw_x3_plan: P = 7).
 CONV_RAGGED = ((1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3),
                (1, 16, 40, 1, 1, 33), (3, 40, 16, 7, 6, 70),
-               (1, 256, 8, 4, 4, 4))
+               (1, 256, 8, 4, 4, 4), (1, 200, 72, 20, 18, 36))
 # K5's timed shapes, (channels, side): scripts/bench_lane_conv.py:59, batch
 # 16, 20 iterations (its defaults).
 TOEPLITZ_BENCH = ((16, 64), (32, 64), (32, 32), (64, 32), (128, 16))
@@ -952,8 +956,8 @@ def extra_checks(ca, attention_plain) -> dict:
 def conv_bound(kind: str, dtype: str, n: int, ci: int, co: int, s: int):
     """Least time for one k3 conv call on an H100 SXM: (ms, "bytes" |
     "operations"). 2 * N * S * Ci * 27 * Co operations at PRODUCT_FLOPS
-    (f32: 3xTF32's 165 TF, for K3's FMA route too: the least time the card
-    needs for f32-accurate products); bytes: each input read once, each
+    (f32: 3xTF32's 165 TF, the least time the card needs for f32-accurate
+    products); bytes: each input read once, each
     output written once — the conv reads
     x [N,Ci,S] and w [Co,Ci,27] and writes out [N,Co,S] in one dtype; dW
     reads x and g [N,Co,S] and writes f32 dW [Co,Ci,27]."""
@@ -1088,7 +1092,7 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
                 case = {
                     "kernel": kind, "dtype": dname, "paths": paths,
                     "route": ("tensor_core" if dname == "bfloat16"
-                              else "fma" if kind == "dw" else "tf32x3"),
+                              else "tf32x3"),
                     "N": n, "Ci": cin, "Co": cout, "D": d, "H": h, "W": w,
                     "max_err": rel, "max_abs_err": abs_err, "tol": tol,
                     "bound_ms": b_ms, "bound_by": b_by, "traced": traced,
@@ -1103,16 +1107,34 @@ def conv_kernel_phase(cc, shapes: dict) -> list:
     return cases
 
 
+def dw_x3_chains(cc, shape) -> tuple:
+    """(P, most MMA chains a block sums) of the f32 dW at ``shape``: its
+    plan's split-K parts over the N x boxes list, and a chain of at most
+    DW_X3_CHAIN // (the box rounded up to 8) boxes."""
+    n, ci, co, d, h, w = shape
+    td, th, tw, p = cc.dw_x3_plan(*shape)
+    boxes = n * -(-d // td) * -(-h // th) * -(-w // tw)
+    chain = cc.DW_X3_CHAIN // (-(-td * th * tw // 8) * 8)
+    return p, -(-(-(-boxes // p)) // chain)
+
+
 def conv_extra_checks(cc) -> dict:
-    """The conv kernels against the plain versions at CONV_RAGGED; a
-    repeated dW and a repeated wide conv bit-identical, both dtypes (there
-    and at the flagship's largest shape); both routes' weight repacks (the
-    f32 one split into TF32 halves) bit-equal to their plain versions;
-    an f16 CUDA input refused by both wrappers."""
+    """The conv kernels against the plain versions at CONV_RAGGED (among
+    them an f32 dW whose blocks sum more than one chain of MMAs, and ones
+    split into parts: ``dw_x3_chains``); a repeated dW and a repeated wide
+    conv bit-identical, both dtypes (there and at the flagship's largest
+    shape); both routes' weight repacks (the f32 one split into TF32
+    halves) bit-equal to their plain versions; an f16 CUDA input refused
+    by both wrappers."""
     import torch
 
     from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
 
+    chains = {str(s): dw_x3_chains(cc, s) for s in CONV_RAGGED}
+    if not (any(p > 1 for p, _ in chains.values())
+            and any(c > 1 for _, c in chains.values())):
+        raise AssertionError(f"CONV_RAGGED's f32 dW plans {chains} lack a "
+                             "split-K shape or a block of several chains")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     worst = {}
@@ -1165,6 +1187,7 @@ def conv_extra_checks(cc) -> dict:
         else:
             raise AssertionError(f"the {what} kernel took an f16 input")
     return {"shapes": CONV_RAGGED, "worst_rel_err": worst,
+            "dw_f32_parts_chains": chains,
             "repeated_dw": "bit-identical",
             "repeated_wide": "bit-identical (bf16, f32)",
             "weight_repack": "bit-equal to its plain version (bf16, f32)",
@@ -1535,7 +1558,7 @@ def kernel_ptxas(lines: list) -> dict:
 F32_KERNELS = {"fwd_tc": "fwd_tf32x3_kernel",
                "bwd_tc": "bwd_dq_tf32x3_kernel + bwd_dkdv_tf32x3_kernel",
                "wide_tc": "wide_tf32x3_kernel",
-               "dw_tc": "dw_partial_kernel + dw_reduce_kernel"}
+               "dw_tc": "dw_tf32x3_kernel + sum_partials_kernel"}
 
 
 def f32_fields(case: dict) -> dict:
@@ -1572,8 +1595,8 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
     K4 add ``launches_per_rank`` of the spatial phase's StyleGAN-1 knob
     run on the gloo ranks, f32 route). K1-K5 and the
     ladder add ``device_ms`` and ``library_device_ms`` (device time per
-    call, profiler), and K1-K5 the f32 route's (K1, K2, K4, K5: the 3xTF32
-    kernels; K3: the FMA kernel) numbers at the same case:
+    call, profiler), and K1-K5 the f32 route's (the 3xTF32 kernels)
+    numbers at the same case:
     ``f32_ms``, ``f32_device_ms``, ``f32_library_ms`` and
     ``f32_library_device_ms``, beside its kernels (``f32_kernel``) and
     route (``f32_route``). ``max_err`` is the largest error
@@ -1637,7 +1660,7 @@ def kernels_line(cases: list, conv_cases: list, paths: dict,
         for run, got in out[-1]["launches_per_rank"].items():
             if "r256" in run:
                 out[-1]["launches_by_path"][f"{run}_rank0"] = got["rank0"]
-        # the same case's f32 route (3xTF32 / FMA kernels) beside it
+        # the same case's f32 route (the 3xTF32 kernels) beside it
         f32 = next(c for c in mine if c["dtype"] == "float32" and all(
             c[k] == main[k] for k in main
             if k in ("kernel", "placement", "Ci", "D")))

@@ -29,11 +29,12 @@
 //   f32 contract (1e-4 of the largest value; plain TF32 would not), at
 //   165 TF of f32-accurate products where the FMA pipes give 67; see its
 //   comment below.
-// dW has two routes the same way:
-// - dw_tc (bf16): an implicit GEMM on the tensor cores with the positions
-//   as its k (bf16 operands, f32 sums: the TPU kernel's rounding,
+// dW has two routes the same way, one implicit GEMM with the positions as
+// its k:
+// - dw_tc (bf16): bf16 operands, f32 sums (the TPU kernel's rounding,
 //   dw_conv.py:157-158); see its comment below.
-// - dW (f32): f32 FMAs on the CUDA cores, as below.
+// - dw_tf32x3 (f32): the same GEMM in 3xTF32, both operands split where a
+//   warp reads them; see its comment below.
 // Neither the wide conv nor dW pads or transposes x in device memory, as
 // the TPU path's jnp.pad and transposes did (wide_conv.py:183-187): a
 // block stages a box of x with its 1-voxel halo, masked to zero at the
@@ -41,13 +42,11 @@
 // - dW: the TPU accumulated dW in one f32 block revisited across its
 //   sequential (N, D/dD) grid (dw_conv.py:161-167); on CUDA that is a
 //   race. Here the (n, box) list is split into P chunks (split-K): a block
-//   reduces one chunk for 32 output x 16 input channels x 27 taps into
-//   registers (8 x 4 per thread, one tap) and writes f32 partials
-//   [P, Co, 27, Ci]; a second kernel sums the P partials in a fixed order.
-//   No atomics, so a repeated dW is bit-identical. Per position a thread
-//   reads 8 gradients and 4 inputs as three float4s and does 32 FMAs.
+//   reduces one chunk for 32 output x 16 input channels x 27 taps and
+//   writes f32 partials; a second kernel sums the P partials in a fixed
+//   order. No atomics, so a repeated dW is bit-identical.
 //
-// Inputs: wide_tf32x3 and dW f32, wide_tc and dw_tc bf16, the same for
+// Inputs: wide_tf32x3 and dw_tf32x3 f32, wide_tc and dw_tc bf16, the same for
 // both operands; every accumulation is f32; the wide output takes the input's
 // dtype, dW is f32 on both routes.
 // Any N, Ci, Co, D, H, W >= 1; ragged channel and spatial tiles are masked.
@@ -64,18 +63,10 @@
 
 namespace {
 
-constexpr int kDwCo = 32;    // dW: output channels per block
-constexpr int kDwCi = 16;    // dW: input channels per block
-constexpr int kDwThreads = 27 * (kDwCo / 8) * (kDwCi / 4);  // 432
-constexpr int kGStride = kDwCo + 4;  // floats per position, g tile
-constexpr int kXStride = kDwCi + 4;  // floats per position, x tile
+constexpr int kDwCo = 32;    // dW f32: output channels per block
+constexpr int kDwCi = 16;    // dW f32: input channels per block
 constexpr int kReduceThreads = 256;
 constexpr int kMaxSmem = 227 * 1024;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // A box of td x th x tw positions of one sample; boxes are numbered
 // (n, bd, bh, bw), bw fastest.
@@ -853,123 +844,306 @@ dw_tc_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// dW partials: grid (P, Ci tiles of 16, Co tiles of 32), kDwThreads threads.
-// Block p reduces boxes [nboxes*p/P, nboxes*(p+1)/P) into
-// part[p][co][tap][ci]. Shared memory: gs [box][kGStride], then
-// xs [td+2][th+2][tw+2][kXStride].
-template <typename T>
-__global__ void __launch_bounds__(kDwThreads)
-dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ gr,
-                  float* __restrict__ part, Geom g, int P) {
-  extern __shared__ float4 smem4[];
-  float* gs = reinterpret_cast<float*>(smem4);
+// dw_tf32x3: the f32 route of dW, the GEMM of dw_tc (M = Co, N = 27 taps x
+// Ci, K = positions) in 3xTF32 on the tensor cores (mma.sync m16n8k8,
+// mma_tf32.cuh: each product a_lo b_hi + a_hi b_lo + a_hi b_hi of TF32
+// halves, f32 sums).
+//
+// grid (P split-K parts, Ci tiles of kDwCi, Co tiles of kDwCo), 9 warps.
+// Block p walks the boxes [nboxes*p/P, nboxes*(p+1)/P) of the (n, box)
+// list (td x th x tw positions of one sample, tw a multiple of 4, w
+// fastest) in order; warp w owns taps 3w .. 3w+2 (kd = w / 3, kh = w % 3,
+// kw = 0..2) for all the block's 32 x 16 channels: 3 x 2 x 2 m16n8 tiles,
+// 48 f32 sums a thread. NCDHW holds the positions, the GEMM's k,
+// contiguous along w in both operands, so a box is staged as it lies, in
+// f32, by cp.async (16-byte units where W is a multiple of 4 and x and g
+// are 16-byte aligned, else 4-byte ones; zero-filled outside the volume),
+// with no transpose:
+// - gs [32 co][GS]: the box's output gradient, position (dl, hl, wl) at
+//   column (dl * th + hl) * tw + wl, KP = the box rounded up to 8
+//   positions (the pad is zero);
+// - xs [16 ci][CS]: the box's input and its 1-voxel halo, (td + 2) x
+//   (th + 2) rows of tw + 8 floats from w0 - 4; hrow[k], computed once a
+//   block, is the row and column of box position k, so tap (kd, kh, kw)
+//   reads xs[ci][hrow[k] + (kd * HB + kh) * RW + kw]: a shift is an offset.
+// Both are double-buffered: box b + 1's copies are requested before box
+// b's products run, and one barrier a box orders them.
+// k order. A lane holds k index q and q + 4 of each k8 step (the PTX
+// fragments' own order), positions k0 + q and k0 + q + 4. mma_tf32.cuh's
+// order (q -> 2q, q + 4 -> 2q + 1) would make A's pair one 64-bit read,
+// but a tap with odd kw shifts B's pair by one position, off the 8-byte
+// grid, and 32-bit reads of pairs at one parity reach only 16 of the 32
+// banks: 2-way conflicts on 2 of every 3 taps. In the PTX order a fragment
+// is four 8 x 4 f32 matrices whose rows are 16 contiguous bytes (the k8
+// step's positions come in groups of 4 along w of one row: tw is a
+// multiple of 4), so each m16 tile of A is one ldmatrix.x4 of g, and B at
+// kw = 1 one ldmatrix.x4 of x for both n8 tiles (hrow is 3 mod 4 at a
+// group's start, so those rows start on 16-byte boundaries); B at kw = 0
+// and 2 is two 32-bit reads a lane. A row or channel stride of 4 mod 8
+// floats (GS, CS) keeps all of them free of bank conflicts: an ldmatrix
+// phase's 8 rows of 16 bytes fall on 8 distinct 16-byte bank groups, and
+// a 32-bit read puts lane (g, q) at bank 4 (g * odd mod 8) + q + const.
+// Split: both operands are activations, so nothing is split once a call
+// as K4's weights are; a warp splits each value where it reads it, hi
+// truncated (tc::split_tf32_trunc, one logic op fewer than rounding, the
+// same 2^-21 bound). Split once a box into hi and lo stages in shared
+// memory instead (the lo halves in a third stage, after the box lands; a
+// pass and a barrier a box), g alone came out 0-4% slower and g and x
+// 7-20% slower (with 128-position boxes, for the third stage's room); the
+// ldmatrix reads and the truncating split together gained 2-8% over
+// 32-bit reads and tc::split_tf32: PERF.md, section 6.
+// Sum length: the tensor cores' f32 sums are not rounded to nearest (an f32
+// chain sums at most 2048 terms), so a chain sums at most kDwX3Chain / KP
+// boxes, then is added into a running f32 sum (48 more registers) by
+// ordinary rounded adds. The parts' f32 partials [P, Co, Ci, 27] (dw's own
+// layout) are added in a fixed order by tc::sum_partials; with P = 1 the
+// block writes dw. No atomics, so a repeat is bit-identical. The block's
+// 32 x 16 x 27 sums leave through shared memory, as 32 rows of 16 * 27
+// contiguous floats of dw's layout, so the stores are coalesced.
+constexpr int kDwX3Threads = 288;         // 9 warps x 3 taps
+constexpr int kDwX3Chain = 2048;          // most positions an MMA chain sums
+constexpr int kDwX3Out = kDwCi * 27 + 1;  // floats a row of the output tile
+
+// Positions a dw_tf32x3 box holds, rounded up to a whole k8 step.
+__host__ __device__ inline int dw_x3_kp(int td, int th, int tw) {
+  return cdiv(td * th * tw, 8) * 8;
+}
+
+// Floats a channel of a dw_tf32x3 x stage: (td + 2) x (th + 2) rows of
+// tw + 8, rounded up to 4 mod 8.
+__host__ __device__ inline int dw_x3_cs(int td, int th, int tw) {
+  return (((td + 2) * (th + 2) * (tw + 8) + 7) & ~7) + 4;
+}
+
+// Shared-memory bytes of a dw_tf32x3 block: two stages (x, then g: rows of
+// KP + 4 floats), the halo-row table, and at least the epilogue's output
+// tile.
+inline size_t dw_x3_smem(int td, int th, int tw) {
+  const size_t kp = dw_x3_kp(td, th, tw);
+  const size_t stage = kDwCi * (size_t)dw_x3_cs(td, th, tw) + kDwCo * (kp + 4);
+  const size_t bytes = 4 * (2 * stage + kp);
+  const size_t out = 4 * (size_t)kDwCo * kDwX3Out;
+  return bytes > out ? bytes : out;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kDwX3Threads, 1)
+dw_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ gr,
+                 float* __restrict__ out, Geom g, int P) {
+  extern __shared__ float4 smem_dw[];
   const int box = g.td * g.th * g.tw;
-  float* xs = gs + box * kGStride;
-  const int HB = g.th + 2, WB = g.tw + 2;
-  const int halo = (g.td + 2) * HB * WB;
+  const int KP = dw_x3_kp(g.td, g.th, g.tw), GS = KP + 4;
+  const int CS = dw_x3_cs(g.td, g.th, g.tw);
+  const int HB = g.th + 2, RW = g.tw + 8, TD2 = g.td + 2;
+  const int stage = kDwCi * CS + kDwCo * GS;  // floats: xs, then gs
+  float* st0 = reinterpret_cast<float*>(smem_dw);  // [2][stage]
+  int* hrow = reinterpret_cast<int*>(st0 + 2 * stage);  // [KP]
 
   const int p = blockIdx.x;
   const int ci0 = blockIdx.y * kDwCi, co0 = blockIdx.z * kDwCo;
-  const int t = threadIdx.x;
-  const int cig = t % (kDwCi / 4);
-  const int cog = (t / (kDwCi / 4)) % (kDwCo / 8);
-  const int tap = t / ((kDwCi / 4) * (kDwCo / 8));
-  const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-  const int toff = (kd * HB + kh) * WB + kw;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int kd = warp / 3, kh = warp - kd * 3;
+
+  const float inv_tw = 1.f / g.tw, inv_th = 1.f / g.th, inv_td = 1.f / g.td;
+  // pad positions read a staged column (position 0's), times a zero g
+  for (int k = t; k < KP; k += kDwX3Threads) {
+    const int r = fdiv(k, inv_tw), wl = k - r * g.tw;
+    const int dl = fdiv(r, inv_th), hl = r - dl * g.th;
+    hrow[k] = k < box ? (dl * HB + hl) * RW + wl + 3 : 3;
+  }
+  const int pad = KP - box;  // 0 or 4
+  for (int i = t; i < 2 * kDwCo * pad; i += kDwX3Threads)
+    st0[(i / (kDwCo * pad)) * stage + kDwCi * CS +
+        (i / pad % kDwCo) * GS + box + i % pad] = 0.f;
 
   const long long HW = (long long)g.H * g.W;
   const long long DHW = HW * g.D;
   const long long nboxes = (long long)g.N * g.nbd * g.nbh * g.nbw;
-  const long long b_begin = nboxes * p / P, b_end = nboxes * (p + 1) / P;
+  const long long b_begin = nboxes * p / P;
+  const int nb = (int)(nboxes * (p + 1) / P - b_begin);
+  const int chain = kDwX3Chain / KP;  // boxes an MMA chain sums
+  const int xrow = kVec ? RW / 4 : g.tw + 2;  // copies a halo row
+  const int grow = kVec ? g.tw / 4 : g.tw;    // copies a g row
+  const float inv_xrow = 1.f / xrow, inv_grow = 1.f / grow;
+  const float inv_HB = 1.f / HB, inv_TD2 = 1.f / TD2;
 
-  float acc[8][4];
-#pragma unroll
-  for (int o = 0; o < 8; ++o)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[o][i] = 0.f;
-
-  for (long long b = b_begin; b < b_end; ++b) {
-    long long q = b;
-    const int bw = (int)(q % g.nbw); q /= g.nbw;
-    const int bh = (int)(q % g.nbh); q /= g.nbh;
-    const int bd = (int)(q % g.nbd);
-    const int n = (int)(q / g.nbd);
+  // box b's x halo and g into stage buf
+  auto load = [&](long long b, int buf) {
+    const int bw = (int)(b % g.nbw); b /= g.nbw;
+    const int bh = (int)(b % g.nbh); b /= g.nbh;
+    const int bd = (int)(b % g.nbd);
+    const int n = (int)(b / g.nbd);
     const int d0 = bd * g.td, h0 = bh * g.th, w0 = bw * g.tw;
-    __syncthreads();
-    // g tile, positions fastest across threads: coalesced reads, and a
-    // 36-float row stride keeps the float4 stores free of bank conflicts
-    const T* gn = gr + (long long)n * g.Co * DHW;
-    for (int i = t; i < box * (kDwCo / 4); i += blockDim.x) {
-      const int s = i % box, c4 = i / box;
-      const int wl = s % g.tw, hl = (s / g.tw) % g.th, dl = s / (g.tw * g.th);
+    float* xs = st0 + buf * stage;
+    float* gs = xs + kDwCi * CS;
+    const float* xn = x + ((long long)n * g.Ci + ci0) * DHW;
+    const float* gn = gr + ((long long)n * g.Co + co0) * DHW;
+    for (int i = t; i < kDwCi * TD2 * HB * xrow; i += kDwX3Threads) {
+      const int r = fdiv(i, inv_xrow), u = i - r * xrow;
+      const int r2 = fdiv(r, inv_HB), hh = r - r2 * HB;
+      const int ch = fdiv(r2, inv_TD2), dd = r2 - ch * TD2;
+      const int gd = d0 + dd - 1, gh = h0 + hh - 1;
+      const int gw = kVec ? w0 - 4 + 4 * u : w0 - 1 + u;
+      const bool ok = ci0 + ch < g.Ci && gd >= 0 && gd < g.D && gh >= 0 &&
+                      gh < g.H && gw >= 0 && gw < g.W;
+      const float* src =
+          ok ? xn + ch * DHW + gd * HW + (long long)gh * g.W + gw : x;
+      float* dst = xs + ch * CS + (dd * HB + hh) * RW;
+      if (kVec)
+        tc::cp_async16(dst + 4 * u, src, ok ? 16 : 0);
+      else
+        tc::cp_async4(dst + u + 3, src, ok ? 4 : 0);
+    }
+    for (int i = t; i < kDwCo * g.td * g.th * grow; i += kDwX3Threads) {
+      const int r = fdiv(i, inv_grow), u = i - r * grow;
+      const int r2 = fdiv(r, inv_th), hl = r - r2 * g.th;
+      const int co = fdiv(r2, inv_td), dl = r2 - co * g.td;
+      const int wl = kVec ? 4 * u : u;
       const int gd = d0 + dl, gh = h0 + hl, gw = w0 + wl;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (gd < g.D && gh < g.H && gw < g.W) {
-        const T* src = gn + gd * HW + (long long)gh * g.W + gw;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int co = co0 + c4 * 4 + j;
-          if (co < g.Co) v[j] = to_f32(src[co * DHW]);
-        }
-      }
-      *reinterpret_cast<float4*>(gs + s * kGStride + c4 * 4) =
-          make_float4(v[0], v[1], v[2], v[3]);
+      const bool ok = co0 + co < g.Co && gd < g.D && gh < g.H && gw < g.W;
+      const float* src =
+          ok ? gn + co * DHW + gd * HW + (long long)gh * g.W + gw : gr;
+      float* dst = gs + co * GS + (dl * g.th + hl) * g.tw + wl;
+      if (kVec)
+        tc::cp_async16(dst, src, ok ? 16 : 0);
+      else
+        tc::cp_async4(dst, src, ok ? 4 : 0);
     }
-    // x tile with its halo, masked to zero outside the volume
-    const T* xn = x + (long long)n * g.Ci * DHW;
-    for (int i = t; i < halo * (kDwCi / 4); i += blockDim.x) {
-      const int hp = i % halo, c4 = i / halo;
-      const int ww = hp % WB, hh = (hp / WB) % HB, dd = hp / (WB * HB);
-      const int gd = d0 + dd - 1, gh = h0 + hh - 1, gw = w0 + ww - 1;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (gd >= 0 && gd < g.D && gh >= 0 && gh < g.H && gw >= 0 &&
-          gw < g.W) {
-        const T* src = xn + gd * HW + (long long)gh * g.W + gw;
+  };
+
+  float acc[3][2][2][4], run[3][2][2][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int ci = ci0 + c4 * 4 + j;
-          if (ci < g.Ci) v[j] = to_f32(src[ci * DHW]);
+  for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[kw][mt][nt][e] = run[kw][mt][nt][e] = 0.f;
+
+  // The products of the box in stage buf: per k8 step this lane's A values
+  // (rows gq, gq + 8 of each m16 tile at positions k0 + q, k0 + q + 4) and
+  // B values (channel gq of each n8 tile at those positions, shifted by
+  // each tap), fetched one step ahead; three passes over the 12 tiles (a_lo
+  // b_hi, a_hi b_lo, a_hi b_hi) keep 12 independent sums in flight.
+  auto products = [&](int buf) {
+    const float* xs = st0 + buf * stage + (kd * HB + kh) * RW;
+    const float* xh = xs + gq * CS;
+    // ldmatrix rows: matrix j = lane / 8 takes row lane % 8 of A's rows
+    // (j & 1) * 8 .. + 7 at k (j >> 1) * 4 .. + 3, and of B's (kw = 1)
+    // channels (j >> 1) * 8 .. + 7 at the k8 step's group j & 1
+    const int jm = lane >> 3, lr = lane & 7;
+    const float* a_ld = st0 + buf * stage + kDwCi * CS +
+                        ((jm & 1) * 8 + lr) * GS + (jm >> 1) * 4;
+    const float* b_ld = xs + ((jm >> 1) * 8 + lr) * CS + 1;
+    uint32_t va[2][4], vb[3][2][2];
+    auto fetch = [&](int k0) {
+      const int r0 = hrow[k0 + q], r1 = hrow[k0 + q + 4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        tc::ldsm_x4(va[mt], a_ld + mt * 16 * GS + k0);
+      uint32_t b1[4];
+      tc::ldsm_x4(b1, b_ld + hrow[k0 + (jm & 1) * 4]);
+      vb[1][0][0] = b1[0];
+      vb[1][0][1] = b1[1];
+      vb[1][1][0] = b1[2];
+      vb[1][1][1] = b1[3];
+#pragma unroll
+      for (int kw = 0; kw < 3; kw += 2)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          vb[kw][nt][0] = __float_as_uint(xh[nt * 8 * CS + r0 + kw]);
+          vb[kw][nt][1] = __float_as_uint(xh[nt * 8 * CS + r1 + kw]);
         }
-      }
-      *reinterpret_cast<float4*>(xs + hp * kXStride + c4 * 4) =
-          make_float4(v[0], v[1], v[2], v[3]);
+    };
+    fetch(0);
+#pragma unroll 1
+    for (int k0 = 0; k0 < KP; k0 += 8) {
+      uint32_t ah[2][4], al[2][4], bh[3][2][2], bl[3][2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tc::split_tf32_trunc(va[mt][e], ah[mt][e], al[mt][e]);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tc::split_tf32_trunc(vb[kw][nt][e], bh[kw][nt][e],
+                                 bl[kw][nt][e]);
+      if (k0 + 8 < KP) fetch(k0 + 8);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            tc::mma_tf32(acc[kw][mt][nt], al[mt], bh[kw][nt]);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            tc::mma_tf32(acc[kw][mt][nt], ah[mt], bl[kw][nt]);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            tc::mma_tf32(acc[kw][mt][nt], ah[mt], bh[kw][nt]);
     }
-    __syncthreads();
-    int s = 0;
-    for (int dl = 0; dl < g.td; ++dl) {
-      for (int hl = 0; hl < g.th; ++hl, s += g.tw) {
-        const float* xrow =
-            xs + ((dl * HB + hl) * WB + toff) * kXStride + cig * 4;
-        const float* grow = gs + s * kGStride + cog * 8;
-#pragma unroll 4
-        for (int wl = 0; wl < g.tw; ++wl) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(xrow + wl * kXStride);
-          const float4 ga =
-              *reinterpret_cast<const float4*>(grow + wl * kGStride);
-          const float4 gb =
-              *reinterpret_cast<const float4*>(grow + wl * kGStride + 4);
-          const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-          const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+  };
+
+  load(b_begin, 0);
+  tc::cp_async_commit();
+  for (int i = 0; i < nb; ++i) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // box i landed; box i - 1's stage is free
+    if (i + 1 < nb) {
+      load(b_begin + i + 1, (i + 1) & 1);  // in flight during the products
+      tc::cp_async_commit();
+    }
+    products(i & 1);
+    if ((i + 1) % chain == 0 || i + 1 == nb) {  // the chain into the sum
 #pragma unroll
-          for (int o = 0; o < 8; ++o)
+      for (int kw = 0; kw < 3; ++kw)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[o][i] = fmaf(gv[o], xa[i], acc[o][i]);
-        }
-      }
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              run[kw][mt][nt][e] += acc[kw][mt][nt][e];
+              acc[kw][mt][nt][e] = 0.f;
+            }
     }
   }
 
+  // the block's sums as [co][ci * 27 + tap] rows, then out in dw's layout
+  __syncthreads();  // every warp's products are done: the stages are free
 #pragma unroll
-  for (int o = 0; o < 8; ++o) {
-    const int co = co0 + cog * 8 + o;
-    if (co >= g.Co) break;
-    float* dst = part + (((long long)p * g.Co + co) * 27 + tap) * g.Ci;
+  for (int kw = 0; kw < 3; ++kw)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ci = ci0 + cig * 4 + i;
-      if (ci < g.Ci) dst[ci] = acc[o][i];
-    }
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st0[(mt * 16 + gq + (e >> 1) * 8) * kDwX3Out +
+              (nt * 8 + 2 * q + (e & 1)) * 27 + warp * 3 + kw] =
+              run[kw][mt][nt][e];
+  __syncthreads();
+  const int cols = 27 * min(kDwCi, g.Ci - ci0);
+  const int rows = min(kDwCo, g.Co - co0);
+  float* dst = out + (((long long)p * g.Co + co0) * g.Ci + ci0) * 27;
+  for (int i = t; i < rows * cols; i += kDwX3Threads) {
+    const int r = i / cols, c = i - r * cols;
+    dst[(long long)r * g.Ci * 27 + c] = st0[r * kDwX3Out + c];
   }
 }
 
@@ -1094,24 +1268,32 @@ int launch_wide_tc(const void* x, const void* wp, void* part, void* out,
                                (long long)g.N * g.Co * g.D * g.H * g.W, st);
 }
 
-template <typename T>
-int launch_dw(const void* x, const void* gr, void* part, void* dw,
-              const Geom& g, int P, cudaStream_t st) {
+int launch_dw_x3(const void* x, const void* gr, void* part, void* dw,
+                 const Geom& g, int P, cudaStream_t st) {
   const long long boxes = (long long)g.N * g.nbd * g.nbh * g.nbw;
-  const int ci_tiles = cdiv(g.Ci, kDwCi), co_tiles = cdiv(g.Co, kDwCo);
-  if (P < 1 || P > boxes || ci_tiles > 65535 || co_tiles > 65535)
+  if (P < 1 || P > boxes || g.tw % 4 != 0 ||
+      dw_x3_kp(g.td, g.th, g.tw) > kDwX3Chain ||
+      cdiv(g.Ci, kDwCi) > 65535 || cdiv(g.Co, kDwCo) > 65535)
     return (int)cudaErrorInvalidValue;
-  const int box = g.td * g.th * g.tw;
-  const int halo = (g.td + 2) * (g.th + 2) * (g.tw + 2);
-  const size_t smem = sizeof(float) * (box * kGStride + halo * kXStride);
-  if (!set_smem(dw_partial_kernel<T>, smem)) return (int)cudaErrorInvalidValue;
-  dw_partial_kernel<T><<<dim3(P, ci_tiles, co_tiles), kDwThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gr),
-      static_cast<float*>(part), g, P);
+  const bool vec = g.W % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)gr % 16 == 0;
+  const size_t smem = dw_x3_smem(g.td, g.th, g.tw);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* gf = static_cast<const float*>(gr);
+  float* pf = static_cast<float*>(part);
+  float* df = static_cast<float*>(dw);
+  const dim3 grid((unsigned)P, cdiv(g.Ci, kDwCi), cdiv(g.Co, kDwCo));
+  auto launch = [&](auto kernel) {
+    if (!set_smem(kernel, smem)) return false;
+    kernel<<<grid, kDwX3Threads, smem, st>>>(xf, gf, P == 1 ? df : pf, g, P);
+    return true;
+  };
+  const bool ok = vec ? launch(dw_tf32x3_kernel<true>)
+                      : launch(dw_tf32x3_kernel<false>);
+  if (!ok) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return reduce_partials(static_cast<const float*>(part),
-                         static_cast<float*>(dw), P, g, st);
+  if (err != cudaSuccess || P == 1) return (int)err;
+  return (int)tc::sum_partials(pf, df, P, (long long)g.Co * g.Ci * 27, st);
 }
 
 int launch_dw_tc(const void* x, const void* gr, void* part, void* dw,
@@ -1194,15 +1376,15 @@ int k3_wide_tc(const void* x, const void* wp, void* part, void* out, int N,
 }
 
 // The f32 route of dW: dw [Co, Ci, 3, 3, 3] from x [N, Ci, D, H, W] and
-// g [N, Co, D, H, W], all f32; part [P, Co, 27, Ci] (f32) is scratch.
-// Tiling (td, th, tw, P) as chosen by ops/cuda_conv.py:dw_plan.
-int k3_dw(const void* x, const void* gr, void* part, void* dw, int N, int Ci,
-          int Co, int D, int H, int W, int td, int th, int tw, int P,
-          void* stream) {
+// g [N, Co, D, H, W], all f32; part [P, Co, Ci, 27] (f32) is scratch when
+// P > 1. Tiling (td, th, tw, P) as chosen by ops/cuda_conv.py:dw_x3_plan.
+int k3_dw_x3(const void* x, const void* gr, void* part, void* dw, int N,
+             int Ci, int Co, int D, int H, int W, int td, int th, int tw,
+             int P, void* stream) {
   Geom g;
   if (!make_geom(&g, N, Ci, Co, D, H, W, td, th, tw))
     return (int)cudaErrorInvalidValue;
-  return launch_dw<float>(x, gr, part, dw, g, P, (cudaStream_t)stream);
+  return launch_dw_x3(x, gr, part, dw, g, P, (cudaStream_t)stream);
 }
 
 // The bf16 route of dW: dw [Co, Ci, 3, 3, 3] (f32) from x [N, Ci, D, H, W]

@@ -52,6 +52,18 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// x ~ hi + lo with hi x truncated to TF32 (its 13 low bits cleared: one
+// logic op where rounding takes two) and lo = rna(x - hi), x - hi exact:
+// |x - (hi + lo)| <= 2^-21 |x| as for split_tf32, though |lo| reaches
+// 2^-10 |x| (split_tf32: 2^-11), so the dropped a_lo b_lo term is up to 4x
+// split_tf32's. For the kernels that split every streamed value of both
+// operands where a warp reads it (dw_tf32x3).
+__device__ __forceinline__ void split_tf32_trunc(uint32_t x, uint32_t& hi,
+                                                 uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = tf32_rna(__uint_as_float(x) - __uint_as_float(hi));
+}
+
 // d += a b on a 16x8x8 tile, TF32 in, f32 sums.
 __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
                                          const uint32_t* b) {

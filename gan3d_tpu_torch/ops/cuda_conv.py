@@ -16,9 +16,9 @@ stream:
   ``repack_weight_x3`` is its plain version); any other dtype raises;
 - ``conv3d_dw_cuda(x, g)``: its weight gradient (K3), split-K partials
   summed in a fixed order by a second kernel, so a repeated dW is
-  bit-identical. Two routes by dtype: bf16 goes to the tensor-core
-  implicit GEMM over the positions (``dw_tc_kernel``), f32 to the f32-FMA
-  ``dw_partial_kernel``;
+  bit-identical. Two routes by dtype, both implicit GEMMs over the
+  positions on the tensor cores: bf16 goes to ``dw_tc_kernel``, f32 to
+  the 3xTF32 ``dw_tf32x3_kernel``;
 - ``toeplitz_conv3d_cuda(x, w)``: the direct k3/s1/p1 conv in the JAX
   op's channels-last layout (K5), the conv of ``ops/toeplitz_conv.py``.
   Two routes by dtype: bf16 goes to the tensor-core implicit GEMM
@@ -29,7 +29,7 @@ stream:
   ``repack_toeplitz_weight_x3`` is its plain version).
 
 The tiling of each launch (``wide_x3_plan``, ``wide_tc_plan``,
-``dw_plan``, ``dw_tc_plan``, ``toeplitz_x3_plan``, ``toeplitz_tc_plan``)
+``dw_x3_plan``, ``dw_tc_plan``, ``toeplitz_x3_plan``, ``toeplitz_tc_plan``)
 is chosen here, so the CPU tests reach it. Two ``autograd.Function``s
 carry the routes of ``ops/conv3d.conv3d``, counterparts of the JAX custom
 VJPs (K5's is ``ops/toeplitz_conv.py:ToeplitzConv3d``):
@@ -64,11 +64,13 @@ from gan3d_tpu_torch.ops.cuda_build import SMS
 _DTYPES = (torch.float32, torch.bfloat16)
 TC_CI = 16                 # K4, K5 bf16: input channels per stage (kTcCi)
 TC_CO_PAD = 64             # K4, K5 bf16: repacked Co multiple (csrc kTcCoPad)
-DW_BOX = 128               # K3: output positions per staged box
 DW_CI, DW_CO = 16, 32      # K3: channels per block (csrc kDwCi / kDwCo;
                            # the bf16 route's kDwTcCi / kDwTcCo too)
-DW_BLOCKS_PER_SM = 2       # K3: resident blocks per SM (both routes)
+DW_BLOCKS_PER_SM = 2       # K3 bf16: resident blocks per SM
 DW_TC_BOX = 512            # K3 bf16: most positions per staged box
+DW_X3_BOX = 256            # K3 f32: most positions per staged box
+DW_X3_CHAIN = 2048         # K3 f32: most positions an MMA chain sums in the
+                           # tensor cores (csrc kDwX3Chain)
 TOEPLITZ_TC_WARPS = 8      # K5 bf16: warps per block (csrc kTcThreads / 32)
 TOEPLITZ_TC_SMEM = 113 << 10  # K5 bf16: shared memory of one of 2 blocks/SM
 X3_WARPS = 8               # K4, K5 f32: warps per block (csrc kX3Threads / 32)
@@ -207,18 +209,44 @@ def repack_weight_x3(w: torch.Tensor) -> torch.Tensor:
     return torch.stack(split_tf32(wp.contiguous()))
 
 
-def dw_plan(n: int, ci: int, co: int, d: int, h: int, w: int
-            ) -> Tuple[int, int, int, int]:
-    """K3 tiling (td, th, tw, P): boxes of up to DW_BOX positions, and P
-    split-K chunks of the N x boxes list, enough that the grid of
-    P x ci tiles x co tiles fills the card twice over."""
-    tw = min(w, 32)
-    th = min(h, max(1, DW_BOX // tw))
-    td = min(d, max(1, DW_BOX // (tw * th)))
+def dw_x3_smem(td: int, th: int, tw: int) -> int:
+    """Shared-memory bytes of a K3 f32 block (csrc dw_x3_smem): two stages
+    of DW_CI x channels (the halo box's (td + 2) x (th + 2) rows of tw + 8
+    floats, rounded up to 4 mod 8) and DW_CO g rows (the box rounded up to
+    8 positions, + 4 floats), the halo-row table, and at least the
+    epilogue's DW_CO x (27 * DW_CI + 1) output tile."""
+    kp = _cdiv(td * th * tw, 8) * 8
+    cs = (((td + 2) * (th + 2) * (tw + 8) + 7) & ~7) + 4
+    stage = DW_CI * cs + DW_CO * (kp + 4)
+    return max(4 * (2 * stage + kp), 4 * DW_CO * (27 * DW_CI + 1))
+
+
+def dw_x3_plan(n: int, ci: int, co: int, d: int, h: int, w: int
+               ) -> Tuple[int, int, int, int]:
+    """K3 f32 tiling (td, th, tw, P): boxes of up to DW_X3_BOX positions
+    (tw a multiple of 4 up to 32 along w, the positions past W zero; th
+    and td about equal, so the halo stays small), planes, then rows,
+    halved while the block's shared memory exceeds SMEM_MAX, then evened
+    out over the volume; blocks of
+    DW_CO output x DW_CI input channels, one an SM; and P split-K chunks of
+    the N x boxes list, as many as give about two blocks an SM over the
+    grid. A chain of MMAs sums DW_X3_CHAIN // (box rounded up to 8) boxes
+    at most, then a running f32 sum takes it, so P is free of the sum's
+    length."""
+    tw = min(_cdiv(w, 4) * 4, 32)
+    rest = DW_X3_BOX // tw
+    th = min(h, 1 << (math.isqrt(rest).bit_length() - 1))
+    td = min(d, max(1, rest // th))
+    th = min(h, max(1, rest // td))
+    while (td > 1 or th > 1) and dw_x3_smem(td, th, tw) > SMEM_MAX:
+        if td > 1:
+            td = _cdiv(td, 2)
+        else:
+            th = _cdiv(th, 2)
+    td, th = _cdiv(d, _cdiv(d, td)), _cdiv(h, _cdiv(h, th))  # even boxes
     boxes = n * _cdiv(d, td) * _cdiv(h, th) * _cdiv(w, tw)
     tiles = _cdiv(ci, DW_CI) * _cdiv(co, DW_CO)
-    p = max(1, min(boxes, _cdiv(DW_BLOCKS_PER_SM * SMS, tiles)))
-    return td, th, tw, p
+    return td, th, tw, max(1, min(boxes, round(2 * SMS / tiles)))
 
 
 def dw_tc_plan(n: int, ci: int, co: int, d: int, h: int, w: int
@@ -323,7 +351,7 @@ def repack_toeplitz_weight_x3(w: torch.Tensor) -> torch.Tensor:
 # point also takes the stream and returns a cudaError_t.
 _SIGNATURES = {"conv3d_k3": {"k3_wide_x3": (4, 11), "k3_wide_tc": (4, 11),
                               "k3_repack": (2, 2), "k3_repack_x3": (2, 2),
-                              "k3_dw": (4, 10), "k3_dw_tc": (4, 10)},
+                              "k3_dw_x3": (4, 10), "k3_dw_tc": (4, 10)},
                "conv3d_toeplitz": {"k3_toeplitz_x3": (4, 10),
                                    "k3_toeplitz_repack": (2, 2),
                                    "k3_toeplitz_repack_x3": (2, 2),
@@ -444,8 +472,8 @@ def wide_conv3d_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3d_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K3: dW of a k3/s1/p1 conv from its input x [N,Ci,D,H,W] and output
-    gradient g [N,Co,D,H,W] (same dtype): f32 [Co, Ci, 3, 3, 3]. bf16 runs
-    on the tensor cores, f32 on the FMA pipes."""
+    gradient g [N,Co,D,H,W] (same dtype): f32 [Co, Ci, 3, 3, 3]. Both
+    dtypes run on the tensor cores, f32 in 3xTF32."""
     global dw_launches, dw_tc_launches
     x, g = x.contiguous(), g.contiguous()
     _check(x, g, "gradient")
@@ -467,11 +495,12 @@ def conv3d_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         _raise_if(err, "dW (bf16)")
         dw_tc_launches += 1
         return dw
-    td, th, tw, p = dw_plan(n, ci, co, d, h, wd)
-    part = torch.empty((p, co, 27, ci), dtype=torch.float32, device=x.device)
+    td, th, tw, p = dw_x3_plan(n, ci, co, d, h, wd)
+    part = (torch.empty((p, co, ci, 27), dtype=torch.float32,
+                        device=x.device) if p > 1 else dw)
     with torch.cuda.device(x.device):
-        err = lib.k3_dw(_ptr(x), _ptr(g), _ptr(part), _ptr(dw), n, ci, co, d,
-                        h, wd, td, th, tw, p, _stream(x))
+        err = lib.k3_dw_x3(_ptr(x), _ptr(g), _ptr(part), _ptr(dw), n, ci, co,
+                           d, h, wd, td, th, tw, p, _stream(x))
     _raise_if(err, "dW (f32)")
     dw_launches += 1
     return dw

@@ -2,20 +2,22 @@
 
 ``python -m gan3d_tpu_torch.probes.conv_f32`` builds ``csrc/conv3d_k3.cu``
 and ``csrc/conv3d_toeplitz.cu``, prints the card's name and power limit
-and ptxas's registers and spills of ``wide_tf32x3_kernel`` and
-``toeplitz_tf32x3_kernel``, then prints one JSON line a case:
+and ptxas's registers and spills of ``wide_tf32x3_kernel``,
+``dw_tf32x3_kernel`` and ``toeplitz_tf32x3_kernel``, then prints one JSON
+line a case:
 
-- K4 (``wide_conv3d_cuda``) forward and dx at every shape of
-  ``SHAPES`` (chip_smoke.py's conv shapes: the 64^3 flagship's G and D,
-  StyleGAN-1's G whole and on a space-2 rank's halo'd slab, and the
-  ragged ones), f32, against ``conv3d_k3_plain`` (error relative to the
-  largest value), a repeat bit-identical, the split weight bit-equal to
-  ``repack_weight_x3``;
+- K4 (``wide_conv3d_cuda``) forward and dx and K3 (``conv3d_dw_cuda``) at
+  every shape of ``SHAPES`` (chip_smoke.py's conv shapes: the 64^3
+  flagship's G and D, StyleGAN-1's G whole and on a space-2 rank's halo'd
+  slab, and the ragged ones), f32, against ``conv3d_k3_plain`` and
+  ``conv3d_dw_plain`` (error relative to the largest value), repeats
+  bit-identical, the split weight bit-equal to ``repack_weight_x3``;
 - K5 (``toeplitz_conv3d_cuda``) at ``scripts/bench_lane_conv.py``'s
   shapes (batch 16) and ragged ones against ``toeplitz_conv3d_plain``;
 - at the ``TIMED`` shapes, each kernel's time (CUDA events, the median of
   three windows of calls) and its device time (a torch.profiler trace)
-  beside cuDNN's f32 conv on the same tensors (TF32 off, as
+  beside cuDNN's f32 conv, or its f32 weight gradient for K3 (``wgrad_``),
+  on the same tensors (TF32 off, as
   ``utils/platform.configure_precision`` sets it), a yardstick the port
   never calls.
 
@@ -46,7 +48,8 @@ SHAPES = sorted(set(
     + [(16, ci, co, r, r, r) for ci, co, r in _SG1]
     + [(16, ci, co, r // 2 + 2, r, r) for ci, co, r in _SG1]
     + [(1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3), (1, 16, 40, 1, 1, 33),
-       (3, 40, 16, 7, 6, 70), (1, 256, 8, 4, 4, 4)]))
+       (3, 40, 16, 7, 6, 70), (1, 256, 8, 4, 4, 4),
+       (1, 200, 72, 20, 18, 36)]))
 TIMED = {(16, 32, 32, 64, 64, 64), (16, 64, 64, 32, 32, 32),
          (16, 128, 128, 16, 16, 16), (16, 128, 128, 8, 8, 8),
          (16, 256, 256, 8, 8, 8), (16, 256, 256, 4, 4, 4),
@@ -111,7 +114,7 @@ def _registers(libs: List[str]) -> dict:
     for lib in libs:
         with open(os.path.join(os.path.dirname(lib), "ptxas.log")) as f:
             for ln in f:
-                m = re.search(r"((?:wide|toeplitz)_tf32x3_kernel)I((?:L[ib]"
+                m = re.search(r"((?:wide|dw|toeplitz)_tf32x3_kernel)I((?:L[ib]"
                               r"\d+E)+)E", ln)
                 if "entry function" in ln:
                     name = (m.group(1) + "<" + ",".join(re.findall(
@@ -136,7 +139,7 @@ def main() -> int:
     from gan3d_tpu_torch.ops import cuda_build
     from gan3d_tpu_torch.ops import cuda_conv as cc
     from gan3d_tpu_torch.ops import toeplitz_conv as tc
-    from gan3d_tpu_torch.ops.conv3d import conv3d_k3_plain
+    from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
     from gan3d_tpu_torch.utils.platform import configure_precision
 
     configure_precision(torch.device("cuda"))
@@ -171,7 +174,23 @@ def main() -> int:
         if not (max(case["fwd_err"], case["dx_err"]) <= TOL
                 and case["repeat"] and case["split"]):
             bad.append(case)
-        del x, wt, g, wr, got
+        del got
+        dw = cc.conv3d_dw_cuda(x, g)
+        case = {"kernel": "dw", "shape": shape, "plan": cc.dw_x3_plan(*shape),
+                "err": _rel(dw, conv3d_dw_plain(x, g)),
+                "repeat": bool(torch.equal(dw, cc.conv3d_dw_cuda(x, g)))}
+        if shape in TIMED:
+            one = [1, 1, 1]
+            times = _times(lambda: cc.conv3d_dw_cuda(x, g),
+                           lambda: torch.ops.aten.convolution_backward(
+                               g, x, wt, None, one, one, one, False,
+                               [0, 0, 0], 1, [False, True, False])[1])
+            case.update({k.replace("cudnn", "wgrad"): v
+                         for k, v in times.items()})
+        print(json.dumps(case), flush=True)
+        if not (case["err"] <= TOL and case["repeat"]):
+            bad.append(case)
+        del x, wt, g, wr, dw
         torch.cuda.empty_cache()
     for shape, ci, co in ([((16, s, s, s), c, c) for c, s in TOEPLITZ]
                           + TOEPLITZ_EXTRA):

@@ -370,7 +370,8 @@ PLAN_SHAPES = ([(16, c, c, r, r, r) for c, r in sorted(set(FLAGSHIP_G
                + [(16, ci, co, r // 2 + 2, r, r) for ci, co, r in SG1_G]
                + [(1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3),
                   (1, 16, 40, 1, 1, 33), (3, 40, 16, 7, 6, 70),
-                  (1, 256, 8, 4, 4, 4), (1, 8, 8, 200, 1, 1)])
+                  (1, 256, 8, 4, 4, 4), (1, 200, 72, 20, 18, 36),
+                  (1, 8, 8, 200, 1, 1)])
 
 
 @pytest.mark.parametrize("n,ci,co,d,h,w", PLAN_SHAPES)
@@ -414,9 +415,23 @@ def test_tiling_plans_cover_the_volume_and_fit_the_card(n, ci, co, d, h, w):
     boxes = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw)
     assert boxes * td * th * tw >= n * d * h * w
     assert boxes * cdiv(co, 32 * wm) * p >= SMS or p == chunks
-    td, th, tw, p = cuda_conv.dw_plan(n, ci, co, d, h, w)
-    assert td * th * tw <= cuda_conv.DW_BOX
+    # K3 f32: boxes of at most DW_X3_BOX positions, tw a multiple of 4;
+    # P parts of the N x boxes list, each box once; a chain of MMAs sums at
+    # most 2048 positions (the box rounded up to 8, times the boxes a
+    # chain takes); within 227 KB (two x and g stages, csrc dw_x3_smem);
+    # about two blocks an SM (one an SM resides) where the boxes allow
+    td, th, tw, p = cuda_conv.dw_x3_plan(n, ci, co, d, h, w)
+    assert 1 <= td <= d and 1 <= th <= h and tw % 4 == 0
+    assert tw <= max(32, cdiv(w, 4) * 4) and tw < w + 4
+    kp = cdiv(td * th * tw, 8) * 8
+    assert kp <= cuda_conv.DW_X3_BOX
     boxes = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw)
+    assert boxes * td * th * tw >= n * d * h * w
     assert 1 <= p <= boxes
-    halo = (td + 2) * (th + 2) * (tw + 2)
-    assert 4 * (td * th * tw * 36 + halo * 20) <= 227 * 1024
+    parts = [range(boxes * j // p, boxes * (j + 1) // p) for j in range(p)]
+    assert [b for r in parts for b in r] == list(range(boxes))
+    assert all(len(r) for r in parts)
+    assert (cuda_conv.DW_X3_CHAIN // kp) * kp <= 2048
+    assert cuda_conv.dw_x3_smem(td, th, tw) <= 227 * 1024
+    tiles = cdiv(ci, 16) * cdiv(co, 32)
+    assert abs(p * tiles - 2 * SMS) <= tiles // 2 or p in (1, boxes)

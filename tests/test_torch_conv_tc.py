@@ -1,6 +1,6 @@
-"""The tensor-core routes of K3 (dW, bf16), K4 (the wide conv, f32) and K5
-(the W-Toeplitz conv, bf16 and f32) on the CPU: what of them runs without
-a card.
+"""The tensor-core routes of K3 (dW, bf16 and f32), K4 (the wide conv,
+f32) and K5 (the W-Toeplitz conv, bf16 and f32) on the CPU: what of them
+runs without a card.
 
 - the launch plans (``dw_tc_plan``, ``toeplitz_tc_plan``,
   ``toeplitz_x3_plan``) at every flagship and bench shape and the chip
@@ -25,7 +25,13 @@ a card.
   chunks, planes and taps, the plan's split-K parts summed in order;
   against the plain versions and against ``gan3d_tpu.ops.wide_conv.
   wide_conv3d`` / ``pallas_conv.pallas_conv3d`` in Pallas interpret mode,
-  forward and dx, with one case of 27 * Ci > 2048;
+  forward and dx, with one case of 27 * Ci > 2048; and of K3's
+  (``dw_tf32x3_kernel``): g and x both split where read, hi truncated,
+  each part's boxes
+  in order, chains of at most 2048 positions added into a running sum,
+  the parts summed in order; against ``conv3d_dw_plain`` and
+  ``gan3d_tpu.ops.dw_conv.conv3d_dw`` in interpret mode, with a ragged
+  shape, split-K parts, and a part of two chains;
 - ``probes/conv_f32.py`` (the f32 conv routes alone on the card) checks
   chip_smoke.py's conv shapes, reads ptxas's registers and spills, and
   raises without a card;
@@ -49,7 +55,7 @@ from gan3d_tpu_torch.ops import toeplitz_conv as tc
 from gan3d_tpu_torch.ops.conv3d import conv3d_dw_plain, conv3d_k3_plain
 from gan3d_tpu_torch.ops.cuda_build import SMS
 
-from test_torch_attention import split_tf32  # noqa: E402
+from test_torch_attention import split_tf32, tf32_rna  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -62,7 +68,8 @@ FLAGSHIP = [(128, 4), (128, 8), (128, 16), (64, 16), (64, 32), (32, 32),
 DW_SHAPES = ([(16, c, c, r, r, r) for c, r in FLAGSHIP]
              + [(1, 8, 256, 3, 5, 7), (2, 24, 8, 5, 9, 3),
                 (1, 16, 40, 1, 1, 33), (3, 40, 16, 7, 6, 70),
-                (1, 256, 8, 4, 4, 4), (1, 8, 8, 200, 1, 1)])
+                (1, 256, 8, 4, 4, 4), (1, 200, 72, 20, 18, 36),
+                (1, 8, 8, 200, 1, 1)])
 # (N, D, H, W, Ci, Co): scripts/bench_lane_conv.py's shapes at batch 16,
 # the chip check's checked ones (chip_smoke.py TOEPLITZ_EXTRA), both ways
 # round for dx, and a tall, narrow volume
@@ -422,6 +429,90 @@ def test_wide_tf32x3_emulation_matches_plain_and_jax(n, ci, co, d, h, w):
             assert _rel(got.permute(0, 2, 3, 4, 1), ref) <= X3_TOL
 
 
+def split_tf32_trunc(x: torch.Tensor) -> tuple:
+    """(hi, lo) = (x truncated to TF32, rna(x - hi)): csrc/mma_tf32.cuh
+    split_tf32_trunc."""
+    hi = (x.view(torch.int32) & -8192).view(torch.float32)
+    return hi, tf32_rna(x - hi)
+
+
+def emulate_dw_tf32x3(x: torch.Tensor, g: torch.Tensor, plan=None
+                      ) -> torch.Tensor:
+    """dw_tf32x3_kernel's arithmetic: x [N,Ci,D,H,W], g [N,Co,D,H,W] f32
+    -> f32 [Co, Ci, 3, 3, 3], on the plan (td, th, tw, P) (dw_x3_plan's
+    unless given). Part j walks its boxes of the (n, bd, bh, bw) list in
+    order (positions past the volume zero); a box adds each tap's products
+    a_lo b_hi, a_hi b_lo, a_hi b_hi of g (A) and x shifted by the tap (B),
+    both split where read (hi truncated: ``split_tf32_trunc``), into the
+    chain's sum, which after every
+    DW_X3_CHAIN // (the box rounded up to 8) boxes of the part, and at its
+    end, is added into the part's running sum; the parts' sums are added
+    in order (tc::sum_partials)."""
+    n, ci, d, h, w = x.shape
+    co = g.shape[1]
+    td, th, tw, p = plan or cuda_conv.dw_x3_plan(n, ci, co, d, h, w)
+    nbd, nbh, nbw = cdiv(d, td), cdiv(h, th), cdiv(w, tw)
+    chain = cuda_conv.DW_X3_CHAIN // (cdiv(td * th * tw, 8) * 8)
+    xh, xl = split_tf32_trunc(F.pad(x, (1, nbw * tw - w + 1, 1,
+                                        nbh * th - h + 1, 1, nbd * td - d + 1)))
+    gh, gl = split_tf32_trunc(F.pad(g, (0, nbw * tw - w, 0, nbh * th - h,
+                                        0, nbd * td - d)))
+    out = torch.zeros((co, ci, 27))
+    for boxes in split_k(n * nbd * nbh * nbw, p):
+        run = torch.zeros((co, ci, 27))
+        acc = torch.zeros((co, ci, 27))
+        for i, b in enumerate(boxes):
+            b, bw = divmod(b, nbw)
+            b, bh = divmod(b, nbh)
+            s, bd = divmod(b, nbd)
+            d0, h0, w0 = bd * td, bh * th, bw * tw
+            ah, al = (v[s, :, d0:d0 + td, h0:h0 + th, w0:w0 + tw]
+                      .reshape(co, -1) for v in (gh, gl))
+            for tap in range(27):
+                kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+                bh_, bl_ = (v[s, :, d0 + kd:d0 + kd + td, h0 + kh:h0 + kh + th,
+                              w0 + kw:w0 + kw + tw].reshape(ci, -1)
+                            for v in (xh, xl))
+                for a, bt in ((al, bh_), (ah, bl_), (ah, bh_)):
+                    acc[:, :, tap] += a @ bt.T
+            if (i + 1) % chain == 0 or i + 1 == len(boxes):
+                run += acc
+                acc.zero_()
+        out += run
+    return out.reshape(co, ci, 3, 3, 3)
+
+
+# (N, Ci, Co, D, H, W, plan): a ragged volume and channels split into 4
+# parts of one box (dw_x3_plan's P = 4); Ci > 16 and Co > 32 (several
+# channel tiles, the last ragged), boxes of 5 x 3 x 12, P = 2; and, on a
+# plan with one part, 16 boxes of 256
+# positions: two chains of MMAs (the plan's P fills the card at these
+# sizes, so a CPU-sized volume never sums more than one chain in a part;
+# chip_smoke.py's CONV_RAGGED holds one whose plan does, on the card)
+X3_DW = [(2, 16, 24, 5, 9, 7, None), (1, 24, 40, 5, 6, 12, None),
+         (1, 8, 8, 16, 16, 16, (4, 4, 16, 1))]
+jax_dw = jax.jit(dw_conv.conv3d_dw)
+
+
+@pytest.mark.parametrize("n,ci,co,d,h,w,plan", X3_DW)
+def test_dw_tf32x3_emulation_matches_plain_and_jax(n, ci, co, d, h, w, plan):
+    """Against conv3d_dw_plain and the JAX conv3d_dw (Pallas, interpret
+    mode) of the same inputs in NDHWC."""
+    x, g, _ = _x3_inputs(14, (n, ci, d, h, w), (n, co, d, h, w),
+                         (co, ci, 3, 3, 3), ci)
+    td, th, tw, p = plan or cuda_conv.dw_x3_plan(n, ci, co, d, h, w)
+    boxes = n * cdiv(d, td) * cdiv(h, th) * cdiv(w, tw)
+    chain = cuda_conv.DW_X3_CHAIN // (cdiv(td * th * tw, 8) * 8)
+    assert (p > 1) == (plan is None)
+    assert (cdiv(boxes, p) > chain) == (plan is not None)
+    got = emulate_dw_tf32x3(x, g, plan)
+    assert _rel(got, conv3d_dw_plain(x, g)) <= X3_TOL
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_dw(jnp.asarray(x.permute(0, 2, 3, 4, 1).numpy()),
+                     jnp.asarray(g.permute(0, 2, 3, 4, 1).numpy()))
+    assert _rel(got.permute(2, 3, 4, 1, 0), ref) <= X3_TOL
+
+
 @pytest.mark.parametrize("shape,ci,co,t", X3_TOEPLITZ)
 def test_toeplitz_tf32x3_emulation_matches_plain_and_jax(shape, ci, co, t):
     """The forward, and dx as ToeplitzConv3d.backward calls the conv,
@@ -447,8 +538,9 @@ def test_conv_f32_probe_shapes_ptxas_and_card_check(tmp_path,
                                                     monkeypatch):
     """probes/conv_f32.py checks chip_smoke.py's conv shapes (the
     flagship's G and D, StyleGAN-1's G whole and on a space rank's halo'd
-    slab, the ragged ones), reads each f32 conv kernel instance's
-    registers and spills off ptxas.log, and raises without a card."""
+    slab, the ragged ones) for K4 and K3, times the same ones, reads each
+    f32 conv kernel instance's registers and spills (K4, K3, K5) off
+    ptxas.log, and raises without a card."""
     import chip_smoke
     from gan3d_tpu_torch.probes import conv_f32
 
@@ -459,15 +551,21 @@ def test_conv_f32_probe_shapes_ptxas_and_card_check(tmp_path,
                for ci, co, r in chip_smoke.CONV_SG1}
             | set(chip_smoke.CONV_RAGGED))
     assert set(conv_f32.SHAPES) == want
+    assert conv_f32.TIMED <= want
     (tmp_path / "ptxas.log").write_text(
         "ptxas info : Compiling entry function '_ZN45_GLOBAL__N__1_12_conv3d"
         "_k3_cu_218wide_tf32x3_kernelILi2ELb1EEEvPKfS2_PfS3_NS_4GeomEi'\n"
         "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
         "ptxas info : Used 210 registers, used 1 barriers\n"
+        "ptxas info : Compiling entry function '_ZN45_GLOBAL__N__1_12_conv3d"
+        "_k3_cu_218dw_tf32x3_kernelILb0EEEvPKfS2_PfNS_4GeomEi'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info : Used 165 registers, used 1 barriers\n"
         "ptxas info : Compiling entry function '_Z13dw_tc_kerneli'\n"
         "ptxas info : Used 93 registers\n")
     got = conv_f32._registers([str(tmp_path / "libconv3d_k3.so")])
-    assert got == {"wide_tf32x3_kernel<2,1>": [210, 8]}
+    assert got == {"wide_tf32x3_kernel<2,1>": [210, 8],
+                   "dw_tf32x3_kernel<0>": [165, 0]}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         conv_f32.main()

@@ -272,8 +272,11 @@ def test_generate_cli_on_cpu(runs, tmp_path, capsys, monkeypatch):
 
 def test_eval_cli_on_cpu(runs, tmp_path, capsys, monkeypatch):
     """One batch of the eval CLI. The three slice FIDs' Fréchet distance
-    is stubbed (each a scipy sqrtm of a 2048^2 matrix: seconds on a
-    CPU, five times that on a loaded host); the 3D-FID's runs for real.
+    is stubbed (each a scipy sqrtm of a 2048^2 matrix: 15-28 s of CPU, and
+    80-100 s beside five other test workers, whether the matrix is
+    singular, as it is at a batch of 16, or not); the 3D-FID's runs for
+    real: the CLI's ResNet-50 features and ``frechet_distance`` with its
+    sqrtm, on the first FID_DIMS of the 2048 features (a 64^2 sqrtm).
     test_frechet_distance_matches_jax and
     test_axial_fid_matches_jax_with_the_stand_in_weights
     (test_torch_inloop_fid.py) hold the real one against the JAX
@@ -282,6 +285,13 @@ def test_eval_cli_on_cpu(runs, tmp_path, capsys, monkeypatch):
     from gan3d_tpu_torch.eval import slice_fid
 
     monkeypatch.setattr(slice_fid, "frechet_distance", lambda a, b: 0.0)
+    get_fid_model = cli_eval.get_fid_model
+
+    def fid_model(*args):
+        features = get_fid_model(*args)
+        return lambda x: features(x)[:, :FID_DIMS]
+
+    monkeypatch.setattr(cli_eval, "get_fid_model", fid_model)
     log_dir = str(tmp_path / "stats")
     model = runs["stylegan"][:-1]
     # one batch: the 4th batch's volume dump is not reached
@@ -302,6 +312,10 @@ def test_eval_cli_on_cpu(runs, tmp_path, capsys, monkeypatch):
     assert all(t > 0 for t in times.values())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_eval.main(["-l", model, "--data_path", runs["data_stylegan"]])
+
+
+# Features of the 3D-FID in test_eval_cli_on_cpu.
+FID_DIMS = 64
 
 
 def test_eval_cli_dumps_the_4th_batch(runs, tmp_path, monkeypatch):

@@ -29,12 +29,9 @@ RNG = np.random.default_rng(11)
 TOL = dict(atol=1e-5, rtol=1e-4)
 
 
-@pytest.fixture(autouse=True)
-def jax_reference_lowering(monkeypatch):
-    """The JAX package keeps its lowering choices (the TPU conv rewrites,
-    the Pallas kernels, the attention impl) in module globals that other
-    test files may leave set in this worker. Pin the plain XLA lowering for
-    each test and restore the previous values after it."""
+def pin_reference_lowering(monkeypatch):
+    """The plain XLA lowering of the JAX package's module globals, set
+    through ``monkeypatch`` (which restores the previous values)."""
     from gan3d_tpu.ops import (attention, downsample_conv, dw_conv,
                                lane_conv, s2d_conv, subpixel_conv, tap_conv,
                                upsample_conv, wide_conv)
@@ -45,6 +42,15 @@ def jax_reference_lowering(monkeypatch):
     monkeypatch.setattr(subpixel_conv, "_WIDE_MODE", "off")
     monkeypatch.setattr(downsample_conv, "_VJP_MODE", "autodiff")
     monkeypatch.setattr(attention, "_FORCE_IMPL", None)
+
+
+@pytest.fixture(autouse=True)
+def jax_reference_lowering(monkeypatch):
+    """The JAX package keeps its lowering choices (the TPU conv rewrites,
+    the Pallas kernels, the attention impl) in module globals that other
+    test files may leave set in this worker. Pin the plain XLA lowering for
+    each test and restore the previous values after it."""
+    pin_reference_lowering(monkeypatch)
 
 
 def rand(*shape):

@@ -44,7 +44,8 @@ from gan3d_tpu_torch.nn import remat
 from gan3d_tpu_torch.train.state import Adam
 from gan3d_tpu_torch.train.step import train_step
 
-from test_torch_layers import jax_reference_lowering  # noqa: F401,E402
+from test_torch_layers import (jax_reference_lowering,  # noqa: F401,E402
+                               pin_reference_lowering)
 from test_torch_step import jax_step, port_step_matches  # noqa: E402
 
 torch.set_num_threads(1)
@@ -318,11 +319,26 @@ _JAX = {}
 
 
 def jax_remat_step():
-    """The JAX fused step with remat per stage (run in a worker thread),
-    started once, inside a test (after the lowering pin)."""
+    """The JAX fused step with remat per stage, traced, compiled and run in
+    a worker thread; started once, at the module's first test
+    (``_jax_remat_reference``)."""
     if "stage" not in _JAX:
         _JAX["stage"] = jax_step(dict(JCFG, remat=True, remat_scope="stage"))
     return _JAX["stage"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_remat_reference():
+    """Starts ``jax_remat_step`` before the module's first test, so that
+    its compile runs beside them, under the reference lowering pinned for
+    the whole module (each test's own pin, jax_reference_lowering, then
+    restores these values); waits for it before the module's pin is
+    undone."""
+    with pytest.MonkeyPatch.context() as mp:
+        pin_reference_lowering(mp)
+        pending = jax_remat_step()[-1]
+        yield
+        pending.result()
 
 
 def power_steps(w: torch.Tensor, u: torch.Tensor, v: torch.Tensor,

@@ -126,10 +126,10 @@ def jax_step(cfg_kw, seed=0, split=False):
                                      R))).astype(np.float32)
     g_tx = make_optimizer(jcfg.lrG, 0.0, 0.9)
     d_tx = make_optimizer(jcfg.lrD, 0.0, 0.9)
-    split = lambda v: (v["params"], {k: x for k, x in v.items()  # noqa: E731
+    parts = lambda v: (v["params"], {k: x for k, x in v.items()  # noqa: E731
                                      if k != "params"})
-    gp, gs = split(gv)
-    dp, ds = split(dv)
+    gp, gs = parts(gv)
+    dp, ds = parts(dv)
     state = TrainState(step=jnp.int32(0), g_params=gp, g_state=gs,
                        g_opt=g_tx.init(gp), d_params=dp, d_state=ds,
                        d_opt=d_tx.init(dp))
